@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port's eval (serving) path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero):
+  1. the card: name, count, nvidia-smi name and power limit;
+  2. builds the three hand-written CUDA kernels from
+     unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
+  3. holds each kernel against its plain PyTorch version on the card at the
+     shapes of the eval protocol (configs/avel_unav100_eval.yaml): MHCA at
+     (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7 with
+     4 and 8 heads at 2B=128, merged Soft-NMS at (64, 10100) x 100;
+  4. serves: the flagship model (width 512, 100 classes, T=224, fp32,
+     weights from --seed) answers three batches of 64 synthetic videos
+     through make_eval_step; every kernel's launch count must rise, the
+     detections must be finite, sorted and inside [0, duration], and the
+     first two videos must give the same detections through the CPU path;
+  5. times each kernel and its plain version with CUDA events, and the eval
+     step as videos/s.
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}. It needs the repository beside
+it and a CUDA device; without either it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+RTOL, ATOL = 1e-3, 1e-4      # fp32 with another summation order
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name, out, ref):
+    """Max abs / rel error, raising beyond atol + rtol * |ref|."""
+    import torch
+
+    diff = (out - ref).abs()
+    max_abs = float(diff.max())
+    max_rel = float((diff / ref.abs().clamp(min=1e-6)).max())
+    bad = int((diff > ATOL + RTOL * ref.abs()).sum())
+    finite = bool(torch.isfinite(out).all())
+    log(f"check {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+        f"over_tol={bad} finite={finite}")
+    if bad or not finite:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mhca_flops(r, t, c):
+    return 18 * r * t * c + 8 * r * t * c * c + 4 * r * t * t * c
+
+
+def mhca_case(model, key, r, t, c, gen, dev):
+    import torch
+
+    blk = dict(model.named_modules())[key]
+    x1 = torch.randn(r, t, c, generator=gen).to(dev)
+    x2 = x1 if key.endswith("attn") else torch.randn(r, t, c, generator=gen).to(dev)
+    lengths = torch.randint(1, t + 1, (r,), generator=gen)
+    lengths[1] = 0                                            # an all-masked row
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+    return (x1, x2, mask, *[w.detach().contiguous() for w in blk.packed_weights()])
+
+
+def csp_case(model, key, r, t, gen, dev):
+    import torch
+
+    layer = dict(model.named_modules())[key]
+    cin = layer.main_conv.conv.in_channels
+    fg = layer.attn_block.guide_fc.in_features
+    x = torch.randn(r, t, cin, generator=gen).to(dev)
+    guide = torch.randn(r, 512, fg, generator=gen).to(dev)
+    lengths = torch.randint(1, t + 1, (r,), generator=gen)
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+    packs = [b.packed_weights() for b in layer.blocks]
+    ab = layer.attn_block
+    ws = [layer.main_conv.conv.weight[:, :, 0], layer.main_conv.conv.bias,
+          *[torch.stack([p[i] for p in packs]) for i in range(5)],
+          ab.guide_fc.weight, ab.guide_fc.bias,
+          torch.randn(ab.num_heads, generator=gen).to(dev),    # non-zero head bias
+          ab.project_conv.conv.weight, ab.project_conv.conv.bias,
+          layer.final_conv.conv.weight[:, :, 0], layer.final_conv.conv.bias]
+    return (x, guide, mask, *[w.detach().contiguous() for w in ws]), ab.num_heads
+
+
+def csp_flops(r, t, cin, mid, ng, fg, cout):
+    return (3 * mhca_flops(r, t, mid) + 2 * r * t * cin * 2 * mid + 2 * r * ng * fg * mid
+            + 2 * r * t * mid * ng + 6 * r * t * mid * mid + 2 * r * t * 6 * mid * cout)
+
+
+def nms_case(gen, dev, g=64, n=10100, ncls=100):
+    """Candidates shaped like the decode output at the eval protocol."""
+    import torch
+
+    centre = torch.rand(g, n, generator=gen) * 224
+    width = torch.rand(g, n, generator=gen) ** 2 * 120 + 0.1
+    segs = torch.stack([centre - width / 2, centre + width / 2], -1)
+    scores = torch.sigmoid(torch.randn(g, n, generator=gen) - 4.0)
+    scores[scores <= 0.001] = float("-inf")                    # below pre_nms_thresh
+    scores[-1] = float("-inf")                                 # a zero-padded video
+    cls = torch.randint(0, ncls, (g, n), generator=gen, dtype=torch.int32)
+    return segs.to(dev), scores.to(dev), cls.to(dev)
+
+
+def check_nms(ki, ks, ri, rs):
+    """Scores within rtol 1e-5; indices equal wherever neighbouring emitted
+    scores differ by more than 1e-6."""
+    import torch
+
+    err = float((ks - rs).abs().max())
+    if not torch.allclose(ks, rs, rtol=1e-5, atol=1e-7):
+        raise AssertionError(f"nms: scores differ (max abs {err})")
+    d = (rs[:, 1:] - rs[:, :-1]).abs()
+    inf = torch.full_like(rs[:, :1], float("inf"))
+    gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
+    sure = gap > 1e-6
+    mism = int((ki[sure] != ri[sure]).sum())
+    log(f"check nms: max_abs_err={err:.3e} unambiguous_slots={int(sure.sum())} "
+        f"index_mismatches={mism} emitted={int((ki >= 0).sum())}")
+    if mism:
+        raise AssertionError("nms: emitted indices differ from the plain version")
+    return err
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def check_detections(dets, batch, num_classes):
+    import torch
+
+    seg, sc, lab, ok = (dets[k].cpu() for k in ("segments", "scores", "labels", "valid"))
+    dur = batch["duration"][:, None]
+    require(torch.isfinite(seg).all() and torch.isfinite(sc).all(), "non-finite detections")
+    require(((seg >= 0) & (seg <= dur[..., None])).all(), "segments outside [0, duration]")
+    require(((lab >= 0) & (lab < num_classes)).all(), "labels out of range")
+    s = torch.where(ok, sc, torch.full_like(sc, -1.0))
+    require((s[:, 1:] <= s[:, :-1]).all(), "detections not sorted by score")
+    require(not ok[-1].any(), "the zero-padded row has detections")
+    return int(ok.sum())
+
+
+def compare_dets(gpu, cpu):
+    """GPU vs CPU detections of the same videos: the same valid slots, scores
+    within rtol 1e-3, and the same labels and segments (within 1e-3 s) on
+    slots whose score is more than 1e-4 from its neighbours' (elsewhere a
+    near-tie may swap two emissions)."""
+    import torch
+
+    g = {k: v[: cpu["valid"].shape[0]].cpu() for k, v in gpu.items()}
+    require(torch.equal(g["valid"], cpu["valid"]), "valid slots differ between GPU and CPU")
+    ok = cpu["valid"]
+    err = float((g["scores"][ok] - cpu["scores"][ok]).abs().max())
+    require(torch.allclose(g["scores"][ok], cpu["scores"][ok], rtol=1e-3, atol=1e-6),
+            f"scores differ by {err}")
+    rs = torch.where(ok, cpu["scores"], torch.zeros_like(cpu["scores"]))
+    d = (rs[:, 1:] - rs[:, :-1]).abs()
+    inf = torch.full_like(rs[:, :1], float("inf"))
+    sure = (torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1)) > 1e-4) & ok
+    seg_err = (float((g["segments"][sure] - cpu["segments"][sure]).abs().max())
+               if sure.any() else 0.0)
+    require(torch.equal(g["labels"][sure], cpu["labels"][sure]), "labels differ")
+    require(seg_err <= 1e-3, f"segments differ by {seg_err} s")
+    log(f"check gpu-vs-cpu detections: videos={ok.shape[0]} detections={int(ok.sum())} "
+        f"max_score_err={err:.3e} max_segment_err_s={seg_err:.3e} unambiguous={int(sure.sum())}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not os.path.isdir(os.path.join(ROOT, "unav_yolyolva_tpu_torch")):
+        print("chip_smoke: the unav_yolyolva_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from unav_yolyolva_tpu_torch.core import load_config, resolve_device
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops import cuda_build
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
+    from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
+                                                       multiclass_soft_nms_reference)
+
+    # ---- 1. the card ------------------------------------------------------
+    dev = resolve_device("cuda")
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi()
+    log(f"device: {kind} count={count} torch={torch.__version__} cuda={torch.version.cuda}")
+    log(f"nvidia-smi: {smi}")
+
+    # ---- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = cuda_build.build()
+    secs = time.perf_counter() - t0
+    log(f"build: {len(reports)} kernel libraries in {secs:.1f} s (nvcc, sm_90a)")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # ---- 3. kernels against their plain versions at the real shapes ---------
+    cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
+    model = build_model(cfg, device=dev, seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: LocPointTransformer width {cfg['model']['embd_dim']}, "
+        f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
+        f"{n_params / 1e6:.2f} M parameters, fp32")
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    results = {}
+    with torch.inference_mode():
+        for label, key, r, c in (("mhca@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
+                                 ("mhca@128x224x256", "backbone.fusion_module.top_down_layers.4.blocks.0", 128, 256)):
+            a = mhca_case(model, key, r, 224, c, gen, dev)
+            heads = dict(model.named_modules())[key].n_head
+            err = compare(label, fused_mhca(*a, heads=heads), mhca_reference(*a, heads=heads))
+            ms = cuda_ms(lambda: fused_mhca(*a, heads=heads), 10)
+            pms = cuda_ms(lambda: mhca_reference(*a, heads=heads), 5)
+            nbytes = 4 * (r * 224 * c * (1 if a[1] is a[0] else 2) + 4 * c * c + 19 * c
+                          + r * 224 * c) + r * 224
+            results[label] = (err, ms, pms, *bound_ms(mhca_flops(r, 224, c), nbytes))
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+
+        for label, key, t in (("csp@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
+                              ("csp@T224/8h", "backbone.fusion_module.bottom_up_layers.0", 224),
+                              ("csp@T7/8h", "backbone.fusion_module.bottom_up_layers.4", 7),
+                              ("csp@T7/4h", "backbone.fusion_module.top_down_layers.1", 7)):
+            a, heads = csp_case(model, key, 128, t, gen, dev)
+            err = compare(label, fused_csp(*a, attn_heads=heads), csp_reference(*a, attn_heads=heads))
+            ms = cuda_ms(lambda: fused_csp(*a, attn_heads=heads), 10)
+            pms = cuda_ms(lambda: csp_reference(*a, attn_heads=heads), 5)
+            cin, mid, fg, cout = a[0].shape[-1], 256, a[1].shape[-1], 512
+            nbytes = 4 * (sum(x.numel() for x in a if x.dtype == torch.float32)
+                          + 128 * t * cout) + 128 * t
+            results[label] = (err, ms, pms, *bound_ms(
+                csp_flops(128, t, cin, mid, 512, fg, cout), nbytes))
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+
+        segs, scores, cls = nms_case(gen, dev)
+        kw = dict(max_out=100, sigma=0.4, min_score=0.001)
+        ki, ks, _ = multiclass_soft_nms(segs, scores, cls, **kw)
+        ri, rs, _ = multiclass_soft_nms_reference(segs, scores, cls, **kw)
+        err = check_nms(ki, ks, ri, rs)
+        ms = cuda_ms(lambda: multiclass_soft_nms(segs, scores, cls, **kw), 20)
+        pms = cuda_ms(lambda: multiclass_soft_nms_reference(segs, scores, cls, **kw), 3)
+        steps = int((ri >= 0).sum(1).clamp(max=99).add(1).sum())  # steps this data runs
+        nbytes = segs.numel() * 4 + scores.numel() * 4 + cls.numel() * 4 + ki.numel() * 8
+        results["nms@64x10100"] = (err, ms, pms, *bound_ms(steps * segs.shape[1], nbytes))
+        log(f"time nms@64x10100: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {results['nms@64x10100'][3]:.4f} ms ({results['nms@64x10100'][4]}) [{smi}]")
+
+    # ---- 4. serve three batches of 64 videos --------------------------------
+    eval_step = make_eval_step(model, cfg, device=dev)
+    mcfg = cfg["model"]
+    batches = [synthetic_eval_batch(gen, 64, mcfg["max_seq_len"], mcfg["raw_input_dim_V"],
+                                    mcfg["raw_input_dim_A"]) for _ in range(3)]
+    for fn in (fused_mhca, fused_csp, multiclass_soft_nms):
+        fn.launches = 0
+    dets = [eval_step(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
+                "nms": multiclass_soft_nms.launches}
+    log(f"serve: 3 batches x 64 videos, kernel launches {launches}")
+    if launches["mhca"] < 15 or launches["csp"] != 30 or launches["nms"] != 3:
+        raise AssertionError(f"the main path did not run through every kernel: {launches}")
+    n_dets = [check_detections(d, b, mcfg["num_classes"]) for d, b in zip(dets, batches)]
+    log(f"serve: detections per batch {n_dets}, finite, sorted, inside [0, duration]")
+
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_step = make_eval_step(cpu_model, cfg, device="cpu")
+    cpu_dets = cpu_step({k: v[:2] for k, v in batches[0].items()})
+    compare_dets(dets[0], cpu_dets)
+
+    # ---- 5. time the eval step --------------------------------------------
+    times = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"time eval_step: per batch of 64 {[round(x * 1e3, 3) for x in times]} ms, "
+        f"{64 * len(times) / sum(times):.1f} videos/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+
+    def entry(name, label, source, replaces):
+        err, ms, pms, bms, by = results[label]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "shape": label}
+
+    pkg = "unav_yolyolva_tpu_torch/csrc/"
+    log(json.dumps({"kernels": [
+        entry("mhca", "mhca@64x224x512", pkg + "mhca.cuh",
+              "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
+        entry("csp", "csp@T224/4h", pkg + "csp.cu",
+              "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
+        entry("nms", "nms@64x10100", pkg + "nms.cu",
+              "unav_yolyolva_tpu/ops/pallas_nms.py:233"),
+    ]}))
+    log(f"nvidia-smi: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

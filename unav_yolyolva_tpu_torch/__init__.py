@@ -1,0 +1,6 @@
+"""PyTorch + CUDA port of unav_yolyolva_tpu for NVIDIA Hopper.
+
+The eval (serving) path: `models.build_model(cfg)` and
+`eval.make_eval_step(model, cfg)`. It imports neither JAX nor the JAX
+package; `utils.convert.params_from_jax` carries JAX weights across.
+"""

@@ -1,0 +1,83 @@
+"""Proposal decoding and postprocessing for a whole batch.
+
+The JAX package decodes one video and vmaps it; here the batch dimension is
+written out. Per level: sigmoid scores masked by the frame mask, top-k over
+(T_l x C) (skipped when k covers every candidate), threshold, offset decode
+against the point grid and a minimum-duration filter. Then multiclass
+Soft-NMS and the grid -> seconds conversion with a clamp to [0, duration].
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from ..ops import nms as nms_ops
+
+
+def decode_batch(
+    cls_logits: Sequence[torch.Tensor],   # levels x (B, T_l, C)
+    offsets: Sequence[torch.Tensor],      # levels x (B, T_l, C, 2) or (B, T_l, 2)
+    masks: Sequence[torch.Tensor],        # levels x (B, T_l)
+    points: Sequence[torch.Tensor],       # levels x (T_l, 4)
+    *,
+    pre_nms_thresh: float,
+    pre_nms_topk: int,
+    duration_thresh: float,
+    class_aware: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX package's decode_single_video over the whole batch: (segs
+    (B, K, 2), scores (B, K), cls (B, K), valid (B, K)) with K = sum over
+    levels of min(pre_nms_topk, T_l * C). Ties in the top-k keep the lower
+    index first, as lax.top_k does."""
+    segs_all, scores_all, cls_all, valid_all = [], [], [], []
+    for cls_i, off_i, mask_i, pts_i in zip(cls_logits, offsets, masks, points):
+        b, t_l, c = cls_i.shape
+        flat = (torch.sigmoid(cls_i) * mask_i[..., None].to(cls_i.dtype)).reshape(b, -1)
+        k = min(pre_nms_topk, t_l * c)
+        if k == t_l * c:
+            # every candidate: no sort (Soft-NMS picks by score, and its
+            # emissions come out in score order)
+            top_p = flat
+            top_idx = torch.arange(t_l * c, device=flat.device).expand(b, -1)
+        else:
+            top_p, top_idx = torch.sort(flat, dim=1, descending=True, stable=True)
+            top_p, top_idx = top_p[:, :k], top_idx[:, :k]
+        pt_idx = top_idx // c
+        if class_aware:
+            off = off_i.reshape(b, t_l * c, 2).gather(1, top_idx[..., None].expand(-1, -1, 2))
+        else:
+            off = off_i.gather(1, pt_idx[..., None].expand(-1, -1, 2))
+        pts = pts_i[pt_idx]                                          # (B, k, 4)
+        seg_left = pts[..., 0] - off[..., 0] * pts[..., 3]
+        seg_right = pts[..., 0] + off[..., 1] * pts[..., 3]
+        segs_all.append(torch.stack([seg_left, seg_right], dim=-1))
+        scores_all.append(top_p)
+        cls_all.append(top_idx % c)
+        valid_all.append((top_p > pre_nms_thresh)
+                         & ((seg_right - seg_left) > duration_thresh))
+    return (torch.cat(segs_all, 1), torch.cat(scores_all, 1),
+            torch.cat(cls_all, 1).int(), torch.cat(valid_all, 1))
+
+
+def postprocess_batch(segs, scores, cls_idxs, valid, *, test_cfg: Dict,
+                      fps, duration, feat_stride, num_frames):
+    """Soft-NMS + grid -> seconds: (seg * stride + 0.5 * nframes) / fps,
+    clamped to [0, duration]."""
+    method = test_cfg["nms_method"]
+    if method == "soft" and test_cfg["multiclass_nms"]:
+        segs, scores, cls_idxs, valid = nms_ops.multiclass_nms_batch(
+            segs, scores, cls_idxs, valid,
+            max_seg_num=test_cfg["max_seg_num"],
+            sigma=test_cfg["nms_sigma"],
+            min_score=test_cfg["min_score"],
+        )
+    elif method != "none":
+        raise NotImplementedError(
+            f"nms_method={method!r}, multiclass_nms={test_cfg['multiclass_nms']}: "
+            "only multiclass Gaussian Soft-NMS is ported")
+    segs = (segs * feat_stride[:, None, None] + 0.5 * num_frames[:, None, None]) \
+        / fps[:, None, None]
+    segs = torch.minimum(segs.clamp(min=0.0), duration[:, None, None])
+    return segs, scores, cls_idxs, valid

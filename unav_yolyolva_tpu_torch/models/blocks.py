@@ -1,0 +1,181 @@
+"""Masked sequence-modelling blocks on (B, T, C) activations.
+
+Modules and parameters are named after the reference torch key space
+(`utils/convert.py`), so their state_dict has the reference layouts:
+Conv1d weights (out, in/groups, k), channel LayerNorm (1, C, 1),
+AffineDropPath scale (1, C, 1). The port covers the eval forward: stochastic
+depth is not drawn (it waits for the train path), the per-channel
+AffineDropPath scale still multiplies.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.fused_mhca import attend, fused_mhca
+from ..ops.masked import channel_layer_norm, masked_conv1d_out_mask
+
+
+class Conv1x1(nn.Module):
+    """Pointwise Conv1d (weight (out, in, 1)) applied over the last axis of
+    (..., C) activations."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, 0], self.bias)
+
+
+class MaskedConv1D(nn.Module):
+    """Conv1d with padding k//2 whose output is re-zeroed by the strided
+    mask (every stride-th frame)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        super().__init__()
+        assert kernel_size % 2 == 1
+        self.stride = stride
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel_size, stride,
+                              padding=kernel_size // 2, groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        y = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        out_mask = masked_conv1d_out_mask(mask, self.stride)
+        return y * out_mask[..., None].to(y.dtype), out_mask
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over channels, biased variance, eps 1e-5, fp32 stats."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(1, num_channels, 1))
+        self.bias = nn.Parameter(torch.empty(1, num_channels, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return channel_layer_norm(x, self.weight.view(-1), self.bias.view(-1), self.eps)
+
+
+class AffineDropPath(nn.Module):
+    """Per-channel learnable scale (stochastic depth is a train-time draw)."""
+
+    def __init__(self, num_dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(1, num_dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale.view(1, 1, -1)
+
+
+class LearnableScale(nn.Module):
+    """Scalar learnable multiplier."""
+
+    def __init__(self):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale
+
+
+class MaskedMHCA(nn.Module):
+    """Multi-head conv attention with masking: x1 is the key/value source,
+    x2 the query source. At stride 1 (every call of the live model) it runs
+    the fused kernel (ops/fused_mhca.py); strided forms take the plain path
+    below, with the reference's quirk of striding the q-conv by n_kv_stride.
+    """
+
+    def __init__(self, n_embd: int, n_head: int, n_qx_stride: int = 1,
+                 n_kv_stride: int = 1):
+        super().__init__()
+        assert n_embd % n_head == 0
+        self.n_embd, self.n_head = n_embd, n_head
+        self.n_qx_stride, self.n_kv_stride = n_qx_stride, n_kv_stride
+
+        def dw(stride):
+            k = stride + 1 if stride > 1 else 3
+            return MaskedConv1D(n_embd, n_embd, k, stride=n_kv_stride,
+                                groups=n_embd, bias=False)
+
+        self.query_conv = dw(n_qx_stride)
+        self.key_conv = dw(n_kv_stride)
+        self.value_conv = dw(n_kv_stride)
+        self.query_norm = ChannelLayerNorm(n_embd)
+        self.key_norm = ChannelLayerNorm(n_embd)
+        self.value_norm = ChannelLayerNorm(n_embd)
+        self.query = Conv1x1(n_embd, n_embd)
+        self.key = Conv1x1(n_embd, n_embd)
+        self.value = Conv1x1(n_embd, n_embd)
+        self.proj = Conv1x1(n_embd, n_embd)
+
+    def packed_weights(self):
+        """(dw (3, C, 3), lnw (3, C), lnb (3, C), w (4, C, C), b (4, C)) in
+        the fused kernel's layout."""
+        convs = (self.query_conv, self.key_conv, self.value_conv)
+        norms = (self.query_norm, self.key_norm, self.value_norm)
+        dense = (self.query, self.key, self.value, self.proj)
+        return (
+            torch.stack([c.conv.weight[:, 0, :] for c in convs]),
+            torch.stack([n.weight.view(-1) for n in norms]),
+            torch.stack([n.bias.view(-1) for n in norms]),
+            torch.stack([d.weight[:, :, 0] for d in dense]),
+            torch.stack([d.bias for d in dense]),
+        )
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor):
+        if self.n_qx_stride == 1 and self.n_kv_stride == 1:
+            return fused_mhca(x1.contiguous(), x2.contiguous(), mask.contiguous(),
+                              *self.packed_weights(), heads=self.n_head), mask
+        q, qx_mask = self.query_conv(x2, mask)
+        k, kv_mask = self.key_conv(x1, mask)
+        v, _ = self.value_conv(x1, mask)
+        scale = 1.0 / math.sqrt(self.n_embd // self.n_head)
+        q = self.query(self.query_norm(q)) * scale
+        k = self.key(self.key_norm(k))
+        v = self.value(self.value_norm(v)) * kv_mask[..., None].to(x1.dtype)
+        out = self.proj(attend(q, k, v, kv_mask, self.n_head))
+        return out * qx_mask[..., None].to(out.dtype), qx_mask
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block: MHCA + (max-pool) skip + 4x MLP with exact erf GELU,
+    AffineDropPath scales on both branches when path_pdrop > 0."""
+
+    def __init__(self, n_embd: int, n_head: int,
+                 n_ds_strides: Tuple[int, int] = (1, 1), path_pdrop: float = 0.0):
+        super().__init__()
+        self.n_ds_strides = tuple(n_ds_strides)
+        self.ln11 = ChannelLayerNorm(n_embd)
+        self.ln12 = ChannelLayerNorm(n_embd)
+        self.attn = MaskedMHCA(n_embd, n_head, n_qx_stride=n_ds_strides[0],
+                               n_kv_stride=n_ds_strides[1])
+        self.ln2 = ChannelLayerNorm(n_embd)
+        # indices 0 and 3 as in the reference's Sequential(conv, GELU, drop, conv)
+        self.mlp = nn.Sequential(Conv1x1(n_embd, 4 * n_embd), nn.GELU(),
+                                 nn.Identity(), Conv1x1(4 * n_embd, n_embd))
+        self.use_drop_path = path_pdrop > 0.0
+        if self.use_drop_path:
+            self.drop_path_attn = AffineDropPath(n_embd)
+            self.drop_path_mlp = AffineDropPath(n_embd)
+
+    def forward(self, x1, x2, mask):
+        out, out_mask = self.attn(self.ln11(x1), self.ln12(x2), mask)
+        om = out_mask[..., None].to(out.dtype)
+        s = self.n_ds_strides[0]
+        if s > 1:
+            skip = F.max_pool1d(x1.transpose(1, 2), s + 1, s, (s + 1) // 2).transpose(1, 2)
+        else:
+            skip = x1
+        out = skip * om + (self.drop_path_attn(out) if self.use_drop_path else out)
+        h = self.mlp(self.ln2(out)) * om
+        out = out + (self.drop_path_mlp(h) if self.use_drop_path else h)
+        return out, out_mask

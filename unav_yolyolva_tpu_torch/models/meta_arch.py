@@ -1,0 +1,210 @@
+"""LocPointTransformer: Alignment -> backbone (fusion pyramid) -> per-level
+concat(V, A) -> cls/reg heads, plus the contrastive and score losses the
+forward reports."""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from .alignment import Alignment
+from .backbone import ConvTransformerBackbone
+from .blocks import AffineDropPath, ChannelLayerNorm, Conv1x1, LearnableScale
+from .fusion import MaxSigmoidAttnBlock
+from .heads import ClsHead, RegHead, cls_prior_bias
+
+LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
+
+
+class _LogitScale(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.logit_scale = nn.Parameter(torch.empty(()))
+
+
+class ContrastiveLosses(nn.Module):
+    """Inter-sample CLIP loss (times exp(logit_scale_inter)) and intra-sample
+    NCE (times the RAW per-modality scale, a reference quirk). Zero-padded
+    eval rows (row_valid False) are left out of both."""
+
+    def __init__(self):
+        super().__init__()
+        self.logit_scale_inter = nn.Parameter(torch.empty(()))
+        self.NCE_video = _LogitScale()
+        self.NCE_text = _LogitScale()
+
+    def forward(self, aux: Dict[str, torch.Tensor]):
+        cls_v = F.normalize(aux["cls_video"], dim=-1, eps=1e-12)
+        cls_t = F.normalize(aux["cls_text"], dim=-1, eps=1e-12)
+        b = cls_v.shape[0]
+        rv = aux["row_valid"]
+        n_real = rv.float().sum().clamp(min=1.0)
+        neg = torch.finfo(torch.float32).min
+        logits = self.logit_scale_inter.exp() * (cls_v @ cls_t.T)
+        logits = logits.masked_fill(~(rv[None, :] & rv[:, None]), neg)
+        eye = torch.eye(b, dtype=torch.bool, device=logits.device)
+        logits = logits.masked_fill(eye & ~rv[:, None], 0.0)
+        diag_v = logits.log_softmax(dim=1).diagonal()
+        diag_t = logits.T.log_softmax(dim=1).diagonal()
+        zero = torch.zeros((), device=logits.device)
+        inter = (-torch.where(rv, diag_v, zero).sum()
+                 - torch.where(rv, diag_t, zero).sum()) / 2.0
+
+        def nce(q, k, negs, neg_valid, scale):
+            qn, kn = F.normalize(q, dim=-1), F.normalize(k, dim=-1)
+            negn = F.normalize(negs, dim=-1)
+            l_pos = (qn * kn).sum(dim=-1, keepdim=True)
+            l_neg = torch.einsum("bc,bkc->bk", qn, negn)
+            lg = torch.cat([l_pos, l_neg], dim=1) * scale
+            valid = torch.cat([torch.ones_like(neg_valid[:, :1]), neg_valid], dim=1)
+            lg = lg.masked_fill(~valid, neg)
+            return torch.logsumexp(lg, dim=1) - lg[:, 0]
+
+        loss_v = nce(aux["key_video"], aux["key_text"], aux["nonkey_video"],
+                     aux["nonkey_video_valid"], self.NCE_video.logit_scale)
+        loss_t = nce(aux["key_text"], aux["key_video"], aux["nonkey_text"],
+                     aux["nonkey_text_valid"], self.NCE_text.logit_scale)
+        per_sample = (loss_v + loss_t) / 2.0 * aux["key_any"].float() * rv.float()
+        return inter, per_sample.sum() / n_real
+
+
+class LocPointTransformer(nn.Module):
+    def __init__(self, raw_input_dim_V: int = 2048, raw_input_dim_A: int = 128,
+                 input_dim_V: int = 512, input_dim_A: int = 512,
+                 num_classes: int = 100, max_seq_len: int = 224,
+                 backbone_arch=(2, 3, 5), scale_factor: int = 2, n_head: int = 4,
+                 embd_kernel_size: int = 3, embd_dim: int = 512,
+                 embd_with_ln: bool = True, head_dim: int = 512,
+                 head_kernel_size: int = 3, head_num_layers: int = 3,
+                 head_with_ln: bool = True, use_abs_pe: bool = True,
+                 class_aware: bool = True, cls_prior_prob: float = 0.01,
+                 droppath: float = 0.1, head_empty_cls=()):
+        super().__init__()
+        self.num_classes, self.class_aware = num_classes, class_aware
+        self.alignment = Alignment(raw_input_dim_V, raw_input_dim_A, embd_dim,
+                                   num_classes=num_classes)
+        self.backbone = ConvTransformerBackbone(
+            input_dim_V, input_dim_A, embd_dim, n_head, embd_kernel_size,
+            max_seq_len, backbone_arch, scale_factor, embd_with_ln, droppath,
+            use_abs_pe)
+        self.cls_head = ClsHead(2 * embd_dim, head_dim, num_classes,
+                                cls_prior_prob, head_num_layers, head_kernel_size,
+                                head_with_ln, head_empty_cls)
+        self.reg_head = RegHead(2 * embd_dim, head_dim, num_classes,
+                                backbone_arch[2] + 1, head_num_layers,
+                                head_kernel_size, head_with_ln, class_aware)
+        self.contrastive_losses = ContrastiveLosses()
+
+    def forward(self, batch: Dict[str, torch.Tensor], with_losses: bool = True):
+        """batch: visual (B, T, Dv), audio (B, T, Da), mask (B, T) bool and,
+        with losses, the frame targets m_start_end, m_scores, m_labels."""
+        mask = batch["mask"]
+        targets = ((batch["m_start_end"], batch["m_scores"], batch["m_labels"])
+                   if with_losses else None)
+        v_al, a_al, aux = self.alignment(batch["visual"], batch["audio"], mask,
+                                         mask, targets)
+        feats_v, feats_a, masks = self.backbone(v_al, a_al, mask)
+        feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
+        cls_logits = self.cls_head(feats, masks)
+        offsets = self.reg_head(feats, masks)
+        if self.class_aware:
+            offsets = [o.reshape(o.shape[0], o.shape[1], self.num_classes, 2)
+                       for o in offsets]
+        out = {"cls_logits": cls_logits, "offsets": offsets, "masks": masks}
+        if with_losses:
+            aux["row_valid"] = mask.any(dim=1)
+            inter, intra = self.contrastive_losses(aux)
+            out.update(inter_loss=inter, intra_loss=intra,
+                       score_loss_video=aux["score_loss_video"],
+                       score_loss_text=aux["score_loss_text"])
+        return out
+
+
+@torch.no_grad()
+def init_weights(model: LocPointTransformer, generator: torch.Generator) -> None:
+    """Random weights drawn from `generator`, with the distributions of the
+    JAX package's initializers: torch-default uniform convs/dense (zero
+    bias), trunc-normal(0.02) in the Alignment, LayerNorms at 1/0, the focal
+    prior on the cls bias, AffineDropPath 1e-4, Scale 1, logit scales
+    log(1/0.07)."""
+    def uniform(w, fan_in):
+        bound = 1.0 / math.sqrt(max(fan_in, 1))
+        nn.init.uniform_(w, -bound, bound, generator=generator)
+
+    def trunc_normal(w):
+        nn.init.trunc_normal_(w, 0.0, 0.02, -2.0, 2.0, generator=generator)
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Conv1d):
+            uniform(mod.weight, mod.weight.shape[1] * mod.weight.shape[2])
+        elif isinstance(mod, Conv1x1):
+            uniform(mod.weight, mod.weight.shape[1])
+        elif isinstance(mod, nn.Linear):
+            if name.startswith("alignment."):
+                trunc_normal(mod.weight)
+            else:
+                uniform(mod.weight, mod.weight.shape[1])
+        elif isinstance(mod, (nn.LayerNorm, ChannelLayerNorm)):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, AffineDropPath):
+            mod.scale.fill_(1e-4)
+        elif isinstance(mod, LearnableScale):
+            mod.scale.fill_(1.0)
+        elif isinstance(mod, MaxSigmoidAttnBlock):
+            mod.bias.zero_()
+        elif isinstance(mod, Alignment):
+            for p in (mod.cls_token_video, mod.cls_token_text, mod.pos_embed_video,
+                      mod.pos_embed_text, mod.type_video, mod.type_text):
+                trunc_normal(p)
+        elif isinstance(mod, (ContrastiveLosses, _LogitScale)):
+            for p in mod.parameters(recurse=False):
+                p.fill_(LOGIT_SCALE_INIT)
+        if isinstance(mod, (nn.Conv1d, Conv1x1, nn.Linear, nn.LayerNorm,
+                            ChannelLayerNorm)) and mod.bias is not None:
+            mod.bias.zero_()
+    head = model.cls_head
+    head.cls_head.conv.bias.copy_(cls_prior_bias(head.prior_prob,
+                                                 head.cls_head.conv.out_channels,
+                                                 head.empty_cls))
+
+
+def build_model(cfg: Dict[str, Any], device=None, seed: Optional[int] = 0
+                ) -> LocPointTransformer:
+    """The detector of a full config dict, in eval mode on `device` (CUDA
+    unless the caller asks for the CPU). Weights are drawn on the CPU from
+    `seed`, so they do not depend on the device; seed=None leaves them
+    uninitialized (for load_state_dict)."""
+    device = resolve_device(device)
+    m = cfg["model"]
+    dtype = cfg.get("tpu", {}).get("compute_dtype", "float32")
+    if dtype != "float32":
+        raise NotImplementedError(f"compute_dtype {dtype}: the port runs fp32 only")
+    if m["use_dependency"]:
+        raise NotImplementedError("use_dependency: the dependency block is not ported")
+    with torch.device("meta"):
+        model = LocPointTransformer(
+            raw_input_dim_V=m.get("raw_input_dim_V", 2048),
+            raw_input_dim_A=m.get("raw_input_dim_A", 128),
+            input_dim_V=m["input_dim_V"], input_dim_A=m["input_dim_A"],
+            num_classes=m["num_classes"], max_seq_len=m["max_seq_len"],
+            backbone_arch=tuple(m["backbone_arch"]),
+            scale_factor=m["scale_factor"], n_head=m["n_head"],
+            embd_kernel_size=m["embd_kernel_size"], embd_dim=m["embd_dim"],
+            embd_with_ln=m["embd_with_ln"], head_dim=m["head_dim"],
+            head_kernel_size=m["head_kernel_size"],
+            head_num_layers=m["head_num_layers"],
+            head_with_ln=m["head_with_ln"], use_abs_pe=m["use_abs_pe"],
+            class_aware=m["class_aware"],
+            cls_prior_prob=m["train_cfg"]["cls_prior_prob"],
+            droppath=m["train_cfg"]["droppath"],
+            head_empty_cls=tuple(m["train_cfg"]["head_empty_cls"]),
+        )
+    model = model.to_empty(device="cpu")
+    if seed is not None:
+        init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

@@ -1,0 +1,114 @@
+"""Fused MaxSigmoidCSPLayer forward: hand-written CUDA kernel sequence and
+its plain version.
+
+Replaces the Pallas kernel `_csp_kernel` (body `_csp_compute`,
+unav_yolyolva_tpu/ops/pallas_csp.py:58-217): main 1x1 conv split in two,
+three chained MaskedMHCA blocks, guide_fc over the guide tokens, per-head
+max over tokens -> sigmoid gate on a k=3 projection conv, final 1x1 conv
+over the concat [main0, main1, mhca0, mhca1, mhca2, gated].
+
+On the card (csrc/csp.cu) it is bound by operations: at T=224, 2B=128 the
+products are ~95% of its 16.7 GFLOP-per-layer share, and guide_fc alone is
+7.5 GFLOP at every level. The design writes each part straight into its
+slice of one concat buffer (GEMM epilogue with output stride and column
+offset), runs guide_fc as one GEMM over the whole batch, and handles the
+ragged small levels (T = 7, 14, 28) by bounds checks instead of padding.
+
+Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
+stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
+w (3, 4, mid, mid), b (3, 4, mid); wg (emb, Fg), bg (emb), battn (H),
+wproj (mid, mid, 3) [Conv1d layout], bproj (mid), wfinal (Cout, 6mid),
+bfinal (Cout). emb == mid.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .cuda_build import FLOAT, INT, PTR
+from .fused_mhca import MAX_T, _check, mhca_reference
+
+_ARGTYPES = {
+    "unav_csp_forward": [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5,
+}
+
+
+def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
+                  battn, wproj, bproj, wfinal, bfinal, *, attn_heads: int,
+                  mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the fused CSP layer."""
+    r, t, _ = x.shape
+    mid = w.shape[-1]
+    mm = mask[..., None].to(x.dtype)
+    y = F.linear(x, wmain, bmain) * mm
+    parts = [y[..., :mid], y[..., mid:]]
+    for bi in range(3):
+        parts.append(mhca_reference(parts[-1], parts[-1], mask, dw[bi], lnw[bi],
+                                    lnb[bi], w[bi], b[bi], heads=mhca_heads, eps=eps))
+    p = parts[-1]
+    gp = F.linear(guide, wg, bg)                                  # (R, Ng, emb)
+    hc = gp.shape[-1] // attn_heads
+    pc = F.conv1d(p.transpose(1, 2), wproj, bproj, padding=1).transpose(1, 2) * mm
+    sc = torch.einsum("rthc,rnhc->rhtn", p.reshape(r, t, attn_heads, hc),
+                      gp.reshape(r, -1, attn_heads, hc))
+    mx = sc.amax(dim=-1) / math.sqrt(hc)                          # (R, H, T)
+    gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2)
+    gated = pc.reshape(r, t, attn_heads, -1) * gate[..., None]
+    parts.append(gated.reshape(r, t, mid))
+    return F.linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
+
+
+def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+              wproj, bproj, wfinal, bfinal, *, attn_heads: int,
+              mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
+    """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens, with
+    a (R, T) bool mask. CPU tensors take the plain version; CUDA tensors
+    launch the kernel sequence."""
+    args = (x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+            wproj, bproj, wfinal, bfinal)
+    if x.device.type == "cpu":
+        return csp_reference(*args, attn_heads=attn_heads, mhca_heads=mhca_heads,
+                             eps=eps)
+    r, t, cin = x.shape
+    _, ng, fg = guide.shape
+    mid, cout = w.shape[-1], wfinal.shape[0]
+    if (mid % attn_heads or mid % mhca_heads or mid // mhca_heads > 128
+            or mid > 1024 or t > MAX_T or wg.shape[0] != mid):
+        raise ValueError(f"fused_csp: unsupported shape (T={t}, mid={mid}, "
+                         f"heads={attn_heads}/{mhca_heads}, emb={wg.shape[0]})")
+    wproj = wproj.permute(0, 2, 1).contiguous()                   # (mid, 3, mid)
+    for name, ten, shape in (
+        ("x", x, None), ("guide", guide, (r, ng, fg)), ("wmain", wmain, (2 * mid, cin)),
+        ("bmain", bmain, (2 * mid,)), ("dw", dw, (3, 3, mid, 3)), ("lnw", lnw, (3, 3, mid)),
+        ("lnb", lnb, (3, 3, mid)), ("w", w, (3, 4, mid, mid)), ("b", b, (3, 4, mid)),
+        ("wg", wg, (mid, fg)), ("bg", bg, (mid,)), ("battn", battn, (attn_heads,)),
+        ("wproj", wproj, (mid, 3, mid)), ("bproj", bproj, (mid,)),
+        ("wfinal", wfinal, (cout, 6 * mid)), ("bfinal", bfinal, (cout,)),
+    ):
+        _check(ten, name, shape)
+    _check(mask, "mask", (r, t), torch.bool)
+    dev = x.device
+    out = torch.empty((r, t, cout), device=dev, dtype=torch.float32)
+    cat = torch.empty(r * t * 6 * mid, device=dev, dtype=torch.float32)
+    gp = torch.empty(r * ng * mid, device=dev, dtype=torch.float32)
+    scratch = torch.empty(6 * r * t * mid, device=dev, dtype=torch.float32)
+    lib = cuda_build.library("csp", _ARGTYPES)
+    rc = lib.unav_csp_forward(
+        x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg,
+        cout, attn_heads, mhca_heads,
+        wmain.data_ptr(), bmain.data_ptr(), dw.data_ptr(), lnw.data_ptr(),
+        lnb.data_ptr(), w.data_ptr(), b.data_ptr(), wg.data_ptr(), bg.data_ptr(),
+        battn.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), wfinal.data_ptr(),
+        bfinal.data_ptr(), eps, out.data_ptr(), cat.data_ptr(), gp.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "fused_csp")
+    fused_csp.launches += 1
+    return out
+
+
+fused_csp.launches = 0

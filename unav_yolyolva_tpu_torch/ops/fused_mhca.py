@@ -1,0 +1,113 @@
+"""Fused MaskedMHCA forward: hand-written CUDA kernel and its plain version.
+
+Replaces the Pallas kernel `_mhca_kernel` (body `_mhca_compute`,
+unav_yolyolva_tpu/ops/pallas_fusion.py:50-183): depthwise k=3 convs on q
+(from x2) and k/v (from x1), output mask, channel LayerNorm with fp32
+statistics, q/k/v dense (q scaled by 1/sqrt(d) after the bias, v masked),
+per-head masked softmax attention (masked keys at finfo.min, a row without
+a valid key gives exactly 0), proj dense, output mask.
+
+On the card (csrc/mhca.cuh) it is bound by operations: the four C x C
+products are ~80% of the FLOPs at the stem shape (64, 224, 512). The design
+runs them through one shared tiled fp32 GEMM (csrc/gemm.cuh) and tiles the
+attention by 32 queries so that a tile's logits against all T keys fit in
+shared memory, which the TPU's whole-(T, T) VMEM block does not.
+
+Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
+lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .cuda_build import FLOAT, INT, PTR
+from .masked import channel_layer_norm
+
+_ARGTYPES = {
+    "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
+                          PTR, PTR, FLOAT, PTR, PTR, PTR],
+}
+
+# longest sequence whose 32-query logits tile fits in a block's shared memory
+MAX_T = 1500
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_mask: torch.Tensor, heads: int) -> torch.Tensor:
+    """Per-head masked softmax attention of (B, Tq, C) queries (already
+    scaled) over (B, Tk, C) keys/values. Masked keys get finfo.min; a row
+    without any valid key outputs 0 instead of NaN."""
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    d = c // heads
+    att = torch.einsum("bqhd,bkhd->bhqk", q.reshape(b, tq, heads, d),
+                       k.reshape(b, tk, heads, d))
+    any_kv = kv_mask.any(dim=-1)[:, None, None, None]
+    att = att.masked_fill(~kv_mask[:, None, None, :], torch.finfo(att.dtype).min)
+    att = torch.where(any_kv, att, torch.zeros((), dtype=att.dtype, device=att.device))
+    att = att.softmax(dim=-1) * any_kv.to(att.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", att, v.reshape(b, tk, heads, d))
+    return out.reshape(b, tq, c)
+
+
+def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the fused MHCA (stride 1)."""
+    c = x1.shape[-1]
+    mm = mask[..., None].to(x1.dtype)
+
+    def dwconv_ln(x, i):
+        y = F.conv1d(x.transpose(1, 2), dw[i][:, None, :], padding=1, groups=c)
+        return channel_layer_norm(y.transpose(1, 2) * mm, lnw[i], lnb[i], eps)
+
+    q = F.linear(dwconv_ln(x2, 0), w[0], b[0]) * (1.0 / math.sqrt(c // heads))
+    k = F.linear(dwconv_ln(x1, 1), w[1], b[1])
+    v = F.linear(dwconv_ln(x1, 2), w[2], b[2]) * mm
+    return F.linear(attend(q, k, v, mask, heads), w[3], b[3]) * mm
+
+
+def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
+    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous {dtype} CUDA tensor, got "
+                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """MaskedMHCA forward of (R, T, C) inputs with a (R, T) bool mask.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if x1.device.type == "cpu":
+        return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    r, t, c = x1.shape
+    if c % heads or c // heads > 128 or c > 1024 or t > MAX_T:
+        raise ValueError(f"fused_mhca: unsupported shape (T={t}, C={c}, heads={heads})")
+    _check(x1, "x1")
+    _check(x2, "x2", x1.shape)
+    _check(mask, "mask", (r, t), torch.bool)
+    _check(dw, "dw", (3, c, 3))
+    _check(lnw, "lnw", (3, c))
+    _check(lnb, "lnb", (3, c))
+    _check(w, "w", (4, c, c))
+    _check(b, "b", (4, c))
+    out = torch.empty_like(x1)
+    scratch = torch.empty(6 * r * t * c, device=x1.device, dtype=torch.float32)
+    lib = cuda_build.library("mhca", _ARGTYPES)
+    rc = lib.unav_mhca_forward(
+        x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
+        dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
+        eps, out.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(x1.device).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "fused_mhca")
+    fused_mhca.launches += 1
+    return out
+
+
+fused_mhca.launches = 0
