@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's eval (serving) path on one NVIDIA GPU.
+"""Drives the PyTorch port's eval (serving) and train paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero):
   1. the card: name, count, nvidia-smi name and power limit;
-  2. builds the three hand-written CUDA kernels from
+  2. builds the five hand-written CUDA kernel libraries from
      unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes of the eval protocol (configs/avel_unav100_eval.yaml): MHCA at
@@ -17,7 +17,28 @@ Phases (any failure exits non-zero):
      detections must be finite, sorted and inside [0, duration], and the
      first two videos must give the same detections through the CPU path;
   5. times each kernel and its plain version with CUDA events, and the eval
-     step as videos/s.
+     step as videos/s;
+  6. holds the two backward kernels against their plain versions
+     (torch.autograd.grad of the plain forwards) at the shapes of the train
+     protocol (configs/avel_unav100.yaml, B=8): MHCA backward at
+     (8, 224, 512) with an all-masked row and (16, 224, 512 / 2), CSP
+     backward at T=224 and T=7 with 2B=16; input grads within rtol 1e-3 /
+     atol 1e-4, weight grads norm-wise within 1e-4 (sums over thousands of
+     rows in another order); each kernel run twice must give the same bits;
+     times both with CUDA events beside the bound;
+  7. trains: the flagship model of configs/avel_unav100.yaml (B=8, T=224,
+     fp32, AdamW + clip + warmup/cosine per iteration, droppath 0.1, EMA,
+     weights from --seed) takes 4 steps of make_train_step on synthetic
+     batches with a 2-iteration epoch: step 1 (lr = schedule(0) = 0) leaves
+     every parameter bit-identical, step 2 moves them, every loss is
+     finite, every parameter enters the update with a finite grad, and the
+     MHCA / CSP backward kernels run as often as their forwards (>= 5 and
+     10 per step); then times the step as clips/s and reports peak memory;
+  8. one train step's gradients at B=2, full width, droppath off, through
+     the CUDA kernels against the CPU plain path: norm-wise <= 1e-3 per
+     parameter tensor; every parameter the JAX package trains gets a
+     finite grad (the Alignment's argmax-only class heads get none: their
+     grad is 0 there too).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
@@ -29,6 +50,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -127,6 +149,70 @@ def csp_case(model, key, r, t, gen, dev):
 def csp_flops(r, t, cin, mid, ng, fg, cout):
     return (3 * mhca_flops(r, t, mid) + 2 * r * t * cin * 2 * mid + 2 * r * ng * fg * mid
             + 2 * r * t * mid * ng + 6 * r * t * mid * mid + 2 * r * t * 6 * mid * cout)
+
+
+def mhca_bwd_flops(r, t, c):
+    """Recompute + twice the products (the JAX package's executed-FLOP count
+    of its backward kernel, pallas_fusion._record_flops)."""
+    dense, attn = 8 * r * t * c * c, 4 * r * t * t * c
+    return mhca_flops(r, t, c) + 2 * (dense + attn)
+
+
+def csp_bwd_flops(r, t, cin, mid, ng, fg, cout):
+    """pallas_csp._record_csp_flops: a forward recompute + twice the products."""
+    mhca = 3 * (8 * r * t * mid * mid + 4 * r * t * t * mid)
+    dense = (2 * r * t * cin * 2 * mid + 2 * r * ng * fg * mid + 2 * r * t * mid * ng
+             + 6 * r * t * mid * mid + 2 * r * t * 6 * mid * cout)
+    return csp_flops(r, t, cin, mid, ng, fg, cout) + 2 * (mhca + dense)
+
+
+def check_grads(name, got, again, ref, n_inputs):
+    """Input grads element-wise (compare), weight grads norm-wise <= 1e-4,
+    and the two kernel runs bit for bit. Returns the max abs error of the
+    input grads."""
+    import torch
+
+    err = max(compare(f"{name} d_in{i}", got[i], ref[i]) for i in range(n_inputs))
+    worst = 0.0
+    for i in range(n_inputs, len(ref)):
+        rel = float((got[i] - ref[i]).norm() / ref[i].norm().clamp(min=1e-30))
+        worst = max(worst, rel)
+        if rel > 1e-4 or not bool(torch.isfinite(got[i]).all()):
+            raise AssertionError(f"{name}: weight grad {i} off by {rel:.3e} (norm-wise)")
+    same = all(bool((a == b).all()) for a, b in zip(got, again))
+    log(f"check {name}: weight grads norm-wise max rel err {worst:.3e}, "
+        f"bit-identical on repeat: {same}")
+    if not same:
+        raise AssertionError(f"{name}: two runs of the backward kernel differ")
+    return err
+
+
+def step_grads(model, cfg, batch, dev):
+    """One train step's loss and grads (no update) of `model` on `dev`."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.geometry.points import concat_points, generate_points
+    from unav_yolyolva_tpu_torch.models.meta_arch import compute_losses
+    from unav_yolyolva_tpu_torch.train.step import BATCH_KEYS, build_targets, loss_kwargs
+
+    m = cfg["model"]
+    model = model.to(dev).train()
+    b = {k: batch[k].to(dev) for k in BATCH_KEYS}
+    pts = torch.from_numpy(concat_points(generate_points(
+        m["max_seq_len"], m["regression_range"], m["scale_factor"]))).to(dev)
+    ms, mse, ml, gcls, greg = build_targets(b, pts, m["max_seq_len"], m["num_classes"],
+                                            m["class_aware"])
+    out = model({"visual": b["visual"], "audio": b["audio"], "mask": b["mask"],
+                 "m_scores": ms, "m_start_end": mse, "m_labels": ml})
+    loss = compute_losses(out, gcls, greg, torch.tensor(250.0, device=dev),
+                          **loss_kwargs(cfg))[0]["final_loss"]
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+
+# parameters whose only use is an argmax: no grad in the port, zero in JAX
+ARGMAX_ONLY = {"alignment.fc_video_cls.weight", "alignment.fc_video_cls.bias",
+               "alignment.fc_text_cls.weight", "alignment.fc_text_cls.bias"}
 
 
 def nms_case(gen, dev, g=64, n=10100, ncls=100):
@@ -228,8 +314,14 @@ def main(argv=None) -> int:
     from unav_yolyolva_tpu_torch.eval import make_eval_step
     from unav_yolyolva_tpu_torch.models import build_model
     from unav_yolyolva_tpu_torch.ops import cuda_build
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
+    from unav_yolyolva_tpu_torch.ops.fused_csp import (csp_backward, csp_backward_reference,
+                                                       csp_reference, fused_csp)
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
+                                                        mhca_backward_reference,
+                                                        mhca_reference)
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
     from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
                                                        multiclass_soft_nms_reference)
 
@@ -307,14 +399,15 @@ def main(argv=None) -> int:
     mcfg = cfg["model"]
     batches = [synthetic_eval_batch(gen, 64, mcfg["max_seq_len"], mcfg["raw_input_dim_V"],
                                     mcfg["raw_input_dim_A"]) for _ in range(3)]
-    for fn in (fused_mhca, fused_csp, multiclass_soft_nms):
+    for fn in (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward):
         fn.launches = 0
     dets = [eval_step(b) for b in batches]
     torch.cuda.synchronize()
     launches = {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
                 "nms": multiclass_soft_nms.launches}
     log(f"serve: 3 batches x 64 videos, kernel launches {launches}")
-    if launches["mhca"] < 15 or launches["csp"] != 30 or launches["nms"] != 3:
+    if (launches["mhca"] < 15 or launches["csp"] != 30 or launches["nms"] != 3
+            or mhca_backward.launches or csp_backward.launches):
         raise AssertionError(f"the main path did not run through every kernel: {launches}")
     n_dets = [check_detections(d, b, mcfg["num_classes"]) for d, b in zip(dets, batches)]
     log(f"serve: detections per batch {n_dets}, finite, sorted, inside [0, duration]")
@@ -336,6 +429,131 @@ def main(argv=None) -> int:
         f"{64 * len(times) / sum(times):.1f} videos/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
 
+    # ---- 6. backward kernels against their plain versions ------------------
+    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
+    tm = tcfg["model"]
+    B, T = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+    tmodel = build_model(tcfg, device=dev, seed=args.seed)
+    for label, key, r, c in ((f"mhca_bwd@{B}x{T}x512", "backbone.self_att_V.0.attn", B, 512),
+                             (f"mhca_bwd@{2 * B}x{T}x256",
+                              "backbone.fusion_module.top_down_layers.4.blocks.0", 2 * B, 256)):
+        a = mhca_case(tmodel, key, r, T, c, gen, dev)
+        g = torch.randn(r, T, c, generator=gen).to(dev)
+        heads = dict(tmodel.named_modules())[key].n_head
+        got = mhca_backward(*a, g, heads=heads)
+        again = mhca_backward(*a, g, heads=heads)
+        ref = mhca_backward_reference(*a, g, heads=heads)
+        err = check_grads(label, got, again, ref, 2)
+        if not bool((got[1][1] == 0).all()):
+            raise AssertionError(f"{label}: the all-masked row got a non-zero grad")
+        ms = cuda_ms(lambda: mhca_backward(*a, g, heads=heads), 10)
+        pms = cuda_ms(lambda: mhca_backward_reference(*a, g, heads=heads), 5)
+        nbytes = 4 * (5 * r * T * c + 2 * (4 * c * c + 19 * c)) + r * T
+        results[label] = (err, ms, pms, *bound_ms(mhca_bwd_flops(r, T, c), nbytes))
+        log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+    for label, key, t in ((f"csp_bwd@T{T}/8h", "backbone.fusion_module.bottom_up_layers.0", T),
+                          ("csp_bwd@T7/8h", "backbone.fusion_module.bottom_up_layers.4", 7)):
+        a, heads = csp_case(tmodel, key, 2 * B, t, gen, dev)
+        g = torch.randn(2 * B, t, 512, generator=gen).to(dev)
+        got = csp_backward(*a, g=g, attn_heads=heads)
+        again = csp_backward(*a, g=g, attn_heads=heads)
+        ref = csp_backward_reference(*a, g=g, attn_heads=heads)
+        err = check_grads(label, got, again, ref, 2)
+        ms = cuda_ms(lambda: csp_backward(*a, g=g, attn_heads=heads), 10)
+        pms = cuda_ms(lambda: csp_backward_reference(*a, g=g, attn_heads=heads), 5)
+        cin, fg = a[0].shape[-1], a[1].shape[-1]
+        nbytes = 4 * (2 * sum(x.numel() for x in a if x.dtype == torch.float32)
+                      + g.numel()) + a[2].numel()
+        results[label] = (err, ms, pms, *bound_ms(
+            csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512), nbytes))
+        log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+    del tmodel
+
+    # ---- 7. train: 4 checked steps, then timed steps ------------------------
+    t_phase = time.perf_counter()
+    model = build_model(tcfg, device=dev, seed=args.seed)
+    cpu_init = copy.deepcopy(model).cpu()                 # for phase 8
+    optimizer, schedule = make_optimizer(model, tcfg["opt"], 2,
+                                         tcfg["train_cfg"]["clip_grad_l2norm"])
+    state = create_train_state(model, optimizer, tcfg["train_cfg"]["init_loss_norm"])
+    train_step = make_train_step(model, optimizer, tcfg, device=dev)
+    tb = [synthetic_train_batch(gen, B, T, tm["raw_input_dim_V"], tm["raw_input_dim_A"],
+                                tm["num_classes"], tcfg["dataset"]["max_num_events"])
+          for _ in range(4)]
+    before = [p.detach().clone() for p in model.parameters()]
+    for fn in (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward):
+        fn.launches = 0
+    losses = [train_step(state, tb[0], args.seed)]
+    torch.cuda.synchronize()
+    still = all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    losses.append(train_step(state, tb[1], args.seed))
+    moved = sum(int((a != p).any()) for a, p in zip(before, model.parameters()))
+    losses += [train_step(state, b, args.seed) for b in tb[2:]]
+    torch.cuda.synchronize()
+    tl = {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
+          "mhca_bwd": mhca_backward.launches, "csp_bwd": csp_backward.launches}
+    finals = [float(x["final_loss"]) for x in losses]
+    log(f"train: 4 steps at B={B}, T={T}, lr {[schedule(i) for i in range(4)]}, "
+        f"final_loss {finals}, num_pos {[int(x['num_pos']) for x in losses]}, "
+        f"launches {tl}")
+    require(still, "step 1 (lr 0) changed a parameter")
+    require(moved > 0, "step 2 moved no parameter")
+    log(f"train: step 1 left all {len(before)} parameter tensors bit-identical; "
+        f"step 2 moved {moved}")
+    require(all(math.isfinite(v) for x in losses for v in map(float, x.values())),
+            "a non-finite loss")
+    require(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                for p in model.parameters()),
+            "a parameter without a finite grad in the update")
+    require(tl["mhca_bwd"] >= 5 * 4 and tl["csp_bwd"] == 10 * 4
+            and tl["mhca_bwd"] == tl["mhca"] and tl["csp_bwd"] == tl["csp"],
+            f"the train path did not run through every backward kernel: {tl}")
+    launches.update(mhca_bwd=tl["mhca_bwd"], csp_bwd=tl["csp_bwd"])
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, tb[i], args.seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"time train_step: per step of {B} clips {[round(x * 1e3, 3) for x in times]} ms, "
+        f"{B * len(times) / sum(times):.1f} clips/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    del state, train_step, optimizer, model
+
+    # ---- 8. one step's grads: CUDA kernels vs the CPU plain path ------------
+    for mod in cpu_init.modules():
+        if hasattr(mod, "drop_prob"):
+            mod.drop_prob = 0.0
+    small = synthetic_train_batch(gen, 2, T, tm["raw_input_dim_V"], tm["raw_input_dim_A"],
+                                  tm["num_classes"], tcfg["dataset"]["max_num_events"])
+    gpu_loss, gpu_g = step_grads(copy.deepcopy(cpu_init), tcfg, small, dev)
+    cpu_loss, cpu_g = step_grads(cpu_init, tcfg, small, torch.device("cpu"))
+    none = {n for n, g in gpu_g.items() if g is None}
+    require(none <= ARGMAX_ONLY and none == {n for n, g in cpu_g.items() if g is None},
+            f"parameters without a grad: {sorted(none)}")
+    zero = 1e-6 * max(float(g.norm()) for g in cpu_g.values() if g is not None)
+    worst, worst_name = 0.0, ""
+    for n, g in gpu_g.items():
+        if g is None:
+            continue
+        ref = cpu_g[n]
+        require(bool(torch.isfinite(g).all()), f"{n}: non-finite grad")
+        if float(ref.norm()) < zero:         # exactly 0 in exact arithmetic
+            require(float(g.norm()) < zero, f"{n}: grad should vanish")
+            continue
+        rel = float((g.cpu() - ref).norm() / ref.norm())
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"check gpu-vs-cpu train grads: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, "
+        f"{len(gpu_g) - len(none)} tensors, worst norm-wise rel err {worst:.3e} "
+        f"({worst_name}); no grad (argmax only): {sorted(none)}")
+    require(worst <= 1e-3, "GPU and CPU train grads differ")
+    log(f"train phases: {time.perf_counter() - t_phase:.1f} s")
+
     def entry(name, label, source, replaces):
         err, ms, pms, bms, by = results[label]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -344,6 +562,7 @@ def main(argv=None) -> int:
                 "shape": label}
 
     pkg = "unav_yolyolva_tpu_torch/csrc/"
+    log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [
         entry("mhca", "mhca@64x224x512", pkg + "mhca.cuh",
               "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
@@ -351,8 +570,11 @@ def main(argv=None) -> int:
               "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
         entry("nms", "nms@64x10100", pkg + "nms.cu",
               "unav_yolyolva_tpu/ops/pallas_nms.py:233"),
+        entry("mhca_bwd", f"mhca_bwd@{B}x{T}x512", pkg + "mhca_bwd.cuh",
+              "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
+        entry("csp_bwd", f"csp_bwd@T{T}/8h", pkg + "csp_bwd.cu",
+              "unav_yolyolva_tpu/ops/pallas_csp.py:373"),
     ]}))
-    log(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -5,7 +5,9 @@ small shapes. Marked `gpu`: on a machine without a card every test skips
 
 Tolerances: rtol 1e-3, atol 1e-4 for fp32 with another summation order;
 NMS indices equal wherever neighbouring scores differ by more than 1e-6,
-scores within rtol 1e-5."""
+scores within rtol 1e-5. Weight grads are sums over all R*T rows in another
+order than the plain version's, so they are held norm-wise: ||k - p|| <=
+1e-4 ||p|| per tensor; the backward kernels' two runs agree bit for bit."""
 
 import numpy as np
 import pytest
@@ -77,6 +79,109 @@ def test_csp_kernel(cuda, t, heads):
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
 
 
+def _normwise(name, got, ref, tol=1e-4):
+    err = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    assert err <= tol, f"{name}: norm-wise relative error {err:.3e} > {tol}"
+
+
+def _check_grads(kernel, plain, n_inputs):
+    """Input grads element-wise, weight grads norm-wise."""
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        assert k.shape == p.shape and bool(torch.isfinite(k).all()), i
+        if i < n_inputs:
+            torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
+        else:
+            _normwise(f"grad {i}", k, p)
+
+
+@pytest.mark.parametrize("r,t,c,heads", [(3, 40, 64, 4), (3, 7, 128, 4), (3, 64, 96, 3),
+                                         (8, 224, 512, 4)])
+def test_mhca_backward_kernel(cuda, r, t, c, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_reference
+
+    gen = torch.Generator().manual_seed(5)
+    x1, x2 = torch.randn(r, t, c, generator=gen), torch.randn(r, t, c, generator=gen)
+    g = torch.randn(r, t, c, generator=gen)
+    ws = [w.to(cuda) for w in _mhca_weights(c, gen, cuda)]
+    x1, x2, g = x1.to(cuda), x2.to(cuda), g.to(cuda)
+    lengths = [t, t // 2, 0] + [max(1, t - 3 * i) for i in range(r - 3)]
+    mask = _mask(r, t, lengths, cuda)
+    got = mhca_backward(x1, x2, mask, *ws, g, heads=heads)
+    again = mhca_backward(x1, x2, mask, *ws, g, heads=heads)
+    ref = mhca_backward_reference(x1, x2, mask, *ws, g, heads=heads)
+    torch.cuda.synchronize()
+    _check_grads(got, ref, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+    assert (got[1][2] == 0).all(), "an all-masked row must get exact zero grads"
+
+
+def _csp_args(gen, cuda, b, t, cin, mid, ng, fg, heads, cout=None):
+    cout = cout or cin
+    packs = [_mhca_weights(mid, gen, cuda) for _ in range(3)]
+    stacked = [torch.stack([p[i] for p in packs]) for i in range(5)]
+    guide = torch.randn(b, ng, fg, generator=gen)
+    guide[:, 5] = guide[:, 3] = 3 * torch.randn(fg, generator=gen)   # tied maxima
+    args = [torch.randn(b, t, cin, generator=gen), guide,
+            None, torch.randn(2 * mid, cin, generator=gen) / cin ** 0.5,
+            0.1 * torch.randn(2 * mid, generator=gen), *stacked,
+            torch.randn(mid, fg, generator=gen) / fg ** 0.5, 0.1 * torch.randn(mid, generator=gen),
+            torch.randn(heads, generator=gen),
+            torch.randn(mid, mid, 3, generator=gen) / (3 * mid) ** 0.5,
+            0.1 * torch.randn(mid, generator=gen),
+            torch.randn(cout, 6 * mid, generator=gen) / (6 * mid) ** 0.5,
+            0.1 * torch.randn(cout, generator=gen)]
+    lengths = [t, 3, max(1, t - 1)] + [max(1, t - 5 * i) for i in range(b - 3)]
+    return [a.to(cuda) if a is not None else _mask(b, t, lengths, cuda) for a in args]
+
+
+@pytest.mark.parametrize("b,t,cin,mid,ng,fg,heads,cout",
+                         [(3, 7, 128, 64, 40, 24, 4, 128), (3, 20, 128, 64, 40, 24, 8, 128),
+                          (16, 224, 1024, 256, 512, 224, 8, 512)])
+def test_csp_backward_kernel(cuda, b, t, cin, mid, ng, fg, heads, cout):
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_reference
+
+    gen = torch.Generator().manual_seed(6)
+    args = _csp_args(gen, cuda, b, t, cin, mid, ng, fg, heads, cout)
+    g = torch.randn(b, t, cout, generator=gen).to(cuda)
+    got = csp_backward(*args, g=g, attn_heads=heads)
+    again = csp_backward(*args, g=g, attn_heads=heads)
+    ref = csp_backward_reference(*args, g=g, attn_heads=heads)
+    torch.cuda.synchronize()
+    _check_grads(got, ref, 2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), "not deterministic"
+
+
+def test_cuda_forward_with_grad_keeps_the_graph(cuda):
+    """With grad enabled the CUDA forward is differentiable: the output has a
+    grad_fn, and backward reaches the inputs and every packed weight through
+    the backward kernels."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_backward
+
+    gen = torch.Generator().manual_seed(7)
+    x1 = torch.randn(2, 16, 64, generator=gen).to(cuda).requires_grad_(True)
+    x2 = torch.randn(2, 16, 64, generator=gen).to(cuda).requires_grad_(True)
+    ws = [w.to(cuda).requires_grad_(True) for w in _mhca_weights(64, gen, cuda)]
+    before = mhca_backward.launches
+    out = fused_mhca(x1, x2, _mask(2, 16, [16, 9], cuda), *ws, heads=4)
+    assert out.requires_grad and out.grad_fn is not None
+    out.square().sum().backward()
+    assert mhca_backward.launches == before + 1
+    for t_ in (x1, x2, *ws):
+        assert t_.grad is not None and t_.grad.abs().sum() > 0
+
+    args = _csp_args(gen, cuda, 3, 7, 128, 64, 40, 24, 4)
+    args = [a if a.dtype == torch.bool else a.requires_grad_(True) for a in args]
+    before = csp_backward.launches
+    out = fused_csp(*args, attn_heads=4)
+    assert out.requires_grad and out.grad_fn is not None
+    out.square().sum().backward()
+    assert csp_backward.launches == before + 1
+    for i, a in enumerate(args):
+        if a.dtype != torch.bool:
+            assert a.grad is not None and a.grad.abs().sum() > 0, i
+
+
 def test_nms_kernel(cuda):
     from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
                                                        multiclass_soft_nms_reference)
@@ -110,6 +215,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     ws = [w.to(cuda) for w in _mhca_weights(64, torch.Generator().manual_seed(3), cuda)]
     with pytest.raises(ValueError):
         fused_mhca(x.double(), x.double(), _mask(2, 8, [8, 8], cuda), *ws, heads=4)
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+
+    mask = _mask(2, 8, [8, 8], cuda)
+    with pytest.raises(ValueError):                      # grad of another shape
+        mhca_backward(x, x, mask, *ws, x[:, :4].contiguous(), heads=4)
+    with pytest.raises(ValueError):                      # C not a multiple of heads
+        mhca_backward(x, x, mask, *ws, x, heads=3)
+    args = _csp_args(torch.Generator().manual_seed(8), cuda, 3, 7, 128, 64, 40, 24, 4)
+    with pytest.raises(ValueError):                      # a CPU grad
+        csp_backward(*args, g=torch.zeros(3, 7, 128), attn_heads=4)
 
 
 def test_eval_step_cuda_matches_cpu(cuda):
@@ -142,3 +258,53 @@ def test_eval_step_cuda_matches_cpu(cuda):
     ok = cpu["valid"]
     torch.testing.assert_close(gpu["scores"][ok], cpu["scores"][ok], rtol=1e-3, atol=1e-6)
     assert not ok[-1].any()
+
+
+def test_train_step_cuda_matches_cpu(cuda):
+    """Two steps of make_train_step on a small model, on the card and on the
+    CPU, from the same weights: the losses agree, and every parameter after
+    the update agrees to 2 x lr, with 99% of its elements within 1e-2 x lr
+    (Adam normalizes each update, so rounding in a near-zero grad can flip
+    a step's sign: the error's bound is the learning rate); the backward
+    kernels run once per forward."""
+    import copy
+
+    from unav_yolyolva_tpu_torch.core import load_config_dict
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_backward
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
+
+    lr = 1e-3
+    cfg = load_config_dict({
+        "dataset": {"num_classes": 5, "max_seq_len": 64, "max_num_events": 8},
+        "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 64,
+                  "input_dim_A": 64, "embd_dim": 64, "head_dim": 64, "use_abs_pe": True},
+        "opt": {"learning_rate": lr, "epochs": 2, "warmup_epochs": 1, "weight_decay": 1e-4},
+        "train_cfg": {"loss_weight": 1, "droppath": 0.0},
+    })
+    gen = torch.Generator().manual_seed(9)
+    batches = [synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8) for _ in range(2)]
+    base = build_model(cfg, device="cpu", seed=0)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = copy.deepcopy(base).to(dev)
+        opt, _ = make_optimizer(model, cfg["opt"], 2)
+        state = create_train_state(model, opt, 250.0)
+        step = make_train_step(model, opt, cfg, device=dev)
+        counts = (fused_mhca.launches, mhca_backward.launches, fused_csp.launches,
+                  csp_backward.launches)
+        losses = [step(state, b) for b in batches]
+        after = (fused_mhca.launches, mhca_backward.launches, fused_csp.launches,
+                 csp_backward.launches)
+        runs[dev.type] = (losses, [p.detach().cpu() for p in model.parameters()],
+                          [a - b for a, b in zip(after, counts)])
+    (gl, gp, gc), (cl, cp, cc) = runs["cuda"], runs["cpu"]
+    assert gc == [10, 10, 20, 20] and cc == [0, 0, 0, 0]
+    for a, b in zip(gl, cl):
+        torch.testing.assert_close(a["final_loss"].cpu(), b["final_loss"], rtol=1e-4, atol=1e-6)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, rtol=0, atol=2 * lr)
+        assert float(((a - b).abs() <= 1e-2 * lr).float().mean()) >= 0.99

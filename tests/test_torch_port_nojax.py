@@ -1,4 +1,5 @@
-"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX package."""
+"""The PyTorch port (eval and train paths) and chip_smoke.py import neither
+JAX nor the JAX package."""
 
 import os
 import subprocess
@@ -12,7 +13,11 @@ import unav_yolyolva_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import unav_yolyolva_tpu_torch.train, unav_yolyolva_tpu_torch.geometry.assign
+import unav_yolyolva_tpu_torch.ops.losses, unav_yolyolva_tpu_torch.utils.seed
 import chip_smoke
+assert {"unav_yolyolva_tpu_torch.train.step", "unav_yolyolva_tpu_torch.train.optim",
+        "unav_yolyolva_tpu_torch.train.checkpoint"} <= set(names)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "unav_yolyolva_tpu"))
 print(len(names), bad)

@@ -2,6 +2,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <float.h>
 #include <math.h>
 

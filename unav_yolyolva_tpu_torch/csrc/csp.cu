@@ -18,64 +18,7 @@
 // of every kernel; nothing is padded.
 // Bound: operations (FFMA, fp32 non-tensor peak); at T=224 the products
 // are ~95% of the work.
-#include "mhca.cuh"
-
-constexpr int GATE_T = 32;   // frames per gate block (8 warps x 4)
-constexpr int GATE_N = 128;  // guide tokens per shared-memory tile (32 lanes x 4)
-
-// grid (ceil(T/32), H, R), 256 threads. p: slice 4 (row stride ldp);
-// gp: (R, Ng, emb); dst: slice 5 (row stride ldd), multiplied in place.
-__global__ void __launch_bounds__(256) gate_kernel(
-    const float* __restrict__ p, long ldp, const float* __restrict__ gp,
-    const float* __restrict__ battn, int T, int Ng, int emb, int H,
-    float sqrt_hc, float* __restrict__ dst, long ldd, int och) {
-  extern __shared__ float sm[];
-  const int hc = emb / H, hp = hc + 1;
-  float* Ps = sm;                 // GATE_T x hp
-  float* Gs = sm + GATE_T * hp;   // GATE_N x hp
-  const int r = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * GATE_T;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int e = tid; e < GATE_T * hc; e += 256) {
-    const int i = e / hc, c = e - i * hc, t = t0 + i;
-    Ps[i * hp + c] = t < T ? p[((long)r * T + t) * ldp + h * hc + c] : 0.f;
-  }
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int n0 = 0; n0 < Ng; n0 += GATE_N) {
-    __syncthreads();
-    for (int e = tid; e < GATE_N * hc; e += 256) {
-      const int i = e / hc, c = e - i * hc, n = n0 + i;
-      Gs[i * hp + c] = n < Ng ? gp[((long)r * Ng + n) * emb + h * hc + c] : 0.f;
-    }
-    __syncthreads();
-    float acc[4][4] = {};
-    for (int c = 0; c < hc; ++c) {
-      float pv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(warp * 4 + i) * hp + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = Gs[(lane + 32 * j) * hp + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], gv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (n0 + lane + 32 * j < Ng)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i] = fmaxf(mx[i], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float m = warp_max(mx[i]);
-    const int t = t0 + warp * 4 + i;
-    if (t >= T) continue;
-    const float gate = 1.f / (1.f + expf(-(m / sqrt_hc + battn[h])));
-    float* row = dst + ((long)r * T + t) * ldd + h * och;
-    for (int j = lane; j < och; j += 32) row[j] *= gate;
-  }
-}
+#include "csp.cuh"
 
 // x (R*T, Cin), guide (R*Ng, Fg), mask (R*T). Weights in torch layout:
 // wmain (2mid, Cin); per MHCA block bi (3 of them, stacked): dw (3, mid, 3),

@@ -1,13 +1,24 @@
 // Plain tiled fp32 GEMM shared by the MHCA and CSP kernels.
 //
-//   C[m, n] = epilogue( sum_k A[m, k] * B[n, k] )      (B in torch Linear layout)
-//   epilogue: (acc + bias[n]) * scale * rowmask[m]
+//   C[m, n] = epilogue( sum_k A(m, k) * B(n, k) )
+//   epilogue: (acc + bias[n]) * scale * rowmask[m]  (+ C[m, n] when beta)
 //
-// A and C are addressed with a row stride, so a product can read from and
-// write straight into a column slice of a wider buffer (the CSP concat).
+// Operand layouts (row strides lda / ldb):
+//   A(m, k) = A[m * lda + k], or A[k * lda + m] with transA;
+//   B(n, k) = B[n * ldb + k] (torch Linear layout), or B[k * ldb + n] with
+//   transB. A and C are addressed with a row stride, so a product can read
+//   from and write straight into a column slice of a wider buffer (the CSP
+//   concat). The forward uses A.B^T; the backward's input grads use A.B
+//   (transB) and its weight grads A^T.B (transA + transB), which reduce over
+//   all R*T rows inside one launch: each output element is summed by one
+//   thread in a fixed order, so two runs give the same bits.
+// kmask[k] zeroes A(m, k) (a row mask of the rows being reduced over).
 // With taps == 3 the A loader is a k=3 "same" convolution over time written
-// as one product of depth 3*Kc: k = tap * Kc + c reads A at row m + tap - 1,
-// and zero outside the sequence (rows are (sequence, t) with t = m % seq).
+// as one product of depth 3*Kc: k = tap * Kc + c reads A at row
+// m + tapdir * (tap - 1), zero outside the sequence (rows are (sequence, t)
+// with t = m % seq); tapdir = -1 is the transposed conv of the backward.
+// With btaps == 3 (transB only) the B loader does the same on the n index:
+// n = tap * Kc + c reads B at row k + tap - 1 (the conv's weight grad).
 //
 // Bound: FFMA only, so the fp32 non-tensor peak of the card. Shared-memory
 // tiles of BM x 8 and BN x 8, 256 threads, each holding a TM x TN block of
@@ -24,33 +35,64 @@ struct GemmArgs {
   float* C; long ldc;
   const float* bias;            // (N) or nullptr
   const unsigned char* rowmask; // (M) or nullptr
+  const unsigned char* kmask;   // (K) or nullptr
   float scale;
   int M, N, K;
-  int taps;                     // 1, or 3 for the k=3 conv loader
-  int Kc;                       // channels per tap (taps == 3)
-  int seq;                      // sequence length (taps == 3)
+  int taps;                     // 1, or 3 for the k=3 conv loader on A
+  int tapdir;                   // +1 (forward conv) or -1 (its transpose)
+  int btaps;                    // 1, or 3 for the k=3 loader on B's n index
+  int Kc;                       // channels per tap
+  int seq;                      // sequence length (taps or btaps == 3)
+  int transA, transB, beta;
 };
 
-constexpr int GEMM_MAX_BATCH = 3;
+constexpr int GEMM_MAX_BATCH = 4;
 struct GemmBatch { GemmArgs g[GEMM_MAX_BATCH]; };
 
+// FWD (A.B^T, the forward's only layout) compiles without the backward's
+// options: no kmask, tapdir +1, no beta.
+template <bool TA, bool FWD>
 __device__ __forceinline__ float gemm_load_a(const GemmArgs& p, int m, int k) {
   if (m >= p.M || k >= p.K) return 0.f;
+  if (!FWD && p.kmask && !p.kmask[k]) return 0.f;
+  if (TA) return p.A[(long)k * p.lda + m];
   if (p.taps == 1) return p.A[(long)m * p.lda + k];
   const int tap = k / p.Kc, c = k - tap * p.Kc;
-  const int t = m % p.seq + tap - 1;
+  const int dt = FWD ? tap - 1 : p.tapdir * (tap - 1);
+  const int t = m % p.seq + dt;
   if (t < 0 || t >= p.seq) return 0.f;
-  return p.A[(long)(m + tap - 1) * p.lda + c];
+  return p.A[(long)(m + dt) * p.lda + c];
+}
+
+template <bool TB>
+__device__ __forceinline__ float gemm_load_b(const GemmArgs& p, int n, int k) {
+  if (n >= p.N || k >= p.K) return 0.f;
+  if (!TB) return p.B[(long)n * p.ldb + k];
+  if (p.btaps == 1) return p.B[(long)k * p.ldb + n];
+  const int tap = n / p.Kc, c = n - tap * p.Kc;
+  const int t = k % p.seq + tap - 1;
+  if (t < 0 || t >= p.seq) return 0.f;
+  return p.B[(long)(k + tap - 1) * p.ldb + c];
 }
 
 // Rows/columns of a thread's TM x TN block come in groups of 4 spaced 64
 // apart, so that a quarter warp's float4 shared-memory reads are contiguous.
-template <int TM, int TN>
-__global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch) {
+// TA / TB: the operand layouts (transA / transB) of every product of the
+// batch, compiled in so that the forward's loaders carry no layout branch.
+// With splits > 1 (weight grads only, TA) blockIdx.z = product * splits +
+// slice: the block sums its slice of K and stores the raw partial into
+// part (one slot of `slot` floats per block z) for gemm_splitk_reduce_kernel.
+template <int TM, int TN, bool TA, bool TB>
+__global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch, int splits,
+                                                      int kchunk, float* part, long slot) {
   constexpr int BM = 16 * TM, BN = 16 * TN, BK = 8;
-  const GemmArgs p = batch.g[blockIdx.z];
+  constexpr bool FWD = !TA && !TB;
+  const int z = TA ? blockIdx.z / splits : blockIdx.z;
+  const GemmArgs p = batch.g[z];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= p.M || n0 >= p.N) return;
+  const int kbeg = TA ? (blockIdx.z % splits) * kchunk : 0;
+  const int kend = TA ? min(p.K, kbeg + kchunk) : p.K;
 
   __shared__ __align__(16) float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BN + 4];
@@ -62,17 +104,20 @@ __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    // neighbouring threads read neighbouring addresses: along k for a
+    // row-major operand, along m (n) for a transposed one
 #pragma unroll
     for (int i = 0; i < BM * BK / 256; ++i) {
-      const int e = tid + i * 256, r = e / BK, kk = e % BK;
-      As[kk][r] = gemm_load_a(p, m0 + r, k0 + kk);
+      const int e = tid + i * 256;
+      const int r = TA ? e % BM : e / BK, kk = TA ? e / BM : e % BK;
+      As[kk][r] = !TA || k0 + kk < kend ? gemm_load_a<TA, FWD>(p, m0 + r, k0 + kk) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < BN * BK / 256; ++i) {
-      const int e = tid + i * 256, r = e / BK, kk = e % BK;
-      const int n = n0 + r, k = k0 + kk;
-      Bs[kk][r] = (n < p.N && k < p.K) ? p.B[(long)n * p.ldb + k] : 0.f;
+      const int e = tid + i * 256;
+      const int r = TB ? e % BN : e / BK, kk = TB ? e / BN : e % BK;
+      Bs[kk][r] = gemm_load_b<TB>(p, n0 + r, k0 + kk);
     }
     __syncthreads();
 #pragma unroll
@@ -96,6 +141,19 @@ __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch) {
     __syncthreads();
   }
 
+  if (TA && splits > 1) {
+    float* out = part + blockIdx.z * slot;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + (j >> 2) * 64 + tx * 4 + (j & 3);
+        if (m < p.M && n < p.N) out[(long)m * p.N + n] = acc[i][j];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
@@ -108,27 +166,95 @@ __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch) {
       if (n >= p.N) continue;
       float v = acc[i][j];
       if (p.bias) v += p.bias[n];
-      crow[n] = v * p.scale * mk;
+      v = v * p.scale * mk;
+      crow[n] = !FWD && p.beta ? crow[n] + v : v;
     }
   }
 }
 
-// Launch `count` independent products (count <= GEMM_MAX_BATCH) as one grid.
-static int launch_gemm(const GemmBatch& batch, int count, cudaStream_t stream) {
-  long maxM = 0, maxN = 0;
+// C = epilogue(sum of the splits' partials, in slice order); grid (ceil(M*N
+// / 256), count).
+__global__ void __launch_bounds__(256) gemm_splitk_reduce_kernel(const GemmBatch batch,
+                                                                 int splits,
+                                                                 const float* part,
+                                                                 long slot) {
+  const GemmArgs& p = batch.g[blockIdx.y];
+  const long e = (long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (long)p.M * p.N) return;
+  const int m = (int)(e / p.N), n = (int)(e - (long)m * p.N);
+  const float* src = part + (long)blockIdx.y * splits * slot + e;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += src[s * slot];
+  if (p.bias) v += p.bias[n];
+  v = v * p.scale * (p.rowmask ? (p.rowmask[m] ? 1.f : 0.f) : 1.f);
+  float* c = p.C + (long)m * p.ldc + n;
+  *c = p.beta ? *c + v : v;
+}
+
+constexpr int GEMM_MAX_SPLITS = 8;
+
+// floats of split-K scratch for weight-grad products of at most mn outputs
+static long gemm_splitk_floats(long mn) { return (long)GEMM_MAX_BATCH * GEMM_MAX_SPLITS * mn; }
+
+template <bool TA, bool TB>
+static int launch_gemm_layout(const GemmBatch& batch, int count, cudaStream_t stream,
+                              float* part, long part_floats) {
+  long maxM = 0, maxN = 0, maxK = 0;
   for (int i = 0; i < count; ++i) {
-    if (batch.g[i].M > maxM) maxM = batch.g[i].M;
-    if (batch.g[i].N > maxN) maxN = batch.g[i].N;
+    maxM = std::max(maxM, (long)batch.g[i].M);
+    maxN = std::max(maxN, (long)batch.g[i].N);
+    maxK = std::max(maxK, (long)batch.g[i].K);
   }
   const long big_tiles = (long)ceil_div(maxM, 128) * ceil_div(maxN, 128) * count;
-  if (big_tiles >= 2 * 132) {
+  if (!TA && big_tiles >= 2 * 132) {
     dim3 grid(ceil_div(maxN, 128), ceil_div(maxM, 128), count);
-    gemm_tn_kernel<8, 8><<<grid, 256, 0, stream>>>(batch);
-  } else {
-    dim3 grid(ceil_div(maxN, 64), ceil_div(maxM, 64), count);
-    gemm_tn_kernel<4, 4><<<grid, 256, 0, stream>>>(batch);
+    gemm_tn_kernel<8, 8, TA, TB><<<grid, 256, 0, stream>>>(batch, 1, 0, nullptr, 0);
+    UNAV_RETURN_IF_ERROR();
+    return 0;
   }
+  // weight grads: few output tiles over a long K (all R*T rows), so split K
+  // until the grid holds ~2 blocks per SM, each slice at least 256 deep
+  const long tiles = (long)ceil_div(maxM, 64) * ceil_div(maxN, 64) * count;
+  int splits = 1;
+  if (TA && part)
+    splits = (int)std::min<long>({(long)GEMM_MAX_SPLITS, ceil_div(2 * 132, tiles),
+                                  std::max(1L, maxK / 256),
+                                  part_floats / std::max(1L, (long)count * maxM * maxN)});
+  splits = std::max(splits, 1);
+  const int kchunk = ceil_div(ceil_div(maxK, splits), 8) * 8;
+  splits = ceil_div(maxK, kchunk);
+  dim3 grid(ceil_div(maxN, 64), ceil_div(maxM, 64), count * splits);
+  gemm_tn_kernel<4, 4, TA, TB><<<grid, 256, 0, stream>>>(batch, splits, kchunk, part,
+                                                           maxM * maxN);
   UNAV_RETURN_IF_ERROR();
+  if (splits > 1) {
+    gemm_splitk_reduce_kernel<<<dim3(ceil_div(maxM * maxN, 256), count), 256, 0, stream>>>(
+        batch, splits, part, maxM * maxN);
+    UNAV_RETURN_IF_ERROR();
+  }
+  return 0;
+}
+
+// Launch `count` independent products (count <= GEMM_MAX_BATCH): one grid
+// for each operand layout present, in the order A.B^T, A.B, A^T.B. With
+// `part` (gemm_splitk_floats of the largest weight grad) the A^T.B
+// products split K, deterministically.
+static int launch_gemm(const GemmBatch& batch, int count, cudaStream_t stream,
+                       float* part = nullptr, long part_floats = 0) {
+  for (int layout = 0; layout < 3; ++layout) {
+    GemmBatch sub;
+    int n = 0;
+    for (int i = 0; i < count; ++i) {
+      const GemmArgs& p = batch.g[i];
+      if ((p.transA ? 2 : p.transB ? 1 : 0) == layout) sub.g[n++] = p;
+    }
+    if (!n) continue;
+    const int rc =
+        layout == 0   ? launch_gemm_layout<false, false>(sub, n, stream, nullptr, 0)
+        : layout == 1 ? launch_gemm_layout<false, true>(sub, n, stream, nullptr, 0)
+                      : launch_gemm_layout<true, true>(sub, n, stream, part, part_floats);
+    if (rc) return rc;
+  }
   return 0;
 }
 
@@ -138,7 +264,25 @@ static GemmArgs gemm_args(const float* A, long lda, const float* B, long ldb,
                           int M, int N, int K) {
   GemmArgs a;
   a.A = A; a.lda = lda; a.B = B; a.ldb = ldb; a.C = C; a.ldc = ldc;
-  a.bias = bias; a.rowmask = rowmask; a.scale = scale;
-  a.M = M; a.N = N; a.K = K; a.taps = 1; a.Kc = K; a.seq = 1;
+  a.bias = bias; a.rowmask = rowmask; a.kmask = nullptr; a.scale = scale;
+  a.M = M; a.N = N; a.K = K; a.taps = 1; a.tapdir = 1; a.btaps = 1; a.Kc = K;
+  a.seq = 1; a.transA = 0; a.transB = 0; a.beta = 0;
+  return a;
+}
+
+// C (ldc) = A (lda) . B with B stored (K, N) row-major (ldb): an input grad.
+static GemmArgs gemm_nn(const float* A, long lda, const float* B, long ldb, float* C,
+                        long ldc, const unsigned char* rowmask, int M, int N, int K) {
+  GemmArgs a = gemm_args(A, lda, B, ldb, C, ldc, nullptr, rowmask, 1.f, M, N, K);
+  a.transB = 1;
+  return a;
+}
+
+// C (M, N) = A^T . B with A stored (K, M) and B stored (K, N), the K rows
+// optionally masked: a weight grad summed over K = R*T rows.
+static GemmArgs gemm_wgrad(const float* A, long lda, const float* B, long ldb, float* C,
+                           const unsigned char* kmask, int M, int N, int K) {
+  GemmArgs a = gemm_args(A, lda, B, ldb, C, N, nullptr, nullptr, 1.f, M, N, K);
+  a.transA = 1; a.transB = 1; a.kmask = kmask;
   return a;
 }

@@ -1,4 +1,4 @@
-// C entry point of the MaskedMHCA kernel (see mhca.cuh).
+// C entry points of the MaskedMHCA kernels (see mhca.cuh).
 #include "mhca.cuh"
 
 extern "C" int unav_mhca_forward(const float* x1, const float* x2,

@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(256) dwconv_ln_kernel(
 __global__ void __launch_bounds__(256) attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    int T, int C, int H, float* __restrict__ out) {
+    int T, int C, int H, float* __restrict__ out, float* __restrict__ lse) {
   extern __shared__ float sm[];
   const int d = C / H, dp = d + 1, Tp = T + 1;
   float* Qs = sm;                 // ATT_Q x dp
@@ -94,6 +94,7 @@ __global__ void __launch_bounds__(256) attn_kernel(
     // no valid key in this row: the reference's output is exactly 0
     for (int j = g8; j < d; j += 8)
       if (q0 + qi < T) out[base + (long)(q0 + qi) * C + j] = 0.f;
+    if (lse && g8 == 0 && q0 + qi < T) lse[((long)r * H + h) * T + q0 + qi] = 0.f;
     return;
   }
 
@@ -137,6 +138,8 @@ __global__ void __launch_bounds__(256) attn_kernel(
     }
     sum = warp_sum(sum);
     for (int j = lane; j < T; j += 32) s[j] = s[j] / sum;
+    const int qrow = q0 + warp * (ATT_Q / 8) + i;
+    if (lse && lane == 0 && qrow < T) lse[((long)r * H + h) * T + qrow] = mx + logf(sum);
   }
   // P.V: thread (qi, g8) owns output dims g8, g8 + 8, ...
   float o[ATT_MAX_D / 8];
@@ -173,18 +176,15 @@ static size_t attn_smem_bytes(int T, int d) {
   return sizeof(float) * ((size_t)(ATT_Q + 32) * (d + 1) + (size_t)ATT_Q * (T + 1));
 }
 
-// One MaskedMHCA forward. x1 (k/v source) and x2 (q source) are (R*T, C)
-// with row strides ld1/ld2; out has row stride ldo. Weights: dw (3, C, 3)
-// [q/k/v, channel, tap], lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in],
-// b (4, C). scratch holds 6 * R * T * C floats.
-static int mhca_forward_impl(const float* x1, long ld1, const float* x2, long ld2,
-                             const unsigned char* mask, int R, int T, int C, int H,
-                             const float* dw, const float* lnw, const float* lnb,
-                             const float* w, const float* b, float eps,
-                             float* out, long ldo, float* scratch, cudaStream_t stream) {
+// Launches 1-3 of the forward: nrm (3 x P x C) gets the normalized q/k/v
+// inputs, qkv (3 x P x C) the projections (q scaled by 1/sqrt(d), v masked),
+// att (P x C) the attention output; lse (R x H x T) is optional.
+static int mhca_attention_impl(const float* x1, long ld1, const float* x2, long ld2,
+                               const unsigned char* mask, int R, int T, int C, int H,
+                               const float* dw, const float* lnw, const float* lnb,
+                               const float* w, const float* b, float eps, float* nrm,
+                               float* qkv, float* att, float* lse, cudaStream_t stream) {
   const long P = (long)R * T, PC = P * C;
-  float* nrm = scratch;            // normalized q/k/v, later the attention output
-  float* qkv = scratch + 3 * PC;   // projected q/k/v
   const int d = C / H;
 
   const int blocks = ceil_div(P, 8);  // 8 warps, one frame each
@@ -212,9 +212,27 @@ static int mhca_forward_impl(const float* x1, long ld1, const float* x2, long ld
   const size_t smem = attn_smem_bytes(T, d);
   cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid(ceil_div(T, ATT_Q), H, R);
-  attn_kernel<<<grid, 256, smem, stream>>>(qkv, qkv + PC, qkv + 2 * PC, mask, T, C, H, nrm);
+  attn_kernel<<<grid, 256, smem, stream>>>(qkv, qkv + PC, qkv + 2 * PC, mask, T, C, H, att,
+                                           lse);
   UNAV_RETURN_IF_ERROR();
+  return 0;
+}
 
+// One MaskedMHCA forward. x1 (k/v source) and x2 (q source) are (R*T, C)
+// with row strides ld1/ld2; out has row stride ldo. Weights: dw (3, C, 3)
+// [q/k/v, channel, tap], lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in],
+// b (4, C). scratch holds 6 * R * T * C floats.
+static int mhca_forward_impl(const float* x1, long ld1, const float* x2, long ld2,
+                             const unsigned char* mask, int R, int T, int C, int H,
+                             const float* dw, const float* lnw, const float* lnb,
+                             const float* w, const float* b, float eps,
+                             float* out, long ldo, float* scratch, cudaStream_t stream) {
+  const long P = (long)R * T, PC = P * C;
+  float* nrm = scratch;            // normalized q/k/v, later the attention output
+  float* qkv = scratch + 3 * PC;   // projected q/k/v
+  int rc = mhca_attention_impl(x1, ld1, x2, ld2, mask, R, T, C, H, dw, lnw, lnb, w, b,
+                               eps, nrm, qkv, nrm, nullptr, stream);
+  if (rc) return rc;
   GemmBatch proj;
   proj.g[0] = gemm_args(nrm, C, w + 3L * C * C, C, out, ldo, b + 3L * C, mask, 1.f,
                         (int)P, C, C);

@@ -10,7 +10,7 @@ reference's never-called cross-attention blocks are not allocated.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,7 +65,8 @@ class ConvTransformerBackbone(nn.Module):
             [DownsamplePyramidLevel(n_embd, scale_factor) for _ in range(arch[2])])
         self.fusion_module = FusionModule(n_embd, seq_len=max_len, num_levels=arch[2] + 1)
 
-    def forward(self, x_v, x_a, mask):
+    def forward(self, x_v, x_a, mask, generator: Optional[torch.Generator] = None):
+        """`generator` draws the stem's stochastic depth in training."""
         mask_v = mask_a = mask
         t = x_v.shape[1]
         for conv_v, norm_v, conv_a, norm_a in zip(self.embd_V, self.embd_norm_V,
@@ -83,8 +84,8 @@ class ConvTransformerBackbone(nn.Module):
             x_a = x_a + pe[None] * mask_a[..., None].to(x_a.dtype)
 
         for blk_v, blk_a in zip(self.self_att_V, self.self_att_A):
-            x_v, mask_v = blk_v(x_v, x_v, mask_v)
-            x_a, mask_a = blk_a(x_a, x_a, mask_a)
+            x_v, mask_v = blk_v(x_v, x_v, mask_v, generator)
+            x_a, mask_a = blk_a(x_a, x_a, mask_a, generator)
 
         b = x_v.shape[0]
         both = [torch.cat([x_v, x_a], dim=0)]

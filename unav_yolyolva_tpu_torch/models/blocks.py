@@ -3,15 +3,15 @@
 Modules and parameters are named after the reference torch key space
 (`utils/convert.py`), so their state_dict has the reference layouts:
 Conv1d weights (out, in/groups, k), channel LayerNorm (1, C, 1),
-AffineDropPath scale (1, C, 1). The port covers the eval forward: stochastic
-depth is not drawn (it waits for the train path), the per-channel
-AffineDropPath scale still multiplies.
+AffineDropPath scale (1, C, 1). Stochastic depth is drawn only in training
+mode (`nn.Module.training`, the JAX package's `train=`), from an explicit
+torch.Generator that the caller passes down.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,15 +65,32 @@ class ChannelLayerNorm(nn.Module):
         return channel_layer_norm(x, self.weight.view(-1), self.bias.view(-1), self.eps)
 
 
-class AffineDropPath(nn.Module):
-    """Per-channel learnable scale (stochastic depth is a train-time draw)."""
+def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> torch.Tensor:
+    """Stochastic depth per sample: x / keep * floor(keep + U[0, 1)), one
+    uniform draw per row of the batch from `generator`."""
+    keep = 1.0 - drop_prob
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
+                   device=x.device, dtype=x.dtype)
+    return x / keep * torch.floor(keep + u)
 
-    def __init__(self, num_dim: int):
+
+class AffineDropPath(nn.Module):
+    """Per-channel learnable scale, then stochastic depth in training."""
+
+    def __init__(self, num_dim: int, drop_prob: float = 0.0):
         super().__init__()
+        self.drop_prob = drop_prob
         self.scale = nn.Parameter(torch.empty(1, num_dim, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale.view(1, 1, -1)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x * self.scale.view(1, 1, -1)
+        if self.training and self.drop_prob > 0.0:
+            if generator is None:
+                raise ValueError("AffineDropPath: training with drop_prob > 0 needs a "
+                                 "torch.Generator")
+            x = drop_path(x, self.drop_prob, generator)
+        return x
 
 
 class LearnableScale(nn.Module):
@@ -164,10 +181,10 @@ class TransformerBlock(nn.Module):
                                  nn.Identity(), Conv1x1(4 * n_embd, n_embd))
         self.use_drop_path = path_pdrop > 0.0
         if self.use_drop_path:
-            self.drop_path_attn = AffineDropPath(n_embd)
-            self.drop_path_mlp = AffineDropPath(n_embd)
+            self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
+            self.drop_path_mlp = AffineDropPath(n_embd, path_pdrop)
 
-    def forward(self, x1, x2, mask):
+    def forward(self, x1, x2, mask, generator: Optional[torch.Generator] = None):
         out, out_mask = self.attn(self.ln11(x1), self.ln12(x2), mask)
         om = out_mask[..., None].to(out.dtype)
         s = self.n_ds_strides[0]
@@ -175,7 +192,7 @@ class TransformerBlock(nn.Module):
             skip = F.max_pool1d(x1.transpose(1, 2), s + 1, s, (s + 1) // 2).transpose(1, 2)
         else:
             skip = x1
-        out = skip * om + (self.drop_path_attn(out) if self.use_drop_path else out)
+        out = skip * om + (self.drop_path_attn(out, generator) if self.use_drop_path else out)
         h = self.mlp(self.ln2(out)) * om
-        out = out + (self.drop_path_mlp(h) if self.use_drop_path else h)
+        out = out + (self.drop_path_mlp(h, generator) if self.use_drop_path else h)
         return out, out_mask

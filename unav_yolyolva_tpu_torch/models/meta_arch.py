@@ -1,6 +1,6 @@
 """LocPointTransformer: Alignment -> backbone (fusion pyramid) -> per-level
 concat(V, A) -> cls/reg heads, plus the contrastive and score losses the
-forward reports."""
+forward reports, and `compute_losses`, the train loss assembly."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..ops.losses import ctr_diou_loss_1d, diou_pair_weights, sigmoid_focal_loss
 from .alignment import Alignment
 from .backbone import ConvTransformerBackbone
 from .blocks import AffineDropPath, ChannelLayerNorm, Conv1x1, LearnableScale
@@ -100,15 +101,17 @@ class LocPointTransformer(nn.Module):
                                 head_kernel_size, head_with_ln, class_aware)
         self.contrastive_losses = ContrastiveLosses()
 
-    def forward(self, batch: Dict[str, torch.Tensor], with_losses: bool = True):
+    def forward(self, batch: Dict[str, torch.Tensor], with_losses: bool = True,
+                generator: Optional[torch.Generator] = None):
         """batch: visual (B, T, Dv), audio (B, T, Da), mask (B, T) bool and,
-        with losses, the frame targets m_start_end, m_scores, m_labels."""
+        with losses, the frame targets m_start_end, m_scores, m_labels.
+        In training mode `generator` draws the stochastic depth."""
         mask = batch["mask"]
         targets = ((batch["m_start_end"], batch["m_scores"], batch["m_labels"])
                    if with_losses else None)
         v_al, a_al, aux = self.alignment(batch["visual"], batch["audio"], mask,
                                          mask, targets)
-        feats_v, feats_a, masks = self.backbone(v_al, a_al, mask)
+        feats_v, feats_a, masks = self.backbone(v_al, a_al, mask, generator)
         feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
         cls_logits = self.cls_head(feats, masks)
         offsets = self.reg_head(feats, masks)
@@ -123,6 +126,63 @@ class LocPointTransformer(nn.Module):
                        score_loss_video=aux["score_loss_video"],
                        score_loss_text=aux["score_loss_text"])
         return out
+
+
+def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: torch.Tensor,
+                   loss_normalizer: torch.Tensor, *, class_aware: bool = True,
+                   loss_weight: float = 1.0, inter_weight: float = 0.001,
+                   intra_weight: float = 1.0, score_v_weight: float = 0.001,
+                   score_a_weight: float = 0.001, label_smoothing: float = 0.0,
+                   normalizer_momentum: float = 0.9):
+    """Loss assembly, sum-reduced, of the forward's outputs against dense
+    targets gt_cls (B, P, C) and gt_offsets (B, P, C, 2) or (B, P, 2).
+
+    Reference quirks kept: every reported loss is divided by the NUMBER OF
+    PYRAMID LEVELS (the reference's `B = len(fpn_masks)`), not the batch;
+    the normalizer is an EMA (momentum 0.9) of max(num_pos, 1); with
+    loss_weight <= 0 the reg weight is cls/reg of the detached losses; the
+    reg loss is 0 without positives. Returns (losses, new_normalizer)."""
+    num_classes = gt_cls.shape[-1]
+    level_div = float(len(outputs["masks"]))
+    valid_mask = torch.cat(outputs["masks"], dim=1)                  # (B, P)
+    cls_logits = torch.cat(outputs["cls_logits"], dim=1)             # (B, P, C)
+    pred_offsets = torch.cat(outputs["offsets"], dim=1)
+
+    pos_mask = (gt_cls.sum(dim=-1) > 0) & valid_mask
+    num_pos = pos_mask.sum()
+    new_normalizer = normalizer_momentum * loss_normalizer + (
+        1.0 - normalizer_momentum) * num_pos.float().clamp(min=1.0)
+
+    gt_target = gt_cls * (1.0 - label_smoothing) + label_smoothing / (num_classes + 1)
+    cls_loss = sigmoid_focal_loss(cls_logits, gt_target, reduction="sum",
+                                  weights=valid_mask[..., None].float()) / new_normalizer
+    if class_aware:
+        reg_w = pos_mask[..., None].float() * diou_pair_weights(gt_offsets)
+    else:
+        reg_w = pos_mask.float()
+    reg_raw = ctr_diou_loss_1d(pred_offsets, gt_offsets, reduction="sum", weights=reg_w)
+    reg_loss = torch.where(num_pos > 0, reg_raw / new_normalizer, torch.zeros_like(reg_raw))
+
+    if loss_weight > 0:
+        w = loss_weight
+    else:
+        w = cls_loss.detach() / reg_loss.detach().clamp(min=0.01)
+
+    inter, intra = outputs["inter_loss"], outputs["intra_loss"]
+    score_v, score_t = outputs["score_loss_video"], outputs["score_loss_text"]
+    final = (cls_loss + reg_loss * w + inter * inter_weight + intra * intra_weight
+             + score_v * score_v_weight + score_t * score_a_weight)
+    losses = {
+        "cls_loss": cls_loss / level_div,
+        "reg_loss": (reg_loss * w) / level_div,
+        "inter_contr_loss": (inter * inter_weight) / level_div,
+        "intra_contr_loss": (intra * intra_weight) / level_div,
+        "score_loss_video": (score_v * score_v_weight) / level_div,
+        "score_loss_audio": (score_t * score_a_weight) / level_div,
+        "final_loss": final / level_div,
+        "num_pos": num_pos,
+    }
+    return losses, new_normalizer
 
 
 @torch.no_grad()

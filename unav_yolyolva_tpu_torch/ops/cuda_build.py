@@ -15,11 +15,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("mhca", "csp", "nms")
+KERNEL_SOURCES = ("mhca", "mhca_bwd", "csp", "csp_bwd", "nms")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -74,17 +74,21 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     return reports
 
 
-def library(name: str, argtypes: Dict[str, Sequence]) -> ctypes.CDLL:
+def library(name: str, argtypes: Dict[str, Sequence],
+            restypes: Dict[str, Tuple[Sequence, type]] = None) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed, with `argtypes`
-    declared on its entry points (each returns a cudaError_t as int)."""
+    declared on its entry points (each returns a cudaError_t as int) and
+    `restypes` {fn: (argtypes, restype)} on its other functions."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, types in argtypes.items():
+        table = {fn: (types, ctypes.c_int) for fn, types in argtypes.items()}
+        table.update(restypes or {})
+        for fn, (types, res) in table.items():
             f = getattr(lib, fn)
             f.argtypes = list(types)
-            f.restype = ctypes.c_int
+            f.restype = res
         lib.unav_error_string.argtypes = [ctypes.c_int]
         lib.unav_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib

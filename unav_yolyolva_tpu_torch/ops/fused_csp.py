@@ -14,6 +14,13 @@ slice of one concat buffer (GEMM epilogue with output stride and column
 offset), runs guide_fc as one GEMM over the whole batch, and handles the
 ragged small levels (T = 7, 14, 28) by bounds checks instead of padding.
 
+The backward (`csp_backward`) replaces the Pallas kernel `_csp_bwd_kernel` /
+`_csp_diff_bwd` (pallas_csp.py:243-391): it recomputes the layer from the
+inputs and weights, as the TPU kernel does, and walks it in reverse
+(csrc/csp_bwd.cu); the max over guide tokens routes its grad to the argmax
+token(s), split evenly over ties. On CUDA with grad enabled, `fused_csp`
+runs through `CSPFunction`, whose backward is that kernel.
+
 Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
 stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
 w (3, 4, mid, mid), b (3, 4, mid); wg (emb, Fg), bg (emb), battn (H),
@@ -29,12 +36,16 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .cuda_build import FLOAT, INT, PTR
+from .cuda_build import FLOAT, INT, LONG, PTR
 from .fused_mhca import MAX_T, _check, mhca_reference
 
 _ARGTYPES = {
     "unav_csp_forward": [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5,
 }
+_BWD_ARGTYPES = {
+    "unav_csp_backward": [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19,
+}
+_BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
 
 
 def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
@@ -62,35 +73,46 @@ def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
     return F.linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
 
 
-def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
-              wproj, bproj, wfinal, bfinal, *, attn_heads: int,
-              mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
-    """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens, with
-    a (R, T) bool mask. CPU tensors take the plain version; CUDA tensors
-    launch the kernel sequence."""
-    args = (x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
-            wproj, bproj, wfinal, bfinal)
-    if x.device.type == "cpu":
-        return csp_reference(*args, attn_heads=attn_heads, mhca_heads=mhca_heads,
-                             eps=eps)
+def csp_backward_reference(x, guide, mask, *weights, g, attn_heads: int,
+                           mhca_heads: int = 4, eps: float = 1e-5):
+    """Plain version of the backward: (dx, dguide, grad of each of the 14
+    weights), torch.autograd.grad of `csp_reference` for the upstream grad
+    g."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, guide, *weights)]
+        out = csp_reference(ins[0], ins[1], mask, *ins[2:], attn_heads=attn_heads,
+                            mhca_heads=mhca_heads, eps=eps)
+        return torch.autograd.grad(out, ins, g)
+
+
+def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+                wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads):
     r, t, cin = x.shape
     _, ng, fg = guide.shape
     mid, cout = w.shape[-1], wfinal.shape[0]
     if (mid % attn_heads or mid % mhca_heads or mid // mhca_heads > 128
-            or mid > 1024 or t > MAX_T or wg.shape[0] != mid):
+            or mid // attn_heads > 128 or mid > 1024 or t > MAX_T or wg.shape[0] != mid):
         raise ValueError(f"fused_csp: unsupported shape (T={t}, mid={mid}, "
                          f"heads={attn_heads}/{mhca_heads}, emb={wg.shape[0]})")
-    wproj = wproj.permute(0, 2, 1).contiguous()                   # (mid, 3, mid)
     for name, ten, shape in (
         ("x", x, None), ("guide", guide, (r, ng, fg)), ("wmain", wmain, (2 * mid, cin)),
         ("bmain", bmain, (2 * mid,)), ("dw", dw, (3, 3, mid, 3)), ("lnw", lnw, (3, 3, mid)),
         ("lnb", lnb, (3, 3, mid)), ("w", w, (3, 4, mid, mid)), ("b", b, (3, 4, mid)),
         ("wg", wg, (mid, fg)), ("bg", bg, (mid,)), ("battn", battn, (attn_heads,)),
-        ("wproj", wproj, (mid, 3, mid)), ("bproj", bproj, (mid,)),
+        ("wproj", wproj, (mid, mid, 3)), ("bproj", bproj, (mid,)),
         ("wfinal", wfinal, (cout, 6 * mid)), ("bfinal", bfinal, (cout,)),
     ):
         _check(ten, name, shape)
     _check(mask, "mask", (r, t), torch.bool)
+    return r, t, cin, mid, ng, fg, cout
+
+
+def _forward_kernel(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+                    wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps):
+    r, t, cin, mid, ng, fg, cout = _check_args(
+        x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
+        wfinal, bfinal, attn_heads, mhca_heads)
+    wproj = wproj.permute(0, 2, 1).contiguous()                   # (mid, 3, mid)
     dev = x.device
     out = torch.empty((r, t, cout), device=dev, dtype=torch.float32)
     cat = torch.empty(r * t * 6 * mid, device=dev, dtype=torch.float32)
@@ -111,4 +133,77 @@ def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
     return out
 
 
+def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,
+                 eps: float = 1e-5):
+    """Grads of the CSP layer forward for the upstream grad g (R, T, Cout):
+    (dx, dguide, grad of each of the 14 weights), each in its input's layout
+    (wproj's as (mid, mid, 3)). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return csp_backward_reference(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
+                                      mhca_heads=mhca_heads, eps=eps)
+    r, t, cin, mid, ng, fg, cout = _check_args(x, guide, mask, *weights, attn_heads,
+                                               mhca_heads)
+    _check(g, "g", (r, t, cout))
+    wproj = weights[10]
+    wproj_k = wproj.permute(0, 2, 1).contiguous()                 # (mid, 3, mid)
+    wproj_t = wproj.permute(2, 0, 1).contiguous()                 # (3, mid, mid)
+    ws = list(weights[:10]) + [wproj_k, wproj_t] + list(weights[11:])
+    grads = [torch.empty_like(a) for a in (x, guide, *weights[:10], wproj_k, *weights[11:])]
+    lib = cuda_build.library("csp_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
+    scratch = torch.empty(lib.unav_csp_backward_scratch(r, t, cin, mid, ng, fg, cout,
+                                                        attn_heads, mhca_heads),
+                          device=x.device, dtype=torch.float32)
+    rc = lib.unav_csp_backward(
+        x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
+        attn_heads, mhca_heads, *[a.data_ptr() for a in ws], eps, g.data_ptr(),
+        *[a.data_ptr() for a in grads], scratch.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "csp_backward")
+    csp_backward.launches += 1
+    grads[12] = grads[12].permute(0, 2, 1).contiguous()          # -> (mid, mid, 3)
+    return tuple(grads)
+
+
+class CSPFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. Like the
+    JAX custom_vjp it saves only the inputs and weights; the mask gets no
+    grad."""
+
+    @staticmethod
+    def forward(ctx, x, guide, mask, *rest):
+        *weights, attn_heads, mhca_heads, eps = rest
+        ctx.save_for_backward(x, guide, mask, *weights)
+        ctx.heads = (attn_heads, mhca_heads, eps)
+        return _forward_kernel(x, guide, mask, *weights, attn_heads, mhca_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, guide, mask, *weights = ctx.saved_tensors
+        attn_heads, mhca_heads, eps = ctx.heads
+        dx, dguide, *gws = csp_backward(x, guide, mask, *weights, g=g.contiguous(),
+                                        attn_heads=attn_heads, mhca_heads=mhca_heads,
+                                        eps=eps)
+        return (dx, dguide, None, *gws, None, None, None)
+
+
+def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+              wproj, bproj, wfinal, bfinal, *, attn_heads: int,
+              mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
+    """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens, with
+    a (R, T) bool mask. CPU tensors take the plain version (autograd
+    differentiates it); CUDA tensors launch the kernel sequence, through
+    CSPFunction when a grad is needed."""
+    args = (x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+            wproj, bproj, wfinal, bfinal)
+    if x.device.type == "cpu":
+        return csp_reference(*args, attn_heads=attn_heads, mhca_heads=mhca_heads,
+                             eps=eps)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return CSPFunction.apply(*args, attn_heads, mhca_heads, eps)
+    return _forward_kernel(*args, attn_heads, mhca_heads, eps)
+
+
 fused_csp.launches = 0
+csp_backward.launches = 0

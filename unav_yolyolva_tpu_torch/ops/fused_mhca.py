@@ -13,6 +13,16 @@ runs them through one shared tiled fp32 GEMM (csrc/gemm.cuh) and tiles the
 attention by 32 queries so that a tile's logits against all T keys fit in
 shared memory, which the TPU's whole-(T, T) VMEM block does not.
 
+The backward (`mhca_backward`) replaces the Pallas kernel
+`_mhca_bwd_kernel` / `_mhca_diff_bwd` (pallas_fusion.py:303-573): it
+recomputes the forward from the inputs and weights (nothing else is saved)
+and walks the chain in reverse; the attention backward is split into a
+query-tiled pass (dq) and a key-tiled pass (dk, dv) so that neither needs
+atomics, and every weight grad is a fixed-order sum over all R*T rows, so
+two runs give the same bits. Bound: operations, ~2.5x the forward's
+(recompute + twice the products). On CUDA with grad enabled, `fused_mhca`
+runs through `MHCAFunction`, whose backward is that kernel.
+
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
 lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
 """
@@ -25,13 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .cuda_build import FLOAT, INT, PTR
+from .cuda_build import FLOAT, INT, LONG, PTR
 from .masked import channel_layer_norm
 
 _ARGTYPES = {
     "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                           PTR, PTR, FLOAT, PTR, PTR, PTR],
 }
+_BWD_ARGTYPES = {
+    "unav_mhca_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
+                           PTR, PTR, FLOAT] + [PTR] * 10,
+}
+_BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
 
 # longest sequence whose 32-query logits tile fits in a block's shared memory
 MAX_T = 1500
@@ -71,6 +86,16 @@ def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
     return F.linear(attend(q, k, v, mask, heads), w[3], b[3]) * mm
 
 
+def mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
+                            eps: float = 1e-5):
+    """Plain version of the backward: (dx1, dx2, gdw, glnw, glnb, gw, gb),
+    torch.autograd.grad of `mhca_reference` for the upstream grad g."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x1, x2, dw, lnw, lnb, w, b)]
+        out = mhca_reference(ins[0], ins[1], mask, *ins[2:], heads=heads, eps=eps)
+        return torch.autograd.grad(out, ins, g)
+
+
 def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
     if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous {dtype} CUDA tensor, got "
@@ -79,12 +104,7 @@ def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
-               eps: float = 1e-5) -> torch.Tensor:
-    """MaskedMHCA forward of (R, T, C) inputs with a (R, T) bool mask.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if x1.device.type == "cpu":
-        return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     r, t, c = x1.shape
     if c % heads or c // heads > 128 or c > 1024 or t > MAX_T:
         raise ValueError(f"fused_mhca: unsupported shape (T={t}, C={c}, heads={heads})")
@@ -96,6 +116,11 @@ def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
     _check(lnb, "lnb", (3, c))
     _check(w, "w", (4, c, c))
     _check(b, "b", (4, c))
+
+
+def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
+    r, t, c = x1.shape
     out = torch.empty_like(x1)
     scratch = torch.empty(6 * r * t * c, device=x1.device, dtype=torch.float32)
     lib = cuda_build.library("mhca", _ARGTYPES)
@@ -110,4 +135,63 @@ def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
     return out
 
 
+def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
+                  eps: float = 1e-5):
+    """Grads of the MaskedMHCA forward for the upstream grad g (R, T, C):
+    (dx1, dx2, gdw, glnw, glnb, gw, gb), in the layouts of the inputs. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if x1.device.type == "cpu":
+        return mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g,
+                                       heads=heads, eps=eps)
+    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
+    _check(g, "g", x1.shape)
+    r, t, c = x1.shape
+    grads = [torch.empty_like(x) for x in (x1, x2, dw, lnw, lnb, w, b)]
+    lib = cuda_build.library("mhca_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
+    scratch = torch.empty(lib.unav_mhca_backward_scratch(r, t, c, heads),
+                          device=x1.device, dtype=torch.float32)
+    rc = lib.unav_mhca_backward(
+        x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
+        dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
+        eps, g.data_ptr(), *[x.data_ptr() for x in grads], scratch.data_ptr(),
+        torch.cuda.current_stream(x1.device).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "mhca_backward")
+    mhca_backward.launches += 1
+    return tuple(grads)
+
+
+class MHCAFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. Like the
+    JAX custom_vjp it saves only the inputs and weights; the mask gets no
+    grad."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+        ctx.save_for_backward(x1, x2, mask, dw, lnw, lnb, w, b)
+        ctx.heads, ctx.eps = heads, eps
+        return _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, mask, *ws = ctx.saved_tensors
+        dx1, dx2, *gws = mhca_backward(x1, x2, mask, *ws, g.contiguous(),
+                                       heads=ctx.heads, eps=ctx.eps)
+        return (dx1, dx2, None, *gws, None, None)
+
+
+def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """MaskedMHCA forward of (R, T, C) inputs with a (R, T) bool mask.
+    CPU tensors take the plain version (autograd differentiates it); CUDA
+    tensors launch the kernel, through MHCAFunction when a grad is needed."""
+    if x1.device.type == "cpu":
+        return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    args = (x1, x2, mask, dw, lnw, lnb, w, b)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return MHCAFunction.apply(*args, heads, eps)
+    return _forward_kernel(*args, heads, eps)
+
+
 fused_mhca.launches = 0
+mhca_backward.launches = 0

@@ -1,0 +1,30 @@
+"""Train state: everything a train step changes, in one place (the model,
+its optimizer, the EMA copy, the loss-normalizer EMA and the step count)."""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .optim import ClippedAdamW
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: ClippedAdamW
+    ema: nn.Module
+    loss_normalizer: torch.Tensor   # scalar fp32 EMA of the positive count
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer: ClippedAdamW,
+                       init_loss_norm: float) -> TrainState:
+    """A state at step 0 whose EMA copy starts at the model's weights."""
+    ema = copy.deepcopy(model).eval().requires_grad_(False)
+    dev = next(model.parameters()).device
+    return TrainState(model, optimizer, ema,
+                      torch.tensor(float(init_loss_norm), device=dev))

@@ -1,0 +1,89 @@
+"""The train step: a batch of host features and padded ground-truth events
+in, one optimizer update out.
+
+In order: dense targets built on the device (label assignment and the
+per-frame targets), the forward in training mode with the stochastic depth
+drawn from a generator seeded from (seed, step), the loss assembly, the
+backward (through the MHCA and CSP backward kernels on CUDA), the global-
+norm clip and AdamW update at the scheduled learning rate, the EMA update
+and the loss-normalizer EMA.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..core.device import resolve_device
+from ..geometry.assign import assign_labels_batch, frame_targets_batch
+from ..geometry.points import concat_points, generate_points
+from ..models.meta_arch import compute_losses
+from ..utils.seed import fold_in
+from .ema import ema_update
+from .state import TrainState
+
+BATCH_KEYS = ("visual", "audio", "mask", "gt_segments", "gt_labels", "gt_valid")
+
+
+def build_targets(batch: Dict[str, torch.Tensor], points: torch.Tensor, seq_len: int,
+                  num_classes: int, class_aware: bool):
+    """(m_scores, m_start_end, m_labels, gt_cls, gt_reg) from the padded
+    events of `batch`, on its device."""
+    m_scores, m_start_end, m_labels = frame_targets_batch(
+        batch["gt_segments"], batch["gt_labels"], batch["gt_valid"], seq_len, num_classes)
+    gt_cls, gt_reg = assign_labels_batch(points, batch["gt_segments"], batch["gt_labels"],
+                                         batch["gt_valid"], num_classes, class_aware)
+    return m_scores, m_start_end, m_labels, gt_cls, gt_reg
+
+
+def loss_kwargs(cfg: Dict) -> Dict:
+    mcfg = cfg["model"]
+    return dict(
+        class_aware=mcfg["class_aware"],
+        loss_weight=cfg["train_cfg"]["loss_weight"],
+        inter_weight=mcfg["inter_contr_weight"],
+        intra_weight=mcfg["intra_contr_weight"],
+        score_v_weight=mcfg["score_V_weight"],
+        score_a_weight=mcfg["score_A_weight"],
+        label_smoothing=cfg["train_cfg"]["label_smoothing"],
+    )
+
+
+def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
+    """train_step(state, batch, seed=0) -> losses, for a state made by
+    create_train_state(model, optimizer, ...). `batch` holds visual
+    (B, T, Dv), audio (B, T, Da), mask (B, T) and the events gt_segments
+    (B, N, 2) in feature-grid units, gt_labels (B, N), gt_valid (B, N), as
+    numpy arrays or tensors. The state is updated in place; the returned
+    losses are device scalars (no host sync). Runs on CUDA unless
+    device='cpu'."""
+    device = resolve_device(device)
+    model.to(device).train()
+    mcfg = cfg["model"]
+    seq_len, num_classes = mcfg["max_seq_len"], mcfg["num_classes"]
+    class_aware = mcfg["class_aware"]
+    points = torch.from_numpy(concat_points(generate_points(
+        seq_len, mcfg["regression_range"], mcfg["scale_factor"]))).to(device)
+    kw = loss_kwargs(cfg)
+
+    def train_step(state: TrainState, batch: Dict, seed: int = 0) -> Dict[str, torch.Tensor]:
+        b = {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
+        b["mask"], b["gt_valid"] = b["mask"].bool(), b["gt_valid"].bool()
+        m_scores, m_start_end, m_labels, gt_cls, gt_reg = build_targets(
+            b, points, seq_len, num_classes, class_aware)
+        inputs = {"visual": b["visual"].float(), "audio": b["audio"].float(),
+                  "mask": b["mask"], "m_scores": m_scores, "m_start_end": m_start_end,
+                  "m_labels": m_labels}
+        gen = torch.Generator(device=device).manual_seed(fold_in(seed, state.step))
+        out = model(inputs, with_losses=True, generator=gen)
+        losses, new_norm = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer, **kw)
+        optimizer.zero_grad()
+        losses["final_loss"].backward()
+        optimizer.step()
+        ema_update(state.ema, model)
+        state.loss_normalizer = new_norm.detach()
+        state.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    return train_step
