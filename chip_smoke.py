@@ -5,27 +5,37 @@
 
 Phases (any failure exits non-zero):
   1. the card: name, count, nvidia-smi name and power limit;
-  2. builds the five hand-written CUDA kernel libraries from
-     unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
-  3. holds each kernel against its plain PyTorch version on the card at the
-     shapes of the eval protocol (configs/avel_unav100_eval.yaml): MHCA at
-     (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7 with
-     4 and 8 heads at 2B=128, merged Soft-NMS at (64, 10100) x 100;
+  2. builds the seven hand-written CUDA kernel libraries (eight kernels)
+     from unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
+  3. holds each forward kernel against its plain PyTorch version on the
+     card at the shapes of the eval protocol (configs/avel_unav100_eval.yaml):
+     MHCA at (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7
+     with 4 and 8 heads at 2B=128, merged Soft-NMS at (64, 10100) x 100, the
+     whole TransformerBlock at (64, 224, 512) and (8, 224, 512) with a
+     zero-length row (beside the default path's time for the same block),
+     single-class Soft-NMS at (6400, 1024) x 100 (the per-class buffers of a
+     batch) with the hard, linear and Gaussian weights and at (64, 10100) x
+     100;
   4. serves: the flagship model (width 512, 100 classes, T=224, fp32,
      weights from --seed) answers three batches of 64 synthetic videos
      through make_eval_step; every kernel's launch count must rise, the
      detections must be finite, sorted and inside [0, duration], and the
      first two videos must give the same detections through the CPU path;
+     then the same batches with the whole-block stem (FUSED_TBLOCK
+     "always": 12 TBlock and 3 MHCA launches), whose detections must agree
+     with the default path's;
   5. times each kernel and its plain version with CUDA events, and the eval
-     step as videos/s;
+     step as videos/s, the default and the whole-block stem in turns;
   6. holds the two backward kernels against their plain versions
      (torch.autograd.grad of the plain forwards) at the shapes of the train
      protocol (configs/avel_unav100.yaml, B=8): MHCA backward at
      (8, 224, 512) with an all-masked row and (16, 224, 512 / 2), CSP
-     backward at T=224 and T=7 with 2B=16; input grads within rtol 1e-3 /
-     atol 1e-4, weight grads norm-wise within 1e-4 (sums over thousands of
-     rows in another order); each kernel run twice must give the same bits;
-     times both with CUDA events beside the bound;
+     backward at T=224 and T=7 with 2B=16, the TBlock backward at
+     (8, 224, 512) with an all-masked row (exact zeros); input grads within
+     rtol 1e-3 / atol 1e-4, weight and multiplier grads norm-wise within
+     1e-4 (sums over thousands of rows in another order); each kernel run
+     twice must give the same bits; times them with CUDA events beside the
+     bound, and the block's forward + backward on both stem paths;
   7. trains: the flagship model of configs/avel_unav100.yaml (B=8, T=224,
      fp32, AdamW + clip + warmup/cosine per iteration, droppath 0.1, EMA,
      weights from --seed) takes 4 steps of make_train_step on synthetic
@@ -38,7 +48,13 @@ Phases (any failure exits non-zero):
      the CUDA kernels against the CPU plain path: norm-wise <= 1e-3 per
      parameter tensor; every parameter the JAX package trains gets a
      finite grad (the Alignment's argmax-only class heads get none: their
-     grad is 0 there too).
+     grad is 0 there too);
+  9. the whole-block stem in training: 4 steps at B=8 (16 TBlock forward and
+     backward launches, step 1 bit-identical, finite losses), timed, and
+     one step's grads at B=2 against the CPU plain path (norm-wise <= 1e-3);
+ 10. serves one batch of 64 with nms_method "hard" and one with
+     multiclass_nms False (segment voting): the single-class Soft-NMS
+     kernel runs, and the first two videos agree with the CPU path.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
@@ -229,23 +245,59 @@ def nms_case(gen, dev, g=64, n=10100, ncls=100):
     return segs.to(dev), scores.to(dev), cls.to(dev)
 
 
-def check_nms(ki, ks, ri, rs):
+def tblock_case(model, key, r, t, gen, dev):
+    """A stem block and its fused kernel's arguments at (r, t): random x and
+    branch multipliers (the init scale of 1e-4 would hide both branches), a
+    zero-length row, the block's packed weights."""
+    import torch
+
+    blk = dict(model.named_modules())[key]
+    c = blk.ln11.weight.numel()
+    x = torch.randn(r, t, c, generator=gen).to(dev)
+    lengths = torch.randint(1, t + 1, (r,), generator=gen)
+    lengths[1] = 0
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+    mult_a = (0.7 + 0.3 * torch.randn(r, 1, c, generator=gen)).to(dev)
+    mult_m = (1.3 + 0.3 * torch.randn(r, 1, c, generator=gen)).to(dev)
+    return blk, (x, mask, mult_a, mult_m,
+                 *[w.detach().contiguous() for w in blk.packed_weights()])
+
+
+def tblock_flops(r, t, c, hid):
+    """pallas_tblock._record_tblock_flops: the MHCA plus the 4x MLP."""
+    return mhca_flops(r, t, c) + 4 * r * t * c * hid
+
+
+def tblock_bwd_flops(r, t, c, hid):
+    """The recompute plus twice the products."""
+    return tblock_flops(r, t, c, hid) + 2 * (8 * r * t * c * c + 4 * r * t * t * c
+                                             + 4 * r * t * c * hid)
+
+
+def set_stem(mode: str) -> None:
+    """The whole-block TransformerBlock selector (models/blocks.py)."""
+    from unav_yolyolva_tpu_torch.models import blocks
+
+    blocks.FUSED_TBLOCK = mode
+
+
+def check_nms(ki, ks, ri, rs, what="nms"):
     """Scores within rtol 1e-5; indices equal wherever neighbouring emitted
     scores differ by more than 1e-6."""
     import torch
 
     err = float((ks - rs).abs().max())
     if not torch.allclose(ks, rs, rtol=1e-5, atol=1e-7):
-        raise AssertionError(f"nms: scores differ (max abs {err})")
+        raise AssertionError(f"{what}: scores differ (max abs {err})")
     d = (rs[:, 1:] - rs[:, :-1]).abs()
     inf = torch.full_like(rs[:, :1], float("inf"))
     gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
     sure = gap > 1e-6
     mism = int((ki[sure] != ri[sure]).sum())
-    log(f"check nms: max_abs_err={err:.3e} unambiguous_slots={int(sure.sum())} "
+    log(f"check {what}: max_abs_err={err:.3e} unambiguous_slots={int(sure.sum())} "
         f"index_mismatches={mism} emitted={int((ki >= 0).sum())}")
     if mism:
-        raise AssertionError("nms: emitted indices differ from the plain version")
+        raise AssertionError(f"{what}: emitted indices differ from the plain version")
     return err
 
 
@@ -268,7 +320,7 @@ def check_detections(dets, batch, num_classes):
     return int(ok.sum())
 
 
-def compare_dets(gpu, cpu):
+def compare_dets(gpu, cpu, what="gpu-vs-cpu"):
     """GPU vs CPU detections of the same videos: the same valid slots, scores
     within rtol 1e-3, and the same labels and segments (within 1e-3 s) on
     slots whose score is more than 1e-4 from its neighbours' (elsewhere a
@@ -276,7 +328,7 @@ def compare_dets(gpu, cpu):
     import torch
 
     g = {k: v[: cpu["valid"].shape[0]].cpu() for k, v in gpu.items()}
-    require(torch.equal(g["valid"], cpu["valid"]), "valid slots differ between GPU and CPU")
+    require(torch.equal(g["valid"], cpu["valid"]), f"{what}: valid slots differ")
     ok = cpu["valid"]
     err = float((g["scores"][ok] - cpu["scores"][ok]).abs().max())
     require(torch.allclose(g["scores"][ok], cpu["scores"][ok], rtol=1e-3, atol=1e-6),
@@ -289,8 +341,35 @@ def compare_dets(gpu, cpu):
                if sure.any() else 0.0)
     require(torch.equal(g["labels"][sure], cpu["labels"][sure]), "labels differ")
     require(seg_err <= 1e-3, f"segments differ by {seg_err} s")
-    log(f"check gpu-vs-cpu detections: videos={ok.shape[0]} detections={int(ok.sum())} "
+    log(f"check {what} detections: videos={ok.shape[0]} detections={int(ok.sum())} "
         f"max_score_err={err:.3e} max_segment_err_s={seg_err:.3e} unambiguous={int(sure.sum())}")
+
+
+def check_step_grads(what, gpu_loss, gpu_g, cpu_loss, cpu_g):
+    """One step's grads on the card against the CPU plain path: norm-wise
+    <= 1e-3 per parameter tensor, the same parameters without a grad."""
+    import torch
+
+    none = {n for n, g in gpu_g.items() if g is None}
+    require(none <= ARGMAX_ONLY and none == {n for n, g in cpu_g.items() if g is None},
+            f"{what}: parameters without a grad: {sorted(none)}")
+    zero = 1e-6 * max(float(g.norm()) for g in cpu_g.values() if g is not None)
+    worst, worst_name = 0.0, ""
+    for n, g in gpu_g.items():
+        if g is None:
+            continue
+        ref = cpu_g[n]
+        require(bool(torch.isfinite(g).all()), f"{n}: non-finite grad")
+        if float(ref.norm()) < zero:         # exactly 0 in exact arithmetic
+            require(float(g.norm()) < zero, f"{n}: grad should vanish")
+            continue
+        rel = float((g.cpu() - ref).norm() / ref.norm())
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"check {what} train grads: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, "
+        f"{len(gpu_g) - len(none)} tensors, worst norm-wise rel err {worst:.3e} "
+        f"({worst_name}); no grad (argmax only): {sorted(none)}")
+    require(worst <= 1e-3, f"{what}: GPU and CPU train grads differ")
 
 
 def main(argv=None) -> int:
@@ -323,7 +402,22 @@ def main(argv=None) -> int:
     from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
                                                make_train_step)
     from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
-                                                       multiclass_soft_nms_reference)
+                                                       multiclass_soft_nms_reference,
+                                                       soft_nms, soft_nms_reference)
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
+                                                          tblock_backward_reference,
+                                                          tblock_reference)
+    from unav_yolyolva_tpu_torch.ops.nms import group_by_class
+
+    counted = (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward,
+               fused_tblock, tblock_backward, soft_nms)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    os.environ.pop("UNAV_FUSED_TBLOCK", None)     # the stem path is set below, per phase
+    set_stem("never")
 
     # ---- 1. the card ------------------------------------------------------
     dev = resolve_device("cuda")
@@ -345,6 +439,7 @@ def main(argv=None) -> int:
     # ---- 3. kernels against their plain versions at the real shapes ---------
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
     model = build_model(cfg, device=dev, seed=args.seed)
+    eval_model = model
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: LocPointTransformer width {cfg['model']['embd_dim']}, "
         f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
@@ -394,20 +489,57 @@ def main(argv=None) -> int:
         log(f"time nms@64x10100: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results['nms@64x10100'][3]:.4f} ms ({results['nms@64x10100'][4]}) [{smi}]")
 
+        # single-class Soft-NMS: the per-class top-1024 buffers of the same
+        # batch (hard NMS, multiclass), and one row per video (single-class)
+        valid = torch.isfinite(scores)
+        bsegs, bscores, _ = group_by_class(segs, torch.where(valid, scores, 0.0), cls, valid,
+                                           100, 1024)
+        cases = [(f"soft_nms@6400x1024/m{m}", bsegs.reshape(6400, 1024, 2).contiguous(),
+                  bscores.reshape(6400, 1024).contiguous(), m) for m in (0, 1, 2)]
+        cases.append(("soft_nms@64x10100/m2", segs, scores, 2))
+        for label, csegs, cscores, method in cases:
+            kw = dict(max_out=100, iou_threshold=0.7, sigma=0.4, min_score=0.001, method=method)
+            ki, ks, _ = soft_nms(csegs, cscores, **kw)
+            ri, rs, _ = soft_nms_reference(csegs, cscores, **kw)
+            err = check_nms(ki, ks, ri, rs, label)
+            ms = cuda_ms(lambda: soft_nms(csegs, cscores, **kw), 20)
+            pms = cuda_ms(lambda: soft_nms_reference(csegs, cscores, **kw), 3)
+            steps = int((ri >= 0).sum(1).clamp(max=99).add(1).sum())
+            nbytes = csegs.numel() * 4 + cscores.numel() * 4 + ki.numel() * 8
+            results[label] = (err, ms, pms, *bound_ms(steps * csegs.shape[1], nbytes))
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"bound {results[label][3]:.4f} ms ({results[label][4]}) [{smi}]")
+
+        # the whole TransformerBlock, beside the default path for the same
+        # block (the MHCA kernel, cuBLAS fp32 MLP, torch LayerNorm / GELU)
+        default_ms = {}
+        for label, r in (("tblock@64x224x512", 64), ("tblock@8x224x512", 8)):
+            blk, a = tblock_case(model, "backbone.self_att_V.0", r, 224, gen, dev)
+            heads, c, hid = blk.attn.n_head, a[0].shape[-1], a[11].shape[0]
+            err = compare(label, fused_tblock(*a, heads=heads), tblock_reference(*a, heads=heads))
+            ms = cuda_ms(lambda: fused_tblock(*a, heads=heads), 10)
+            pms = cuda_ms(lambda: tblock_reference(*a, heads=heads), 5)
+            default_ms[label] = cuda_ms(lambda: blk(a[0], a[0], a[1]), 10)
+            nbytes = 4 * (2 * r * 224 * c + 2 * r * c + sum(w.numel() for w in a[4:])) + r * 224
+            results[label] = (err, ms, pms, *bound_ms(tblock_flops(r, 224, c, hid), nbytes))
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, default path "
+                f"{default_ms[label]:.3f} ms, bound {results[label][3]:.3f} ms "
+                f"({results[label][4]}) [{smi}]")
+
     # ---- 4. serve three batches of 64 videos --------------------------------
     eval_step = make_eval_step(model, cfg, device=dev)
     mcfg = cfg["model"]
     batches = [synthetic_eval_batch(gen, 64, mcfg["max_seq_len"], mcfg["raw_input_dim_V"],
                                     mcfg["raw_input_dim_A"]) for _ in range(3)]
-    for fn in (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward):
-        fn.launches = 0
+    reset_counts()
     dets = [eval_step(b) for b in batches]
     torch.cuda.synchronize()
     launches = {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
                 "nms": multiclass_soft_nms.launches}
     log(f"serve: 3 batches x 64 videos, kernel launches {launches}")
     if (launches["mhca"] < 15 or launches["csp"] != 30 or launches["nms"] != 3
-            or mhca_backward.launches or csp_backward.launches):
+            or mhca_backward.launches or csp_backward.launches or fused_tblock.launches
+            or soft_nms.launches):
         raise AssertionError(f"the main path did not run through every kernel: {launches}")
     n_dets = [check_detections(d, b, mcfg["num_classes"]) for d, b in zip(dets, batches)]
     log(f"serve: detections per batch {n_dets}, finite, sorted, inside [0, duration]")
@@ -417,17 +549,38 @@ def main(argv=None) -> int:
     cpu_dets = cpu_step({k: v[:2] for k, v in batches[0].items()})
     compare_dets(dets[0], cpu_dets)
 
+    # the same batches with the whole-block stem
+    set_stem("always")
+    reset_counts()
+    fdets = [eval_step(b) for b in batches]
+    torch.cuda.synchronize()
+    set_stem("never")
+    fl = {"tblock": fused_tblock.launches, "mhca": fused_mhca.launches,
+          "csp": fused_csp.launches, "nms": multiclass_soft_nms.launches}
+    log(f"serve with the whole-block stem: 3 batches x 64 videos, kernel launches {fl}")
+    require(fl == {"tblock": 12, "mhca": 3, "csp": 30, "nms": 3},
+            f"the whole-block stem did not run through its kernels: {fl}")
+    launches["tblock"] = fl["tblock"]
+    for fd, d, b in zip(fdets, dets, batches):
+        check_detections(fd, b, mcfg["num_classes"])
+        compare_dets(fd, {k: v.cpu() for k, v in d.items()}, "whole-block-vs-default")
+
     # ---- 5. time the eval step --------------------------------------------
-    times = []
-    for b in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eval_step(b)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    log(f"time eval_step: per batch of 64 {[round(x * 1e3, 3) for x in times]} ms, "
-        f"{64 * len(times) / sum(times):.1f} videos/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    stems = {"never": [], "always": []}
+    for mode in ("never", "always", "always", "never"):     # in turns
+        set_stem(mode)
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_step(b)
+            torch.cuda.synchronize()
+            stems[mode].append(time.perf_counter() - t0)
+    set_stem("never")
+    for mode, name in (("never", "eval_step"), ("always", "eval_step whole-block stem")):
+        times = stems[mode]
+        log(f"time {name}: per batch of 64 {[round(x * 1e3, 3) for x in times]} ms, "
+            f"{64 * len(times) / sum(times):.1f} videos/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
 
     # ---- 6. backward kernels against their plain versions ------------------
     tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
@@ -469,7 +622,36 @@ def main(argv=None) -> int:
             csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512), nbytes))
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
-    del tmodel
+
+    label = f"tblock_bwd@{B}x{T}x512"
+    blk, a = tblock_case(tmodel, "backbone.self_att_V.0", B, T, gen, dev)
+    heads, c, hid = blk.attn.n_head, a[0].shape[-1], a[11].shape[0]
+    g = torch.randn(B, T, c, generator=gen).to(dev)
+    got = tblock_backward(*a, g=g, heads=heads)
+    again = tblock_backward(*a, g=g, heads=heads)
+    ref = tblock_backward_reference(*a, g=g, heads=heads)
+    err = check_grads(label, got, again, ref, 1)
+    require(bool((got[0][1] == 0).all()), f"{label}: the all-masked row got a non-zero grad")
+    ms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=heads), 10)
+    pms = cuda_ms(lambda: tblock_backward_reference(*a, g=g, heads=heads), 5)
+    nbytes = 4 * (3 * B * T * c + 4 * B * c + 2 * sum(w.numel() for w in a[4:])) + B * T
+    results[label] = (err, ms, pms, *bound_ms(tblock_bwd_flops(B, T, c, hid), nbytes))
+    log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+    # the block's forward + backward: whole-block kernels vs the default path
+    xg = a[0].clone().requires_grad_(True)
+
+    def block_step():
+        blk(xg, xg, a[1])[0].backward(g)
+
+    fb = {}
+    for mode in ("never", "always", "always", "never"):
+        set_stem(mode)
+        fb.setdefault(mode, []).append(cuda_ms(block_step, 10))
+    set_stem("never")
+    log(f"time tblock fwd+bwd@{B}x{T}x512: whole-block kernels {fb['always']} ms, "
+        f"default path {fb['never']} ms [{smi}]")
+    del tmodel, blk
 
     # ---- 7. train: 4 checked steps, then timed steps ------------------------
     t_phase = time.perf_counter()
@@ -483,8 +665,7 @@ def main(argv=None) -> int:
                                 tm["num_classes"], tcfg["dataset"]["max_num_events"])
           for _ in range(4)]
     before = [p.detach().clone() for p in model.parameters()]
-    for fn in (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward):
-        fn.launches = 0
+    reset_counts()
     losses = [train_step(state, tb[0], args.seed)]
     torch.cuda.synchronize()
     still = all(torch.equal(a, p) for a, p in zip(before, model.parameters()))
@@ -508,7 +689,8 @@ def main(argv=None) -> int:
                 for p in model.parameters()),
             "a parameter without a finite grad in the update")
     require(tl["mhca_bwd"] >= 5 * 4 and tl["csp_bwd"] == 10 * 4
-            and tl["mhca_bwd"] == tl["mhca"] and tl["csp_bwd"] == tl["csp"],
+            and tl["mhca_bwd"] == tl["mhca"] and tl["csp_bwd"] == tl["csp"]
+            and not fused_tblock.launches and not tblock_backward.launches,
             f"the train path did not run through every backward kernel: {tl}")
     launches.update(mhca_bwd=tl["mhca_bwd"], csp_bwd=tl["csp_bwd"])
     torch.cuda.reset_peak_memory_stats()
@@ -531,28 +713,74 @@ def main(argv=None) -> int:
     small = synthetic_train_batch(gen, 2, T, tm["raw_input_dim_V"], tm["raw_input_dim_A"],
                                   tm["num_classes"], tcfg["dataset"]["max_num_events"])
     gpu_loss, gpu_g = step_grads(copy.deepcopy(cpu_init), tcfg, small, dev)
-    cpu_loss, cpu_g = step_grads(cpu_init, tcfg, small, torch.device("cpu"))
-    none = {n for n, g in gpu_g.items() if g is None}
-    require(none <= ARGMAX_ONLY and none == {n for n, g in cpu_g.items() if g is None},
-            f"parameters without a grad: {sorted(none)}")
-    zero = 1e-6 * max(float(g.norm()) for g in cpu_g.values() if g is not None)
-    worst, worst_name = 0.0, ""
-    for n, g in gpu_g.items():
-        if g is None:
-            continue
-        ref = cpu_g[n]
-        require(bool(torch.isfinite(g).all()), f"{n}: non-finite grad")
-        if float(ref.norm()) < zero:         # exactly 0 in exact arithmetic
-            require(float(g.norm()) < zero, f"{n}: grad should vanish")
-            continue
-        rel = float((g.cpu() - ref).norm() / ref.norm())
-        if rel > worst:
-            worst, worst_name = rel, n
-    log(f"check gpu-vs-cpu train grads: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, "
-        f"{len(gpu_g) - len(none)} tensors, worst norm-wise rel err {worst:.3e} "
-        f"({worst_name}); no grad (argmax only): {sorted(none)}")
-    require(worst <= 1e-3, "GPU and CPU train grads differ")
+    cpu_loss, cpu_g = step_grads(copy.deepcopy(cpu_init), tcfg, small, torch.device("cpu"))
+    check_step_grads("gpu-vs-cpu", gpu_loss, gpu_g, cpu_loss, cpu_g)
     log(f"train phases: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 9. the whole-block stem in training --------------------------------
+    t_phase = time.perf_counter()
+    set_stem("always")
+    model = build_model(tcfg, device=dev, seed=args.seed)
+    optimizer, schedule = make_optimizer(model, tcfg["opt"], 2,
+                                         tcfg["train_cfg"]["clip_grad_l2norm"])
+    state = create_train_state(model, optimizer, tcfg["train_cfg"]["init_loss_norm"])
+    train_step = make_train_step(model, optimizer, tcfg, device=dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    reset_counts()
+    losses = [train_step(state, tb[0], args.seed)]
+    torch.cuda.synchronize()
+    still = all(torch.equal(a_, p) for a_, p in zip(before, model.parameters()))
+    losses += [train_step(state, b, args.seed) for b in tb[1:]]
+    torch.cuda.synchronize()
+    tl = {"tblock": fused_tblock.launches, "tblock_bwd": tblock_backward.launches,
+          "mhca": fused_mhca.launches, "mhca_bwd": mhca_backward.launches,
+          "csp": fused_csp.launches, "csp_bwd": csp_backward.launches}
+    log(f"train with the whole-block stem: 4 steps at B={B}, final_loss "
+        f"{[float(x['final_loss']) for x in losses]}, launches {tl}")
+    require(still, "whole-block stem: step 1 (lr 0) changed a parameter")
+    require(all(math.isfinite(v) for x in losses for v in map(float, x.values())),
+            "whole-block stem: a non-finite loss")
+    require(tl["tblock"] == tl["tblock_bwd"] == 16 and tl["mhca"] == tl["mhca_bwd"] == 4
+            and tl["csp"] == tl["csp_bwd"] == 40,
+            f"the whole-block stem did not train through its kernels: {tl}")
+    launches["tblock_bwd"] = tl["tblock_bwd"]
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, tb[i], args.seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log(f"time train_step whole-block stem: per step of {B} clips "
+        f"{[round(x * 1e3, 3) for x in times]} ms, {B * len(times) / sum(times):.1f} clips/s "
+        f"[{smi}]")
+    del state, train_step, optimizer, model
+    reset_counts()
+    gpu_loss, gpu_g = step_grads(copy.deepcopy(cpu_init), tcfg, small, dev)
+    require(fused_tblock.launches == tblock_backward.launches == 4,
+            "whole-block stem: the grads step did not run the TBlock kernels")
+    cpu_loss, cpu_g = step_grads(copy.deepcopy(cpu_init), tcfg, small, torch.device("cpu"))
+    check_step_grads("whole-block-stem gpu-vs-cpu", gpu_loss, gpu_g, cpu_loss, cpu_g)
+    set_stem("never")
+    log(f"whole-block train phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 10. the hard and the single-class NMS configurations ---------------
+    reset_counts()
+    for name, over in (("hard", {"nms_method": "hard"}),
+                       ("single-class", {"multiclass_nms": False})):
+        ncfg = copy.deepcopy(cfg)
+        ncfg["test_cfg"].update(over)
+        before = soft_nms.launches
+        ndets = make_eval_step(eval_model, ncfg, device=dev)(batches[0])
+        torch.cuda.synchronize()
+        require(soft_nms.launches == before + 1, f"{name} NMS did not run the soft_nms kernel")
+        n = check_detections(ndets, batches[0], mcfg["num_classes"])
+        log(f"serve {name} NMS ({ncfg['test_cfg']['nms_method']}, multiclass "
+            f"{ncfg['test_cfg']['multiclass_nms']}, voting {ncfg['test_cfg']['voting_thresh']}): "
+            f"1 batch x 64 videos, {n} detections")
+        compare_dets(ndets, make_eval_step(cpu_model, ncfg, device="cpu")(
+            {k: v[:2] for k, v in batches[0].items()}), f"{name}-nms gpu-vs-cpu")
+    launches["soft_nms"] = soft_nms.launches
 
     def entry(name, label, source, replaces):
         err, ms, pms, bms, by = results[label]
@@ -574,6 +802,13 @@ def main(argv=None) -> int:
               "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
         entry("csp_bwd", f"csp_bwd@T{T}/8h", pkg + "csp_bwd.cu",
               "unav_yolyolva_tpu/ops/pallas_csp.py:373"),
+        dict(entry("tblock", "tblock@64x224x512", pkg + "tblock.cuh",
+                   "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
+             default_path_ms=default_ms["tblock@64x224x512"]),
+        entry("tblock_bwd", f"tblock_bwd@{B}x{T}x512", pkg + "tblock_bwd.cu",
+              "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
+        entry("soft_nms", "soft_nms@6400x1024/m0", pkg + "nms.cu",
+              "unav_yolyolva_tpu/ops/pallas_nms.py:290"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small shapes. Marked `gpu`: on a machine without a card every test skips
-(decided inside the fixture, never at import). Run on the card with
+small shapes, and the entry points on the card against the CPU. Marked
+`gpu`: on a machine without a card every test skips (decided inside the
+fixture, never at import). Run on the card with
 `python -m pytest -m gpu tests/test_torch_port_gpu.py`.
 
 Tolerances: rtol 1e-3, atol 1e-4 for fp32 with another summation order;
@@ -23,7 +24,9 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     from unav_yolyolva_tpu_torch.core import resolve_device
+    from unav_yolyolva_tpu_torch.ops import cuda_build
 
+    cuda_build.build()        # every library at once (one nvcc each), before the first use
     return resolve_device("cuda")
 
 
@@ -303,6 +306,204 @@ def test_train_step_cuda_matches_cpu(cuda):
                           [a - b for a, b in zip(after, counts)])
     (gl, gp, gc), (cl, cp, cc) = runs["cuda"], runs["cpu"]
     assert gc == [10, 10, 20, 20] and cc == [0, 0, 0, 0]
+    for a, b in zip(gl, cl):
+        torch.testing.assert_close(a["final_loss"].cpu(), b["final_loss"], rtol=1e-4, atol=1e-6)
+    for a, b in zip(gp, cp):
+        torch.testing.assert_close(a, b, rtol=0, atol=2 * lr)
+        assert float(((a - b).abs() <= 1e-2 * lr).float().mean()) >= 0.99
+
+
+def _tblock_args(gen, cuda, r, t, c, heads, lengths):
+    hid = 4 * c
+    x = torch.randn(r, t, c, generator=gen)
+    mult_a = 0.7 + 0.3 * torch.randn(r, 1, c, generator=gen)
+    mult_a[min(1, r - 1)] = 0.0                                # a dropped branch
+    mult_m = 1.3 + 0.3 * torch.randn(r, 1, c, generator=gen)
+    ws = [1 + 0.1 * torch.randn(3, c, generator=gen), 0.1 * torch.randn(3, c, generator=gen),
+          *_mhca_weights(c, gen, cuda),
+          torch.randn(hid, c, generator=gen) / c ** 0.5, 0.1 * torch.randn(hid, generator=gen),
+          torch.randn(c, hid, generator=gen) / hid ** 0.5, 0.1 * torch.randn(c, generator=gen)]
+    return ([a.to(cuda) for a in (x,)] + [_mask(r, t, lengths, cuda)]
+            + [a.to(cuda) for a in (mult_a, mult_m, *ws)])
+
+
+@pytest.mark.parametrize("r,t,c,heads", [(3, 40, 64, 4), (3, 7, 128, 4), (3, 64, 96, 3)])
+def test_tblock_kernel(cuda, r, t, c, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_reference
+
+    args = _tblock_args(torch.Generator().manual_seed(10), cuda, r, t, c, heads,
+                        [t, t // 2, 0])
+    before = fused_tblock.launches
+    out = fused_tblock(*args, heads=heads)
+    ref = tblock_reference(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert fused_tblock.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("r,t,c,heads", [(3, 40, 64, 4), (3, 7, 128, 4), (4, 64, 96, 3)])
+def test_tblock_backward_kernel(cuda, r, t, c, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (tblock_backward,
+                                                          tblock_backward_reference)
+
+    gen = torch.Generator().manual_seed(11)
+    args = _tblock_args(gen, cuda, r, t, c, heads, [t, 0] + [max(1, t - 5 * i)
+                                                             for i in range(r - 2)])
+    g = torch.randn(r, t, c, generator=gen).to(cuda)
+    got = tblock_backward(*args, g=g, heads=heads)
+    again = tblock_backward(*args, g=g, heads=heads)
+    ref = tblock_backward_reference(*args, g=g, heads=heads)
+    torch.cuda.synchronize()
+    _check_grads(got, ref, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+    assert (got[0][1] == 0).all(), "an all-masked row must get exact zero grads"
+
+
+def test_tblock_forward_with_grad_keeps_the_graph(cuda):
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
+
+    args = _tblock_args(torch.Generator().manual_seed(12), cuda, 2, 16, 64, 4, [16, 9])
+    args = [a if a.dtype == torch.bool else a.requires_grad_(True) for a in args]
+    before = tblock_backward.launches
+    out = fused_tblock(*args, heads=4)
+    assert out.requires_grad and out.grad_fn is not None
+    out.square().sum().backward()
+    assert tblock_backward.launches == before + 1
+    for i, a in enumerate(args):
+        if a.dtype != torch.bool:
+            assert a.grad is not None and a.grad.abs().sum() > 0, i
+
+
+@pytest.mark.parametrize("n,method", [(300, 0), (300, 1), (1024, 2), (3000, 0), (3000, 2)])
+def test_soft_nms_kernel(cuda, n, method):
+    from unav_yolyolva_tpu_torch.ops.fused_nms import soft_nms, soft_nms_reference
+
+    gen = torch.Generator().manual_seed(13)
+    g = 9
+    start = torch.rand(g, n, generator=gen) * 100
+    segs = torch.stack([start, start + 1 + torch.rand(g, n, generator=gen) * 20], -1)
+    scores = torch.rand(g, n, generator=gen)
+    scores[torch.rand(g, n, generator=gen) < 0.3] = float("-inf")
+    scores[-1] = float("-inf")
+    kw = dict(max_out=100, iou_threshold=0.5, sigma=0.4, min_score=0.001, method=method)
+    segs, scores = segs.to(cuda), scores.to(cuda)
+    before = soft_nms.launches
+    ki, ks, _ = soft_nms(segs, scores, **kw)
+    ri, rs, _ = soft_nms_reference(segs, scores, **kw)
+    assert soft_nms.launches == before + 1
+    ki, ks, ri, rs = (x.cpu().numpy() for x in (ki, ks, ri, rs))
+    np.testing.assert_allclose(ks, rs, rtol=1e-5, atol=1e-7)
+    d = np.abs(np.diff(rs, axis=1))
+    gap = np.full(rs.shape, np.inf)
+    gap[:, 1:] = np.minimum(gap[:, 1:], d)
+    gap[:, :-1] = np.minimum(gap[:, :-1], d)
+    np.testing.assert_array_equal(ki[gap > 1e-6], ri[gap > 1e-6])
+    assert (ki[-1] == -1).all()
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from unav_yolyolva_tpu_torch.ops.fused_nms import soft_nms
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
+
+    args = _tblock_args(torch.Generator().manual_seed(14), cuda, 2, 8, 64, 4, [8, 8])
+    with pytest.raises(ValueError):                      # mult_a of another shape
+        fused_tblock(args[0], args[1], args[2][:, :, :32].contiguous(), *args[3:], heads=4)
+    with pytest.raises(ValueError):                      # C not a multiple of heads
+        fused_tblock(*args, heads=3)
+    with pytest.raises(ValueError):                      # a CPU grad
+        tblock_backward(*args, g=torch.zeros(2, 8, 64), heads=4)
+    segs = torch.zeros(2, 10, 2, device=cuda)
+    with pytest.raises(ValueError):                      # no such method
+        soft_nms(segs, torch.zeros(2, 10, device=cuda), max_out=3, iou_threshold=0.5,
+                 sigma=0.5, min_score=0.0, method=3)
+
+
+def _small_cfg(**test_cfg):
+    from unav_yolyolva_tpu_torch.core import load_config_dict
+
+    return load_config_dict({
+        "dataset": {"num_classes": 5, "max_seq_len": 64, "max_num_events": 8},
+        "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 64,
+                  "input_dim_A": 64, "embd_dim": 64, "head_dim": 64, "use_abs_pe": True},
+        "opt": {"learning_rate": 1e-3, "epochs": 2, "warmup_epochs": 1, "weight_decay": 1e-4},
+        "train_cfg": {"loss_weight": 1, "droppath": 0.0},
+        "test_cfg": {"pre_nms_topk": 100, "max_seg_num": 20, "min_score": 0.001,
+                     "nms_sigma": 0.4, "iou_threshold": 0.7, **test_cfg},
+    })
+
+
+@pytest.mark.parametrize("stem,test_cfg", [
+    ("always", {}), ("auto", {"nms_method": "hard"}),
+    ("auto", {"multiclass_nms": False, "voting_thresh": 0.75})])
+def test_eval_step_paths_cuda_match_cpu(cuda, stem, test_cfg):
+    """The whole-block stem and the hard / single-class NMS configurations
+    through make_eval_step on the card and on the CPU."""
+    import copy
+
+    import unav_yolyolva_tpu_torch.models.blocks as blocks
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+    from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms, soft_nms
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock
+
+    cfg = _small_cfg(**test_cfg)
+    model = build_model(cfg, device=cuda, seed=0)
+    batch = synthetic_eval_batch(torch.Generator().manual_seed(4), 4, 64, 64, 16)
+    fns = (fused_tblock, fused_mhca, multiclass_soft_nms, soft_nms)
+    prev, blocks.FUSED_TBLOCK = blocks.FUSED_TBLOCK, stem
+    try:
+        before = [f.launches for f in fns]
+        gpu = {k: v.cpu() for k, v in make_eval_step(model, cfg, cuda)(batch).items()}
+        counts = [f.launches - b for f, b in zip(fns, before)]
+        cpu = make_eval_step(copy.deepcopy(model).cpu(), cfg, "cpu")(batch)
+    finally:
+        blocks.FUSED_TBLOCK = prev
+    merged = not test_cfg
+    assert counts == [4 if stem == "always" else 0, 1 if stem == "always" else 5,
+                      int(merged), int(not merged)]
+    assert torch.equal(gpu["valid"], cpu["valid"])
+    ok = cpu["valid"]
+    torch.testing.assert_close(gpu["scores"][ok], cpu["scores"][ok], rtol=1e-3, atol=1e-6)
+    assert not ok[-1].any()
+
+
+def test_train_step_fused_stem_cuda_matches_cpu(cuda):
+    """Two steps with the whole-block stem on the card and on the CPU from
+    the same weights, as test_train_step_cuda_matches_cpu holds the default
+    path; the block's backward kernel runs once per forward."""
+    import copy
+
+    import unav_yolyolva_tpu_torch.models.blocks as blocks
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
+
+    lr = 1e-3
+    cfg = _small_cfg()
+    gen = torch.Generator().manual_seed(9)
+    batches = [synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8) for _ in range(2)]
+    base = build_model(cfg, device="cpu", seed=0)
+    runs = {}
+    prev, blocks.FUSED_TBLOCK = blocks.FUSED_TBLOCK, "always"
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = copy.deepcopy(base).to(dev)
+            opt, _ = make_optimizer(model, cfg["opt"], 2)
+            state = create_train_state(model, opt, 250.0)
+            step = make_train_step(model, opt, cfg, device=dev)
+            counts = (fused_tblock.launches, tblock_backward.launches)
+            losses = [step(state, b) for b in batches]
+            runs[dev.type] = (losses, [p.detach().cpu() for p in model.parameters()],
+                              [fused_tblock.launches - counts[0],
+                               tblock_backward.launches - counts[1]])
+    finally:
+        blocks.FUSED_TBLOCK = prev
+    (gl, gp, gc), (cl, cp, cc) = runs["cuda"], runs["cpu"]
+    assert gc == [8, 8] and cc == [0, 0]
     for a, b in zip(gl, cl):
         torch.testing.assert_close(a["final_loss"].cpu(), b["final_loss"], rtol=1e-4, atol=1e-6)
     for a, b in zip(gp, cp):

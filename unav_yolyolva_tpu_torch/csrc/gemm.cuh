@@ -2,6 +2,9 @@
 //
 //   C[m, n] = epilogue( sum_k A(m, k) * B(n, k) )
 //   epilogue: (acc + bias[n]) * scale * rowmask[m]  (+ C[m, n] when beta)
+//   with a GemmEpi (the TransformerBlock's MLP products, one per launch):
+//   act(acc + bias[n]) * scale * rowmask[m] * seqmul[m / seq, n] (+ C),
+//   act none, exact erf GELU, or the product with GELU'(aux[m, n]).
 //
 // Operand layouts (row strides lda / ldb):
 //   A(m, k) = A[m * lda + k], or A[k * lda + m] with transA;
@@ -46,11 +49,41 @@ struct GemmArgs {
   int transA, transB, beta;
 };
 
+// The MLP products' epilogue, a kernel parameter of its own: kept out of
+// GemmArgs, whose size every other product's kernel pays for in registers.
+constexpr int GEMM_ACT_NONE = 0, GEMM_ACT_GELU = 1, GEMM_ACT_GELU_GRAD = 2;
+struct GemmEpi {
+  int act;                      // GEMM_ACT_*
+  const float* aux; long ldaux; // GELU' input (GEMM_ACT_GELU_GRAD)
+  const float* seqmul; int seq; // (M / seq, N) column multiplier, or nullptr
+};
+
+__device__ __forceinline__ float gelu_erf(float u) {
+  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float u) {
+  return 0.5f * (1.f + erff(u * 0.70710678118654752f)) +
+         u * 0.39894228040143268f * expf(-0.5f * u * u);
+}
+
+// The GemmEpi epilogue of one output element.
+__device__ __forceinline__ void gemm_store_epi(const GemmArgs& p, const GemmEpi& e, int m,
+                                               int n, float v) {
+  if (p.bias) v += p.bias[n];
+  if (e.act == GEMM_ACT_GELU) v = gelu_erf(v);
+  else if (e.act == GEMM_ACT_GELU_GRAD) v *= gelu_erf_grad(e.aux[(long)m * e.ldaux + n]);
+  v = v * p.scale * (p.rowmask ? (p.rowmask[m] ? 1.f : 0.f) : 1.f);
+  if (e.seqmul) v *= e.seqmul[(long)(m / e.seq) * p.N + n];
+  float* c = p.C + (long)m * p.ldc + n;
+  *c = p.beta ? *c + v : v;
+}
+
 constexpr int GEMM_MAX_BATCH = 4;
 struct GemmBatch { GemmArgs g[GEMM_MAX_BATCH]; };
 
 // FWD (A.B^T, the forward's only layout) compiles without the backward's
-// options: no kmask, tapdir +1, no beta.
+// options: no kmask, tapdir +1, no beta (but with a GemmEpi).
 template <bool TA, bool FWD>
 __device__ __forceinline__ float gemm_load_a(const GemmArgs& p, int m, int k) {
   if (m >= p.M || k >= p.K) return 0.f;
@@ -82,9 +115,13 @@ __device__ __forceinline__ float gemm_load_b(const GemmArgs& p, int n, int k) {
 // With splits > 1 (weight grads only, TA) blockIdx.z = product * splits +
 // slice: the block sums its slice of K and stores the raw partial into
 // part (one slot of `slot` floats per block z) for gemm_splitk_reduce_kernel.
-template <int TM, int TN, bool TA, bool TB>
+// EPI: the GemmEpi epilogue (the TransformerBlock's MLP products); every
+// other product compiles the short one (bias, scale, row mask, beta off the
+// forward layout).
+template <int TM, int TN, bool TA, bool TB, bool EPI>
 __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch, int splits,
-                                                      int kchunk, float* part, long slot) {
+                                                      int kchunk, float* part, long slot,
+                                                      const GemmEpi epi) {
   constexpr int BM = 16 * TM, BN = 16 * TN, BK = 8;
   constexpr bool FWD = !TA && !TB;
   const int z = TA ? blockIdx.z / splits : blockIdx.z;
@@ -158,6 +195,14 @@ __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch, int
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
     if (m >= p.M) continue;
+    if (EPI) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + (j >> 2) * 64 + tx * 4 + (j & 3);
+        if (n < p.N) gemm_store_epi(p, epi, m, n, acc[i][j]);
+      }
+      continue;
+    }
     const float mk = p.rowmask ? (p.rowmask[m] ? 1.f : 0.f) : 1.f;
     float* crow = p.C + (long)m * p.ldc;
 #pragma unroll
@@ -196,9 +241,12 @@ constexpr int GEMM_MAX_SPLITS = 8;
 // floats of split-K scratch for weight-grad products of at most mn outputs
 static long gemm_splitk_floats(long mn) { return (long)GEMM_MAX_BATCH * GEMM_MAX_SPLITS * mn; }
 
-template <bool TA, bool TB>
+// EPI launches take `epi` (launch_gemm_epi); only the libraries that call
+// launch_gemm_epi compile those kernels, whose unrolled GELU epilogues are
+// slow to build.
+template <bool TA, bool TB, bool EPI = false>
 static int launch_gemm_layout(const GemmBatch& batch, int count, cudaStream_t stream,
-                              float* part, long part_floats) {
+                              float* part, long part_floats, const GemmEpi& epi = GemmEpi{}) {
   long maxM = 0, maxN = 0, maxK = 0;
   for (int i = 0; i < count; ++i) {
     maxM = std::max(maxM, (long)batch.g[i].M);
@@ -208,7 +256,7 @@ static int launch_gemm_layout(const GemmBatch& batch, int count, cudaStream_t st
   const long big_tiles = (long)ceil_div(maxM, 128) * ceil_div(maxN, 128) * count;
   if (!TA && big_tiles >= 2 * 132) {
     dim3 grid(ceil_div(maxN, 128), ceil_div(maxM, 128), count);
-    gemm_tn_kernel<8, 8, TA, TB><<<grid, 256, 0, stream>>>(batch, 1, 0, nullptr, 0);
+    gemm_tn_kernel<8, 8, TA, TB, EPI><<<grid, 256, 0, stream>>>(batch, 1, 0, nullptr, 0, epi);
     UNAV_RETURN_IF_ERROR();
     return 0;
   }
@@ -224,8 +272,8 @@ static int launch_gemm_layout(const GemmBatch& batch, int count, cudaStream_t st
   const int kchunk = ceil_div(ceil_div(maxK, splits), 8) * 8;
   splits = ceil_div(maxK, kchunk);
   dim3 grid(ceil_div(maxN, 64), ceil_div(maxM, 64), count * splits);
-  gemm_tn_kernel<4, 4, TA, TB><<<grid, 256, 0, stream>>>(batch, splits, kchunk, part,
-                                                           maxM * maxN);
+  gemm_tn_kernel<4, 4, TA, TB, EPI><<<grid, 256, 0, stream>>>(batch, splits, kchunk, part,
+                                                                maxM * maxN, epi);
   UNAV_RETURN_IF_ERROR();
   if (splits > 1) {
     gemm_splitk_reduce_kernel<<<dim3(ceil_div(maxM * maxN, 256), count), 256, 0, stream>>>(
@@ -256,6 +304,15 @@ static int launch_gemm(const GemmBatch& batch, int count, cudaStream_t stream,
     if (rc) return rc;
   }
   return 0;
+}
+
+// One A.B^T or A.B product with the GemmEpi epilogue (an A^T.B is refused).
+static int launch_gemm_epi(const GemmArgs& a, const GemmEpi& epi, cudaStream_t stream) {
+  GemmBatch one;
+  one.g[0] = a;
+  if (a.transA) return (int)cudaErrorInvalidValue;
+  return a.transB ? launch_gemm_layout<false, true, true>(one, 1, stream, nullptr, 0, epi)
+                  : launch_gemm_layout<false, false, true>(one, 1, stream, nullptr, 0, epi);
 }
 
 static GemmArgs gemm_args(const float* A, long lda, const float* B, long ldb,

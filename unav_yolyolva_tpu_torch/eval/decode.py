@@ -3,8 +3,8 @@
 The JAX package decodes one video and vmaps it; here the batch dimension is
 written out. Per level: sigmoid scores masked by the frame mask, top-k over
 (T_l x C) (skipped when k covers every candidate), threshold, offset decode
-against the point grid and a minimum-duration filter. Then multiclass
-Soft-NMS and the grid -> seconds conversion with a clamp to [0, duration].
+against the point grid and a minimum-duration filter. Then (Soft-)NMS and
+the grid -> seconds conversion with a clamp to [0, duration].
 """
 
 from __future__ import annotations
@@ -61,11 +61,15 @@ def decode_batch(
             torch.cat(cls_all, 1).int(), torch.cat(valid_all, 1))
 
 
-def postprocess_batch(segs, scores, cls_idxs, valid, *, test_cfg: Dict,
+def postprocess_batch(segs, scores, cls_idxs, valid, *, num_classes: int, test_cfg: Dict,
                       fps, duration, feat_stride, num_frames):
-    """Soft-NMS + grid -> seconds: (seg * stride + 0.5 * nframes) / fps,
-    clamped to [0, duration]."""
+    """NMS + grid -> seconds: (seg * stride + 0.5 * nframes) / fps, clamped
+    to [0, duration]. Multiclass Gaussian Soft-NMS (the eval protocol) runs
+    the merged class-masked scan; hard NMS and single-class NMS (with
+    segment voting) run batched_nms; "none" passes the candidates through."""
     method = test_cfg["nms_method"]
+    if method not in ("soft", "hard", "none"):
+        raise ValueError(f"nms_method={method!r}: expected soft, hard or none")
     if method == "soft" and test_cfg["multiclass_nms"]:
         segs, scores, cls_idxs, valid = nms_ops.multiclass_nms_batch(
             segs, scores, cls_idxs, valid,
@@ -74,9 +78,18 @@ def postprocess_batch(segs, scores, cls_idxs, valid, *, test_cfg: Dict,
             min_score=test_cfg["min_score"],
         )
     elif method != "none":
-        raise NotImplementedError(
-            f"nms_method={method!r}, multiclass_nms={test_cfg['multiclass_nms']}: "
-            "only multiclass Gaussian Soft-NMS is ported")
+        segs, scores, cls_idxs, valid = nms_ops.batched_nms(
+            segs, scores, cls_idxs, valid,
+            num_classes=num_classes,
+            iou_threshold=test_cfg["iou_threshold"],
+            min_score=test_cfg["min_score"],
+            max_seg_num=test_cfg["max_seg_num"],
+            use_soft_nms=method == "soft",
+            multiclass=test_cfg["multiclass_nms"],
+            sigma=test_cfg["nms_sigma"],
+            voting_thresh=test_cfg["voting_thresh"],
+            method=nms_ops.NMS_GAUSSIAN,
+        )
     segs = (segs * feat_stride[:, None, None] + 0.5 * num_frames[:, None, None]) \
         / fps[:, None, None]
     segs = torch.minimum(segs.clamp(min=0.0), duration[:, None, None])

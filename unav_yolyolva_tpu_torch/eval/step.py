@@ -43,7 +43,8 @@ def make_eval_step(model, cfg: Dict, device=None) -> Callable:
                 class_aware=class_aware,
             )
             segs, scores, labels, valid = postprocess_batch(
-                *cands, test_cfg=test_cfg, fps=b["fps"].float(),
+                *cands, num_classes=mcfg["num_classes"], test_cfg=test_cfg,
+                fps=b["fps"].float(),
                 duration=b["duration"].float(),
                 feat_stride=b["feat_stride"].float(),
                 num_frames=b["feat_num_frames"].float(),

@@ -11,6 +11,7 @@ torch.Generator that the caller passes down.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -18,7 +19,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_mhca import attend, fused_mhca
+from ..ops.fused_tblock import fused_tblock
 from ..ops.masked import channel_layer_norm, masked_conv1d_out_mask
+
+# Whole-block TransformerBlock path selector (ops/fused_tblock.py), the JAX
+# package's by name and meaning: the UNAV_FUSED_TBLOCK environment variable
+# is read again on each forward, the module global is the test hook. Opt-in:
+# only "always" takes the fused path.
+FUSED_TBLOCK = os.environ.get("UNAV_FUSED_TBLOCK", "auto")
 
 
 class Conv1x1(nn.Module):
@@ -91,6 +99,22 @@ class AffineDropPath(nn.Module):
                                  "torch.Generator")
             x = drop_path(x, self.drop_prob, generator)
         return x
+
+    def multiplier(self, batch: int,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The branch multiplier of the fused block, (batch, 1, C): scale times
+        floor(keep + u) / keep in training, with u drawn from `generator` in
+        the shape, dtype and order of `forward`'s draw, so that one generator
+        gives both paths the same stochastic depth."""
+        f = torch.ones((batch, 1, 1), device=self.scale.device, dtype=torch.float32)
+        if self.training and self.drop_prob > 0.0:
+            if generator is None:
+                raise ValueError("AffineDropPath: training with drop_prob > 0 needs a "
+                                 "torch.Generator")
+            keep = 1.0 - self.drop_prob
+            u = torch.rand(f.shape, generator=generator, device=f.device, dtype=f.dtype)
+            f = torch.floor(keep + u) / keep
+        return self.scale.view(1, 1, -1) * f
 
 
 class LearnableScale(nn.Module):
@@ -184,7 +208,21 @@ class TransformerBlock(nn.Module):
             self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
             self.drop_path_mlp = AffineDropPath(n_embd, path_pdrop)
 
+    def packed_weights(self):
+        """(lnw3, lnb3 (3, C) [ln11, ln12, ln2], the MHCA's five packed
+        weights, w1 (4C, C), b1 (4C), w2 (C, 4C), b2 (C)) in the fused
+        kernel's layout."""
+        lns = (self.ln11, self.ln12, self.ln2)
+        return (torch.stack([n.weight.view(-1) for n in lns]),
+                torch.stack([n.bias.view(-1) for n in lns]),
+                *self.attn.packed_weights(),
+                self.mlp[0].weight[:, :, 0], self.mlp[0].bias,
+                self.mlp[3].weight[:, :, 0], self.mlp[3].bias)
+
     def forward(self, x1, x2, mask, generator: Optional[torch.Generator] = None):
+        if (os.environ.get("UNAV_FUSED_TBLOCK", FUSED_TBLOCK) == "always" and x1 is x2
+                and self.n_ds_strides == (1, 1)):
+            return self._fused(x1, mask, generator), mask
         out, out_mask = self.attn(self.ln11(x1), self.ln12(x2), mask)
         om = out_mask[..., None].to(out.dtype)
         s = self.n_ds_strides[0]
@@ -196,3 +234,15 @@ class TransformerBlock(nn.Module):
         h = self.mlp(self.ln2(out)) * om
         out = out + (self.drop_path_mlp(h, generator) if self.use_drop_path else h)
         return out, out_mask
+
+    def _fused(self, x, mask, generator):
+        """The whole block as one fused_tblock call, with both droppath draws
+        (attn, then mlp) made by the AffineDropPath modules."""
+        b, c = x.shape[0], x.shape[-1]
+        if self.use_drop_path:
+            mult_a = self.drop_path_attn.multiplier(b, generator)
+            mult_m = self.drop_path_mlp.multiplier(b, generator)
+        else:
+            mult_a = mult_m = torch.ones((b, 1, c), device=x.device, dtype=torch.float32)
+        return fused_tblock(x.contiguous(), mask.contiguous(), mult_a, mult_m,
+                            *self.packed_weights(), heads=self.attn.n_head)

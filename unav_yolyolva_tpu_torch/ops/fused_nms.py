@@ -1,7 +1,6 @@
-"""Merged class-masked Soft-NMS: hand-written CUDA kernel and its plain
-version.
+"""Soft-NMS scans: hand-written CUDA kernels and their plain versions.
 
-Replaces the Pallas kernel `_kernel_classmasked` /
+`multiclass_soft_nms` replaces the Pallas kernel `_kernel_classmasked` /
 `multiclass_soft_nms_pallas` (unav_yolyolva_tpu/ops/pallas_nms.py:109-247).
 Per-class Soft-NMS over disjoint class subsets is one select-and-decay scan
 over the union with cross-class weight 1, whose emissions come out already
@@ -9,13 +8,20 @@ in descending-score order. Each step: argmax (lowest index on ties), emit
 it with its current score, decay same-class lanes by the Gaussian weight
 exp(-iou^2 / sigma) (IoU with the x2 - x1 + 1e-6 area epsilon), kill
 same-class lanes below min_score and the emitted lane; a row with nothing
-alive emits -1 / 0. The eval protocol's method (Gaussian) is the only one
-ported: the hard and linear weights wait with batched_nms.
+alive emits -1 / 0.
 
-On the card (csrc/nms.cu) it is bound by latency: max_out dependent steps,
-each a block-wide argmax. The design keeps a row's scores and classes in the
-registers of one 1024-thread block, so a step costs two barriers and no
-device-memory round trip; the ~10 MB of candidates are read once.
+`soft_nms` replaces the Pallas kernel `_kernel` / `soft_nms_pallas`
+(pallas_nms.py:43-106, :255-309): the same scan with every lane in one
+class, and the weight by method (0 hard: iou < thr; 1 linear: 1 - iou from
+thr on; 2 Gaussian). The min_score kill applies to every live lane. It
+serves the hard and single-class configurations through ops/nms.py.
+
+On the card (csrc/nms.cu, one templated scan) both are bound by latency:
+max_out dependent steps, each a row-wide argmax. A row's scores (and
+classes) stay in registers: a 1024-thread block holds a long row (two
+barriers a step), a warp holds a per-class buffer of at most 1024
+candidates with its segments (no barrier at all), so thousands of such
+rows run at once; the candidates are read once.
 """
 
 from __future__ import annotations
@@ -26,21 +32,25 @@ from . import cuda_build
 from .cuda_build import FLOAT, INT, PTR
 
 MAX_CANDIDATES = 16384  # 1024 threads x 16 register slots
+NMS_HARD, NMS_LINEAR, NMS_GAUSSIAN = 0, 1, 2
 
 _ARGTYPES = {
     "unav_multiclass_soft_nms": [PTR, PTR, PTR, INT, INT, INT, FLOAT, FLOAT,
                                  PTR, PTR, PTR],
+    "unav_soft_nms": [PTR, PTR, INT, INT, INT, INT, FLOAT, FLOAT, FLOAT, PTR, PTR, PTR],
 }
 
 
-def multiclass_soft_nms_reference(segs, scores, cls_idxs, *, max_out: int,
-                                  sigma: float, min_score: float):
-    """Plain PyTorch version of the merged scan over G rows."""
+def _scan_reference(segs, scores, cls_idxs, *, max_out: int, iou_threshold: float,
+                    sigma: float, min_score: float, method: int):
+    """The select-and-decay scan over G rows in plain PyTorch, line for line
+    the Pallas `_kernel_classmasked` (cls_idxs given: other classes keep
+    weight 1 and are not killed) or `_kernel` (cls_idxs None)."""
     g, n = scores.shape
     neg_inf = float("-inf")
     s = scores.float().clone()
-    x1, x2 = segs[..., 0], segs[..., 1]
-    cls = cls_idxs.long()
+    x1, x2 = segs[..., 0].float(), segs[..., 1].float()
+    cls = None if cls_idxs is None else cls_idxs.long()
     lane = torch.arange(n, device=s.device)[None, :]
     out_idx = torch.full((g, max_out), -1, dtype=torch.int32, device=s.device)
     out_score = torch.zeros((g, max_out), dtype=torch.float32, device=s.device)
@@ -52,15 +62,29 @@ def multiclass_soft_nms_reference(segs, scores, cls_idxs, *, max_out: int,
             break
         out_idx[:, k] = torch.where(alive, j, -1)[:, 0].int()
         out_score[:, k] = torch.where(alive, smax, 0.0)[:, 0]
-        sx1, sx2, scls = x1.gather(1, j), x2.gather(1, j), cls.gather(1, j)
+        sx1, sx2 = x1.gather(1, j), x2.gather(1, j)
         inter = (torch.minimum(sx2, x2) - torch.maximum(sx1, x1)).clamp(min=0.0)
         iou = inter / ((sx2 - sx1 + 1e-6) + (x2 - x1 + 1e-6) - inter)
-        same = cls == scls
-        s_new = torch.where(same, s * torch.exp(-(iou * iou) / sigma), s)
-        kill = (same & (s_new < min_score)) | (lane == j) | (s == neg_inf)
-        s_new = s_new.masked_fill(kill, neg_inf)
-        s = torch.where(alive, s_new, s)
+        if method == NMS_HARD:
+            w = (iou < iou_threshold).float()
+        elif method == NMS_LINEAR:
+            w = torch.where(iou >= iou_threshold, 1.0 - iou, 1.0)
+        else:
+            w = torch.exp(-(iou * iou) / sigma)
+        low = s * w < min_score
+        if cls is not None:
+            same = cls == cls.gather(1, j)
+            w, low = torch.where(same, w, 1.0), same & low
+        kill = low | (lane == j) | (s == neg_inf)
+        s = torch.where(alive, (s * w).masked_fill(kill, neg_inf), s)
     return out_idx, out_score, out_idx >= 0
+
+
+def multiclass_soft_nms_reference(segs, scores, cls_idxs, *, max_out: int,
+                                  sigma: float, min_score: float):
+    """Plain PyTorch version of the merged scan over G rows."""
+    return _scan_reference(segs, scores, cls_idxs, max_out=max_out, iou_threshold=0.0,
+                           sigma=sigma, min_score=min_score, method=NMS_GAUSSIAN)
 
 
 def multiclass_soft_nms(segs, scores, cls_idxs, *, max_out: int, sigma: float,
@@ -98,3 +122,46 @@ def multiclass_soft_nms(segs, scores, cls_idxs, *, max_out: int, sigma: float,
 
 
 multiclass_soft_nms.launches = 0
+
+
+def soft_nms_reference(segs, scores, *, max_out: int, iou_threshold: float, sigma: float,
+                       min_score: float, method: int = NMS_GAUSSIAN):
+    """Plain PyTorch version of the single-class scan over G rows."""
+    return _scan_reference(segs, scores, None, max_out=max_out, iou_threshold=iou_threshold,
+                           sigma=sigma, min_score=min_score, method=method)
+
+
+def soft_nms(segs, scores, *, max_out: int, iou_threshold: float, sigma: float,
+             min_score: float, method: int = NMS_GAUSSIAN):
+    """Single-class Soft-NMS of G independent candidate rows: segs (G, N, 2),
+    scores (G, N) with -inf for invalid candidates. Returns (idx (G,
+    max_out) int32 with -1 for empty slots, score (G, max_out), valid (G,
+    max_out)), in emission order. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    kw = dict(max_out=max_out, iou_threshold=iou_threshold, sigma=sigma,
+              min_score=min_score, method=method)
+    if segs.device.type == "cpu":
+        return soft_nms_reference(segs, scores, **kw)
+    g, n = scores.shape
+    if n > MAX_CANDIDATES or method not in (NMS_HARD, NMS_LINEAR, NMS_GAUSSIAN):
+        raise ValueError(f"soft_nms: {n} candidates per row (at most {MAX_CANDIDATES}), "
+                         f"method {method}")
+    segs = segs.float().contiguous()
+    scores = scores.float().contiguous()
+    if scores.device.type != "cuda" or tuple(segs.shape) != (g, n, 2):
+        raise ValueError("soft_nms: expected CUDA (G, N, 2) segments and (G, N) scores")
+    out_idx = torch.empty((g, max_out), dtype=torch.int32, device=segs.device)
+    out_score = torch.empty((g, max_out), dtype=torch.float32, device=segs.device)
+    if g and max_out:
+        lib = cuda_build.library("nms", _ARGTYPES)
+        rc = lib.unav_soft_nms(
+            segs.data_ptr(), scores.data_ptr(), g, n, max_out, method, iou_threshold, sigma,
+            min_score, out_idx.data_ptr(), out_score.data_ptr(),
+            torch.cuda.current_stream(segs.device).cuda_stream,
+        )
+        cuda_build.check(lib, rc, "soft_nms")
+        soft_nms.launches += 1
+    return out_idx, out_score, out_idx >= 0
+
+
+soft_nms.launches = 0

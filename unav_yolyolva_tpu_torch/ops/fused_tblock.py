@@ -1,0 +1,170 @@
+"""Fused whole TransformerBlock (stride 1, self-attention): hand-written CUDA
+kernels and their plain versions.
+
+Replaces the Pallas kernels `_tblock_kernel` / `_tblock_fwd_call` and
+`_tblock_bwd_kernel` / `_tblock_diff_bwd` (body `_tblock_compute`,
+unav_yolyolva_tpu/ops/pallas_tblock.py:95-316): ln11 and ln12 of x, the
+MaskedMHCA (k/v from ln11, q from ln12), `out = x * m + attn * mult_a`, ln2,
+fc1 (C -> H), exact erf GELU, fc2 (H -> C), and `out + y * m * mult_m`.
+mult_a / mult_m are (R, 1, C): the AffineDropPath scale times the
+per-sample stochastic-depth factor (ones in eval).
+
+On the card (csrc/tblock.cu, csrc/tblock_bwd.cu) the block is bound by
+operations: the MLP's two products are ~2/3 of its FLOPs at the stem shape.
+The forward is eight launches of the repo's own kernels: ln11 + ln12 in one
+pass, the MHCA of csrc/mhca.cuh, the residual add fused with ln2, and fc1 /
+fc2 on the shared GEMM (csrc/gemm.cuh) with bias + GELU and bias + mask +
+mult_m + residual epilogues. The backward saves only the inputs, the
+multipliers and the weights; it recomputes the forward and walks back
+through fc2, GELU', fc1, ln2, the residual, the MHCA backward of
+csrc/mhca_bwd.cuh and ln11 / ln12. Every weight and multiplier grad is a
+fixed-order sum (split-K A^T.B, csrc/colsum.cuh, per-sequence sums): two
+runs give the same bits. The port computes in fp32 only.
+
+Weight layout (torch, packed by TransformerBlock.packed_weights()):
+lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
+(3, C), w (4, C, C), b (4, C), w1 (H, C), b1 (H), w2 (C, H), b2 (C).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .cuda_build import FLOAT, INT, LONG, PTR
+from .fused_mhca import MAX_T, _check, mhca_reference
+from .masked import channel_layer_norm
+
+_ARGTYPES = {
+    "unav_tblock_forward": [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11
+                           + [FLOAT, PTR, PTR, PTR],
+}
+_RESTYPES = {"unav_tblock_forward_scratch": ([INT] * 4, LONG)}
+_BWD_ARGTYPES = {
+    "unav_tblock_backward": [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11
+                            + [FLOAT, PTR] + [PTR] * 14 + [PTR, PTR],
+}
+_BWD_RESTYPES = {"unav_tblock_backward_scratch": ([INT] * 5, LONG)}
+
+N_WEIGHTS = 11
+
+
+def tblock_reference(x, mask, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1,
+                     w2, b2, *, heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the whole block (`_tblock_compute` in fp32)."""
+    mm = mask[..., None].to(x.dtype)
+    h1 = channel_layer_norm(x, lnw3[0], lnb3[0], eps)
+    h2 = channel_layer_norm(x, lnw3[1], lnb3[1], eps)
+    attn = mhca_reference(h1, h2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    out = x * mm + attn * mult_a
+    h = channel_layer_norm(out, lnw3[2], lnb3[2], eps)
+    y = F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2) * mm
+    return out + y * mult_m
+
+
+def tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g, heads: int,
+                              eps: float = 1e-5):
+    """Plain version of the backward: (dx, d(mult_a), d(mult_m), *weight
+    grads), torch.autograd.grad of `tblock_reference` for the upstream g."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, mult_a, mult_m, *weights)]
+        out = tblock_reference(ins[0], mask, *ins[1:], heads=heads, eps=eps)
+        return torch.autograd.grad(out, ins, g)
+
+
+def _check_args(x, mask, mult_a, mult_m, weights, heads):
+    r, t, c = x.shape
+    if len(weights) != N_WEIGHTS:
+        raise ValueError(f"fused_tblock: {N_WEIGHTS} packed weights, got {len(weights)}")
+    hid = weights[7].shape[0]
+    if c % heads or c // heads > 128 or c > 1024 or t > MAX_T:
+        raise ValueError(f"fused_tblock: unsupported shape (T={t}, C={c}, heads={heads})")
+    _check(x, "x")
+    _check(mask, "mask", (r, t), torch.bool)
+    _check(mult_a, "mult_a", (r, 1, c))
+    _check(mult_m, "mult_m", (r, 1, c))
+    shapes = ((3, c), (3, c), (3, c, 3), (3, c), (3, c), (4, c, c), (4, c), (hid, c), (hid,),
+              (c, hid), (c,))
+    names = ("lnw3", "lnb3", "dw", "lnw", "lnb", "w", "b", "w1", "b1", "w2", "b2")
+    for wt, shape, name in zip(weights, shapes, names):
+        _check(wt, name, shape)
+    return r, t, c, hid
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps):
+    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
+    lib = cuda_build.library("tblock", _ARGTYPES, _RESTYPES)
+    out = torch.empty_like(x)
+    scratch = torch.empty(lib.unav_tblock_forward_scratch(r, t, c, hid),
+                          device=x.device, dtype=torch.float32)
+    rc = lib.unav_tblock_forward(
+        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
+        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, out.data_ptr(),
+        scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "fused_tblock")
+    fused_tblock.launches += 1
+    return out
+
+
+def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float = 1e-5):
+    """Grads of the block for the upstream grad g (R, T, C): (dx, d(mult_a),
+    d(mult_m), *the 11 weight grads), in the layouts of the inputs. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g=g,
+                                         heads=heads, eps=eps)
+    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
+    _check(g, "g", x.shape)
+    grads = [torch.empty_like(a) for a in (x, mult_a, mult_m, *weights)]
+    lib = cuda_build.library("tblock_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
+    scratch = torch.empty(lib.unav_tblock_backward_scratch(r, t, c, hid, heads),
+                          device=x.device, dtype=torch.float32)
+    rc = lib.unav_tblock_backward(
+        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
+        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
+        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "tblock_backward")
+    tblock_backward.launches += 1
+    return tuple(grads)
+
+
+class TBlockFunction(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. Like the
+    JAX custom_vjp it saves only the inputs, multipliers and weights; the
+    mask gets no grad."""
+
+    @staticmethod
+    def forward(ctx, x, mask, mult_a, mult_m, heads, eps, *weights):
+        ctx.save_for_backward(x, mask, mult_a, mult_m, *weights)
+        ctx.heads, ctx.eps = heads, eps
+        return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, mult_a, mult_m, *ws = ctx.saved_tensors
+        dx, dma, dmm, *gws = tblock_backward(x, mask, mult_a, mult_m, *ws, g=g.contiguous(),
+                                             heads=ctx.heads, eps=ctx.eps)
+        return (dx, None, dma, dmm, None, None, *gws)
+
+
+def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """The block's forward of (R, T, C) x with a (R, T) bool mask and (R, 1, C)
+    branch multipliers. CPU tensors take the plain version (autograd
+    differentiates it); CUDA tensors launch the kernel, through
+    TBlockFunction when a grad is needed."""
+    if x.device.type == "cpu":
+        return tblock_reference(x, mask, mult_a, mult_m, *weights, heads=heads, eps=eps)
+    args = (x, mask, mult_a, mult_m, *weights)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return TBlockFunction.apply(x, mask, mult_a, mult_m, heads, eps, *weights)
+    return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps)
+
+
+fused_tblock.launches = 0
+tblock_backward.launches = 0

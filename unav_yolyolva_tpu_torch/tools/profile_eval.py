@@ -126,7 +126,8 @@ def main(argv=None) -> int:
                 duration_thresh=tcfg["duration_thresh"], class_aware=mcfg["class_aware"]))
             decode_ev.append(ev)
             _, ev = event_ms(lambda: postprocess_batch(
-                *cands, test_cfg=tcfg, fps=bd["fps"], duration=bd["duration"],
+                *cands, num_classes=mcfg["num_classes"], test_cfg=tcfg,
+                fps=bd["fps"], duration=bd["duration"],
                 feat_stride=bd["feat_stride"], num_frames=bd["feat_num_frames"]))
             nms_ev.append(ev)
     torch.cuda.synchronize()
