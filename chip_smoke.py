@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero):
   1. the card: name, count, nvidia-smi name and power limit;
-  2. builds the seven hand-written CUDA kernel libraries (eight kernels)
-     from unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
+  2. builds the eight hand-written CUDA kernel libraries (the eight
+     kernels and the tensor-core product alone) from
+     unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
   3. holds each forward kernel against its plain PyTorch version on the
      card at the shapes of the eval protocol (configs/avel_unav100_eval.yaml):
      MHCA at (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7
@@ -15,7 +16,12 @@ Phases (any failure exits non-zero):
      zero-length row (beside the default path's time for the same block),
      single-class Soft-NMS at (6400, 1024) x 100 (the per-class buffers of a
      batch) with the hard, linear and Gaussian weights and at (64, 10100) x
-     100;
+     100; then the tensor-core product alone at the CSP final conv's shape
+     (M=28672, N=512, K=1536): its error against fp64 within 2x that of fp32
+     torch.matmul (TF32 off), the same bits on repeat, its time beside
+     torch.matmul's; and a CUDA-event breakdown of one CSP forward by launch
+     (main; each MHCA's ln, q/k/v, attention, proj; guide_fc; projection
+     conv; gate; final) at T=224 and T=7;
   4. serves: the flagship model (width 512, 100 classes, T=224, fp32,
      weights from --seed) answers three batches of 64 synthetic videos
      through make_eval_step; every kernel's launch count must rise, the
@@ -74,6 +80,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 RTOL, ATOL = 1e-3, 1e-4      # fp32 with another summation order
 
@@ -120,13 +127,24 @@ def compare(name, out, ref):
     return max_abs
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0):
+    """(bound ms, what bounds it, FFMA-only bound ms): of `flops`, the
+    `tc_flops` of products run in 3xTF32 (three TF32 passes at the tensor
+    cores' peak), the rest on FFMA; the FFMA-only bound keeps rows
+    comparable with the port's earlier FFMA kernels."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (3 * tc_flops / PEAK_TF32_FLOPS + (flops - tc_flops) / PEAK_FP32_FLOPS) * 1e3
+    t_ffma = max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (t_ffma,)
 
 
 def mhca_flops(r, t, c):
-    return 18 * r * t * c + 8 * r * t * c * c + 4 * r * t * t * c
+    return 18 * r * t * c + mhca_products(r, t, c)
+
+
+def mhca_products(r, t, c):
+    """The MHCA's products (q/k/v/proj, QK^T, PV): 3xTF32 on the card."""
+    return 8 * r * t * c * c + 4 * r * t * t * c
 
 
 def mhca_case(model, key, r, t, c, gen, dev):
@@ -165,6 +183,12 @@ def csp_case(model, key, r, t, gen, dev):
 def csp_flops(r, t, cin, mid, ng, fg, cout):
     return (3 * mhca_flops(r, t, mid) + 2 * r * t * cin * 2 * mid + 2 * r * ng * fg * mid
             + 2 * r * t * mid * ng + 6 * r * t * mid * mid + 2 * r * t * 6 * mid * cout)
+
+
+def csp_products(r, t, cin, mid, ng, fg, cout):
+    """The CSP layer's 3xTF32 products: every FLOP but the gate's scores and
+    the MHCAs' conv + LayerNorm."""
+    return csp_flops(r, t, cin, mid, ng, fg, cout) - 2 * r * t * mid * ng - 3 * 18 * r * t * mid
 
 
 def mhca_bwd_flops(r, t, c):
@@ -395,7 +419,9 @@ def main(argv=None) -> int:
     from unav_yolyolva_tpu_torch.ops import cuda_build
     from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
     from unav_yolyolva_tpu_torch.ops.fused_csp import (csp_backward, csp_backward_reference,
-                                                       csp_reference, fused_csp)
+                                                       csp_reference, csp_stage_times,
+                                                       fused_csp)
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear
     from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
                                                         mhca_backward_reference,
                                                         mhca_reference)
@@ -456,7 +482,8 @@ def main(argv=None) -> int:
             pms = cuda_ms(lambda: mhca_reference(*a, heads=heads), 5)
             nbytes = 4 * (r * 224 * c * (1 if a[1] is a[0] else 2) + 4 * c * c + 19 * c
                           + r * 224 * c) + r * 224
-            results[label] = (err, ms, pms, *bound_ms(mhca_flops(r, 224, c), nbytes))
+            results[label] = (err, ms, pms, *bound_ms(mhca_flops(r, 224, c), nbytes,
+                                                      mhca_products(r, 224, c)))
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
                 f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
 
@@ -472,7 +499,8 @@ def main(argv=None) -> int:
             nbytes = 4 * (sum(x.numel() for x in a if x.dtype == torch.float32)
                           + 128 * t * cout) + 128 * t
             results[label] = (err, ms, pms, *bound_ms(
-                csp_flops(128, t, cin, mid, 512, fg, cout), nbytes))
+                csp_flops(128, t, cin, mid, 512, fg, cout), nbytes,
+                csp_products(128, t, cin, mid, 512, fg, cout)))
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
                 f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
 
@@ -521,10 +549,46 @@ def main(argv=None) -> int:
             pms = cuda_ms(lambda: tblock_reference(*a, heads=heads), 5)
             default_ms[label] = cuda_ms(lambda: blk(a[0], a[0], a[1]), 10)
             nbytes = 4 * (2 * r * 224 * c + 2 * r * c + sum(w.numel() for w in a[4:])) + r * 224
-            results[label] = (err, ms, pms, *bound_ms(tblock_flops(r, 224, c, hid), nbytes))
+            results[label] = (err, ms, pms, *bound_ms(tblock_flops(r, 224, c, hid), nbytes,
+                                                      mhca_products(r, 224, c)))
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, default path "
                 f"{default_ms[label]:.3f} ms, bound {results[label][3]:.3f} ms "
                 f"({results[label][4]}) [{smi}]")
+
+        # the tensor-core product alone at the CSP final conv's shape (the
+        # T=224 concat at 2B=128 into Cout), beside one torch.matmul in fp32
+        # (TF32 off: resolve_device), which the port never calls
+        m, n, k = 128 * 224, 512, 6 * 256
+        xa = torch.randn(m, k, generator=gen).to(dev)
+        wa = (torch.randn(n, k, generator=gen) / math.sqrt(k)).to(dev)
+        y = tf32x3_linear(xa, wa)
+        ref = xa.double() @ wa.double().T
+        err_tc = float((y.double() - ref).norm() / ref.norm())
+        err_32 = float((torch.matmul(xa, wa.T).double() - ref).norm() / ref.norm())
+        same = torch.equal(y, tf32x3_linear(xa, wa))
+        log(f"check gemm_tc@{m}x{n}x{k}: norm-wise err vs fp64 {err_tc:.3e}, fp32 torch.matmul "
+            f"{err_32:.3e} (allow_tf32={torch.backends.cuda.matmul.allow_tf32}), "
+            f"bit-identical on repeat: {same}")
+        require(err_tc <= 2 * err_32 and same, "the 3xTF32 product is off its fp32 gate")
+        del ref
+        ms = cuda_ms(lambda: tf32x3_linear(xa, wa), 20)
+        lms = cuda_ms(lambda: torch.matmul(xa, wa.T), 20)
+        flops = 2 * m * n * k
+        bms, by, ffma = bound_ms(flops, 4 * (m * k + n * k + m * n), flops)
+        log(f"time gemm_tc@{m}x{n}x{k}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"library torch.matmul fp32 {lms:.4f} ms, bound {bms:.4f} ms 3xTF32 ({by}), "
+            f"{ffma:.4f} ms FFMA [{smi}]")
+        del xa, wa, y
+
+        # where the time of one CSP forward goes, launch by launch
+        for label, key, t in (("csp@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
+                              ("csp@T7/4h", "backbone.fusion_module.top_down_layers.1", 7)):
+            a, heads = csp_case(model, key, 128, t, gen, dev)
+            runs = [csp_stage_times(*a, attn_heads=heads) for _ in range(3)]
+            med = {st: sorted(rn[st] for rn in runs)[1] for st in runs[0]}
+            log(f"stages {label} (device ms, median of 3): "
+                + ", ".join(f"{st} {v:.4f}" for st, v in med.items())
+                + f"; sum {sum(med.values()):.4f} [{smi}]")
 
     # ---- 4. serve three batches of 64 videos --------------------------------
     eval_step = make_eval_step(model, cfg, device=dev)
@@ -602,7 +666,9 @@ def main(argv=None) -> int:
         ms = cuda_ms(lambda: mhca_backward(*a, g, heads=heads), 10)
         pms = cuda_ms(lambda: mhca_backward_reference(*a, g, heads=heads), 5)
         nbytes = 4 * (5 * r * T * c + 2 * (4 * c * c + 19 * c)) + r * T
-        results[label] = (err, ms, pms, *bound_ms(mhca_bwd_flops(r, T, c), nbytes))
+        # the recompute's q/k/v and attention run on the tensor cores
+        results[label] = (err, ms, pms, *bound_ms(mhca_bwd_flops(r, T, c), nbytes,
+                                                  mhca_products(r, T, c) - 2 * r * T * c * c))
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
     for label, key, t in ((f"csp_bwd@T{T}/8h", "backbone.fusion_module.bottom_up_layers.0", T),
@@ -618,8 +684,10 @@ def main(argv=None) -> int:
         cin, fg = a[0].shape[-1], a[1].shape[-1]
         nbytes = 4 * (2 * sum(x.numel() for x in a if x.dtype == torch.float32)
                       + g.numel()) + a[2].numel()
+        # the recompute (all but the final conv) runs on the tensor cores
         results[label] = (err, ms, pms, *bound_ms(
-            csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512), nbytes))
+            csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512), nbytes,
+            csp_products(2 * B, t, cin, 256, 512, fg, 512) - 2 * 2 * B * t * 6 * 256 * 512))
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
 
@@ -635,7 +703,9 @@ def main(argv=None) -> int:
     ms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=heads), 10)
     pms = cuda_ms(lambda: tblock_backward_reference(*a, g=g, heads=heads), 5)
     nbytes = 4 * (3 * B * T * c + 4 * B * c + 2 * sum(w.numel() for w in a[4:])) + B * T
-    results[label] = (err, ms, pms, *bound_ms(tblock_bwd_flops(B, T, c, hid), nbytes))
+    # the recompute (the MHCA, fc1 and fc2) runs on the tensor cores
+    results[label] = (err, ms, pms, *bound_ms(tblock_bwd_flops(B, T, c, hid), nbytes,
+                                              mhca_products(B, T, c) + 4 * B * T * c * hid))
     log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
         f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
     # the block's forward + backward: whole-block kernels vs the default path
@@ -783,11 +853,11 @@ def main(argv=None) -> int:
     launches["soft_nms"] = soft_nms.launches
 
     def entry(name, label, source, replaces):
-        err, ms, pms, bms, by = results[label]
+        err, ms, pms, bms, by, ffma = results[label]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-                "shape": label}
+                "bound_ffma_ms": ffma, "shape": label}
 
     pkg = "unav_yolyolva_tpu_torch/csrc/"
     log(f"nvidia-smi: {smi}")

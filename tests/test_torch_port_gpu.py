@@ -8,7 +8,9 @@ Tolerances: rtol 1e-3, atol 1e-4 for fp32 with another summation order;
 NMS indices equal wherever neighbouring scores differ by more than 1e-6,
 scores within rtol 1e-5. Weight grads are sums over all R*T rows in another
 order than the plain version's, so they are held norm-wise: ||k - p|| <=
-1e-4 ||p|| per tensor; the backward kernels' two runs agree bit for bit."""
+1e-4 ||p|| per tensor; the backward kernels' two runs agree bit for bit.
+The tensor-core product (3xTF32) is held against an fp64 product: its
+norm-wise error within 2x that of the fp32 matmul (TF32 off)."""
 
 import numpy as np
 import pytest
@@ -509,3 +511,115 @@ def test_train_step_fused_stem_cuda_matches_cpu(cuda):
     for a, b in zip(gp, cp):
         torch.testing.assert_close(a, b, rtol=0, atol=2 * lr)
         assert float(((a - b).abs() <= 1e-2 * lr).float().mean()) >= 0.99
+
+
+def _tc_operands(gen, cuda, m, n, kc, taps):
+    x = torch.randn(m, kc, generator=gen).to(cuda)
+    w = (torch.randn(n, taps * kc, generator=gen) / (taps * kc) ** 0.5).to(cuda)
+    return x, w
+
+
+@pytest.mark.parametrize("case", ["ragged", "conv_edges", "slice_out", "rowmask"])
+def test_tc_product_against_fp64(cuda, case):
+    """The product alone at ragged shapes: M = 896 (T=7 at 2B=128), the k=3
+    conv over sequences of 7 (every row near an edge), a strided
+    column-slice output with bias and scale, a row mask with masked rows."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import conv3_taps, tf32x3_linear
+
+    gen = torch.Generator().manual_seed(20)
+    m, n, kc, taps, seq = {"ragged": (896, 256, 1536, 1, 1),
+                           "conv_edges": (896, 256, 256, 3, 7),
+                           "slice_out": (1000, 128, 224, 1, 1),
+                           "rowmask": (1792, 512, 768, 1, 1)}[case]
+    x, w = _tc_operands(gen, cuda, m, n, kc, taps)
+    bias = 0.1 * torch.randn(n, generator=gen).to(cuda)
+    scale = 0.125 if case == "slice_out" else 1.0
+    rowmask = (torch.arange(m, device=cuda) % 7 != 3) if case == "rowmask" else None
+    buf = torch.full((m, n + 64), 5.0, device=cuda)
+    out = buf[:, 32:32 + n] if case == "slice_out" else None
+    before = tf32x3_linear.launches
+    y = tf32x3_linear(x, w, bias, rowmask=rowmask, scale=scale, taps=taps, seq=seq, out=out)
+    again = tf32x3_linear(x, w, bias, rowmask=rowmask, scale=scale, taps=taps, seq=seq)
+    torch.cuda.synchronize()
+    assert tf32x3_linear.launches == before + 2
+    a = conv3_taps(x, seq) if taps == 3 else x
+    ref = (a.double() @ w.double().T + bias.double()) * scale
+    y32 = (a @ w.T + bias) * scale
+    if rowmask is not None:
+        ref, y32 = ref * rowmask[:, None], y32 * rowmask[:, None]
+        assert (y[~rowmask] == 0).all()
+    err = float((y.double() - ref).norm() / ref.norm())
+    err32 = float((y32.double() - ref).norm() / ref.norm())
+    assert err <= 2 * err32, f"3xTF32 error {err:.3e} vs fp32 matmul {err32:.3e}"
+    assert torch.equal(y, again), "not bit-identical on repeat"
+    if out is not None:
+        assert y.data_ptr() == out.data_ptr()
+        assert (buf[:, :32] == 5).all() and (buf[:, 32 + n:] == 5).all()
+
+
+def test_tc_product_bits_independent_of_batching(cuda):
+    """A small product (T=7 shapes: the smallest tile alone) gives the same
+    bits alone and batched with a large one (guide_fc: the largest tile),
+    as the CSP backward's batched recompute needs."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear, tf32x3_products
+
+    gen = torch.Generator().manual_seed(21)
+    xs, ws = _tc_operands(gen, cuda, 896, 256, 256, 3)
+    xb, wb = _tc_operands(gen, cuda, 65536, 256, 224, 1)
+    bias = torch.randn(256, generator=gen).to(cuda)
+    small = tf32x3_linear(xs, ws, bias, taps=3, seq=7)
+    big = tf32x3_linear(xb, wb)
+    pair = tf32x3_products([dict(x=xb, w=wb), dict(x=xs, w=ws, bias=bias, taps=3, seq=7)])
+    torch.cuda.synchronize()
+    assert torch.equal(pair[0], big) and torch.equal(pair[1], small)
+
+
+def test_csp_backward_routes_a_tie_across_tiles(cuda):
+    """Three guide tokens of each row that tie at the max (_csp_args ties
+    tokens 3 and 5; token 150 copies them, in another tile of guide_fc's
+    product): the forward's and the backward's recomputed scores must keep
+    the tie, so the three tokens get the same grad, split as torch.amax
+    splits it; two runs give the same bits."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_reference
+
+    gen = torch.Generator().manual_seed(22)
+    args = _csp_args(gen, cuda, 3, 20, 128, 64, 200, 24, 4)
+    args[1][:, 150] = args[1][:, 3]
+    g = torch.randn(3, 20, 128, generator=gen).to(cuda)
+    got = csp_backward(*args, g=g, attn_heads=4)
+    again = csp_backward(*args, g=g, attn_heads=4)
+    ref = csp_backward_reference(*args, g=g, attn_heads=4)
+    torch.cuda.synchronize()
+    dguide = got[1]
+    assert (dguide[:, 3].abs().sum(1) > 0).all()
+    assert torch.equal(dguide[:, 3], dguide[:, 5]), "the tie was broken"
+    assert torch.equal(dguide[:, 3], dguide[:, 150]), "the tie was broken across tiles"
+    _check_grads(got, ref, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+def test_csp_stage_times(cuda):
+    """The staged forward times each of its 17 launches and is not counted
+    as a launch of the forward."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import STAGES, csp_stage_times, fused_csp
+
+    args = _csp_args(torch.Generator().manual_seed(23), cuda, 3, 7, 128, 64, 40, 24, 4)
+    before = fused_csp.launches
+    times = csp_stage_times(*args, attn_heads=4)
+    assert list(times) == list(STAGES) and len(STAGES) == 17
+    assert all(v > 0 for v in times.values())
+    assert fused_csp.launches == before
+
+
+def test_tc_wrappers_refuse_unaligned_operands(cuda):
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear
+
+    x = torch.randn(8, 65, device=cuda)
+    w = torch.randn(16, 64, device=cuda)
+    with pytest.raises(ValueError):                      # rows not on 16 bytes
+        tf32x3_linear(x[:, 1:], w)
+    with pytest.raises(ValueError):                      # head width 18: not whole chunks
+        x3 = torch.randn(2, 8, 72, device=cuda)
+        ws = [w_.to(cuda) for w_ in _mhca_weights(72, torch.Generator().manual_seed(3), cuda)]
+        fused_mhca(x3, x3, _mask(2, 8, [8, 8], cuda), *ws, heads=4)

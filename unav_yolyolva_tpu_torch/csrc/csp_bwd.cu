@@ -23,8 +23,11 @@
 // Recomputing costs one forward; saving the concat instead would hold
 // R*T*6*mid floats (22 MB at 2B=16, T=224) per layer from the forward to
 // the backward, for all ten layers at once. Recompute keeps the memory of
-// a train step at the eval step's and matches the TPU kernel.
-// Bound: operations (FFMA, fp32 non-tensor peak).
+// a train step at the eval step's and matches the TPU kernel. The
+// recompute's products run on the tensor cores (gemm_tc.cuh) with bits that
+// do not depend on batching, so the batched guide_fc + projection conv
+// below give the forward's exact scores, ties included.
+// Bound: operations (the backward's own products on FFMA).
 #include "csp.cuh"
 #include "mhca_bwd.cuh"
 
@@ -203,7 +206,12 @@ static CspScratch csp_scratch(float* base, int R, int T, int Cin, int mid, int N
   const long P = (long)R * T, HT = (long)R * H * T;
   CspScratch s;
   long off = 0;
-  auto take = [&](long n) { float* q = base ? base + off : nullptr; off += n; return q; };
+  // every part starts on 16 bytes: the tensor-core products' ring copies
+  auto take = [&](long n) {
+    float* q = base ? base + off : nullptr;
+    off += (n + 3) / 4 * 4;
+    return q;
+  };
   s.cat = take(P * 6 * mid);
   s.dcat = take(P * 6 * mid);
   s.gp = take((long)R * Ng * mid);

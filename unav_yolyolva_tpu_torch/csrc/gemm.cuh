@@ -1,4 +1,8 @@
-// Plain tiled fp32 GEMM shared by the MHCA and CSP kernels.
+// The port's products other than the plain forward layout: a tiled fp32
+// FFMA GEMM for A.B (input grads), A^T.B (weight grads, split-K) and the
+// products with a GemmEpi epilogue (the TransformerBlock's MLP), and
+// launch_gemm, which sends every A.B^T product without an epilogue to the
+// tensor-core kernel of gemm_tc.cuh (operand description: GemmArgs there).
 //
 //   C[m, n] = epilogue( sum_k A(m, k) * B(n, k) )
 //   epilogue: (acc + bias[n]) * scale * rowmask[m]  (+ C[m, n] when beta)
@@ -6,48 +10,18 @@
 //   act(acc + bias[n]) * scale * rowmask[m] * seqmul[m / seq, n] (+ C),
 //   act none, exact erf GELU, or the product with GELU'(aux[m, n]).
 //
-// Operand layouts (row strides lda / ldb):
-//   A(m, k) = A[m * lda + k], or A[k * lda + m] with transA;
-//   B(n, k) = B[n * ldb + k] (torch Linear layout), or B[k * ldb + n] with
-//   transB. A and C are addressed with a row stride, so a product can read
-//   from and write straight into a column slice of a wider buffer (the CSP
-//   concat). The forward uses A.B^T; the backward's input grads use A.B
-//   (transB) and its weight grads A^T.B (transA + transB), which reduce over
-//   all R*T rows inside one launch: each output element is summed by one
-//   thread in a fixed order, so two runs give the same bits.
-// kmask[k] zeroes A(m, k) (a row mask of the rows being reduced over).
-// With taps == 3 the A loader is a k=3 "same" convolution over time written
-// as one product of depth 3*Kc: k = tap * Kc + c reads A at row
-// m + tapdir * (tap - 1), zero outside the sequence (rows are (sequence, t)
-// with t = m % seq); tapdir = -1 is the transposed conv of the backward.
-// With btaps == 3 (transB only) the B loader does the same on the n index:
-// n = tap * Kc + c reads B at row k + tap - 1 (the conv's weight grad).
+// The weight grads reduce over all R*T rows inside one launch: each output
+// element is summed by one thread in a fixed order, so two runs give the
+// same bits.
 //
 // Bound: FFMA only, so the fp32 non-tensor peak of the card. Shared-memory
 // tiles of BM x 8 and BN x 8, 256 threads, each holding a TM x TN block of
 // the output in registers (8x8 for large products, 4x4 for small ones so
 // that the small pyramid levels still fill the SMs). No double buffering,
-// no tensor cores: making it fast (wgmma, TMA, bf16) is later work.
+// no tensor cores: these layouts are the next redesign (ROADMAP Queue 2b).
 #pragma once
 
-#include "common.cuh"
-
-struct GemmArgs {
-  const float* A; long lda;
-  const float* B; long ldb;
-  float* C; long ldc;
-  const float* bias;            // (N) or nullptr
-  const unsigned char* rowmask; // (M) or nullptr
-  const unsigned char* kmask;   // (K) or nullptr
-  float scale;
-  int M, N, K;
-  int taps;                     // 1, or 3 for the k=3 conv loader on A
-  int tapdir;                   // +1 (forward conv) or -1 (its transpose)
-  int btaps;                    // 1, or 3 for the k=3 loader on B's n index
-  int Kc;                       // channels per tap
-  int seq;                      // sequence length (taps or btaps == 3)
-  int transA, transB, beta;
-};
+#include "gemm_tc.cuh"
 
 // The MLP products' epilogue, a kernel parameter of its own: kept out of
 // GemmArgs, whose size every other product's kernel pays for in registers.
@@ -79,11 +53,8 @@ __device__ __forceinline__ void gemm_store_epi(const GemmArgs& p, const GemmEpi&
   *c = p.beta ? *c + v : v;
 }
 
-constexpr int GEMM_MAX_BATCH = 4;
-struct GemmBatch { GemmArgs g[GEMM_MAX_BATCH]; };
-
-// FWD (A.B^T, the forward's only layout) compiles without the backward's
-// options: no kmask, tapdir +1, no beta (but with a GemmEpi).
+// FWD (A.B^T, here only with a GemmEpi) compiles without the backward's
+// options: no kmask, tapdir +1, no beta.
 template <bool TA, bool FWD>
 __device__ __forceinline__ float gemm_load_a(const GemmArgs& p, int m, int k) {
   if (m >= p.M || k >= p.K) return 0.f;
@@ -212,7 +183,7 @@ __global__ void __launch_bounds__(256) gemm_tn_kernel(const GemmBatch batch, int
       float v = acc[i][j];
       if (p.bias) v += p.bias[n];
       v = v * p.scale * mk;
-      crow[n] = !FWD && p.beta ? crow[n] + v : v;
+      crow[n] = p.beta ? crow[n] + v : v;   // the forward layout takes a GemmEpi here
     }
   }
 }
@@ -284,9 +255,9 @@ static int launch_gemm_layout(const GemmBatch& batch, int count, cudaStream_t st
 }
 
 // Launch `count` independent products (count <= GEMM_MAX_BATCH): one grid
-// for each operand layout present, in the order A.B^T, A.B, A^T.B. With
-// `part` (gemm_splitk_floats of the largest weight grad) the A^T.B
-// products split K, deterministically.
+// for each operand layout present, in the order A.B^T (on the tensor cores,
+// gemm_tc.cuh), A.B, A^T.B. With `part` (gemm_splitk_floats of the largest
+// weight grad) the A^T.B products split K, deterministically.
 static int launch_gemm(const GemmBatch& batch, int count, cudaStream_t stream,
                        float* part = nullptr, long part_floats = 0) {
   for (int layout = 0; layout < 3; ++layout) {
@@ -298,7 +269,7 @@ static int launch_gemm(const GemmBatch& batch, int count, cudaStream_t stream,
     }
     if (!n) continue;
     const int rc =
-        layout == 0   ? launch_gemm_layout<false, false>(sub, n, stream, nullptr, 0)
+        layout == 0   ? launch_gemm_tc(sub, n, stream)
         : layout == 1 ? launch_gemm_layout<false, true>(sub, n, stream, nullptr, 0)
                       : launch_gemm_layout<true, true>(sub, n, stream, part, part_floats);
     if (rc) return rc;
@@ -313,18 +284,6 @@ static int launch_gemm_epi(const GemmArgs& a, const GemmEpi& epi, cudaStream_t s
   if (a.transA) return (int)cudaErrorInvalidValue;
   return a.transB ? launch_gemm_layout<false, true, true>(one, 1, stream, nullptr, 0, epi)
                   : launch_gemm_layout<false, false, true>(one, 1, stream, nullptr, 0, epi);
-}
-
-static GemmArgs gemm_args(const float* A, long lda, const float* B, long ldb,
-                          float* C, long ldc, const float* bias,
-                          const unsigned char* rowmask, float scale,
-                          int M, int N, int K) {
-  GemmArgs a;
-  a.A = A; a.lda = lda; a.B = B; a.ldb = ldb; a.C = C; a.ldc = ldc;
-  a.bias = bias; a.rowmask = rowmask; a.kmask = nullptr; a.scale = scale;
-  a.M = M; a.N = N; a.K = K; a.taps = 1; a.tapdir = 1; a.btaps = 1; a.Kc = K;
-  a.seq = 1; a.transA = 0; a.transB = 0; a.beta = 0;
-  return a;
 }
 
 // C (ldc) = A (lda) . B with B stored (K, N) row-major (ldb): an input grad.

@@ -19,11 +19,19 @@
 //   one batched column-sum launch (colsum.cuh) for the dense biases, the LN
 //     affine and the depthwise taps.
 // Every weight grad is a fixed-order reduction: two runs give the same bits.
-// Bound: operations (recompute + twice the forward's products, FFMA).
+// The recompute runs the forward's own launches (its products and attention
+// in 3xTF32 on the tensor cores, gemm_tc.cuh); the dq and dk/dv passes
+// below recompute the logits with FFMA against that log-sum-exp, so their
+// P = exp(s - lse) differs from the forward's by the two products'
+// rounding, about 1e-6 relative: well inside the backward's tolerances.
+// Bound: operations (recompute + twice the forward's products; the
+// backward's own products run on FFMA).
 #pragma once
 
 #include "colsum.cuh"
 #include "mhca.cuh"
+
+constexpr int ATT_Q = 32;   // queries (keys) per tile of the two attention-backward passes
 
 // grid (ceil(T/32), H, R), 256 threads: thread (qi, g8) owns query qi of the
 // tile, keys g8 + 8j of each key tile and output dims g8 + 8j.

@@ -12,8 +12,9 @@
 //   7. fc1 on gemm.cuh with a bias + exact erf GELU epilogue;
 //   8. fc2 on gemm.cuh with a bias, row-mask, mult_m and residual epilogue,
 //      adding into out.
-// Bound: operations (the four MHCA products and the two MLP products, FFMA),
-// so the shared GEMM decides the time; the glue kernels are bytes-bound and
+// Bound: operations: the MHCA's products run in 3xTF32 on the tensor cores
+// (gemm_tc.cuh), the two MLP products with their epilogues on the FFMA GEMM
+// of gemm.cuh, which decides the time; the glue kernels are bytes-bound and
 // read each activation once.
 #pragma once
 

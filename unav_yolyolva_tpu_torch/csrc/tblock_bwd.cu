@@ -18,7 +18,8 @@
 //   one batched column-sum launch for b1, b2 and the three LN affines.
 // Every weight and multiplier grad is a fixed-order reduction, no float
 // atomics: two runs give the same bits. Bound: operations (recompute +
-// twice the products, FFMA).
+// twice the products; the recompute's MHCA, fc1 and fc2 run on the tensor
+// cores, gemm_tc.cuh, the backward's products on FFMA).
 #include "mhca_bwd.cuh"
 #include "tblock.cuh"
 

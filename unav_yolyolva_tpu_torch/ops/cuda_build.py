@@ -19,7 +19,8 @@ from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("mhca", "mhca_bwd", "csp", "csp_bwd", "nms", "tblock", "tblock_bwd")
+KERNEL_SOURCES = ("mhca", "mhca_bwd", "csp", "csp_bwd", "nms", "tblock", "tblock_bwd",
+                  "gemm_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -9,10 +9,15 @@ over the concat [main0, main1, mhca0, mhca1, mhca2, gated].
 
 On the card (csrc/csp.cu) it is bound by operations: at T=224, 2B=128 the
 products are ~95% of its 16.7 GFLOP-per-layer share, and guide_fc alone is
-7.5 GFLOP at every level. The design writes each part straight into its
-slice of one concat buffer (GEMM epilogue with output stride and column
-offset), runs guide_fc as one GEMM over the whole batch, and handles the
-ragged small levels (T = 7, 14, 28) by bounds checks instead of padding.
+7.5 GFLOP at every level. Every product (the four convs and the three
+MHCAs' dense layers and attention) runs in 3xTF32 on the tensor cores
+(csrc/gemm_tc.cuh, `ops/gemm_tc.py`), with a tile shape chosen per product
+so that the small pyramid levels (T = 7, 14, 28) still fill the card; the
+gate's max over guide tokens stays fp32 FFMA. The design writes each part
+straight into its slice of one concat buffer (product epilogue with output
+stride and column offset), runs guide_fc as one product over the whole
+batch, and handles the ragged small levels by bounds checks instead of
+padding.
 
 The backward (`csp_backward`) replaces the Pallas kernel `_csp_bwd_kernel` /
 `_csp_diff_bwd` (pallas_csp.py:243-391): it recomputes the layer from the
@@ -30,6 +35,7 @@ bfinal (Cout). emb == mid.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -38,10 +44,15 @@ import torch.nn.functional as F
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
 from .fused_mhca import MAX_T, _check, mhca_reference
+from .gemm_tc import conv3_taps
 
-_ARGTYPES = {
-    "unav_csp_forward": [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5,
-}
+_FWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5
+_ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
+             "unav_csp_forward_stages": _FWD_TYPES + [PTR]}
+# the launches of one forward, in order (csp.cu: CSP_STAGES)
+STAGES = (("main",) + tuple(f"mhca{i}.{part}" for i in range(3)
+                            for part in ("ln", "qkv", "attention", "proj"))
+          + ("guide_fc", "proj_conv", "gate", "final"))
 _BWD_ARGTYPES = {
     "unav_csp_backward": [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19,
 }
@@ -50,27 +61,34 @@ _BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
 
 def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
                   battn, wproj, bproj, wfinal, bfinal, *, attn_heads: int,
-                  mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version of the fused CSP layer."""
+                  mhca_heads: int = 4, eps: float = 1e-5, linear=F.linear,
+                  matmul=torch.matmul) -> torch.Tensor:
+    """Plain PyTorch version of the fused CSP layer. `linear` computes the
+    convs and dense layers, `matmul` the MHCAs' attention products (the
+    kernel's 3xTF32 rounding: ops/gemm_tc.py); the k=3 projection conv is
+    one product of depth 3*mid, as the kernel runs it."""
     r, t, _ = x.shape
     mid = w.shape[-1]
     mm = mask[..., None].to(x.dtype)
-    y = F.linear(x, wmain, bmain) * mm
+    y = linear(x, wmain, bmain) * mm
     parts = [y[..., :mid], y[..., mid:]]
     for bi in range(3):
         parts.append(mhca_reference(parts[-1], parts[-1], mask, dw[bi], lnw[bi],
-                                    lnb[bi], w[bi], b[bi], heads=mhca_heads, eps=eps))
+                                    lnb[bi], w[bi], b[bi], heads=mhca_heads, eps=eps,
+                                    linear=linear, matmul=matmul))
     p = parts[-1]
-    gp = F.linear(guide, wg, bg)                                  # (R, Ng, emb)
+    gp = linear(guide, wg, bg)                                    # (R, Ng, emb)
     hc = gp.shape[-1] // attn_heads
-    pc = F.conv1d(p.transpose(1, 2), wproj, bproj, padding=1).transpose(1, 2) * mm
+    taps = conv3_taps(p.reshape(r * t, mid), t)                   # (R*T, 3 mid)
+    wtaps = wproj.permute(0, 2, 1).reshape(mid, 3 * mid)          # [out, tap, in]
+    pc = linear(taps, wtaps, bproj).reshape(r, t, mid) * mm
     sc = torch.einsum("rthc,rnhc->rhtn", p.reshape(r, t, attn_heads, hc),
                       gp.reshape(r, -1, attn_heads, hc))
     mx = sc.amax(dim=-1) / math.sqrt(hc)                          # (R, H, T)
     gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2)
     gated = pc.reshape(r, t, attn_heads, -1) * gate[..., None]
     parts.append(gated.reshape(r, t, mid))
-    return F.linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
+    return linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
 
 
 def csp_backward_reference(x, guide, mask, *weights, g, attn_heads: int,
@@ -90,10 +108,14 @@ def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
     r, t, cin = x.shape
     _, ng, fg = guide.shape
     mid, cout = w.shape[-1], wfinal.shape[0]
-    if (mid % attn_heads or mid % mhca_heads or mid // mhca_heads > 128
-            or mid // attn_heads > 128 or mid > 1024 or t > MAX_T or wg.shape[0] != mid):
-        raise ValueError(f"fused_csp: unsupported shape (T={t}, mid={mid}, "
-                         f"heads={attn_heads}/{mhca_heads}, emb={wg.shape[0]})")
+    # the products copy rows of 16 bytes: Cin, Fg and the MHCA head width
+    # (so mid) multiples of 4 floats, Cout even
+    if (mid % attn_heads or mid % mhca_heads or (mid // mhca_heads) % 4
+            or mid // mhca_heads > 128 or mid // attn_heads > 128 or mid > 1024
+            or cin % 4 or fg % 4 or cout % 2 or t > MAX_T or wg.shape[0] != mid):
+        raise ValueError(f"fused_csp: unsupported shape (T={t}, Cin={cin}, mid={mid}, "
+                         f"Fg={fg}, Cout={cout}, heads={attn_heads}/{mhca_heads}, "
+                         f"emb={wg.shape[0]})")
     for name, ten, shape in (
         ("x", x, None), ("guide", guide, (r, ng, fg)), ("wmain", wmain, (2 * mid, cin)),
         ("bmain", bmain, (2 * mid,)), ("dw", dw, (3, 3, mid, 3)), ("lnw", lnw, (3, 3, mid)),
@@ -107,8 +129,8 @@ def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
     return r, t, cin, mid, ng, fg, cout
 
 
-def _forward_kernel(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
-                    wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps):
+def _launch_forward(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
+                    battn, wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps, *extra):
     r, t, cin, mid, ng, fg, cout = _check_args(
         x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
         wfinal, bfinal, attn_heads, mhca_heads)
@@ -119,18 +141,34 @@ def _forward_kernel(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, ba
     gp = torch.empty(r * ng * mid, device=dev, dtype=torch.float32)
     scratch = torch.empty(6 * r * t * mid, device=dev, dtype=torch.float32)
     lib = cuda_build.library("csp", _ARGTYPES)
-    rc = lib.unav_csp_forward(
+    rc = getattr(lib, entry)(
         x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg,
         cout, attn_heads, mhca_heads,
         wmain.data_ptr(), bmain.data_ptr(), dw.data_ptr(), lnw.data_ptr(),
         lnb.data_ptr(), w.data_ptr(), b.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         battn.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), wfinal.data_ptr(),
         bfinal.data_ptr(), eps, out.data_ptr(), cat.data_ptr(), gp.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, *extra,
     )
-    cuda_build.check(lib, rc, "fused_csp")
+    cuda_build.check(lib, rc, entry)
+    return out
+
+
+def _forward_kernel(*args):
+    out = _launch_forward("unav_csp_forward", *args)
     fused_csp.launches += 1
     return out
+
+
+def csp_stage_times(x, guide, mask, *weights, attn_heads: int, mhca_heads: int = 4,
+                    eps: float = 1e-5):
+    """One CUDA forward of the kernel sequence, synchronised, and the device
+    ms of each of its launches (CUDA events between them): {stage: ms} in
+    launch order, the names of STAGES. Not counted in fused_csp.launches."""
+    ms = (ctypes.c_float * len(STAGES))()
+    _launch_forward("unav_csp_forward_stages", x, guide, mask, *weights, attn_heads,
+                    mhca_heads, eps, ms)
+    return dict(zip(STAGES, ms))
 
 
 def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,

@@ -8,10 +8,12 @@ per-head masked softmax attention (masked keys at finfo.min, a row without
 a valid key gives exactly 0), proj dense, output mask.
 
 On the card (csrc/mhca.cuh) it is bound by operations: the four C x C
-products are ~80% of the FLOPs at the stem shape (64, 224, 512). The design
-runs them through one shared tiled fp32 GEMM (csrc/gemm.cuh) and tiles the
-attention by 32 queries so that a tile's logits against all T keys fit in
-shared memory, which the TPU's whole-(T, T) VMEM block does not.
+products are ~80% of the FLOPs at the stem shape (64, 224, 512) and the
+attention's two products most of the rest. All of them run in 3xTF32 on the
+tensor cores (csrc/gemm_tc.cuh, `ops/gemm_tc.py`: fp32-accurate at up to
+3x the FFMA rate); the attention tiles 64 queries so that a tile's logits
+against all T keys fit in shared memory, which the TPU's whole-(T, T) VMEM
+block does not, and streams keys and values through a cp.async ring.
 
 The backward (`mhca_backward`) replaces the Pallas kernel
 `_mhca_bwd_kernel` / `_mhca_diff_bwd` (pallas_fusion.py:303-573): it
@@ -20,7 +22,10 @@ and walks the chain in reverse; the attention backward is split into a
 query-tiled pass (dq) and a key-tiled pass (dk, dv) so that neither needs
 atomics, and every weight grad is a fixed-order sum over all R*T rows, so
 two runs give the same bits. Bound: operations, ~2.5x the forward's
-(recompute + twice the products). On CUDA with grad enabled, `fused_mhca`
+(recompute + twice the products). The recompute runs the forward's
+tensor-core launches, the dq and dk/dv passes recompute the logits in FFMA
+against the forward's log-sum-exp (a difference of ~1e-6 relative in P,
+well inside the backward's tolerances). On CUDA with grad enabled, `fused_mhca`
 runs through `MHCAFunction`, whose backward is that kernel.
 
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
@@ -48,31 +53,36 @@ _BWD_ARGTYPES = {
 }
 _BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
 
-# longest sequence whose 32-query logits tile fits in a block's shared memory
-MAX_T = 1500
+# longest sequence whose 64-query logits tile, beside the query tile and the
+# key / value ring, fits in a block's shared memory at head width 128
+MAX_T = 512
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_mask: torch.Tensor, heads: int) -> torch.Tensor:
+           kv_mask: torch.Tensor, heads: int, *, matmul=torch.matmul) -> torch.Tensor:
     """Per-head masked softmax attention of (B, Tq, C) queries (already
     scaled) over (B, Tk, C) keys/values. Masked keys get finfo.min; a row
-    without any valid key outputs 0 instead of NaN."""
+    without any valid key outputs 0 instead of NaN. `matmul` computes the
+    two products (ops/gemm_tc.py:tf32x3_matmul_reference emulates the
+    kernel's)."""
     b, tq, c = q.shape
     tk = k.shape[1]
     d = c // heads
-    att = torch.einsum("bqhd,bkhd->bhqk", q.reshape(b, tq, heads, d),
-                       k.reshape(b, tk, heads, d))
+    att = matmul(q.reshape(b, tq, heads, d).transpose(1, 2),
+                 k.reshape(b, tk, heads, d).permute(0, 2, 3, 1))          # (B, H, Tq, Tk)
     any_kv = kv_mask.any(dim=-1)[:, None, None, None]
     att = att.masked_fill(~kv_mask[:, None, None, :], torch.finfo(att.dtype).min)
     att = torch.where(any_kv, att, torch.zeros((), dtype=att.dtype, device=att.device))
     att = att.softmax(dim=-1) * any_kv.to(att.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", att, v.reshape(b, tk, heads, d))
-    return out.reshape(b, tq, c)
+    out = matmul(att, v.reshape(b, tk, heads, d).transpose(1, 2))         # (B, H, Tq, d)
+    return out.transpose(1, 2).reshape(b, tq, c)
 
 
 def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version of the fused MHCA (stride 1)."""
+                   eps: float = 1e-5, linear=F.linear, matmul=torch.matmul) -> torch.Tensor:
+    """Plain PyTorch version of the fused MHCA (stride 1). `linear` computes
+    the dense layers and `matmul` the attention's products (the kernel's
+    3xTF32 rounding: ops/gemm_tc.py)."""
     c = x1.shape[-1]
     mm = mask[..., None].to(x1.dtype)
 
@@ -80,10 +90,10 @@ def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
         y = F.conv1d(x.transpose(1, 2), dw[i][:, None, :], padding=1, groups=c)
         return channel_layer_norm(y.transpose(1, 2) * mm, lnw[i], lnb[i], eps)
 
-    q = F.linear(dwconv_ln(x2, 0), w[0], b[0]) * (1.0 / math.sqrt(c // heads))
-    k = F.linear(dwconv_ln(x1, 1), w[1], b[1])
-    v = F.linear(dwconv_ln(x1, 2), w[2], b[2]) * mm
-    return F.linear(attend(q, k, v, mask, heads), w[3], b[3]) * mm
+    q = linear(dwconv_ln(x2, 0), w[0], b[0]) * (1.0 / math.sqrt(c // heads))
+    k = linear(dwconv_ln(x1, 1), w[1], b[1])
+    v = linear(dwconv_ln(x1, 2), w[2], b[2]) * mm
+    return linear(attend(q, k, v, mask, heads, matmul=matmul), w[3], b[3]) * mm
 
 
 def mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
@@ -97,16 +107,21 @@ def mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
 
 
 def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
-    if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous {dtype} CUDA tensor, got "
-                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    # fp32 operands 16-byte aligned: the tensor-core products and the
+    # attention copy rows in 16-byte chunks
+    if (t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous()
+            or (dtype == torch.float32 and t.data_ptr() % 16)):
+        raise ValueError(f"{name}: needs a contiguous, 16-byte aligned {dtype} CUDA tensor, "
+                         f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()}, "
+                         f"address {t.data_ptr():#x})")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     r, t, c = x1.shape
-    if c % heads or c // heads > 128 or c > 1024 or t > MAX_T:
+    # head widths of whole 16-byte chunks: rows and heads start on 16 bytes
+    if c % heads or (c // heads) % 4 or c // heads > 128 or c > 1024 or t > MAX_T:
         raise ValueError(f"fused_mhca: unsupported shape (T={t}, C={c}, heads={heads})")
     _check(x1, "x1")
     _check(x2, "x2", x1.shape)
