@@ -16,8 +16,11 @@ Phases (any failure exits non-zero):
      zero-length row (beside the default path's time for the same block),
      single-class Soft-NMS at (6400, 1024) x 100 (the per-class buffers of a
      batch) with the hard, linear and Gaussian weights and at (64, 10100) x
-     100; then the tensor-core product alone at the CSP final conv's shape
-     (M=28672, N=512, K=1536): its error against fp64 within 2x that of fp32
+     100; then the tensor-core product alone in its three layouts at the
+     CSP final conv's shapes: the forward (M=28672, N=512, K=1536), the
+     backward's input grad (A.B, M=3584, N=1536, K=512) and weight grad
+     (A^T.B, M=512, N=1536, K=3584, split K) at the train protocol's T=224,
+     2B=16: each one's error against fp64 within 2x that of fp32
      torch.matmul (TF32 off), the same bits on repeat, its time beside
      torch.matmul's; and a CUDA-event breakdown of one CSP forward by launch
      (main; each MHCA's ln, q/k/v, attention, proj; guide_fc; projection
@@ -41,7 +44,9 @@ Phases (any failure exits non-zero):
      rtol 1e-3 / atol 1e-4, weight and multiplier grads norm-wise within
      1e-4 (sums over thousands of rows in another order); each kernel run
      twice must give the same bits; times them with CUDA events beside the
-     bound, and the block's forward + backward on both stem paths;
+     bound, and the block's forward + backward on both stem paths; a
+     CUDA-event breakdown of one CSP backward by stage at T=224 and T=7
+     (`stages csp_bwd@...` lines);
   7. trains: the flagship model of configs/avel_unav100.yaml (B=8, T=224,
      fp32, AdamW + clip + warmup/cosine per iteration, droppath 0.1, EMA,
      weights from --seed) takes 4 steps of make_train_step on synthetic
@@ -60,11 +65,15 @@ Phases (any failure exits non-zero):
      one step's grads at B=2 against the CPU plain path (norm-wise <= 1e-3);
  10. serves one batch of 64 with nms_method "hard" and one with
      multiclass_nms False (segment voting): the single-class Soft-NMS
-     kernel runs, and the first two videos agree with the CPU path.
+     kernel runs, and the first two videos agree with the CPU path;
+ 11. counts the kernels one CSP backward (T=224 and T=7) and one MHCA
+     backward launch, with torch.profiler, after every timed phase so that
+     the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
-result.
+result. With --stages-only it builds, prints the CSP forward's and
+backward's breakdowns and launch counts, and stops.
 """
 
 from __future__ import annotations
@@ -325,6 +334,80 @@ def check_nms(ki, ks, ri, rs, what="nms"):
     return err
 
 
+def kernel_launches(fn) -> int:
+    """CUDA kernels that one call of fn launches (torch.profiler; copies and
+    memsets not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def forward_stage_lines(model, gen, dev, smi):
+    """Where the time of one CSP forward goes, launch by launch."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_stage_times
+
+    for label, key, t in (("csp@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
+                          ("csp@T7/4h", "backbone.fusion_module.top_down_layers.1", 7)):
+        a, heads = csp_case(model, key, 128, t, gen, dev)
+        runs = [csp_stage_times(*a, attn_heads=heads) for _ in range(3)]
+        med = {st: sorted(rn[st] for rn in runs)[1] for st in runs[0]}
+        log(f"stages {label} (device ms, median of 3): "
+            + ", ".join(f"{st} {v:.4f}" for st, v in med.items())
+            + f"; sum {sum(med.values()):.4f} [{smi}]")
+
+
+def backward_stage_lines(tmodel, b, t_max, gen, dev, smi):
+    """Where the time of one CSP backward goes, stage by stage, at the train
+    protocol's T=224 and T=7 levels (2B rows)."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_stage_times
+
+    for label, key, t in ((f"csp_bwd@T{t_max}", "backbone.fusion_module.bottom_up_layers.0",
+                           t_max),
+                          ("csp_bwd@T7", "backbone.fusion_module.bottom_up_layers.4", 7)):
+        a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
+        g = torch.randn(2 * b, t, 512, generator=gen).to(dev)
+        csp_backward(*a, g=g, attn_heads=heads)                   # warm-up
+        runs = [csp_backward_stage_times(*a, g=g, attn_heads=heads) for _ in range(3)]
+        med = {st: sorted(rn[st] for rn in runs)[1] for st in runs[0]}
+        log(f"stages {label}/{heads}h (device ms, median of 3): "
+            + ", ".join(f"{st} {v:.4f}" for st, v in med.items())
+            + f"; sum {sum(med.values()):.4f} [{smi}]")
+
+
+def backward_launch_lines(tmodel, b, t_max, gen, dev):
+    """The kernels that one CSP backward (T=224 and T=7, 2B rows) and one
+    MHCA backward launch, counted by torch.profiler. Run after every timed
+    phase, so that the profiler cannot touch their times."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+
+    for label, key, t in ((f"csp_bwd@T{t_max}", "backbone.fusion_module.bottom_up_layers.0",
+                           t_max),
+                          ("csp_bwd@T7", "backbone.fusion_module.bottom_up_layers.4", 7)):
+        a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
+        g = torch.randn(2 * b, t, 512, generator=gen).to(dev)
+        n = kernel_launches(lambda: csp_backward(*a, g=g, attn_heads=heads))
+        log(f"launches {label}/{heads}h: {n} kernels in one csp_backward call "
+            f"(torch.profiler, the wrapper's copies included)")
+    key = "backbone.self_att_V.0.attn"
+    a = mhca_case(tmodel, key, b, t_max, 512, gen, dev)
+    g = torch.randn(b, t_max, 512, generator=gen).to(dev)
+    heads = dict(tmodel.named_modules())[key].n_head
+    n = kernel_launches(lambda: mhca_backward(*a, g, heads=heads))
+    log(f"launches mhca_bwd@{b}x{t_max}x512: {n} kernels in one mhca_backward call "
+        f"(torch.profiler)")
+
+
 def require(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -399,6 +482,9 @@ def check_step_grads(what, gpu_loss, gpu_g, cpu_loss, cpu_g):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stages-only", action="store_true",
+                    help="only build, then print the CSP forward's and backward's "
+                         "per-launch breakdowns and launch counts")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "unav_yolyolva_tpu_torch")):
@@ -419,9 +505,8 @@ def main(argv=None) -> int:
     from unav_yolyolva_tpu_torch.ops import cuda_build
     from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
     from unav_yolyolva_tpu_torch.ops.fused_csp import (csp_backward, csp_backward_reference,
-                                                       csp_reference, csp_stage_times,
-                                                       fused_csp)
-    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear
+                                                       csp_reference, fused_csp)
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear, tf32x3_products
     from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
                                                         mhca_backward_reference,
                                                         mhca_reference)
@@ -471,6 +556,16 @@ def main(argv=None) -> int:
         f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
         f"{n_params / 1e6:.2f} M parameters, fp32")
     gen = torch.Generator().manual_seed(args.seed + 1)
+    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
+    tm = tcfg["model"]
+    B, T = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+    if args.stages_only:
+        with torch.inference_mode():
+            forward_stage_lines(model, gen, dev, smi)
+        tmodel = build_model(tcfg, device=dev, seed=args.seed)
+        backward_stage_lines(tmodel, B, T, gen, dev, smi)
+        backward_launch_lines(tmodel, B, T, gen, dev)
+        return 0
     results = {}
     with torch.inference_mode():
         for label, key, r, c in (("mhca@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
@@ -580,15 +675,38 @@ def main(argv=None) -> int:
             f"{ffma:.4f} ms FFMA [{smi}]")
         del xa, wa, y
 
-        # where the time of one CSP forward goes, launch by launch
-        for label, key, t in (("csp@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
-                              ("csp@T7/4h", "backbone.fusion_module.top_down_layers.1", 7)):
-            a, heads = csp_case(model, key, 128, t, gen, dev)
-            runs = [csp_stage_times(*a, attn_heads=heads) for _ in range(3)]
-            med = {st: sorted(rn[st] for rn in runs)[1] for st in runs[0]}
-            log(f"stages {label} (device ms, median of 3): "
-                + ", ".join(f"{st} {v:.4f}" for st, v in med.items())
-                + f"; sum {sum(med.values()):.4f} [{smi}]")
+        # the backward's layouts alone at the CSP backward's final-conv
+        # shapes (T=224, 2B=16 of the train protocol): dcat = g Wfinal (A.B)
+        # and Wfinal's grad g^T cat over all rows (A^T.B, split K)
+        pb, cout, c6 = 2 * B * T, 512, 6 * 256
+        gb_ = torch.randn(pb, cout, generator=gen).to(dev)
+        wf = (torch.randn(cout, c6, generator=gen) / math.sqrt(cout)).to(dev)
+        cat = torch.randn(pb, c6, generator=gen).to(dev)
+        for label, call, mm in (
+                (f"gemm_tc_nn@{pb}x{c6}x{cout}", dict(x=gb_, w=wf, trans_b=True),
+                 lambda: torch.matmul(gb_, wf)),
+                (f"gemm_tc_wgrad@{cout}x{c6}x{pb}", dict(x=gb_, w=cat, trans_a=True,
+                                                          trans_b=True),
+                 lambda: torch.matmul(gb_.T, cat))):
+            y = tf32x3_products([call])[0]
+            a64, b64 = call["x"].double(), call["w"].double()
+            ref = a64.T @ b64 if call.get("trans_a") else a64 @ b64
+            err_tc = float((y.double() - ref).norm() / ref.norm())
+            err_32 = float((mm().double() - ref).norm() / ref.norm())
+            same = torch.equal(y, tf32x3_products([call])[0])
+            log(f"check {label}: norm-wise err vs fp64 {err_tc:.3e}, fp32 torch.matmul "
+                f"{err_32:.3e}, bit-identical on repeat: {same}")
+            require(err_tc <= 2 * err_32 and same, f"{label}: off its fp32 gate")
+            ms = cuda_ms(lambda: tf32x3_products([call]), 20)
+            lms = cuda_ms(mm, 20)
+            flops = 2 * pb * cout * c6
+            bms, by, ffma = bound_ms(flops, 4 * (pb * cout + cout * c6 + pb * c6), flops)
+            log(f"time {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), library "
+                f"torch.matmul fp32 {lms:.4f} ms, bound {bms:.4f} ms 3xTF32 ({by}), "
+                f"{ffma:.4f} ms FFMA [{smi}]")
+        del gb_, wf, cat, y, ref
+
+        forward_stage_lines(model, gen, dev, smi)
 
     # ---- 4. serve three batches of 64 videos --------------------------------
     eval_step = make_eval_step(model, cfg, device=dev)
@@ -647,9 +765,6 @@ def main(argv=None) -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
 
     # ---- 6. backward kernels against their plain versions ------------------
-    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
-    tm = tcfg["model"]
-    B, T = tcfg["loader"]["batch_size"], tm["max_seq_len"]
     tmodel = build_model(tcfg, device=dev, seed=args.seed)
     for label, key, r, c in ((f"mhca_bwd@{B}x{T}x512", "backbone.self_att_V.0.attn", B, 512),
                              (f"mhca_bwd@{2 * B}x{T}x256",
@@ -666,9 +781,9 @@ def main(argv=None) -> int:
         ms = cuda_ms(lambda: mhca_backward(*a, g, heads=heads), 10)
         pms = cuda_ms(lambda: mhca_backward_reference(*a, g, heads=heads), 5)
         nbytes = 4 * (5 * r * T * c + 2 * (4 * c * c + 19 * c)) + r * T
-        # the recompute's q/k/v and attention run on the tensor cores
+        # every product runs on the tensor cores: all but the conv + LN work
         results[label] = (err, ms, pms, *bound_ms(mhca_bwd_flops(r, T, c), nbytes,
-                                                  mhca_products(r, T, c) - 2 * r * T * c * c))
+                                                  mhca_bwd_flops(r, T, c) - 18 * r * T * c))
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
     for label, key, t in ((f"csp_bwd@T{T}/8h", "backbone.fusion_module.bottom_up_layers.0", T),
@@ -684,10 +799,11 @@ def main(argv=None) -> int:
         cin, fg = a[0].shape[-1], a[1].shape[-1]
         nbytes = 4 * (2 * sum(x.numel() for x in a if x.dtype == torch.float32)
                       + g.numel()) + a[2].numel()
-        # the recompute (all but the final conv) runs on the tensor cores
+        # every product runs on the tensor cores; the gate's scores (forward
+        # and their grads, counted twice) and the MHCAs' conv + LN on FFMA
+        flops = csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512)
         results[label] = (err, ms, pms, *bound_ms(
-            csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512), nbytes,
-            csp_products(2 * B, t, cin, 256, 512, fg, 512) - 2 * 2 * B * t * 6 * 256 * 512))
+            flops, nbytes, flops - 3 * 2 * 2 * B * t * 256 * 512 - 3 * 18 * 2 * B * t * 256))
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
             f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
 
@@ -703,9 +819,10 @@ def main(argv=None) -> int:
     ms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=heads), 10)
     pms = cuda_ms(lambda: tblock_backward_reference(*a, g=g, heads=heads), 5)
     nbytes = 4 * (3 * B * T * c + 4 * B * c + 2 * sum(w.numel() for w in a[4:])) + B * T
-    # the recompute (the MHCA, fc1 and fc2) runs on the tensor cores
-    results[label] = (err, ms, pms, *bound_ms(tblock_bwd_flops(B, T, c, hid), nbytes,
-                                              mhca_products(B, T, c) + 4 * B * T * c * hid))
+    # every product runs on the tensor cores but the GELU' product (FFMA)
+    flops = tblock_bwd_flops(B, T, c, hid)
+    results[label] = (err, ms, pms, *bound_ms(flops, nbytes,
+                                              flops - 18 * B * T * c - 2 * B * T * c * hid))
     log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
         f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
     # the block's forward + backward: whole-block kernels vs the default path
@@ -721,6 +838,7 @@ def main(argv=None) -> int:
     set_stem("never")
     log(f"time tblock fwd+bwd@{B}x{T}x512: whole-block kernels {fb['always']} ms, "
         f"default path {fb['never']} ms [{smi}]")
+    backward_stage_lines(tmodel, B, T, gen, dev, smi)
     del tmodel, blk
 
     # ---- 7. train: 4 checked steps, then timed steps ------------------------
@@ -851,6 +969,9 @@ def main(argv=None) -> int:
         compare_dets(ndets, make_eval_step(cpu_model, ncfg, device="cpu")(
             {k: v[:2] for k, v in batches[0].items()}), f"{name}-nms gpu-vs-cpu")
     launches["soft_nms"] = soft_nms.launches
+
+    # ---- last: the kernels one CSP and one MHCA backward launch --------------
+    backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)
 
     def entry(name, label, source, replaces):
         err, ms, pms, bms, by, ffma = results[label]

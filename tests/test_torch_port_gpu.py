@@ -574,6 +574,85 @@ def test_tc_product_bits_independent_of_batching(cuda):
     assert torch.equal(pair[0], big) and torch.equal(pair[1], small)
 
 
+@pytest.mark.parametrize("case", ["nn_conv_beta", "nn_ragged_rowmask", "wgrad_kmask",
+                                  "wgrad_btaps", "wgrad_strided"])
+def test_tc_backward_layouts_against_fp64(cuda, case):
+    """The input-grad (A.B) and weight-grad (A^T.B) layouts alone: the
+    transposed k=3 conv over sequences of 7 added into a strided column
+    slice, a ragged M with a row mask, the final conv's weight grad (K =
+    3584 rows, split K) with masked rows, the conv's weight grad over a
+    ragged K = 1001 with the shifted-B loader, and a strided A read in place
+    (a dcat slice). Error against fp64 within 2x fp32 matmul's; the same
+    bits on repeat; the kernel's split of K is split_chunk's."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import (conv3_taps, kernel_split_chunk,
+                                                     split_chunk, tf32x3_products)
+
+    gen = torch.Generator().manual_seed(24)
+    buf = None
+    if case.startswith("nn"):
+        m, kc, n, seq, taps = {"nn_conv_beta": (896, 256, 256, 7, 3),
+                               "nn_ragged_rowmask": (1000, 512, 384, 1, 1)}[case]
+        x = torch.randn(m, kc, generator=gen).to(cuda)
+        w = (torch.randn(taps * kc, n, generator=gen) / (taps * kc) ** 0.5).to(cuda)
+        call = dict(x=x, w=w, taps=taps, tapdir=-1, seq=seq, trans_b=True)
+        a = conv3_taps(x, seq, -1) if taps == 3 else x
+        ref, y32 = a.double() @ w.double(), a @ w
+        if case == "nn_conv_beta":
+            buf = torch.randn(m, n + 64, generator=gen).to(cuda)
+            call.update(out=buf[:, 32:32 + n], beta=True)
+            before = buf.clone()
+            ref, y32 = ref + before[:, 32:32 + n].double(), y32 + before[:, 32:32 + n]
+        else:
+            rowmask = torch.arange(m, device=cuda) % 7 != 3
+            call["rowmask"] = rowmask
+            ref, y32 = ref * rowmask[:, None], y32 * rowmask[:, None]
+    else:
+        k, m, n, seq = {"wgrad_kmask": (3584, 512, 1536, 1), "wgrad_btaps": (1001, 128, 128, 7),
+                        "wgrad_strided": (3584, 256, 256, 1)}[case]
+        x = torch.randn(k, m, generator=gen).to(cuda)
+        if case == "wgrad_strided":
+            x = torch.randn(k, 6 * m, generator=gen).to(cuda)[:, 2 * m:3 * m]
+        w = torch.randn(k, n, generator=gen).to(cuda)
+        kmask = (torch.arange(k, device=cuda) % 5 != 2) if case == "wgrad_kmask" else None
+        btaps = 3 if seq > 1 else 1
+        call = dict(x=x, w=w, kmask=kmask, btaps=btaps, seq=seq, trans_a=True, trans_b=True)
+        a = x * kmask[:, None] if kmask is not None else x
+        b = conv3_taps(w, seq) if btaps == 3 else w
+        ref, y32 = a.double().T @ b.double(), a.T @ b
+        assert kernel_split_chunk(m, btaps * n, k) == split_chunk(m, btaps * n, k)
+    y = tf32x3_products([call])[0]
+    if buf is not None:
+        buf.copy_(before)
+    again = tf32x3_products([call])[0]
+    torch.cuda.synchronize()
+    err = float((y.double() - ref).norm() / ref.norm())
+    err32 = float((y32.double() - ref).norm() / ref.norm())
+    assert err <= 2 * err32, f"3xTF32 error {err:.3e} vs fp32 matmul {err32:.3e}"
+    assert torch.equal(y, again), "not bit-identical on repeat"
+    if buf is not None:
+        assert torch.equal(buf[:, :32], before[:, :32]) and torch.equal(buf[:, 32 + n:],
+                                                                        before[:, 32 + n:])
+
+
+def test_tc_weight_grad_bits_independent_of_batching(cuda):
+    """A weight grad gives the same bits alone and batched with others of
+    other shapes (and so other splits of K), as the backward batches them."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_products
+
+    gen = torch.Generator().manual_seed(25)
+    k = 3584
+    xs = [torch.randn(k, m, generator=gen).to(cuda) for m in (256, 512, 64)]
+    ws = [torch.randn(k, n, generator=gen).to(cuda) for n in (256, 1536, 224)]
+    kmask = torch.arange(k, device=cuda) % 9 != 4
+    calls = [dict(x=x, w=w, kmask=kmask, trans_a=True, trans_b=True) for x, w in zip(xs, ws)]
+    alone = [tf32x3_products([c])[0] for c in calls]
+    batched = tf32x3_products(calls)
+    again = tf32x3_products(calls[::-1])[::-1]
+    torch.cuda.synchronize()
+    for a, b, c in zip(alone, batched, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_csp_backward_routes_a_tie_across_tiles(cuda):
     """Three guide tokens of each row that tie at the max (_csp_args ties
     tokens 3 and 5; token 150 copies them, in another tile of guide_fc's
@@ -609,6 +688,23 @@ def test_csp_stage_times(cuda):
     assert list(times) == list(STAGES) and len(STAGES) == 17
     assert all(v > 0 for v in times.values())
     assert fused_csp.launches == before
+
+
+def test_csp_backward_stage_times(cuda):
+    """The staged backward times each of its stages with finite, positive
+    ms and is not counted as a launch of the backward."""
+    import math
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import (BWD_STAGES, csp_backward,
+                                                       csp_backward_stage_times)
+
+    args = _csp_args(torch.Generator().manual_seed(26), cuda, 3, 20, 128, 64, 40, 24, 4)
+    g = torch.randn(3, 20, 128, generator=torch.Generator().manual_seed(27)).to(cuda)
+    before = csp_backward.launches
+    times = csp_backward_stage_times(*args, g=g, attn_heads=4)
+    assert csp_backward.launches == before
+    assert list(times) == list(BWD_STAGES) and len(BWD_STAGES) == 34
+    assert all(math.isfinite(v) and v > 0 for v in times.values())
 
 
 def test_tc_wrappers_refuse_unaligned_operands(cuda):

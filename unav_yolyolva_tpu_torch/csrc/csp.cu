@@ -66,12 +66,13 @@ static int csp_forward_impl(
   mark_stage(marks, stream);
 
   const int hc = emb / attn_heads;
-  const size_t smem = sizeof(float) * (GATE_T + GATE_N) * (hc + 1);
-  cudaFuncSetAttribute(gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = gate_smem_bytes(hc);
+  static int limit = 0;
+  raise_smem_limit((const void*)gate_kernel<false>, (int)smem, limit);
   dim3 grid(ceil_div(T, GATE_T), attn_heads, R);
-  gate_kernel<<<grid, 256, smem, stream>>>(
+  gate_kernel<false><<<grid, 256, smem, stream>>>(
       cat + 4 * mid, C6, gp, battn, T, Ng, emb, attn_heads,
-      (float)sqrt((double)hc), cat + 5 * mid, C6, mid / attn_heads);
+      (float)sqrt((double)hc), cat + 5 * mid, C6, mid / attn_heads, nullptr, nullptr, nullptr);
   UNAV_RETURN_IF_ERROR();
   mark_stage(marks, stream);
 

@@ -1,27 +1,38 @@
 // The tensor-core fp32 product of gemm_tc.cuh alone (ops/gemm_tc.py), for
-// testing and timing it by itself: `count` products in one launch, as
-// launch_gemm batches them.
+// testing and timing it by itself: `count` products of any of the three
+// layouts in one call, batched as launch_gemm batches them.
 #include "gemm.cuh"
 
-// Per product i: ptrs[5i..5i+4] = A, B, C, bias (or null), rowmask (or
-// null); ints[8i..8i+7] = lda, ldb, ldc, M, N, K, taps (1 or 3: the k=3
-// conv loader, Kc = K / 3), seq; scales[i].
+constexpr int TC_PTRS = 6, TC_INTS = 13;
+
+// Per product i: ptrs[6i..6i+5] = A, B, C, bias, rowmask, kmask (the last
+// three may be null); ints[13i..13i+12] = lda, ldb, ldc, M, N, K, taps (1,
+// or 3: the k=3 conv loader on A, Kc = K / 3), seq, tapdir (+1 or -1),
+// btaps (1, or 3: the conv loader on B's n index, Kc = N / 3), transA,
+// transB, beta; scales[i]. part: split-K scratch of part_floats floats
+// (gemm_splitk_floats of the largest weight grad), or null without one.
 extern "C" int unav_gemm_tc(int count, void* const* ptrs, const long* ints,
-                            const float* scales, void* stream) {
+                            const float* scales, float* part, long part_floats, void* stream) {
   if (count < 1 || count > GEMM_MAX_BATCH) return (int)cudaErrorInvalidValue;
   GemmBatch batch;
   for (int i = 0; i < count; ++i) {
-    void* const* p = ptrs + 5 * i;
-    const long* n = ints + 8 * i;
+    void* const* p = ptrs + TC_PTRS * i;
+    const long* n = ints + TC_INTS * i;
     GemmArgs& a = batch.g[i];
     a = gemm_args((const float*)p[0], n[0], (const float*)p[1], n[1], (float*)p[2], n[2],
                   (const float*)p[3], (const unsigned char*)p[4], scales[i], (int)n[3],
                   (int)n[4], (int)n[5]);
-    if (n[6] == 3) {
-      a.taps = 3; a.Kc = (int)(n[5] / 3); a.seq = (int)n[7];
-    } else if (n[6] != 1) {
+    a.kmask = (const unsigned char*)p[5];
+    a.taps = (int)n[6]; a.seq = (int)n[7]; a.tapdir = (int)n[8]; a.btaps = (int)n[9];
+    a.transA = (int)n[10]; a.transB = (int)n[11]; a.beta = (int)n[12];
+    if ((a.taps != 1 && a.taps != 3) || (a.btaps != 1 && a.btaps != 3) ||
+        (a.tapdir != 1 && a.tapdir != -1) || (a.taps == 3 && a.btaps == 3))
       return (int)cudaErrorInvalidValue;
-    }
+    if (a.taps == 3) a.Kc = a.K / 3;
+    if (a.btaps == 3) a.Kc = a.N / 3;
   }
-  return launch_gemm_tc(batch, count, (cudaStream_t)stream);
+  return launch_gemm(batch, count, (cudaStream_t)stream, part, part_floats);
 }
+
+// K per split of a weight grad of shape (M, N, K) (gemm_split_chunk)
+extern "C" int unav_gemm_split_chunk(int M, int N, int K) { return gemm_split_chunk(M, N, K); }

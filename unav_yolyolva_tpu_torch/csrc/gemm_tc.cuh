@@ -1,14 +1,18 @@
-// The forward-layout fp32 product on the tensor cores (3xTF32), and the
-// operand description that every product of the port shares.
+// The port's fp32 product on the tensor cores (3xTF32), in the three operand
+// layouts of GemmArgs, and the operand description that every product of the
+// port shares.
 //
 //   C[m, n] = (sum_k A(m, k) * B(n, k) + bias[n]) * scale * rowmask[m]
+//             (+ C[m, n] with beta)
 //
 // It replaces, for the port, the fp32 `jnp.dot`s of the Pallas kernels'
-// bodies: `_csp_compute` (main, guide_fc, k=3 projection and final convs,
-// unav_yolyolva_tpu/ops/pallas_csp.py) and `_mhca_compute` (q/k/v and proj
-// dense layers, ops/pallas_fusion.py). launch_gemm (gemm.cuh) sends every
-// A.B^T product without a GemmEpi here; the attention of mhca.cuh runs its
-// two products on the same fragments (mma_3xtf32).
+// bodies and of their backward: `_csp_compute` and `_csp_bwd_kernel` (main,
+// guide_fc, k=3 projection and final convs and their grads,
+// unav_yolyolva_tpu/ops/pallas_csp.py), `_mhca_compute` and
+// `_mhca_bwd_kernel` (q/k/v and proj dense layers and their grads,
+// ops/pallas_fusion.py). launch_gemm (gemm.cuh) sends every product without
+// a GemmEpi here; the attention of mhca.cuh and its backward (mhca_bwd.cuh)
+// run their products on the same fragments (mma_3xtf32).
 //
 // Bound: operations. On the H100 the fp32 FFMA peak is 67 TFLOP/s, the
 // dense TF32 tensor-core peak 495. One TF32 pass keeps 10 mantissa bits and
@@ -23,20 +27,28 @@
 //     stage once into shared memory instead measured slower (more
 //     registers, a second barrier per stage; PERF.md);
 //   - a 3- or 4-stage cp.async.cg ring of A and B tiles (32 deep in k) in
-//     dynamic shared memory, rows padded to 36 floats so that the fragment
-//     reads hit 32 distinct banks; ragged M / N / K edges and the k=3 conv's
-//     rows outside their sequence are zero-filled by the copy (src-size 0);
+//     dynamic shared memory. An operand stored with k along its rows (A of
+//     the forward and input-grad layouts, B of the forward layout) sits
+//     n-major, rows padded to 36 floats; one stored with k down its rows
+//     (A of the weight grads, B of the input and weight grads) sits
+//     k-major, rows padded to BM + 8 or BN + 8 floats: either way the
+//     fragment reads hit 32 distinct banks. Ragged edges, masked k rows and
+//     the k=3 conv's rows outside their sequence are zero-filled by the
+//     copy (src-size 0);
 //   - the block tile (128x64, 64x64 or 32x32; warps of 32x32 or 16x16, 128
-//     registers at most, so two blocks share an SM) is chosen from M and N
-//     so that a launch has at least 2 x 132 blocks where it can;
+//     registers at most, so two blocks share an SM) is chosen from the
+//     launch's blocks so that it has at least 2 x 132 where it can;
 //   - the tensor cores round the sum of an mma toward zero, so each 32-deep
 //     slice of k is summed from zero and then added to the fp32 total: the
 //     long sum is rounded to nearest, as an FFMA loop's is.
-// Deterministic and independent of batching: no split-K, no atomics; every
-// output element is summed by one thread over the same 32-deep slices in
-// the same order whatever the tile shape or the other products of the
-// launch, so the forward and the backward's recompute (which batches
-// guide_fc with the projection conv) give the same bits.
+// Deterministic and independent of batching, no atomics: every output
+// element is summed by one thread over the same 32-deep slices in the same
+// order whatever the tile shape or the other products of the launch, so
+// the forward and the backward's recompute (which batches guide_fc with the
+// projection conv) give the same bits. A weight grad (A^T.B, K = all R*T
+// rows) splits K into gemm_split_chunk(M, N, K) slices, multiples of 32
+// fixed by its own shape; each split's raw sum goes to scratch and
+// gemm_splitk_reduce_kernel adds them in split order.
 #pragma once
 
 #include <stdint.h>
@@ -48,9 +60,8 @@
 //   B(n, k) = B[n * ldb + k] (torch Linear layout), or B[k * ldb + n] with
 //   transB. A and C are addressed with a row stride, so a product can read
 //   from and write straight into a column slice of a wider buffer (the CSP
-//   concat). The forward uses A.B^T (this header); the backward's input
-//   grads use A.B (transB) and its weight grads A^T.B (transA + transB), on
-//   the FFMA kernel of gemm.cuh.
+//   concat). The forward uses A.B^T, the backward's input grads A.B
+//   (transB) and its weight grads A^T.B (transA + transB).
 // kmask[k] zeroes A(m, k) (a row mask of the rows being reduced over).
 // With taps == 3 the A loader is a k=3 "same" convolution over time written
 // as one product of depth 3*Kc: k = tap * Kc + c reads A at row
@@ -186,49 +197,128 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a, const 
 // ---- the product ------------------------------------------------------------
 
 constexpr int TC_BK = 32;           // k per ring stage (one summed slice)
-constexpr int TC_LDS = TC_BK + 4;   // shared row stride: conflict-free fragments
+constexpr int TC_LDS = TC_BK + 4;   // n-major row stride: conflict-free fragments
+constexpr int TC_KPAD = 8;          // k-major rows: BM (BN) + 8 floats, also conflict-free
+constexpr int GEMM_MAX_SPLITS = 8;
 
-// grid (ceil(N / BN), ceil(M / BM), count), WM x WN warps, each owning a
-// (BM / WM) x (BN / WN) block of the output.
-template <int BM, int BN, int WM, int WN, int STAGES>
-__global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch batch) {
+// A fragment from a k-major tile (element (m, k) at p[k * ld + m]): p points
+// at (k = t, m = g)
+__device__ __forceinline__ FragA load_frag_a_kmajor(const float* p, int ld) {
+  FragA f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8], f.hi[1], f.lo[1]);
+  split_tf32(p[4 * ld], f.hi[2], f.lo[2]);
+  split_tf32(p[4 * ld + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment from a k-major tile (element (n, k) at p[k * ld + n]): p points
+// at (k = t, n = g)
+__device__ __forceinline__ FragB load_frag_b_kmajor(const float* p, int ld) {
+  FragB f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4 * ld], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// How a launch of weight grads splits K: product i owns blocks z in
+// [first[i], first[i + 1]), each summing kchunk[i] of K (a multiple of
+// TC_BK); with more than one split its raw sums go to part + off[i] (split
+// s at s * M * N), else straight to C.
+struct GemmSplits {
+  int first[GEMM_MAX_BATCH + 1];
+  int kchunk[GEMM_MAX_BATCH];
+  long off[GEMM_MAX_BATCH];
+};
+
+// K per split of a weight grad (M, N, K), a multiple of TC_BK fixed by the
+// product's own shape: split until its 64x64 tiles make ~2 blocks per SM,
+// each split at least 8 slices deep (ops/gemm_tc.py:split_chunk mirrors it)
+static int gemm_split_chunk(int M, int N, int K) {
+  const long tiles = (long)ceil_div(M, 64) * ceil_div(N, 64);
+  const int slices = ceil_div(K, TC_BK);
+  const long s = std::max(1L, std::min<long>({(long)GEMM_MAX_SPLITS, ceil_div(2 * 132, tiles),
+                                              (long)(slices / 8)}));
+  return ceil_div(slices, s) * TC_BK;
+}
+
+// grid (ceil(N / BN), ceil(M / BM), count, or the splits' blocks with TA),
+// WM x WN warps, each owning a (BM / WM) x (BN / WN) block of the output.
+// TA / TB: the layouts of every product of the launch (A.B^T, A.B, A^T.B).
+template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB>
+__global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch batch,
+                                                              const GemmSplits sp,
+                                                              float* part) {
   constexpr int NT = WM * WN * 32, TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
+  constexpr int LDA = TA ? BM + TC_KPAD : TC_LDS, LDB = TB ? BN + TC_KPAD : TC_LDS;
+  constexpr int ASZ = TA ? TC_BK * LDA : BM * TC_LDS, BSZ = TB ? TC_BK * LDB : BN * TC_LDS;
   static_assert(TM % 16 == 0 && TN % 8 == 0 && (BM * 8) % NT == 0 && (BN * 8) % NT == 0,
                 "tile shape");
-  const GemmArgs p = batch.g[blockIdx.z];
+  int pi = blockIdx.z, split = 0;
+  if (TA) {
+    pi = 0;
+    while ((int)blockIdx.z >= sp.first[pi + 1]) ++pi;
+    split = blockIdx.z - sp.first[pi];
+  }
+  const GemmArgs p = batch.g[pi];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= p.M || n0 >= p.N) return;
+  const int kbeg = TA ? split * sp.kchunk[pi] : 0;
+  const int kend = TA ? min(p.K, kbeg + sp.kchunk[pi]) : p.K;
   extern __shared__ __align__(16) float tc_smem[];
-  float* As = tc_smem;                          // STAGES x BM x TC_LDS
-  float* Bs = tc_smem + STAGES * BM * TC_LDS;   // STAGES x BN x TC_LDS
+  float* As = tc_smem;                  // STAGES x ASZ
+  float* Bs = tc_smem + STAGES * ASZ;   // STAGES x BSZ
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / WN, wn = warp % WN, g = lane >> 2, t4 = lane & 3;
-  const int KT = (p.K + TC_BK - 1) / TC_BK;
+  const int KT = (kend - kbeg + TC_BK - 1) / TC_BK;
 
-  // one stage: 16-byte chunks, 8 per 32-deep row; neighbouring threads take
-  // neighbouring chunks of a row
+  // one stage: 16-byte chunks, neighbouring threads on neighbouring chunks
+  // of a row (8 chunks a 32-deep n-major row, BM / 4 or BN / 4 a k-major one)
   auto load = [&](int stage, int kt) {
-    const int k0 = kt * TC_BK;
-    float* as = As + stage * BM * TC_LDS;
-    float* bs = Bs + stage * BN * TC_LDS;
+    const int k0 = kbeg + kt * TC_BK;
+    float* as = As + stage * ASZ;
+    float* bs = Bs + stage * BSZ;
 #pragma unroll
     for (int i = 0; i < BM * 8 / NT; ++i) {
-      const int e = tid + i * NT, r = e >> 3, c = (e & 7) * 4;
+      const int e = tid + i * NT;
+      if (TA) {
+        const int r = e / (BM / 4), c = (e % (BM / 4)) * 4, m = m0 + c, k = k0 + r;
+        const bool ok = m < p.M && k < kend && (!p.kmask || p.kmask[k]);
+        cp_async16(as + r * LDA + c, ok ? p.A + (long)k * p.lda + m : p.A, ok);
+        continue;
+      }
+      const int r = e >> 3, c = (e & 7) * 4;
       const int m = m0 + r, k = k0 + c;
       bool ok = m < p.M && k < p.K;
       const float* src = p.A;
       if (p.taps == 1) {
         if (ok) src = p.A + (long)m * p.lda + k;
       } else {
-        const int tap = k / p.Kc, cc = k - tap * p.Kc, t = m % p.seq + tap - 1;
+        const int tap = k / p.Kc, cc = k - tap * p.Kc;
+        const int dt = TB ? p.tapdir * (tap - 1) : tap - 1, t = m % p.seq + dt;
         ok = ok && t >= 0 && t < p.seq;
-        if (ok) src = p.A + (long)(m + tap - 1) * p.lda + cc;
+        if (ok) src = p.A + (long)(m + dt) * p.lda + cc;
       }
       cp_async16(as + r * TC_LDS + c, src, ok);
     }
 #pragma unroll
     for (int i = 0; i < BN * 8 / NT; ++i) {
-      const int e = tid + i * NT, r = e >> 3, c = (e & 7) * 4;
+      const int e = tid + i * NT;
+      if (TB) {
+        const int r = e / (BN / 4), c = (e % (BN / 4)) * 4, n = n0 + c, k = k0 + r;
+        bool ok = n < p.N && k < kend;
+        const float* src = p.B;
+        if (p.btaps == 1) {
+          if (ok) src = p.B + (long)k * p.ldb + n;
+        } else {
+          const int tap = n / p.Kc, cc = n - tap * p.Kc, t = k % p.seq + tap - 1;
+          ok = ok && t >= 0 && t < p.seq;
+          if (ok) src = p.B + (long)(k + tap - 1) * p.ldb + cc;
+        }
+        cp_async16(bs + r * LDB + c, src, ok);
+        continue;
+      }
+      const int r = e >> 3, c = (e & 7) * 4;
       const int n = n0 + r, k = k0 + c;
       const bool ok = n < p.N && k < p.K;
       cp_async16(bs + r * TC_LDS + c, ok ? p.B + (long)n * p.ldb + k : p.B, ok);
@@ -253,25 +343,30 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch b
     __syncthreads();   // stage kt landed for every thread; stage kt-1 is free
     if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
-    const float* as = As + (kt % STAGES) * BM * TC_LDS + (wm * TM + g) * TC_LDS + t4;
-    const float* bs = Bs + (kt % STAGES) * BN * TC_LDS + (wn * TN + g) * TC_LDS + t4;
-    float part[MI][NI][4];
+    const float* as = As + (kt % STAGES) * ASZ +
+                      (TA ? t4 * LDA + wm * TM + g : (wm * TM + g) * TC_LDS + t4);
+    const float* bs = Bs + (kt % STAGES) * BSZ +
+                      (TB ? t4 * LDB + wn * TN + g : (wn * TN + g) * TC_LDS + t4);
+    float part_[MI][NI][4];
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NI; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
+        for (int r = 0; r < 4; ++r) part_[i][j][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < TC_BK; kk += 8) {
       FragB b[NI];
 #pragma unroll
-      for (int j = 0; j < NI; ++j) b[j] = load_frag_b(bs + j * 8 * TC_LDS + kk);
+      for (int j = 0; j < NI; ++j)
+        b[j] = TB ? load_frag_b_kmajor(bs + kk * LDB + j * 8, LDB)
+                  : load_frag_b(bs + j * 8 * TC_LDS + kk);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
-        const FragA a = load_frag_a(as + i * 16 * TC_LDS + kk, TC_LDS);
+        const FragA a = TA ? load_frag_a_kmajor(as + kk * LDA + i * 16, LDA)
+                           : load_frag_a(as + i * 16 * TC_LDS + kk, TC_LDS);
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_3xtf32(part[i][j], a, b[j]);
+        for (int j = 0; j < NI; ++j) mma_3xtf32(part_[i][j], a, b[j]);
       }
     }
 #pragma unroll
@@ -279,10 +374,13 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch b
 #pragma unroll
       for (int j = 0; j < NI; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part_[i][j][r];
   }
   cp_async_wait<0>();
 
+  // a split's raw sum, for gemm_splitk_reduce_kernel
+  float* out = TA && sp.first[pi + 1] - sp.first[pi] > 1
+                   ? part + sp.off[pi] + (long)split * p.M * p.N : nullptr;
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -290,62 +388,145 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch b
       const int m = m0 + wm * TM + i * 16 + g + 8 * h;
       if (m >= p.M) continue;
       const float mk = p.rowmask ? (p.rowmask[m] ? 1.f : 0.f) : 1.f;
-      float* crow = p.C + (long)m * p.ldc;
+      float* crow = out ? out + (long)m * p.N : p.C + (long)m * p.ldc;
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
         const int n = n0 + wn * TN + j * 8 + 2 * t4;
         if (n >= p.N) continue;   // N is even: n + 1 < N too
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (p.bias) {
-          v0 += p.bias[n];
-          v1 += p.bias[n + 1];
+        if (!out) {
+          if (p.bias) {
+            v0 += p.bias[n];
+            v1 += p.bias[n + 1];
+          }
+          v0 = v0 * p.scale * mk;
+          v1 = v1 * p.scale * mk;
+          if ((TA || TB) && p.beta) {   // the forward layout never accumulates
+            const float2 c = *reinterpret_cast<const float2*>(crow + n);
+            v0 += c.x;
+            v1 += c.y;
+          }
         }
-        *reinterpret_cast<float2*>(crow + n) =
-            make_float2(v0 * p.scale * mk, v1 * p.scale * mk);
+        *reinterpret_cast<float2*>(crow + n) = make_float2(v0, v1);
       }
     }
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES>
-static int launch_gemm_tc_tile(const GemmBatch& batch, int count, int maxM, int maxN,
-                               cudaStream_t stream) {
-  const int smem = STAGES * (BM + BN) * TC_LDS * (int)sizeof(float);
-  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, STAGES>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid(ceil_div(maxN, BN), ceil_div(maxM, BM), count);
-  kernel<<<grid, WM * WN * 32, smem, stream>>>(batch);
+// C = epilogue(the sum of a weight grad's split partials, in split order);
+// grid (ceil(M * N / 256), count): products with one split return at once.
+__global__ void __launch_bounds__(256) gemm_splitk_reduce_kernel(const GemmBatch batch,
+                                                                 const GemmSplits sp,
+                                                                 const float* __restrict__ part) {
+  const GemmArgs& p = batch.g[blockIdx.y];
+  const int splits = sp.first[blockIdx.y + 1] - sp.first[blockIdx.y];
+  const long e = (long)blockIdx.x * 256 + threadIdx.x, mn = (long)p.M * p.N;
+  if (splits == 1 || e >= mn) return;
+  const int m = (int)(e / p.N), n = (int)(e - (long)m * p.N);
+  const float* src = part + sp.off[blockIdx.y] + e;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += src[s * mn];
+  if (p.bias) v += p.bias[n];
+  v = v * p.scale * (p.rowmask ? (p.rowmask[m] ? 1.f : 0.f) : 1.f);
+  float* c = p.C + (long)m * p.ldc + n;
+  *c = p.beta ? *c + v : v;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes` the first time a
+// launch needs more than it has (once per process and kernel: `limit` is
+// the caller's static for that kernel).
+static void raise_smem_limit(const void* kernel, int bytes, int& limit) {
+  if (bytes > limit && bytes > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    limit = bytes;
+  }
+}
+
+template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB>
+static int launch_gemm_tc_tile(const GemmBatch& batch, const GemmSplits& sp, int count,
+                               int maxM, int maxN, float* part, cudaStream_t stream) {
+  constexpr int ASZ = TA ? TC_BK * (BM + TC_KPAD) : BM * TC_LDS;
+  constexpr int BSZ = TB ? TC_BK * (BN + TC_KPAD) : BN * TC_LDS;
+  const int smem = STAGES * (ASZ + BSZ) * (int)sizeof(float);
+  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, STAGES, TA, TB>;
+  static int limit = 0;
+  raise_smem_limit((const void*)kernel, smem, limit);
+  const dim3 grid(ceil_div(maxN, BN), ceil_div(maxM, BM), TA ? sp.first[count] : count);
+  kernel<<<grid, WM * WN * 32, smem, stream>>>(batch, sp, part);
   UNAV_RETURN_IF_ERROR();
   return 0;
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// blocks of a BM x BN tiling that hold output
-static long tc_blocks(const GemmBatch& batch, int count, int bm, int bn) {
+// blocks of a BM x BN tiling that hold output (with every split of K)
+static long tc_blocks(const GemmBatch& batch, const GemmSplits& sp, int count, bool ta,
+                      int bm, int bn) {
   long n = 0;
   for (int i = 0; i < count; ++i)
-    n += (long)ceil_div(batch.g[i].M, bm) * ceil_div(batch.g[i].N, bn);
+    n += (long)ceil_div(batch.g[i].M, bm) * ceil_div(batch.g[i].N, bn) *
+         (ta ? sp.first[i + 1] - sp.first[i] : 1);
   return n;
 }
 
-// Launch `count` A.B^T products (no transA / transB / kmask / beta) in one
-// grid. Every operand the ring copies must be 16-byte aligned with row
-// strides, K (and Kc) multiples of 4 floats, and N even; otherwise returns
-// cudaErrorMisalignedAddress and launches nothing.
-static int launch_gemm_tc(const GemmBatch& batch, int count, cudaStream_t stream) {
+template <bool TA, bool TB>
+static int launch_gemm_tc_layout(const GemmBatch& batch, const GemmSplits& sp, int count,
+                                 int maxM, int maxN, float* part, cudaStream_t stream) {
+  if (tc_blocks(batch, sp, count, TA, 128, 64) >= 2 * 132)
+    return launch_gemm_tc_tile<128, 64, 4, 2, 3, TA, TB>(batch, sp, count, maxM, maxN, part,
+                                                         stream);
+  if (tc_blocks(batch, sp, count, TA, 64, 64) >= 2 * 132)
+    return launch_gemm_tc_tile<64, 64, 2, 2, 4, TA, TB>(batch, sp, count, maxM, maxN, part,
+                                                        stream);
+  return launch_gemm_tc_tile<32, 32, 2, 2, 4, TA, TB>(batch, sp, count, maxM, maxN, part,
+                                                      stream);
+}
+
+// Launch `count` products of one layout in one grid (and, for weight grads
+// that split K, one reduce launch). Every operand the ring copies must be
+// 16-byte aligned with row strides and the dimension it is copied along
+// (K of a row-major A or B, M of a transposed A, N of a transposed B, Kc)
+// multiples of 4 floats, and N even; otherwise returns
+// cudaErrorMisalignedAddress and launches nothing. A weight grad's splits
+// need gemm_splitk_floats of scratch in part (else cudaErrorInvalidValue).
+static int launch_gemm_tc(const GemmBatch& batch, int count, cudaStream_t stream,
+                          float* part = nullptr, long part_floats = 0) {
+  const bool ta = batch.g[0].transA, tb = batch.g[0].transB;
   int maxM = 0, maxN = 0;
+  GemmSplits sp;
+  sp.first[0] = 0;
+  long off = 0;
   for (int i = 0; i < count; ++i) {
     const GemmArgs& p = batch.g[i];
-    if (p.transA || p.transB || p.kmask || p.beta) return (int)cudaErrorInvalidValue;
-    if (!aligned16(p.A) || !aligned16(p.B) || p.lda % 4 || p.ldb % 4 || p.K % 4 ||
-        p.Kc % 4 || p.N % 2 || p.ldc % 2 || ((uintptr_t)p.C & 7))
+    // one layout a launch; kmask and btaps only on weight grads, taps only
+    // on a row-major A, beta and tapdir -1 not on the forward layout
+    if ((bool)p.transA != ta || (bool)p.transB != tb || (ta && !tb) ||
+        (!ta && (p.kmask || p.btaps != 1)) || (ta && p.taps != 1) ||
+        (!tb && (p.beta || p.tapdir != 1)))
+      return (int)cudaErrorInvalidValue;
+    if (!aligned16(p.A) || !aligned16(p.B) || p.lda % 4 || p.ldb % 4 ||
+        ((p.taps == 3 || p.btaps == 3) && p.Kc % 4) ||
+        (ta ? p.M % 4 : p.K % 4) || (tb ? p.N % 4 : p.K % 4) || p.N % 2 || p.ldc % 2 ||
+        ((uintptr_t)p.C & 7))
       return (int)cudaErrorMisalignedAddress;
     maxM = std::max(maxM, p.M);
     maxN = std::max(maxN, p.N);
+    sp.kchunk[i] = ta ? gemm_split_chunk(p.M, p.N, p.K) : p.K;
+    const int splits = ta ? std::max(1, ceil_div(p.K, sp.kchunk[i])) : 1;
+    sp.first[i + 1] = sp.first[i] + splits;
+    sp.off[i] = off;
+    if (splits > 1) off += (long)splits * p.M * p.N;
   }
-  if (tc_blocks(batch, count, 128, 64) >= 2 * 132)
-    return launch_gemm_tc_tile<128, 64, 4, 2, 3>(batch, count, maxM, maxN, stream);
-  if (tc_blocks(batch, count, 64, 64) >= 2 * 132)
-    return launch_gemm_tc_tile<64, 64, 2, 2, 4>(batch, count, maxM, maxN, stream);
-  return launch_gemm_tc_tile<32, 32, 2, 2, 4>(batch, count, maxM, maxN, stream);
+  if (off > (part ? part_floats : 0)) return (int)cudaErrorInvalidValue;
+  const int rc = ta   ? launch_gemm_tc_layout<true, true>(batch, sp, count, maxM, maxN, part, stream)
+                 : tb ? launch_gemm_tc_layout<false, true>(batch, sp, count, maxM, maxN, part, stream)
+                      : launch_gemm_tc_layout<false, false>(batch, sp, count, maxM, maxN, part, stream);
+  if (rc || !off) return rc;
+  gemm_splitk_reduce_kernel<<<dim3(ceil_div((long)maxM * maxN, 256), count), 256, 0, stream>>>(
+      batch, sp, part);
+  UNAV_RETURN_IF_ERROR();
+  return 0;
 }
+
+// floats of split-K scratch for a launch of weight grads of at most mn
+// outputs each
+static long gemm_splitk_floats(long mn) { return (long)GEMM_MAX_BATCH * GEMM_MAX_SPLITS * mn; }

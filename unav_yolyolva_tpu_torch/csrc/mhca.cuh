@@ -285,8 +285,8 @@ static int launch_attn_tc(const float* q, const float* k, const float* v,
   const int T32 = ceil_div(T, ATT_KT) * ATT_KT;
   const size_t smem = sizeof(float) * ((size_t)(ATT_QT + ATT_STAGES * ATT_KT) * (DP + 4) +
                                        (size_t)ATT_QT * (T32 + 4 + 3));
-  cudaFuncSetAttribute(attn_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  static int limit = 0;
+  raise_smem_limit((const void*)attn_tc_kernel<DP>, (int)smem, limit);
   const dim3 grid(ceil_div(T, ATT_QT), H, R);
   attn_tc_kernel<DP><<<grid, 256, smem, stream>>>(q, k, v, mask, T, C, H, out, lse);
   UNAV_RETURN_IF_ERROR();

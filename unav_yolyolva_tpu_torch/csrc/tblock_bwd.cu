@@ -11,15 +11,16 @@
 //   ln2 backward: dout = g + LN2'(dh) (ln2_bwd_kernel);
 //   d(mult_a) = sum_t dout * attn, and the MHCA's upstream grad dout *
 //     mult_a (seq_dot_kernel);
-//   the MHCA backward of mhca_bwd.cuh (it recomputes the MHCA forward once
-//     more from ln11 / ln12: the price of reusing it whole);
+//   the MHCA backward of mhca_bwd.cuh from the intermediates the
+//     recompute kept (mhca_recompute: the MHCA forward runs once);
 //   ln11 / ln12 backward: dx = dout * m + LN11'(dh1) + LN12'(dh2)
 //     (ln_pair_bwd_kernel);
 //   one batched column-sum launch for b1, b2 and the three LN affines.
 // Every weight and multiplier grad is a fixed-order reduction, no float
 // atomics: two runs give the same bits. Bound: operations (recompute +
-// twice the products; the recompute's MHCA, fc1 and fc2 run on the tensor
-// cores, gemm_tc.cuh, the backward's products on FFMA).
+// twice the products). Every product runs in 3xTF32 on the tensor cores
+// (gemm_tc.cuh, and the MHCA's attention backward) but dU = (gy W2) *
+// GELU'(u), whose epilogue keeps it on the FFMA product of gemm.cuh.
 #include "mhca_bwd.cuh"
 #include "tblock.cuh"
 
@@ -152,8 +153,8 @@ __global__ void __launch_bounds__(256) ln_pair_bwd_kernel(
 
 // The scratch layout of one backward (floats).
 struct TBlockBwdScratch {
-  float *h1, *h2, *fwd, *a, *res, *h, *u, *z, *y, *gy, *du, *dh, *dout, *yhat2, *gmh, *dh1,
-      *dh2, *yhat1, *mhca, *partial, *split;
+  float *h1, *h2, *a, *res, *h, *u, *z, *y, *gy, *du, *dh, *dout, *yhat2, *gmh, *dh1, *dh2,
+      *yhat1, *saved, *mhca, *partial, *split;
   long split_floats, total;
 };
 
@@ -161,12 +162,18 @@ static TBlockBwdScratch tblock_bwd_layout(float* base, int R, int T, int C, int 
   const long P = (long)R * T, PC = P * C, PH = P * Hd;
   TBlockBwdScratch s;
   long off = 0;  // base may be nullptr: only the total is wanted then
-  auto take = [base, &off](long n) { float* q = base ? base + off : nullptr; off += n; return q; };
-  s.h1 = take(PC); s.h2 = take(PC); s.fwd = take(6 * PC); s.a = take(PC); s.res = take(PC);
+  // every part starts on 16 bytes: the tensor-core products' ring copies
+  auto take = [base, &off](long n) {
+    float* q = base ? base + off : nullptr;
+    off += (n + 3) / 4 * 4;
+    return q;
+  };
+  s.h1 = take(PC); s.h2 = take(PC); s.a = take(PC); s.res = take(PC);
   s.h = take(PC); s.u = take(PH); s.z = take(PH); s.y = take(PC); s.gy = take(PC);
   s.du = take(PH); s.dh = take(PC); s.dout = take(PC); s.yhat2 = take(PC); s.gmh = take(PC);
   s.dh1 = take(PC); s.dh2 = take(PC); s.yhat1 = take(PC);
-  s.mhca = take(mhca_backward_scratch_floats(R, T, C, H));
+  s.saved = take(mhca_saved_floats(R, T, C, H));
+  s.mhca = take(mhca_backward_work_floats(R, T, C, H));
   s.partial = take(colsum_scratch_floats(P, std::max(C, Hd)));
   s.split_floats = 2L * GEMM_MAX_SPLITS * C * Hd;
   s.split = take(s.split_floats);
@@ -198,8 +205,9 @@ extern "C" int unav_tblock_backward(
   // ---- recompute: ln11 / ln12, MHCA, residual + ln2, fc1, GELU, fc2 ------
   int rc = launch_ln_pair(x, P, C, lnw3, lnb3, eps, s.h1, s.h2, stream);
   if (rc) return rc;
-  rc = mhca_forward_impl(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, lnb, w, b, eps, s.a, C,
-                         s.fwd, stream);
+  const MhcaSaved sv = mhca_saved(s.saved, R, T, C);
+  rc = mhca_recompute(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, lnb, w, b, eps, sv, s.a, C,
+                      stream);
   if (rc) return rc;
   rc = launch_residual_ln2(x, mask, mult_a, s.a, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps,
                            s.res, s.h, stream);
@@ -234,8 +242,8 @@ extern "C" int unav_tblock_backward(
   seq_dot_kernel<<<sgrid, sblock, 0, stream>>>(s.dout, s.a, nullptr, mult_a, T, C, dma,
                                                s.gmh);
   UNAV_RETURN_IF_ERROR();
-  rc = mhca_backward_impl(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, lnb, w, b, eps, s.gmh,
-                          C, s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream);
+  rc = mhca_backward_saved(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, w, eps, sv, s.gmh, C,
+                           s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream);
   if (rc) return rc;
 
   // ---- ln11 / ln12 and x -------------------------------------------------

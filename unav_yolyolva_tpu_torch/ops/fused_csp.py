@@ -20,11 +20,15 @@ batch, and handles the ragged small levels by bounds checks instead of
 padding.
 
 The backward (`csp_backward`) replaces the Pallas kernel `_csp_bwd_kernel` /
-`_csp_diff_bwd` (pallas_csp.py:243-391): it recomputes the layer from the
-inputs and weights, as the TPU kernel does, and walks it in reverse
-(csrc/csp_bwd.cu); the max over guide tokens routes its grad to the argmax
-token(s), split evenly over ties. On CUDA with grad enabled, `fused_csp`
-runs through `CSPFunction`, whose backward is that kernel.
+`_csp_diff_bwd` (pallas_csp.py:243-391): it recomputes the layer once from
+the inputs and weights, as the TPU kernel does, keeping each inner MHCA's
+intermediates and the gate's max, tie count and argmax, and walks it in
+reverse (csrc/csp_bwd.cu); the max over guide tokens routes its grad to the
+argmax token(s), split evenly over ties. Every product of the backward
+(the convs' and guide_fc's input and weight grads, the MHCAs' dense layers
+and attention) runs in 3xTF32 on the tensor cores; `csp_backward_stage_times`
+times it stage by stage. On CUDA with grad enabled, `fused_csp` runs
+through `CSPFunction`, whose backward is that kernel.
 
 Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
 stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
@@ -53,9 +57,15 @@ _ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
 STAGES = (("main",) + tuple(f"mhca{i}.{part}" for i in range(3)
                             for part in ("ln", "qkv", "attention", "proj"))
           + ("guide_fc", "proj_conv", "gate", "final"))
-_BWD_ARGTYPES = {
-    "unav_csp_backward": [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19,
-}
+_BWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19
+_BWD_ARGTYPES = {"unav_csp_backward": _BWD_TYPES,
+                 "unav_csp_backward_stages": _BWD_TYPES + [PTR]}
+# the stages of one backward, in order (csp_bwd.cu: CSP_BWD_STAGES)
+MHCA_BWD_STAGES = ("proj", "dq", "dkdv", "qkv_dx", "wgrad", "ln", "conv", "colsum")
+BWD_STAGES = (("recompute", "final.dx", "final.dw", "gate", "gate_guide", "proj_guide.dx",
+               "proj_guide.dw")
+              + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_STAGES)
+              + ("main.dx", "main.dw", "colsum"))
 _BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
 
 
@@ -171,17 +181,12 @@ def csp_stage_times(x, guide, mask, *weights, attn_heads: int, mhca_heads: int =
     return dict(zip(STAGES, ms))
 
 
-def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,
-                 eps: float = 1e-5):
-    """Grads of the CSP layer forward for the upstream grad g (R, T, Cout):
-    (dx, dguide, grad of each of the 14 weights), each in its input's layout
-    (wproj's as (mid, mid, 3)). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return csp_backward_reference(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
-                                      mhca_heads=mhca_heads, eps=eps)
+def _launch_backward(entry, x, guide, mask, *weights, g, attn_heads, mhca_heads, eps,
+                     extra=()):
     r, t, cin, mid, ng, fg, cout = _check_args(x, guide, mask, *weights, attn_heads,
                                                mhca_heads)
+    if cout % 4:      # the final conv's grads copy rows of g in 16-byte chunks
+        raise ValueError(f"csp_backward: Cout={cout} is not a multiple of 4")
     _check(g, "g", (r, t, cout))
     wproj = weights[10]
     wproj_k = wproj.permute(0, 2, 1).contiguous()                 # (mid, 3, mid)
@@ -192,16 +197,41 @@ def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int =
     scratch = torch.empty(lib.unav_csp_backward_scratch(r, t, cin, mid, ng, fg, cout,
                                                         attn_heads, mhca_heads),
                           device=x.device, dtype=torch.float32)
-    rc = lib.unav_csp_backward(
+    rc = getattr(lib, entry)(
         x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
         attn_heads, mhca_heads, *[a.data_ptr() for a in ws], eps, g.data_ptr(),
         *[a.data_ptr() for a in grads], scratch.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        torch.cuda.current_stream(x.device).cuda_stream, *extra,
     )
-    cuda_build.check(lib, rc, "csp_backward")
-    csp_backward.launches += 1
+    cuda_build.check(lib, rc, entry)
     grads[12] = grads[12].permute(0, 2, 1).contiguous()          # -> (mid, mid, 3)
     return tuple(grads)
+
+
+def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,
+                 eps: float = 1e-5):
+    """Grads of the CSP layer forward for the upstream grad g (R, T, Cout):
+    (dx, dguide, grad of each of the 14 weights), each in its input's layout
+    (wproj's as (mid, mid, 3)). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return csp_backward_reference(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
+                                      mhca_heads=mhca_heads, eps=eps)
+    grads = _launch_backward("unav_csp_backward", x, guide, mask, *weights, g=g,
+                             attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps)
+    csp_backward.launches += 1
+    return grads
+
+
+def csp_backward_stage_times(x, guide, mask, *weights, g, attn_heads: int,
+                             mhca_heads: int = 4, eps: float = 1e-5):
+    """One CUDA backward, synchronised, and the device ms of each of its
+    stages (CUDA events between them): {stage: ms} in launch order, the
+    names of BWD_STAGES. Not counted in csp_backward.launches."""
+    ms = (ctypes.c_float * len(BWD_STAGES))()
+    _launch_backward("unav_csp_backward_stages", x, guide, mask, *weights, g=g,
+                     attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps, extra=(ms,))
+    return dict(zip(BWD_STAGES, ms))
 
 
 class CSPFunction(torch.autograd.Function):

@@ -17,16 +17,16 @@ block does not, and streams keys and values through a cp.async ring.
 
 The backward (`mhca_backward`) replaces the Pallas kernel
 `_mhca_bwd_kernel` / `_mhca_diff_bwd` (pallas_fusion.py:303-573): it
-recomputes the forward from the inputs and weights (nothing else is saved)
-and walks the chain in reverse; the attention backward is split into a
-query-tiled pass (dq) and a key-tiled pass (dk, dv) so that neither needs
-atomics, and every weight grad is a fixed-order sum over all R*T rows, so
-two runs give the same bits. Bound: operations, ~2.5x the forward's
-(recompute + twice the products). The recompute runs the forward's
-tensor-core launches, the dq and dk/dv passes recompute the logits in FFMA
-against the forward's log-sum-exp (a difference of ~1e-6 relative in P,
-well inside the backward's tolerances). On CUDA with grad enabled, `fused_mhca`
-runs through `MHCAFunction`, whose backward is that kernel.
+recomputes the forward from the inputs and weights (nothing else is saved),
+keeping its intermediates, and walks the chain in reverse; the attention
+backward is split into a query-tiled pass (dq) and a key-tiled pass (dk, dv)
+so that neither needs atomics, and every weight grad is a fixed-order sum
+over all R*T rows, so two runs give the same bits. Bound: operations, ~2.5x
+the forward's (recompute + twice the products), all of which run in 3xTF32
+on the tensor cores; the attention backward computes the logits with the
+forward's own fragments and order, so P = exp(S - lse) is the forward's P.
+On CUDA with grad enabled, `fused_mhca` runs through `MHCAFunction`, whose
+backward is that kernel.
 
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
 lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).

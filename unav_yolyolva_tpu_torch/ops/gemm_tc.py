@@ -1,18 +1,23 @@
-"""The port's forward-layout fp32 product on the tensor cores, alone, and its
-plain version.
+"""The port's fp32 product on the tensor cores, alone, and its plain version.
 
-    out[m, n] = (sum_k A(m, k) w[n, k] + bias[n]) * scale * rowmask[m]
+    out[m, n] = (sum_k A(m, k) B(n, k) + bias[n]) * scale * rowmask[m] (+ out)
 
-`csrc/gemm_tc.cuh` runs every A.B^T product of the MHCA and CSP kernels
-(the fp32 `jnp.dot`s of `_mhca_compute` and `_csp_compute` in the JAX
-package) in 3xTF32: each operand is split as hi = tf32(x), lo = tf32(x -
-hi), and lo.hi + hi.lo + hi.hi is summed in fp32 on the tensor cores, each
-32-deep slice of k from zero. This module exposes that product by itself
+`csrc/gemm_tc.cuh` runs every product of the MHCA and CSP kernels without
+an epilogue (the fp32 `jnp.dot`s of `_mhca_compute`, `_csp_compute` and
+their backward kernels in the JAX package) in 3xTF32: each operand is split
+as hi = tf32(x), lo = tf32(x - hi), and lo.hi + hi.lo + hi.hi is summed in
+fp32 on the tensor cores, each 32-deep slice of k from zero. It takes three
+layouts: A.B^T (the forward), A.B (the input grads: B stored (K, N), A
+optionally the transposed k=3 conv) and A^T.B (the weight grads: A stored
+(K, M) with masked k rows, B optionally the k=3 conv's shifted rows, K
+split into chunks fixed by the product's shape, `split_chunk`, whose sums
+are added in order). This module exposes that product by itself
 (`tf32x3_linear`, `tf32x3_products`) so that it can be tested and timed
 alone, and holds the plain emulation of its rounding scheme
-(`tf32x3_linear_reference`, `tf32x3_matmul_reference`) that the CPU tests
-route the plain MHCA and CSP versions through. The emulation rounds and
-splits exactly as the kernel does; its fp32 sums are rounded to nearest,
+(`tf32x3_linear_reference`, `tf32x3_matmul_reference`,
+`tf32x3_product_reference`) that the CPU tests route the plain MHCA and
+CSP versions through. The emulation rounds, splits and orders slices and
+chunks exactly as the kernel does; its fp32 sums are rounded to nearest,
 the tensor cores' partial sums are not, so it matches the kernel's error
 budget, not its bits.
 """
@@ -25,11 +30,29 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .cuda_build import INT, PTR
+from .cuda_build import INT, LONG, PTR
 
-_ARGTYPES = {"unav_gemm_tc": [INT, PTR, PTR, PTR, PTR]}
+_ARGTYPES = {"unav_gemm_tc": [INT, PTR, PTR, PTR, PTR, LONG, PTR],
+             "unav_gemm_split_chunk": [INT, INT, INT]}
 SLICE = 32          # k summed from zero before it joins the total (TC_BK)
 MAX_BATCH = 4       # products of one launch (GEMM_MAX_BATCH)
+MAX_SPLITS = 8      # chunks of K of a weight grad (GEMM_MAX_SPLITS)
+SMS = 132           # the H100's SMs, which the split of K aims to fill twice
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_chunk(m: int, n: int, k: int) -> int:
+    """K per chunk of a weight grad (A^T.B) of shape (m, n, k), a multiple of
+    SLICE fixed by the product's own shape (gemm_tc.cuh:gemm_split_chunk):
+    split until its 64x64 tiles make ~2 blocks per SM, each chunk at least
+    8 slices deep."""
+    tiles = _ceil_div(m, 64) * _ceil_div(n, 64)
+    slices = _ceil_div(k, SLICE)
+    s = max(1, min(MAX_SPLITS, _ceil_div(2 * SMS, tiles), slices // 8))
+    return _ceil_div(slices, s) * SLICE
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -46,30 +69,39 @@ def tf32x3_split(x: torch.Tensor):
     return hi, tf32_round(x - hi)
 
 
-def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor, kchunk: int = None
+                            ) -> torch.Tensor:
     """a @ b (batched as torch.matmul) as the kernels compute it: per
     32-deep slice of k, lo.hi + hi.lo, then + hi.hi, in fp32; the slices
-    summed in order."""
+    summed in order. With kchunk (a multiple of SLICE), K is summed in
+    chunks of kchunk, each from zero, and the chunks' sums added in order
+    (a weight grad's split K)."""
     ah, al = tf32x3_split(a)
     bh, bl = tf32x3_split(b)
+    k = a.shape[-1]
     out = None
-    for k0 in range(0, a.shape[-1], SLICE):
-        ka, kb = (..., slice(k0, k0 + SLICE)), (..., slice(k0, k0 + SLICE), slice(None))
-        part = al[ka] @ bh[kb] + ah[ka] @ bl[kb]
-        part = part + ah[ka] @ bh[kb]
-        out = part if out is None else out + part
+    for c0 in range(0, k, kchunk or k):
+        chunk = None
+        for k0 in range(c0, min(k, c0 + (kchunk or k)), SLICE):
+            ka, kb = (..., slice(k0, k0 + SLICE)), (..., slice(k0, k0 + SLICE), slice(None))
+            part = al[ka] @ bh[kb] + ah[ka] @ bl[kb]
+            part = part + ah[ka] @ bh[kb]
+            chunk = part if chunk is None else chunk + part
+        out = chunk if out is None else out + chunk
     return out
 
 
-def conv3_taps(x: torch.Tensor, seq: int) -> torch.Tensor:
+def conv3_taps(x: torch.Tensor, seq: int, tapdir: int = 1) -> torch.Tensor:
     """The k=3 "same" conv's operand as one product of depth 3*Kc: rows of
     x (M, Kc) are (sequence, t) with t = m % seq; row m of the result is
     [x[m-1], x[m], x[m+1]] with zeros outside the sequence (tap-major, as
-    the kernel's loader reads it)."""
+    the kernel's loader reads it), or [x[m+1], x[m], x[m-1]] with tapdir -1
+    (the transposed conv of the backward)."""
     r = x.reshape(-1, seq, x.shape[-1])
     left = F.pad(r[:, :-1], (0, 0, 1, 0))
     right = F.pad(r[:, 1:], (0, 0, 0, 1))
-    return torch.cat([left, r, right], -1).reshape(x.shape[0], -1)
+    taps = [left, r, right] if tapdir == 1 else [right, r, left]
+    return torch.cat(taps, -1).reshape(x.shape[0], -1)
 
 
 def tf32x3_linear_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0,
@@ -84,6 +116,40 @@ def tf32x3_linear_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0
     return y * rowmask[..., None].to(y.dtype) if rowmask is not None else y
 
 
+def tf32x3_product_reference(x, w, bias=None, *, rowmask=None, kmask=None,
+                             scale: float = 1.0, taps: int = 1, tapdir: int = 1,
+                             btaps: int = 1, seq: int = 1, trans_a: bool = False,
+                             trans_b: bool = False, out=None, beta: bool = False
+                             ) -> torch.Tensor:
+    """Plain version of one product of `tf32x3_products` in any layout:
+    A.B^T (x (M, K) or, with taps == 3, the k=3 conv of x (M, Kc) in
+    direction tapdir; w (N, K)), A.B (the same x, w stored (K, N)) or
+    A^T.B (trans_a and trans_b: x stored (K, M), its rows zeroed where
+    kmask is False; w (K, N) or, with btaps == 3, the conv's shifted rows
+    of w (K, Kc), N = 3*Kc; K summed in chunks of `split_chunk`). With beta
+    the result is added to out."""
+    if trans_a and not trans_b:
+        raise ValueError("tf32x3_product_reference: trans_a needs trans_b")
+    if trans_a:
+        a = x if kmask is None else x * kmask[:, None].to(x.dtype)
+        b = conv3_taps(w, seq) if btaps == 3 else w
+        y = tf32x3_matmul_reference(a.transpose(0, 1), b,
+                                    split_chunk(a.shape[1], b.shape[1], a.shape[0]))
+    else:
+        a = conv3_taps(x, seq, tapdir) if taps == 3 else x
+        y = tf32x3_matmul_reference(a, w if trans_b else w.transpose(0, 1))
+    if bias is not None:
+        y = y + bias
+    y = y * scale
+    if rowmask is not None:
+        y = y * rowmask[..., None].to(y.dtype)
+    return out + y if beta else y
+
+
+_LAYOUT_KEYS = ("bias", "rowmask", "kmask", "scale", "taps", "tapdir", "btaps", "seq",
+                "trans_a", "trans_b")
+
+
 def _check(name, t, dims, dtype=torch.float32):
     if t.device.type != "cuda" or t.dtype != dtype or t.dim() != dims:
         raise ValueError(f"{name}: needs a {dims}-d {dtype} CUDA tensor, got {t.dtype} "
@@ -91,64 +157,97 @@ def _check(name, t, dims, dtype=torch.float32):
 
 
 def tf32x3_products(calls):
-    """Run up to four products in one launch, as the MHCA and CSP kernels
-    batch them. Each call is a dict of `tf32x3_linear`'s arguments (`x`,
-    `w`, optional `bias`, `rowmask`, `scale`, `taps`, `seq`, `out`).
-    Returns the outputs. CPU tensors take the plain version."""
+    """Run up to four products as the MHCA and CSP kernels batch them (one
+    launch per layout present, a weight grad's split K reduced in a second).
+    Each call is a dict of `tf32x3_product_reference`'s arguments (`x`, `w`,
+    optional `bias`, `rowmask`, `kmask`, `scale`, `taps`, `tapdir`, `btaps`,
+    `seq`, `trans_a`, `trans_b`, `out`, `beta`). Returns the outputs. CPU
+    tensors take the plain version."""
     if not 1 <= len(calls) <= MAX_BATCH:
         raise ValueError(f"tf32x3_products: 1 to {MAX_BATCH} products, got {len(calls)}")
     if calls[0]["x"].device.type == "cpu":
         outs = []
         for c in calls:
-            y = tf32x3_linear_reference(c["x"], c["w"], c.get("bias"), rowmask=c.get("rowmask"),
-                                        scale=c.get("scale", 1.0), taps=c.get("taps", 1),
-                                        seq=c.get("seq", 1))
+            y = tf32x3_product_reference(c["x"], c["w"], out=c.get("out"),
+                                         beta=c.get("beta", False),
+                                         **{k: c[k] for k in _LAYOUT_KEYS if k in c})
             if c.get("out") is not None:
                 c["out"].copy_(y)
                 y = c["out"]
             outs.append(y)
         return outs
     ptrs, ints, scales, outs = [], [], [], []
+    part_floats = 0
     for c in calls:
-        x, w, taps = c["x"], c["w"], c.get("taps", 1)
+        x, w = c["x"], c["w"]
+        taps, tapdir, btaps, seq = (c.get("taps", 1), c.get("tapdir", 1), c.get("btaps", 1),
+                                    c.get("seq", 1))
+        ta, tb = bool(c.get("trans_a", False)), bool(c.get("trans_b", False))
         _check("x", x, 2)
         _check("w", w, 2)
-        m, kc = x.shape
-        n, k = w.shape
-        if taps not in (1, 3) or k != taps * kc or x.stride(1) != 1 or not w.is_contiguous():
+        if ta:
+            k, m = x.shape
+            n = btaps * w.shape[1]
+            ok = tb and taps == 1 and w.shape[0] == k
+        else:
+            m, kc = x.shape
+            k, n = (w.shape[0], w.shape[1]) if tb else (w.shape[1], w.shape[0])
+            ok = btaps == 1 and k == taps * kc and (tb or tapdir == 1)
+        if (not ok or taps not in (1, 3) or btaps not in (1, 3) or tapdir not in (1, -1)
+                or x.stride(1) != 1 or not w.is_contiguous()):
             raise ValueError(f"tf32x3_products: x {tuple(x.shape)} (strides {x.stride()}), "
-                             f"w {tuple(w.shape)}, taps {taps}")
+                             f"w {tuple(w.shape)}, taps {taps}/{tapdir}, btaps {btaps}, "
+                             f"trans_a {ta}, trans_b {tb}")
         out = c.get("out")
         if out is None:
+            if c.get("beta"):
+                raise ValueError("tf32x3_products: beta needs out")
             out = torch.empty((m, n), device=x.device, dtype=torch.float32)
         _check("out", out, 2)
         if tuple(out.shape) != (m, n) or out.stride(1) != 1:
             raise ValueError(f"out: shape {tuple(out.shape)}, strides {out.stride()}")
-        bias, rowmask = c.get("bias"), c.get("rowmask")
+        bias, rowmask, kmask = c.get("bias"), c.get("rowmask"), c.get("kmask")
         if bias is not None:
             _check("bias", bias, 1)
-        if rowmask is not None:
-            _check("rowmask", rowmask, 1, torch.bool)
-        # the kernel's ring copies 16-byte chunks of rows of x and w
-        if (x.data_ptr() % 16 or w.data_ptr() % 16 or x.stride(0) % 4 or kc % 4 or n % 2
+        for name, mk in (("rowmask", rowmask), ("kmask", kmask)):
+            if mk is not None:
+                _check(name, mk, 1, torch.bool)
+        # the kernel's ring copies 16-byte chunks along each operand's rows
+        if (x.data_ptr() % 16 or w.data_ptr() % 16 or x.stride(0) % 4 or w.stride(0) % 4
+                or (m if ta else k // taps) % 4 or (w.shape[1] if tb else k) % 4 or n % 2
                 or out.stride(0) % 2 or out.data_ptr() % 8):
             raise ValueError("tf32x3_products: x and w need 16-byte aligned rows "
-                             "(strides and K multiples of 4 floats), N and out's row "
-                             "stride even")
+                             "(strides and the copied dimension multiples of 4 floats), "
+                             "N and out's row stride even")
+        if ta:
+            chunks = _ceil_div(k, split_chunk(m, n, k))
+            if chunks > 1:
+                part_floats += chunks * m * n
         ptrs += [x.data_ptr(), w.data_ptr(), out.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 rowmask.data_ptr() if rowmask is not None else None]
-        ints += [x.stride(0), k, out.stride(0), m, n, k, taps, c.get("seq", 1)]
+                 rowmask.data_ptr() if rowmask is not None else None,
+                 kmask.data_ptr() if kmask is not None else None]
+        ints += [x.stride(0), w.stride(0), out.stride(0), m, n, k, taps, seq, tapdir, btaps,
+                 int(ta), int(tb), int(bool(c.get("beta", False)))]
         scales.append(float(c.get("scale", 1.0)))
         outs.append(out)
+    dev = outs[0].device
+    part = torch.empty(part_floats, device=dev, dtype=torch.float32) if part_floats else None
     lib = cuda_build.library("gemm_tc", _ARGTYPES)
     rc = lib.unav_gemm_tc(
         len(calls), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_long * len(ints))(*ints),
         (ctypes.c_float * len(scales))(*scales),
-        torch.cuda.current_stream(outs[0].device).cuda_stream)
+        part.data_ptr() if part is not None else None, part_floats,
+        torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, rc, "tf32x3_products")
     tf32x3_linear.launches += 1
     return outs
+
+
+def kernel_split_chunk(m: int, n: int, k: int) -> int:
+    """The kernel library's own K per chunk of a weight grad (m, n, k), to
+    hold `split_chunk` against; needs the CUDA toolkit."""
+    return cuda_build.library("gemm_tc", _ARGTYPES).unav_gemm_split_chunk(m, n, k)
 
 
 def tf32x3_linear(x, w, bias=None, *, rowmask=None, scale: float = 1.0, taps: int = 1,
