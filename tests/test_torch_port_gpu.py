@@ -707,6 +707,116 @@ def test_csp_backward_stage_times(cuda):
     assert all(math.isfinite(v) and v > 0 for v in times.values())
 
 
+@pytest.mark.parametrize("case", ["fc1_gelu", "fc2_tail", "du_gelu_grad"])
+def test_tc_epilogue_against_plain_and_fp64(cuda, case):
+    """The epilogue product alone at the TBlock MLP's shapes with ragged M
+    and N: fc1 + bias + GELU keeping its input, fc2 + bias + row mask +
+    per-sequence multiplier + residual (beta on the forward layout), du =
+    (gy W2) * GELU'(u) on the A.B layout. Against the plain version at
+    rtol 1e-3 / atol 1e-4, against fp64 within 2x fp32 torch.matmul with
+    the same epilogue, the same bits on repeat."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import (gelu_erf, gelu_erf_grad,
+                                                     tf32x3_product_reference,
+                                                     tf32x3_products)
+
+    gen = torch.Generator().manual_seed(30)
+    seq, m = 50, 150
+    k, n = {"fc1_gelu": (96, 390), "fc2_tail": (392, 98), "du_gelu_grad": (96, 388)}[case]
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda)
+
+    x, bias = rnd(m, k), rnd(n, scale=0.1)
+    if case == "fc1_gelu":
+        w = rnd(n, k, scale=k ** -0.5)
+        pre = torch.empty(m, n, device=cuda)
+        call = dict(x=x, w=w, bias=bias, act="gelu", pre_out=pre)
+        ref = gelu_erf(x.double() @ w.double().T + bias.double())
+        y32 = gelu_erf(x @ w.T + bias)
+    elif case == "fc2_tail":
+        w, res, mult = rnd(n, k, scale=k ** -0.5), rnd(m, n), 1 + rnd(m // seq, n, scale=0.3)
+        mask = torch.arange(m, device=cuda) % 9 != 4
+        call = dict(x=x, w=w, bias=bias, rowmask=mask, seqmul=mult, seq=seq, out=res,
+                    beta=True)
+        rows = mask[:, None] * mult.repeat_interleave(seq, 0)
+        ref = res.double() + (x.double() @ w.double().T + bias.double()) * rows.double()
+        y32 = res + (x @ w.T + bias) * rows
+    else:
+        w, u = rnd(k, n, scale=k ** -0.5), rnd(m, n)
+        call = dict(x=x, w=w, trans_b=True, act="gelu_grad", aux=u)
+        ref = (x.double() @ w.double()) * gelu_erf_grad(u.double())
+        y32 = (x @ w) * gelu_erf_grad(u)
+    def fresh():                                       # beta adds into a copy of res
+        return dict(call, out=call["out"].clone()) if "out" in call else call
+
+    plain = tf32x3_product_reference(**dict(fresh(), pre_out=None))
+    y, again = (tf32x3_products([fresh()])[0] for _ in range(2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, plain, rtol=RTOL, atol=ATOL)
+    err = float((y.double() - ref).norm() / ref.norm())
+    err32 = float((y32.double() - ref).norm() / ref.norm())
+    assert err <= 2 * err32, f"3xTF32 error {err:.3e} vs fp32 matmul {err32:.3e}"
+    assert torch.equal(y, again), "not bit-identical on repeat"
+
+
+def test_tc_epilogue_bits_independent_of_tile_and_batching(cuda):
+    """fc1 with GELU on the first 150 rows alone (the smallest tile) gives
+    the bits of the same rows inside a 4096-row product (the largest), and
+    its kept input is bit-equal to the product without the epilogue run
+    batched with another product: the forward's and the backward's
+    recompute's u agree bit for bit."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_products
+
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(4096, 128, generator=gen).to(cuda)
+    w = (torch.randn(512, 128, generator=gen) / 128 ** 0.5).to(cuda)
+    b = (0.1 * torch.randn(512, generator=gen)).to(cuda)
+    pre_small, pre_big = (torch.empty(r, 512, device=cuda) for r in (150, 4096))
+    small = tf32x3_products([dict(x=x[:150], w=w, bias=b, act="gelu", pre_out=pre_small)])[0]
+    big = tf32x3_products([dict(x=x, w=w, bias=b, act="gelu", pre_out=pre_big)])[0]
+    plain = tf32x3_products([dict(x=x[:150], w=w, bias=b), dict(x=x, w=w)])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(small, big[:150]) and torch.equal(pre_small, pre_big[:150])
+    assert torch.equal(pre_small, plain)
+
+
+def test_tc_epilogue_refuses_what_it_does_not_take(cuda):
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_products
+
+    x = torch.randn(64, 32, device=cuda)
+    w = torch.randn(48, 32, device=cuda)
+    u = torch.randn(64, 49, device=cuda)
+    with pytest.raises(ValueError):                      # a weight grad takes no epilogue
+        tf32x3_products([dict(x=x, w=torch.randn(64, 48, device=cuda), trans_a=True,
+                              trans_b=True, act="gelu")])
+    with pytest.raises(ValueError):                      # aux rows of odd length
+        tf32x3_products([dict(x=x, w=w, act="gelu_grad", aux=u[:, 1:])])
+    with pytest.raises(ValueError):                      # GELU' without its input
+        tf32x3_products([dict(x=x, w=w, act="gelu_grad")])
+
+
+def test_tblock_stage_times(cuda):
+    """The staged forward and backward time each of their launches / stages
+    with finite, positive ms and are not counted as launches."""
+    import math
+
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (BWD_STAGES, STAGES, fused_tblock,
+                                                          tblock_backward,
+                                                          tblock_backward_stage_times,
+                                                          tblock_stage_times)
+
+    gen = torch.Generator().manual_seed(32)
+    args = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 0, 17])
+    g = torch.randn(3, 40, 64, generator=gen).to(cuda)
+    before = (fused_tblock.launches, tblock_backward.launches)
+    fwd = tblock_stage_times(*args, heads=4)
+    bwd = tblock_backward_stage_times(*args, g=g, heads=4)
+    assert (fused_tblock.launches, tblock_backward.launches) == before
+    assert list(fwd) == list(STAGES) and len(STAGES) == 8
+    assert list(bwd) == list(BWD_STAGES) and len(BWD_STAGES) == 20
+    assert all(math.isfinite(v) and v > 0 for v in [*fwd.values(), *bwd.values()])
+
+
 def test_tc_wrappers_refuse_unaligned_operands(cuda):
     from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
     from unav_yolyolva_tpu_torch.ops.gemm_tc import tf32x3_linear

@@ -109,7 +109,9 @@ DEFAULTS: Dict[str, Any] = {
         "eta_min": 1e-8,
     },
     # section name kept from the JAX package so one YAML serves both; the
-    # port reads only compute_dtype from it
+    # port reads compute_dtype (float32 only), nms_max_candidates (the
+    # eval step's cap before NMS) and approx_topk (refused when True), not
+    # num_devices
     "tpu": {
         "num_devices": -1,
         "compute_dtype": "float32",

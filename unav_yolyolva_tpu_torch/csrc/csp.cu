@@ -107,14 +107,7 @@ constexpr int CSP_STAGES = 1 + 3 * 4 + 4;
 // The same forward, synchronised, with the device time of each stage in
 // stage_ms (CSP_STAGES floats, CUDA events between the launches).
 extern "C" int unav_csp_forward_stages(UNAV_CSP_PARAMS, float* stage_ms) {
-  cudaEvent_t ev[CSP_STAGES + 1];
-  for (auto& e : ev) cudaEventCreate(&e);
-  StageMarks marks{ev + 1, 0, CSP_STAGES};
-  cudaEventRecord(ev[0], (cudaStream_t)stream);
-  int rc = csp_forward_impl(UNAV_CSP_ARGS, &marks);
-  if (!rc) rc = (int)cudaEventSynchronize(ev[CSP_STAGES]);
-  for (int i = 0; !rc && i < CSP_STAGES; ++i)
-    rc = (int)cudaEventElapsedTime(stage_ms + i, ev[i], ev[i + 1]);
-  for (auto& e : ev) cudaEventDestroy(e);
-  return rc;
+  return time_stages<CSP_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
+    return csp_forward_impl(UNAV_CSP_ARGS, marks);
+  });
 }

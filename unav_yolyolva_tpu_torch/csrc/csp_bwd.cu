@@ -384,15 +384,7 @@ constexpr int CSP_BWD_STAGES = 1 + 2 + 2 + 2 + 3 * MHCA_BWD_STAGES + 2 + 1;
 // The same backward, synchronised, with the device time of each stage in
 // stage_ms (CSP_BWD_STAGES floats, CUDA events between the stages).
 extern "C" int unav_csp_backward_stages(UNAV_CSP_BWD_PARAMS, float* stage_ms) {
-  cudaEvent_t ev[CSP_BWD_STAGES + 1];
-  for (auto& e : ev) cudaEventCreate(&e);
-  StageMarks marks{ev + 1, 0, CSP_BWD_STAGES};
-  cudaEventRecord(ev[0], (cudaStream_t)stream);
-  int rc = csp_backward_impl(UNAV_CSP_BWD_ARGS, &marks);
-  if (!rc && marks.n != CSP_BWD_STAGES) rc = (int)cudaErrorInvalidValue;
-  if (!rc) rc = (int)cudaEventSynchronize(ev[CSP_BWD_STAGES]);
-  for (int i = 0; !rc && i < CSP_BWD_STAGES; ++i)
-    rc = (int)cudaEventElapsedTime(stage_ms + i, ev[i], ev[i + 1]);
-  for (auto& e : ev) cudaEventDestroy(e);
-  return rc;
+  return time_stages<CSP_BWD_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
+    return csp_backward_impl(UNAV_CSP_BWD_ARGS, marks);
+  });
 }

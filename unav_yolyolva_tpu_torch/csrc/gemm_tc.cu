@@ -1,20 +1,26 @@
 // The tensor-core fp32 product of gemm_tc.cuh alone (ops/gemm_tc.py), for
 // testing and timing it by itself: `count` products of any of the three
-// layouts in one call, batched as launch_gemm batches them.
+// layouts in one call, batched as launch_gemm batches them, or one product
+// with the GemmEpi epilogue (launch_gemm_tc_epi).
 #include "gemm.cuh"
 
-constexpr int TC_PTRS = 6, TC_INTS = 13;
+constexpr int TC_PTRS = 9, TC_INTS = 17;
 
-// Per product i: ptrs[6i..6i+5] = A, B, C, bias, rowmask, kmask (the last
-// three may be null); ints[13i..13i+12] = lda, ldb, ldc, M, N, K, taps (1,
-// or 3: the k=3 conv loader on A, Kc = K / 3), seq, tapdir (+1 or -1),
-// btaps (1, or 3: the conv loader on B's n index, Kc = N / 3), transA,
-// transB, beta; scales[i]. part: split-K scratch of part_floats floats
-// (gemm_splitk_floats of the largest weight grad), or null without one.
+// Per product i: ptrs[9i..9i+8] = A, B, C, bias, rowmask, kmask, aux,
+// seqmul, pre (all but the first three may be null); ints[17i..17i+16] =
+// lda, ldb, ldc, M, N, K, taps (1, or 3: the k=3 conv loader on A, Kc =
+// K / 3), seq (rows per sequence of the conv and of seqmul), tapdir (+1 or
+// -1), btaps (1, or 3: the conv loader on B's n index, Kc = N / 3),
+// transA, transB, beta, epi (1: the epilogue kernel, count 1), act
+// (GEMM_ACT_*), ldaux, ldpre; scales[i]. part: split-K scratch of
+// part_floats floats (gemm_splitk_floats of the largest weight grad), or
+// null without one.
 extern "C" int unav_gemm_tc(int count, void* const* ptrs, const long* ints,
                             const float* scales, float* part, long part_floats, void* stream) {
   if (count < 1 || count > GEMM_MAX_BATCH) return (int)cudaErrorInvalidValue;
   GemmBatch batch;
+  GemmEpi epi{};
+  bool with_epi = false;
   for (int i = 0; i < count; ++i) {
     void* const* p = ptrs + TC_PTRS * i;
     const long* n = ints + TC_INTS * i;
@@ -30,7 +36,14 @@ extern "C" int unav_gemm_tc(int count, void* const* ptrs, const long* ints,
       return (int)cudaErrorInvalidValue;
     if (a.taps == 3) a.Kc = a.K / 3;
     if (a.btaps == 3) a.Kc = a.N / 3;
+    if (n[13]) {
+      if (count != 1) return (int)cudaErrorInvalidValue;
+      with_epi = true;
+      epi = GemmEpi{(int)n[14], (const float*)p[6], n[15], (const float*)p[7], a.seq,
+                    (float*)p[8], n[16]};
+    }
   }
+  if (with_epi) return launch_gemm_tc_epi(batch.g[0], epi, (cudaStream_t)stream);
   return launch_gemm(batch, count, (cudaStream_t)stream, part, part_floats);
 }
 

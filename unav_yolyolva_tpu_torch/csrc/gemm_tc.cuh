@@ -5,13 +5,20 @@
 //   C[m, n] = (sum_k A(m, k) * B(n, k) + bias[n]) * scale * rowmask[m]
 //             (+ C[m, n] with beta)
 //
+// and, through launch_gemm_tc_epi (A.B^T or A.B, a compile-time choice of
+// the kernel), the same with the GemmEpi epilogue: exact erf GELU or the
+// product with GELU'(aux), a per-sequence column multiplier, beta on either
+// layout, and GELU's input written beside its output.
+//
 // It replaces, for the port, the fp32 `jnp.dot`s of the Pallas kernels'
 // bodies and of their backward: `_csp_compute` and `_csp_bwd_kernel` (main,
 // guide_fc, k=3 projection and final convs and their grads,
 // unav_yolyolva_tpu/ops/pallas_csp.py), `_mhca_compute` and
 // `_mhca_bwd_kernel` (q/k/v and proj dense layers and their grads,
-// ops/pallas_fusion.py). launch_gemm (gemm.cuh) sends every product without
-// a GemmEpi here; the attention of mhca.cuh and its backward (mhca_bwd.cuh)
+// ops/pallas_fusion.py), `_tblock_compute` and `_tblock_bwd_kernel` (fc1 +
+// GELU, fc2 + residual tail, and their grads, ops/pallas_tblock.py). Every
+// product of the port runs here: launch_gemm (gemm.cuh) sends those without
+// an epilogue; the attention of mhca.cuh and its backward (mhca_bwd.cuh)
 // run their products on the same fragments (mma_3xtf32).
 //
 // Bound: operations. On the H100 the fp32 FFMA peak is 67 TFLOP/s, the
@@ -45,7 +52,8 @@
 // element is summed by one thread over the same 32-deep slices in the same
 // order whatever the tile shape or the other products of the launch, so
 // the forward and the backward's recompute (which batches guide_fc with the
-// projection conv) give the same bits. A weight grad (A^T.B, K = all R*T
+// projection conv, or writes fc1's GELU input beside its output) give the
+// same bits. A weight grad (A^T.B, K = all R*T
 // rows) splits K into gemm_split_chunk(M, N, K) slices, multiples of 32
 // fixed by its own shape; each split's raw sum goes to scratch and
 // gemm_splitk_reduce_kernel adds them in split order.
@@ -88,6 +96,26 @@ struct GemmArgs {
 
 constexpr int GEMM_MAX_BATCH = 4;
 struct GemmBatch { GemmArgs g[GEMM_MAX_BATCH]; };
+
+// The TransformerBlock MLP's epilogue (launch_gemm_tc_epi), a kernel
+// parameter of its own: kept out of GemmArgs, whose size every other
+// product's kernel would pay for in registers.
+constexpr int GEMM_ACT_NONE = 0, GEMM_ACT_GELU = 1, GEMM_ACT_GELU_GRAD = 2;
+struct GemmEpi {
+  int act;                      // GEMM_ACT_*
+  const float* aux; long ldaux; // GELU' input (GEMM_ACT_GELU_GRAD)
+  const float* seqmul; int seq; // (M / seq, N) column multiplier, or nullptr
+  float* pre; long ldpre;       // GEMM_ACT_GELU: the input of GELU, or nullptr
+};
+
+__device__ __forceinline__ float gelu_erf(float u) {
+  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_erf_grad(float u) {
+  return 0.5f * (1.f + erff(u * 0.70710678118654752f)) +
+         u * 0.39894228040143268f * expf(-0.5f * u * u);
+}
 
 static GemmArgs gemm_args(const float* A, long lda, const float* B, long ldb,
                           float* C, long ldc, const float* bias,
@@ -245,10 +273,12 @@ static int gemm_split_chunk(int M, int N, int K) {
 // grid (ceil(N / BN), ceil(M / BM), count, or the splits' blocks with TA),
 // WM x WN warps, each owning a (BM / WM) x (BN / WN) block of the output.
 // TA / TB: the layouts of every product of the launch (A.B^T, A.B, A^T.B).
-template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB>
+// EPI: apply epi (one A.B^T or A.B product); without it epi is not read.
+template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB, bool EPI>
 __global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch batch,
                                                               const GemmSplits sp,
-                                                              float* part) {
+                                                              float* part,
+                                                              const GemmEpi epi) {
   constexpr int NT = WM * WN * 32, TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
   constexpr int LDA = TA ? BM + TC_KPAD : TC_LDS, LDB = TB ? BN + TC_KPAD : TC_LDS;
   constexpr int ASZ = TA ? TC_BK * LDA : BM * TC_LDS, BSZ = TB ? TC_BK * LDB : BN * TC_LDS;
@@ -399,9 +429,25 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_tc_kernel(const GemmBatch b
             v0 += p.bias[n];
             v1 += p.bias[n + 1];
           }
+          if (EPI && epi.act == GEMM_ACT_GELU) {
+            if (epi.pre)
+              *reinterpret_cast<float2*>(epi.pre + (long)m * epi.ldpre + n) = make_float2(v0, v1);
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          } else if (EPI && epi.act == GEMM_ACT_GELU_GRAD) {
+            const float2 u = *reinterpret_cast<const float2*>(epi.aux + (long)m * epi.ldaux + n);
+            v0 *= gelu_erf_grad(u.x);
+            v1 *= gelu_erf_grad(u.y);
+          }
           v0 = v0 * p.scale * mk;
           v1 = v1 * p.scale * mk;
-          if ((TA || TB) && p.beta) {   // the forward layout never accumulates
+          if (EPI && epi.seqmul) {
+            const float2 s = *reinterpret_cast<const float2*>(epi.seqmul +
+                                                              (long)(m / epi.seq) * p.N + n);
+            v0 *= s.x;
+            v1 *= s.y;
+          }
+          if ((TA || TB || EPI) && p.beta) {   // only the epilogue's forward accumulates
             const float2 c = *reinterpret_cast<const float2*>(crow + n);
             v0 += c.x;
             v1 += c.y;
@@ -441,17 +487,18 @@ static void raise_smem_limit(const void* kernel, int bytes, int& limit) {
   }
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB>
+template <int BM, int BN, int WM, int WN, int STAGES, bool TA, bool TB, bool EPI>
 static int launch_gemm_tc_tile(const GemmBatch& batch, const GemmSplits& sp, int count,
-                               int maxM, int maxN, float* part, cudaStream_t stream) {
+                               int maxM, int maxN, float* part, const GemmEpi& epi,
+                               cudaStream_t stream) {
   constexpr int ASZ = TA ? TC_BK * (BM + TC_KPAD) : BM * TC_LDS;
   constexpr int BSZ = TB ? TC_BK * (BN + TC_KPAD) : BN * TC_LDS;
   const int smem = STAGES * (ASZ + BSZ) * (int)sizeof(float);
-  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, STAGES, TA, TB>;
+  auto kernel = gemm_tc_kernel<BM, BN, WM, WN, STAGES, TA, TB, EPI>;
   static int limit = 0;
   raise_smem_limit((const void*)kernel, smem, limit);
   const dim3 grid(ceil_div(maxN, BN), ceil_div(maxM, BM), TA ? sp.first[count] : count);
-  kernel<<<grid, WM * WN * 32, smem, stream>>>(batch, sp, part);
+  kernel<<<grid, WM * WN * 32, smem, stream>>>(batch, sp, part, epi);
   UNAV_RETURN_IF_ERROR();
   return 0;
 }
@@ -468,17 +515,35 @@ static long tc_blocks(const GemmBatch& batch, const GemmSplits& sp, int count, b
   return n;
 }
 
-template <bool TA, bool TB>
+template <bool TA, bool TB, bool EPI>
 static int launch_gemm_tc_layout(const GemmBatch& batch, const GemmSplits& sp, int count,
-                                 int maxM, int maxN, float* part, cudaStream_t stream) {
+                                 int maxM, int maxN, float* part, const GemmEpi& epi,
+                                 cudaStream_t stream) {
   if (tc_blocks(batch, sp, count, TA, 128, 64) >= 2 * 132)
-    return launch_gemm_tc_tile<128, 64, 4, 2, 3, TA, TB>(batch, sp, count, maxM, maxN, part,
-                                                         stream);
+    return launch_gemm_tc_tile<128, 64, 4, 2, 3, TA, TB, EPI>(batch, sp, count, maxM, maxN,
+                                                              part, epi, stream);
   if (tc_blocks(batch, sp, count, TA, 64, 64) >= 2 * 132)
-    return launch_gemm_tc_tile<64, 64, 2, 2, 4, TA, TB>(batch, sp, count, maxM, maxN, part,
-                                                        stream);
-  return launch_gemm_tc_tile<32, 32, 2, 2, 4, TA, TB>(batch, sp, count, maxM, maxN, part,
-                                                      stream);
+    return launch_gemm_tc_tile<64, 64, 2, 2, 4, TA, TB, EPI>(batch, sp, count, maxM, maxN,
+                                                             part, epi, stream);
+  return launch_gemm_tc_tile<32, 32, 2, 2, 4, TA, TB, EPI>(batch, sp, count, maxM, maxN, part,
+                                                           epi, stream);
+}
+
+// 0, or why launch_gemm_tc refuses product p of a launch of layout (ta, tb):
+// one layout a launch; kmask and btaps only on weight grads, taps only on a
+// row-major A, tapdir -1 not on the forward layout, beta not on it but for
+// an epilogue product (epi); the ring's 16-byte copies.
+static int gemm_tc_refuses(const GemmArgs& p, bool ta, bool tb, bool epi) {
+  if ((bool)p.transA != ta || (bool)p.transB != tb || (ta && !tb) ||
+      (!ta && (p.kmask || p.btaps != 1)) || (ta && p.taps != 1) ||
+      (!tb && ((p.beta && !epi) || p.tapdir != 1)))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(p.A) || !aligned16(p.B) || p.lda % 4 || p.ldb % 4 ||
+      ((p.taps == 3 || p.btaps == 3) && p.Kc % 4) ||
+      (ta ? p.M % 4 : p.K % 4) || (tb ? p.N % 4 : p.K % 4) || p.N % 2 || p.ldc % 2 ||
+      ((uintptr_t)p.C & 7))
+    return (int)cudaErrorMisalignedAddress;
+  return 0;
 }
 
 // Launch `count` products of one layout in one grid (and, for weight grads
@@ -497,17 +562,7 @@ static int launch_gemm_tc(const GemmBatch& batch, int count, cudaStream_t stream
   long off = 0;
   for (int i = 0; i < count; ++i) {
     const GemmArgs& p = batch.g[i];
-    // one layout a launch; kmask and btaps only on weight grads, taps only
-    // on a row-major A, beta and tapdir -1 not on the forward layout
-    if ((bool)p.transA != ta || (bool)p.transB != tb || (ta && !tb) ||
-        (!ta && (p.kmask || p.btaps != 1)) || (ta && p.taps != 1) ||
-        (!tb && (p.beta || p.tapdir != 1)))
-      return (int)cudaErrorInvalidValue;
-    if (!aligned16(p.A) || !aligned16(p.B) || p.lda % 4 || p.ldb % 4 ||
-        ((p.taps == 3 || p.btaps == 3) && p.Kc % 4) ||
-        (ta ? p.M % 4 : p.K % 4) || (tb ? p.N % 4 : p.K % 4) || p.N % 2 || p.ldc % 2 ||
-        ((uintptr_t)p.C & 7))
-      return (int)cudaErrorMisalignedAddress;
+    if (const int rc = gemm_tc_refuses(p, ta, tb, false)) return rc;
     maxM = std::max(maxM, p.M);
     maxN = std::max(maxN, p.N);
     sp.kchunk[i] = ta ? gemm_split_chunk(p.M, p.N, p.K) : p.K;
@@ -517,9 +572,14 @@ static int launch_gemm_tc(const GemmBatch& batch, int count, cudaStream_t stream
     if (splits > 1) off += (long)splits * p.M * p.N;
   }
   if (off > (part ? part_floats : 0)) return (int)cudaErrorInvalidValue;
-  const int rc = ta   ? launch_gemm_tc_layout<true, true>(batch, sp, count, maxM, maxN, part, stream)
-                 : tb ? launch_gemm_tc_layout<false, true>(batch, sp, count, maxM, maxN, part, stream)
-                      : launch_gemm_tc_layout<false, false>(batch, sp, count, maxM, maxN, part, stream);
+  const GemmEpi none{};
+  const int rc =
+      ta   ? launch_gemm_tc_layout<true, true, false>(batch, sp, count, maxM, maxN, part, none,
+                                                      stream)
+      : tb ? launch_gemm_tc_layout<false, true, false>(batch, sp, count, maxM, maxN, part, none,
+                                                       stream)
+           : launch_gemm_tc_layout<false, false, false>(batch, sp, count, maxM, maxN, part,
+                                                        none, stream);
   if (rc || !off) return rc;
   gemm_splitk_reduce_kernel<<<dim3(ceil_div((long)maxM * maxN, 256), count), 256, 0, stream>>>(
       batch, sp, part);
@@ -530,3 +590,36 @@ static int launch_gemm_tc(const GemmBatch& batch, int count, cudaStream_t stream
 // floats of split-K scratch for a launch of weight grads of at most mn
 // outputs each
 static long gemm_splitk_floats(long mn) { return (long)GEMM_MAX_BATCH * GEMM_MAX_SPLITS * mn; }
+
+// One A.B^T or A.B product with the GemmEpi epilogue, applied to each pair
+// of outputs before they are stored:
+//   C[m, n] = act(sum_k A(m, k) B(n, k) + bias[n]) * scale * rowmask[m]
+//             * seqmul[m / seq, n] (+ C[m, n] with beta, either layout)
+// act: none; exact erf GELU, writing its input to pre as well when pre is
+// given; or the product with GELU'(aux[m, n]). The bits of C (and of pre)
+// are those of the same product without the epilogue, then the epilogue.
+// aux, pre and seqmul are read and written as float pairs: 8-byte aligned,
+// even row strides. An A^T.B, kmask or btaps is refused. A template, so
+// that only the libraries that call it compile its kernels.
+template <bool EPI = true>
+static int launch_gemm_tc_epi(const GemmArgs& a, const GemmEpi& epi, cudaStream_t stream) {
+  if (a.transA || epi.act < GEMM_ACT_NONE || epi.act > GEMM_ACT_GELU_GRAD ||
+      (epi.act == GEMM_ACT_GELU_GRAD && !epi.aux) || (epi.seqmul && epi.seq < 1))
+    return (int)cudaErrorInvalidValue;
+  if (const int rc = gemm_tc_refuses(a, false, a.transB, EPI)) return rc;
+  if ((epi.aux && (((uintptr_t)epi.aux & 7) || epi.ldaux % 2)) ||
+      (epi.pre && (((uintptr_t)epi.pre & 7) || epi.ldpre % 2)) ||
+      ((uintptr_t)epi.seqmul & 7))
+    return (int)cudaErrorMisalignedAddress;
+  GemmBatch one;
+  one.g[0] = a;
+  GemmSplits sp;
+  sp.first[0] = 0;
+  sp.first[1] = 1;
+  sp.kchunk[0] = a.K;
+  sp.off[0] = 0;
+  return a.transB
+             ? launch_gemm_tc_layout<false, true, EPI>(one, sp, 1, a.M, a.N, nullptr, epi, stream)
+             : launch_gemm_tc_layout<false, false, EPI>(one, sp, 1, a.M, a.N, nullptr, epi,
+                                                        stream);
+}

@@ -306,8 +306,8 @@ static int launch_attn(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Optional CUDA events recorded between the stages of a forward (the stage
-// breakdown of unav_csp_forward_stages); nullptr records nothing.
+// Optional CUDA events recorded between the stages of a forward or backward
+// (the breakdowns of the *_stages entry points); nullptr records nothing.
 struct StageMarks {
   cudaEvent_t* ev;
   int n, cap;
@@ -315,6 +315,24 @@ struct StageMarks {
 
 static void mark_stage(StageMarks* m, cudaStream_t stream) {
   if (m && m->n < m->cap) cudaEventRecord(m->ev[m->n++], stream);
+}
+
+// Runs fn(&marks), which marks the end of each of its N stages, after one
+// event on the stream; synchronises and writes each stage's device ms into
+// stage_ms (N floats): the *_stages entry points.
+template <int N, class F>
+static int time_stages(cudaStream_t stream, float* stage_ms, F fn) {
+  cudaEvent_t ev[N + 1];
+  for (auto& e : ev) cudaEventCreate(&e);
+  StageMarks marks{ev + 1, 0, N};
+  cudaEventRecord(ev[0], stream);
+  int rc = fn(&marks);
+  if (!rc && marks.n != N) rc = (int)cudaErrorInvalidValue;
+  if (!rc) rc = (int)cudaEventSynchronize(ev[N]);
+  for (int i = 0; !rc && i < N; ++i)
+    rc = (int)cudaEventElapsedTime(stage_ms + i, ev[i], ev[i + 1]);
+  for (auto& e : ev) cudaEventDestroy(e);
+  return rc;
 }
 
 // Launches 1-3 of the forward: nrm (3 x P x C) gets the normalized q/k/v

@@ -6,7 +6,7 @@
 // walks the chain in reverse:
 //   y = fc2(GELU(u)) with u = fc1(h): gy = g * mult_m * m, and
 //     d(mult_m) = sum_t g * y * m (seq_dot_kernel);
-//   du = (gy W2) * GELU'(u) (GEMM, A.B, GELU' epilogue); dh = du W1;
+//   du = (gy W2) * GELU'(u) (A.B with the GELU' epilogue); dh = du W1;
 //     dW2 = gy^T GELU(u), dW1 = du^T h (split-K A^T.B, one launch);
 //   ln2 backward: dout = g + LN2'(dh) (ln2_bwd_kernel);
 //   d(mult_a) = sum_t dout * attn, and the MHCA's upstream grad dout *
@@ -19,17 +19,11 @@
 // Every weight and multiplier grad is a fixed-order reduction, no float
 // atomics: two runs give the same bits. Bound: operations (recompute +
 // twice the products). Every product runs in 3xTF32 on the tensor cores
-// (gemm_tc.cuh, and the MHCA's attention backward) but dU = (gy W2) *
-// GELU'(u), whose epilogue keeps it on the FFMA product of gemm.cuh.
+// (gemm_tc.cuh, and the MHCA's attention backward): the recompute's fc1
+// writes u and GELU(u) in one launch, from the fragments of the forward's
+// fc1, and du's GELU' is applied in the product's epilogue.
 #include "mhca_bwd.cuh"
 #include "tblock.cuh"
-
-// z = GELU(u), elementwise over n floats
-__global__ void __launch_bounds__(256) gelu_kernel(const float* __restrict__ u, long n,
-                                                   float* __restrict__ z) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;
-  if (i < n) z[i] = gelu_erf(u[i]);
-}
 
 // Per-sequence column sums, grid (ceil(C / 32), R), block (32, 8):
 //   out[r, c] = sum_t A[r, t, c] * B[r, t, c] * m[r, t]   (m = 1 without mask)
@@ -185,53 +179,68 @@ extern "C" long unav_tblock_backward_scratch(int R, int T, int C, int Hd, int he
   return tblock_bwd_layout(nullptr, R, T, C, Hd, heads).total;
 }
 
+#define UNAV_TBLOCK_BWD_PARAMS                                                              \
+  const float *x, const unsigned char *mask, int R, int T, int C, int Hd, int H,              \
+      const float *mult_a, const float *mult_m, const float *lnw3, const float *lnb3,         \
+      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,    \
+      const float *w1, const float *b1, const float *w2, const float *b2, float eps,          \
+      const float *g, float *dx, float *dma, float *dmm, float *glnw3, float *glnb3,          \
+      float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gw1, float *gb1,     \
+      float *gw2, float *gb2, float *scratch, void *stream_
+#define UNAV_TBLOCK_BWD_ARGS                                                                \
+  x, mask, R, T, C, Hd, H, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1, w2, b2,  \
+      eps, g, dx, dma, dmm, glnw3, glnb3, gdw, glnw, glnb, gw, gb, gw1, gb1, gw2, gb2,      \
+      scratch, stream_
+
 // The grads of one block forward for the upstream grad g (R*T, C): dx
 // (R*T, C), d(mult_a) / d(mult_m) (R, C), and the eleven weight grads in
 // the weights' layouts. scratch: unav_tblock_backward_scratch floats.
-extern "C" int unav_tblock_backward(
-    const float* x, const unsigned char* mask, int R, int T, int C, int Hd, int H,
-    const float* mult_a, const float* mult_m, const float* lnw3, const float* lnb3,
-    const float* dw, const float* lnw, const float* lnb, const float* w, const float* b,
-    const float* w1, const float* b1, const float* w2, const float* b2, float eps,
-    const float* g, float* dx, float* dma, float* dmm, float* glnw3, float* glnb3, float* gdw,
-    float* glnw, float* glnb, float* gw, float* gb, float* gw1, float* gb1, float* gw2,
-    float* gb2, float* scratch, void* stream_) {
+// marks, if given, gets an event after each stage (TBLOCK_BWD_STAGES).
+constexpr int TBLOCK_BWD_STAGES = 12 + MHCA_BWD_STAGES;
+static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const TBlockWeights W{lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1, w2, b2};
   const long P = (long)R * T;
   const TBlockBwdScratch s = tblock_bwd_layout(scratch, R, T, C, Hd, H);
   const int rows = ceil_div(P, 8);   // blocks of the one-warp-per-frame kernels
 
-  // ---- recompute: ln11 / ln12, MHCA, residual + ln2, fc1, GELU, fc2 ------
+  // ---- recompute: ln11 / ln12, MHCA, residual + ln2, fc1 + GELU, fc2 -----
   int rc = launch_ln_pair(x, P, C, lnw3, lnb3, eps, s.h1, s.h2, stream);
   if (rc) return rc;
+  mark_stage(marks, stream);
   const MhcaSaved sv = mhca_saved(s.saved, R, T, C);
   rc = mhca_recompute(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, lnb, w, b, eps, sv, s.a, C,
                       stream);
   if (rc) return rc;
+  mark_stage(marks, stream);
   rc = launch_residual_ln2(x, mask, mult_a, s.a, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps,
                            s.res, s.h, stream);
   if (rc) return rc;
+  mark_stage(marks, stream);
+  // z = GELU(u), u kept for GELU'
+  rc = launch_gemm_tc_epi(tblock_fc1(W, s.h, s.z, P, C, Hd),
+                          GemmEpi{GEMM_ACT_GELU, nullptr, 0, nullptr, 0, s.u, Hd}, stream);
+  if (rc) return rc;
+  mark_stage(marks, stream);
   GemmBatch prod;
-  prod.g[0] = tblock_fc1(W, s.h, s.u, P, C, Hd);
-  if ((rc = launch_gemm(prod, 1, stream))) return rc;
-  gelu_kernel<<<ceil_div(P * Hd, 256), 256, 0, stream>>>(s.u, P * Hd, s.z);
-  UNAV_RETURN_IF_ERROR();
   prod.g[0] = gemm_args(s.z, Hd, w2, Hd, s.y, C, b2, nullptr, 1.f, (int)P, C, Hd);
   if ((rc = launch_gemm(prod, 1, stream))) return rc;
+  mark_stage(marks, stream);
 
   // ---- the MLP branch in reverse -----------------------------------------
   const dim3 sgrid(ceil_div(C, 32), R), sblock(32, 8);
   seq_dot_kernel<<<sgrid, sblock, 0, stream>>>(g, s.y, mask, mult_m, T, C, dmm, s.gy);
   UNAV_RETURN_IF_ERROR();
-  const GemmEpi gelu_grad{GEMM_ACT_GELU_GRAD, s.u, Hd, nullptr, 1};
-  if ((rc = launch_gemm_epi(gemm_nn(s.gy, C, w2, Hd, s.du, Hd, nullptr, (int)P, Hd, C),
-                            gelu_grad, stream)))
-    return rc;
+  mark_stage(marks, stream);
+  rc = launch_gemm_tc_epi(gemm_nn(s.gy, C, w2, Hd, s.du, Hd, nullptr, (int)P, Hd, C),
+                          GemmEpi{GEMM_ACT_GELU_GRAD, s.u, Hd}, stream);
+  if (rc) return rc;
+  mark_stage(marks, stream);
   prod.g[0] = gemm_nn(s.du, Hd, w1, C, s.dh, C, nullptr, (int)P, C, Hd);
   prod.g[1] = gemm_wgrad(s.gy, C, s.z, Hd, gw2, nullptr, C, Hd, (int)P);
   prod.g[2] = gemm_wgrad(s.du, Hd, s.h, C, gw1, nullptr, Hd, C, (int)P);
   if ((rc = launch_gemm(prod, 3, stream, s.split, s.split_floats))) return rc;
+  mark_stage(marks, stream);
 
   // ---- ln2, the residual and the attention branch ------------------------
   rc = with_cpl(C, [&](auto cpl) {
@@ -239,11 +248,14 @@ extern "C" int unav_tblock_backward(
         s.res, s.dh, lnw3 + 2L * C, g, P, C, eps, s.dout, s.yhat2);
   });
   if (rc) return rc;
+  mark_stage(marks, stream);
   seq_dot_kernel<<<sgrid, sblock, 0, stream>>>(s.dout, s.a, nullptr, mult_a, T, C, dma,
                                                s.gmh);
   UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, stream);
   rc = mhca_backward_saved(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, w, eps, sv, s.gmh, C,
-                           s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream);
+                           s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream,
+                           marks);
   if (rc) return rc;
 
   // ---- ln11 / ln12 and x -------------------------------------------------
@@ -252,6 +264,7 @@ extern "C" int unav_tblock_backward(
         x, mask, lnw3, s.dh1, s.dh2, s.dout, P, C, eps, dx, s.yhat1);
   });
   if (rc) return rc;
+  mark_stage(marks, stream);
 
   // ---- biases and LayerNorm affines: one batched column-sum launch -------
   ColBatch cb;
@@ -266,5 +279,20 @@ extern "C" int unav_tblock_backward(
     cb.j[n++].ldb = C;
     cb.j[n++] = col_job(dys[i], C, (int)P, C, glnb3 + (long)i * C);
   }
-  return launch_colsum(cb, n, s.partial, stream);
+  rc = launch_colsum(cb, n, s.partial, stream);
+  mark_stage(marks, stream);
+  return rc;
+}
+
+extern "C" int unav_tblock_backward(UNAV_TBLOCK_BWD_PARAMS) {
+  return tblock_backward_impl(UNAV_TBLOCK_BWD_ARGS, nullptr);
+}
+
+// The same backward, synchronised, with the device ms of each stage in
+// stage_ms (TBLOCK_BWD_STAGES floats, the names of
+// ops/fused_tblock.py:BWD_STAGES).
+extern "C" int unav_tblock_backward_stages(UNAV_TBLOCK_BWD_PARAMS, float* stage_ms) {
+  return time_stages<TBLOCK_BWD_STAGES>(
+      (cudaStream_t)stream_, stage_ms,
+      [&](StageMarks* marks) { return tblock_backward_impl(UNAV_TBLOCK_BWD_ARGS, marks); });
 }

@@ -3,8 +3,10 @@
 The JAX package decodes one video and vmaps it; here the batch dimension is
 written out. Per level: sigmoid scores masked by the frame mask, top-k over
 (T_l x C) (skipped when k covers every candidate), threshold, offset decode
-against the point grid and a minimum-duration filter. Then (Soft-)NMS and
-the grid -> seconds conversion with a clamp to [0, duration].
+against the point grid and a minimum-duration filter; optionally a cap of
+the concatenated candidates to the global top by score
+(`tpu.nms_max_candidates`). Then (Soft-)NMS and the grid -> seconds
+conversion with a clamp to [0, duration].
 """
 
 from __future__ import annotations
@@ -26,11 +28,15 @@ def decode_batch(
     pre_nms_topk: int,
     duration_thresh: float,
     class_aware: bool,
+    max_candidates: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The JAX package's decode_single_video over the whole batch: (segs
     (B, K, 2), scores (B, K), cls (B, K), valid (B, K)) with K = sum over
-    levels of min(pre_nms_topk, T_l * C). Ties in the top-k keep the lower
-    index first, as lax.top_k does."""
+    levels of min(pre_nms_topk, T_l * C). With 0 < max_candidates < K the
+    concatenation is cut to the top max_candidates by score, invalid
+    candidates ranked at -1 (it bounds the NMS scan; 0 keeps the reference
+    candidate set). Ties in either top-k keep the lower index first, as
+    lax.top_k does."""
     segs_all, scores_all, cls_all, valid_all = [], [], [], []
     for cls_i, off_i, mask_i, pts_i in zip(cls_logits, offsets, masks, points):
         b, t_l, c = cls_i.shape
@@ -57,8 +63,14 @@ def decode_batch(
         cls_all.append(top_idx % c)
         valid_all.append((top_p > pre_nms_thresh)
                          & ((seg_right - seg_left) > duration_thresh))
-    return (torch.cat(segs_all, 1), torch.cat(scores_all, 1),
-            torch.cat(cls_all, 1).int(), torch.cat(valid_all, 1))
+    segs, scores = torch.cat(segs_all, 1), torch.cat(scores_all, 1)
+    cls, valid = torch.cat(cls_all, 1).int(), torch.cat(valid_all, 1)
+    if 0 < max_candidates < scores.shape[1]:
+        ranked = torch.where(valid, scores, torch.full_like(scores, -1.0))
+        idx = torch.sort(ranked, dim=1, descending=True, stable=True)[1][:, :max_candidates]
+        segs = segs.gather(1, idx[..., None].expand(-1, -1, 2))
+        scores, cls, valid = (a.gather(1, idx) for a in (scores, cls, valid))
+    return segs, scores, cls, valid
 
 
 def postprocess_batch(segs, scores, cls_idxs, valid, *, num_classes: int, test_cfg: Dict,

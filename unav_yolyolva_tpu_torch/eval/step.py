@@ -21,10 +21,17 @@ def make_eval_step(model, cfg: Dict, device=None) -> Callable:
     (B, T) and per-video fps, duration, feat_stride, feat_num_frames (B,),
     as numpy arrays or tensors. Detections: segments (B, M, 2) in seconds,
     scores (B, M), labels (B, M), valid (B, M), with M = max_seg_num, on
-    the device. Runs on CUDA unless device='cpu'."""
+    the device. Runs on CUDA unless device='cpu'. tpu.nms_max_candidates
+    caps the candidates before NMS as the JAX eval step does;
+    tpu.approx_topk is refused."""
     device = resolve_device(device)
+    mcfg, test_cfg, tpu = cfg["model"], cfg["test_cfg"], cfg.get("tpu", {})
+    if tpu.get("approx_topk", False):
+        raise NotImplementedError("tpu.approx_topk: lax.approx_max_k is a TPU approximation "
+                                  "of the top-k that the port does not take; it runs the "
+                                  "exact top-k with approx_topk False")
+    max_candidates = int(tpu.get("nms_max_candidates", 0))
     model = model.to(device).eval()
-    mcfg, test_cfg = cfg["model"], cfg["test_cfg"]
     class_aware = mcfg["class_aware"]
 
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
@@ -41,6 +48,7 @@ def make_eval_step(model, cfg: Dict, device=None) -> Callable:
                 pre_nms_topk=test_cfg["pre_nms_topk"],
                 duration_thresh=test_cfg["duration_thresh"],
                 class_aware=class_aware,
+                max_candidates=max_candidates,
             )
             segs, scores, labels, valid = postprocess_batch(
                 *cands, num_classes=mcfg["num_classes"], test_cfg=test_cfg,

@@ -13,13 +13,16 @@ On the card (csrc/tblock.cu, csrc/tblock_bwd.cu) the block is bound by
 operations: the MLP's two products are ~2/3 of its FLOPs at the stem shape.
 The forward is eight launches of the repo's own kernels: ln11 + ln12 in one
 pass, the MHCA of csrc/mhca.cuh, the residual add fused with ln2, and fc1 /
-fc2 on the shared GEMM (csrc/gemm.cuh) with bias + GELU and bias + mask +
-mult_m + residual epilogues. The backward saves only the inputs, the
-multipliers and the weights; it recomputes the forward and walks back
-through fc2, GELU', fc1, ln2, the residual, the MHCA backward of
-csrc/mhca_bwd.cuh and ln11 / ln12. Every weight and multiplier grad is a
-fixed-order sum (split-K A^T.B, csrc/colsum.cuh, per-sequence sums): two
-runs give the same bits. The port computes in fp32 only.
+fc2 on the 3xTF32 tensor-core product (csrc/gemm_tc.cuh) with bias + GELU
+and bias + mask + mult_m + residual epilogues. The backward saves only the
+inputs, the multipliers and the weights; it recomputes the forward (fc1
+writing u and GELU(u) in one launch) and walks back through fc2, GELU' (in
+the epilogue of the product that makes du), fc1, ln2, the residual, the
+MHCA backward of csrc/mhca_bwd.cuh and ln11 / ln12. Every weight and
+multiplier grad is a fixed-order sum (split-K A^T.B, csrc/colsum.cuh,
+per-sequence sums): two runs give the same bits. `tblock_stage_times` and
+`tblock_backward_stage_times` time them launch by launch. The port computes
+in fp32 only.
 
 Weight layout (torch, packed by TransformerBlock.packed_weights()):
 lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
@@ -27,6 +30,8 @@ lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -36,30 +41,43 @@ from .cuda_build import FLOAT, INT, LONG, PTR
 from .fused_mhca import MAX_T, _check, mhca_reference
 from .masked import channel_layer_norm
 
-_ARGTYPES = {
-    "unav_tblock_forward": [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11
-                           + [FLOAT, PTR, PTR, PTR],
-}
+_FWD_TYPES = [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR, PTR, PTR]
+_ARGTYPES = {"unav_tblock_forward": _FWD_TYPES,
+             "unav_tblock_forward_stages": _FWD_TYPES + [PTR]}
 _RESTYPES = {"unav_tblock_forward_scratch": ([INT] * 4, LONG)}
-_BWD_ARGTYPES = {
-    "unav_tblock_backward": [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11
-                            + [FLOAT, PTR] + [PTR] * 14 + [PTR, PTR],
-}
+# the launches of one forward, in order (tblock.cuh: TBLOCK_STAGES)
+STAGES = ("ln_pair", "mhca.ln", "mhca.qkv", "mhca.attention", "mhca.proj", "residual_ln2",
+          "fc1", "fc2")
+_BWD_TYPES = ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR]
+              + [PTR] * 14 + [PTR, PTR])
+_BWD_ARGTYPES = {"unav_tblock_backward": _BWD_TYPES,
+                 "unav_tblock_backward_stages": _BWD_TYPES + [PTR]}
 _BWD_RESTYPES = {"unav_tblock_backward_scratch": ([INT] * 5, LONG)}
+# the stages of one backward, in order (tblock_bwd.cu: TBLOCK_BWD_STAGES)
+BWD_STAGES = (("ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2", "dmult_m",
+               "du", "dh_dw", "ln2", "dmult_a")
+              + tuple(f"mhca.{part}" for part in ("proj", "dq", "dkdv", "qkv_dx", "wgrad", "ln",
+                                                  "conv", "colsum"))
+              + ("ln_pair_bwd", "colsum"))
 
 N_WEIGHTS = 11
 
 
 def tblock_reference(x, mask, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1,
-                     w2, b2, *, heads: int, eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version of the whole block (`_tblock_compute` in fp32)."""
+                     w2, b2, *, heads: int, eps: float = 1e-5, linear=F.linear,
+                     matmul=torch.matmul) -> torch.Tensor:
+    """Plain PyTorch version of the whole block (`_tblock_compute` in fp32).
+    `linear` computes the dense layers (the MHCA's and the MLP's), `matmul`
+    the attention's products (the kernels' 3xTF32 rounding:
+    ops/gemm_tc.py)."""
     mm = mask[..., None].to(x.dtype)
     h1 = channel_layer_norm(x, lnw3[0], lnb3[0], eps)
     h2 = channel_layer_norm(x, lnw3[1], lnb3[1], eps)
-    attn = mhca_reference(h1, h2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    attn = mhca_reference(h1, h2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps,
+                          linear=linear, matmul=matmul)
     out = x * mm + attn * mult_a
     h = channel_layer_norm(out, lnw3[2], lnb3[2], eps)
-    y = F.linear(F.gelu(F.linear(h, w1, b1)), w2, b2) * mm
+    y = linear(F.gelu(linear(h, w1, b1)), w2, b2) * mm
     return out + y * mult_m
 
 
@@ -78,8 +96,12 @@ def _check_args(x, mask, mult_a, mult_m, weights, heads):
     if len(weights) != N_WEIGHTS:
         raise ValueError(f"fused_tblock: {N_WEIGHTS} packed weights, got {len(weights)}")
     hid = weights[7].shape[0]
-    if c % heads or c // heads > 128 or c > 1024 or t > MAX_T:
-        raise ValueError(f"fused_tblock: unsupported shape (T={t}, C={c}, heads={heads})")
+    # the products copy rows of 16 bytes: the head width (so C) and the
+    # hidden width multiples of 4 floats
+    if (c % heads or (c // heads) % 4 or c // heads > 128 or c > 1024 or hid % 4
+            or t > MAX_T):
+        raise ValueError(f"fused_tblock: unsupported shape (T={t}, C={c}, hidden={hid}, "
+                         f"heads={heads})")
     _check(x, "x")
     _check(mask, "mask", (r, t), torch.bool)
     _check(mult_a, "mult_a", (r, 1, c))
@@ -96,19 +118,49 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps):
+def _launch_forward(entry, x, mask, mult_a, mult_m, weights, heads, eps, *extra):
     r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
     lib = cuda_build.library("tblock", _ARGTYPES, _RESTYPES)
     out = torch.empty_like(x)
     scratch = torch.empty(lib.unav_tblock_forward_scratch(r, t, c, hid),
                           device=x.device, dtype=torch.float32)
-    rc = lib.unav_tblock_forward(
+    rc = getattr(lib, entry)(
         x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
         mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, out.data_ptr(),
-        scratch.data_ptr(), _stream(x))
-    cuda_build.check(lib, rc, "fused_tblock")
+        scratch.data_ptr(), _stream(x), *extra)
+    cuda_build.check(lib, rc, entry)
+    return out
+
+
+def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps):
+    out = _launch_forward("unav_tblock_forward", x, mask, mult_a, mult_m, weights, heads, eps)
     fused_tblock.launches += 1
     return out
+
+
+def tblock_stage_times(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5):
+    """One CUDA forward, synchronised, and the device ms of each of its
+    launches (CUDA events between them): {stage: ms} in launch order, the
+    names of STAGES. Not counted in fused_tblock.launches."""
+    ms = (ctypes.c_float * len(STAGES))()
+    _launch_forward("unav_tblock_forward_stages", x, mask, mult_a, mult_m, weights, heads,
+                    eps, ms)
+    return dict(zip(STAGES, ms))
+
+
+def _launch_backward(entry, x, mask, mult_a, mult_m, weights, g, heads, eps, *extra):
+    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
+    _check(g, "g", x.shape)
+    grads = [torch.empty_like(a) for a in (x, mult_a, mult_m, *weights)]
+    lib = cuda_build.library("tblock_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
+    scratch = torch.empty(lib.unav_tblock_backward_scratch(r, t, c, hid, heads),
+                          device=x.device, dtype=torch.float32)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
+        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
+        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x), *extra)
+    cuda_build.check(lib, rc, entry)
+    return tuple(grads)
 
 
 def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float = 1e-5):
@@ -118,19 +170,21 @@ def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float
     if x.device.type == "cpu":
         return tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g=g,
                                          heads=heads, eps=eps)
-    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
-    _check(g, "g", x.shape)
-    grads = [torch.empty_like(a) for a in (x, mult_a, mult_m, *weights)]
-    lib = cuda_build.library("tblock_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
-    scratch = torch.empty(lib.unav_tblock_backward_scratch(r, t, c, hid, heads),
-                          device=x.device, dtype=torch.float32)
-    rc = lib.unav_tblock_backward(
-        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
-        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
-        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
-    cuda_build.check(lib, rc, "tblock_backward")
+    grads = _launch_backward("unav_tblock_backward", x, mask, mult_a, mult_m, weights, g,
+                             heads, eps)
     tblock_backward.launches += 1
-    return tuple(grads)
+    return grads
+
+
+def tblock_backward_stage_times(x, mask, mult_a, mult_m, *weights, g, heads: int,
+                                eps: float = 1e-5):
+    """One CUDA backward, synchronised, and the device ms of each of its
+    stages (CUDA events between them): {stage: ms} in launch order, the
+    names of BWD_STAGES. Not counted in tblock_backward.launches."""
+    ms = (ctypes.c_float * len(BWD_STAGES))()
+    _launch_backward("unav_tblock_backward_stages", x, mask, mult_a, mult_m, weights, g,
+                     heads, eps, ms)
+    return dict(zip(BWD_STAGES, ms))
 
 
 class TBlockFunction(torch.autograd.Function):

@@ -1,17 +1,22 @@
 """The port's fp32 product on the tensor cores, alone, and its plain version.
 
-    out[m, n] = (sum_k A(m, k) B(n, k) + bias[n]) * scale * rowmask[m] (+ out)
+    out[m, n] = act(sum_k A(m, k) B(n, k) + bias[n]) * scale * rowmask[m]
+                * seqmul[m // seq, n] (+ out)
 
-`csrc/gemm_tc.cuh` runs every product of the MHCA and CSP kernels without
-an epilogue (the fp32 `jnp.dot`s of `_mhca_compute`, `_csp_compute` and
-their backward kernels in the JAX package) in 3xTF32: each operand is split
+`csrc/gemm_tc.cuh` runs every product of the port's kernels (the fp32
+`jnp.dot`s of `_mhca_compute`, `_csp_compute`, `_tblock_compute` and their
+backward kernels in the JAX package) in 3xTF32: each operand is split
 as hi = tf32(x), lo = tf32(x - hi), and lo.hi + hi.lo + hi.hi is summed in
 fp32 on the tensor cores, each 32-deep slice of k from zero. It takes three
 layouts: A.B^T (the forward), A.B (the input grads: B stored (K, N), A
 optionally the transposed k=3 conv) and A^T.B (the weight grads: A stored
 (K, M) with masked k rows, B optionally the k=3 conv's shifted rows, K
 split into chunks fixed by the product's shape, `split_chunk`, whose sums
-are added in order). This module exposes that product by itself
+are added in order). One A.B^T or A.B product may take the TBlock MLP's
+epilogue instead of being batched: act "gelu" (exact erf GELU, its input
+optionally written to `pre_out` as well) or "gelu_grad" (the product times
+GELU'(aux)), the per-sequence multiplier `seqmul` (M // seq, N), and `beta`
+on the forward layout. This module exposes that product by itself
 (`tf32x3_linear`, `tf32x3_products`) so that it can be tested and timed
 alone, and holds the plain emulation of its rounding scheme
 (`tf32x3_linear_reference`, `tf32x3_matmul_reference`,
@@ -38,6 +43,7 @@ SLICE = 32          # k summed from zero before it joins the total (TC_BK)
 MAX_BATCH = 4       # products of one launch (GEMM_MAX_BATCH)
 MAX_SPLITS = 8      # chunks of K of a weight grad (GEMM_MAX_SPLITS)
 SMS = 132           # the H100's SMs, which the split of K aims to fill twice
+ACTS = {"none": 0, "gelu": 1, "gelu_grad": 2}    # the epilogue's act (GEMM_ACT_*)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -116,18 +122,33 @@ def tf32x3_linear_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0
     return y * rowmask[..., None].to(y.dtype) if rowmask is not None else y
 
 
+def gelu_erf(u: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU as the epilogue computes it (gemm_tc.cuh:gelu_erf)."""
+    return 0.5 * u * (1.0 + torch.erf(u * 0.70710678118654752))
+
+
+def gelu_erf_grad(u: torch.Tensor) -> torch.Tensor:
+    """GELU'(u) as the epilogue computes it (gemm_tc.cuh:gelu_erf_grad)."""
+    return (0.5 * (1.0 + torch.erf(u * 0.70710678118654752))
+            + u * 0.39894228040143268 * torch.exp(-0.5 * u * u))
+
+
 def tf32x3_product_reference(x, w, bias=None, *, rowmask=None, kmask=None,
                              scale: float = 1.0, taps: int = 1, tapdir: int = 1,
                              btaps: int = 1, seq: int = 1, trans_a: bool = False,
-                             trans_b: bool = False, out=None, beta: bool = False
+                             trans_b: bool = False, out=None, beta: bool = False,
+                             act: str = "none", aux=None, seqmul=None, pre_out=None
                              ) -> torch.Tensor:
     """Plain version of one product of `tf32x3_products` in any layout:
     A.B^T (x (M, K) or, with taps == 3, the k=3 conv of x (M, Kc) in
     direction tapdir; w (N, K)), A.B (the same x, w stored (K, N)) or
     A^T.B (trans_a and trans_b: x stored (K, M), its rows zeroed where
     kmask is False; w (K, N) or, with btaps == 3, the conv's shifted rows
-    of w (K, Kc), N = 3*Kc; K summed in chunks of `split_chunk`). With beta
-    the result is added to out."""
+    of w (K, Kc), N = 3*Kc; K summed in chunks of `split_chunk`). The
+    epilogue, in the kernel's order: bias; act "gelu" (its input copied to
+    pre_out when given) or "gelu_grad" (times GELU'(aux)); scale and
+    rowmask; seqmul (M // seq, N) row m // seq; with beta the result is
+    added to out."""
     if trans_a and not trans_b:
         raise ValueError("tf32x3_product_reference: trans_a needs trans_b")
     if trans_a:
@@ -140,14 +161,25 @@ def tf32x3_product_reference(x, w, bias=None, *, rowmask=None, kmask=None,
         y = tf32x3_matmul_reference(a, w if trans_b else w.transpose(0, 1))
     if bias is not None:
         y = y + bias
+    if act not in ACTS:
+        raise ValueError(f"tf32x3_product_reference: act {act!r}, expected one of {list(ACTS)}")
+    if act == "gelu":
+        if pre_out is not None:
+            pre_out.copy_(y)
+        y = gelu_erf(y)
+    elif act == "gelu_grad":
+        y = y * gelu_erf_grad(aux)
     y = y * scale
     if rowmask is not None:
         y = y * rowmask[..., None].to(y.dtype)
+    if seqmul is not None:
+        y = y * seqmul.repeat_interleave(seq, 0)
     return out + y if beta else y
 
 
 _LAYOUT_KEYS = ("bias", "rowmask", "kmask", "scale", "taps", "tapdir", "btaps", "seq",
-                "trans_a", "trans_b")
+                "trans_a", "trans_b", "act", "aux", "seqmul", "pre_out")
+_EPI_KEYS = ("aux", "seqmul", "pre_out")
 
 
 def _check(name, t, dims, dtype=torch.float32):
@@ -156,15 +188,25 @@ def _check(name, t, dims, dtype=torch.float32):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _epilogue(c) -> bool:
+    """Whether a call takes the epilogue kernel: an act, a GemmEpi operand,
+    or beta on the forward layout."""
+    return (c.get("act", "none") != "none" or any(c.get(k) is not None for k in _EPI_KEYS)
+            or (bool(c.get("beta")) and not c.get("trans_b")))
+
+
 def tf32x3_products(calls):
     """Run up to four products as the MHCA and CSP kernels batch them (one
-    launch per layout present, a weight grad's split K reduced in a second).
-    Each call is a dict of `tf32x3_product_reference`'s arguments (`x`, `w`,
-    optional `bias`, `rowmask`, `kmask`, `scale`, `taps`, `tapdir`, `btaps`,
-    `seq`, `trans_a`, `trans_b`, `out`, `beta`). Returns the outputs. CPU
-    tensors take the plain version."""
+    launch per layout present, a weight grad's split K reduced in a second),
+    or one product with the epilogue as the TBlock kernels run it. Each call
+    is a dict of `tf32x3_product_reference`'s arguments (`x`, `w`, optional
+    `bias`, `rowmask`, `kmask`, `scale`, `taps`, `tapdir`, `btaps`, `seq`,
+    `trans_a`, `trans_b`, `out`, `beta`, `act`, `aux`, `seqmul`,
+    `pre_out`). Returns the outputs. CPU tensors take the plain version."""
     if not 1 <= len(calls) <= MAX_BATCH:
         raise ValueError(f"tf32x3_products: 1 to {MAX_BATCH} products, got {len(calls)}")
+    if len(calls) > 1 and any(_epilogue(c) for c in calls):
+        raise ValueError("tf32x3_products: a product with the epilogue runs alone")
     if calls[0]["x"].device.type == "cpu":
         outs = []
         for c in calls:
@@ -223,12 +265,30 @@ def tf32x3_products(calls):
             chunks = _ceil_div(k, split_chunk(m, n, k))
             if chunks > 1:
                 part_floats += chunks * m * n
-        ptrs += [x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 rowmask.data_ptr() if rowmask is not None else None,
-                 kmask.data_ptr() if kmask is not None else None]
+        epi, act = _epilogue(c), c.get("act", "none")
+        aux, seqmul, pre = (c.get(key) for key in _EPI_KEYS)
+        if epi and (ta or act not in ACTS or (act == "gelu_grad") != (aux is not None)
+                    or (pre is not None and act != "gelu")):
+            raise ValueError(f"tf32x3_products: epilogue act {act!r} with aux "
+                             f"{aux is not None}, pre_out {pre is not None}, trans_a {ta}")
+        # the epilogue reads and writes aux, pre_out and seqmul as float pairs
+        for name, ten, shape in (("aux", aux, (m, n)), ("pre_out", pre, (m, n)),
+                                 ("seqmul", seqmul, (m // seq, n))):
+            if ten is None:
+                continue
+            _check(name, ten, 2)
+            if (tuple(ten.shape) != shape or ten.stride(1) != 1 or ten.stride(0) % 2
+                    or ten.data_ptr() % 8 or (name == "seqmul" and (m % seq or
+                                                                   not ten.is_contiguous()))):
+                raise ValueError(f"{name}: shape {tuple(ten.shape)}, strides {ten.stride()}; "
+                                 f"needs {shape}, even row stride, 8-byte aligned")
+        ptrs += [x.data_ptr(), w.data_ptr(), out.data_ptr()] + [
+            a.data_ptr() if a is not None else None
+            for a in (bias, rowmask, kmask, aux, seqmul, pre)]
         ints += [x.stride(0), w.stride(0), out.stride(0), m, n, k, taps, seq, tapdir, btaps,
-                 int(ta), int(tb), int(bool(c.get("beta", False)))]
+                 int(ta), int(tb), int(bool(c.get("beta", False))), int(epi), ACTS[act],
+                 aux.stride(0) if aux is not None else 0,
+                 pre.stride(0) if pre is not None else 0]
         scales.append(float(c.get("scale", 1.0)))
         outs.append(out)
     dev = outs[0].device

@@ -123,7 +123,8 @@ def main(argv=None) -> int:
             cands, ev = event_ms(lambda: decode_batch(
                 out["cls_logits"], out["offsets"], out["masks"], pts,
                 pre_nms_thresh=tcfg["pre_nms_thresh"], pre_nms_topk=tcfg["pre_nms_topk"],
-                duration_thresh=tcfg["duration_thresh"], class_aware=mcfg["class_aware"]))
+                duration_thresh=tcfg["duration_thresh"], class_aware=mcfg["class_aware"],
+                max_candidates=cfg["tpu"]["nms_max_candidates"]))
             decode_ev.append(ev)
             _, ev = event_ms(lambda: postprocess_batch(
                 *cands, num_classes=mcfg["num_classes"], test_cfg=tcfg,
