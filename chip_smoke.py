@@ -11,16 +11,20 @@ Phases (any failure exits non-zero):
   3. holds each forward kernel against its plain PyTorch version on the
      card at the shapes of the eval protocol (configs/avel_unav100_eval.yaml):
      MHCA at (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7
-     with 4 and 8 heads at 2B=128, merged Soft-NMS at (64, 10100) x 100, the
-     whole TransformerBlock at (64, 224, 512) and (8, 224, 512) with a
-     zero-length row (beside the default path's time for the same block),
+     with 4 and 8 heads at 2B=128, merged Soft-NMS at (64, 10100) x 100
+     (uniform and skewed classes) and at (64, 2000) (the nms_max_candidates
+     rows), the whole TransformerBlock at (64, 224, 512) and (8, 224, 512)
+     with a zero-length row (beside the default path's time for the block),
      single-class Soft-NMS at (6400, 1024) x 100 (the per-class buffers of a
      batch) with the hard, linear and Gaussian weights and at (64, 10100) x
-     100; then the tensor-core product alone in its three layouts at the
-     CSP final conv's shapes: the forward (M=28672, N=512, K=1536), the
-     backward's input grad (A.B, M=3584, N=1536, K=512) and weight grad
-     (A^T.B, M=512, N=1536, K=3584, split K) at the train protocol's T=224,
-     2B=16: each one's error against fp64 within 2x that of fp32
+     100, each NMS case with a `stages nms@...` line (time, the longest
+     row's steps and ns a step, the instantiation's registers and spills
+     from ptxas, resident blocks per SM); then the tensor-core product
+     alone in its three layouts at the CSP final conv's shapes: the
+     forward (M=28672, N=512, K=1536), the backward's input grad (A.B,
+     M=3584, N=1536, K=512) and weight grad (A^T.B, M=512, N=1536, K=3584,
+     split K) at the train protocol's T=224, 2B=16: each one's error
+     against fp64 within 2x that of fp32
      torch.matmul (TF32 off), the same bits on repeat, its time beside
      torch.matmul's; the product with the TransformerBlock MLP's epilogue
      alone at the stem's fc1 (GELU, its input kept, bit-equal to the product
@@ -113,21 +117,6 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def compare(name, out, ref):
@@ -251,20 +240,6 @@ ARGMAX_ONLY = {"alignment.fc_video_cls.weight", "alignment.fc_video_cls.bias",
                "alignment.fc_text_cls.weight", "alignment.fc_text_cls.bias"}
 
 
-def nms_case(gen, dev, g=64, n=10100, ncls=100):
-    """Candidates shaped like the decode output at the eval protocol."""
-    import torch
-
-    centre = torch.rand(g, n, generator=gen) * 224
-    width = torch.rand(g, n, generator=gen) ** 2 * 120 + 0.1
-    segs = torch.stack([centre - width / 2, centre + width / 2], -1)
-    scores = torch.sigmoid(torch.randn(g, n, generator=gen) - 4.0)
-    scores[scores <= 0.001] = float("-inf")                    # below pre_nms_thresh
-    scores[-1] = float("-inf")                                 # a zero-padded video
-    cls = torch.randint(0, ncls, (g, n), generator=gen, dtype=torch.int32)
-    return segs.to(dev), scores.to(dev), cls.to(dev)
-
-
 def tblock_case(model, key, r, t, gen, dev):
     """A stem block and its fused kernel's arguments at (r, t): random x and
     branch multipliers (the init scale of 1e-4 would hide both branches), a
@@ -299,26 +274,6 @@ def set_stem(mode: str) -> None:
     from unav_yolyolva_tpu_torch.models import blocks
 
     blocks.FUSED_TBLOCK = mode
-
-
-def check_nms(ki, ks, ri, rs, what="nms"):
-    """Scores within rtol 1e-5; indices equal wherever neighbouring emitted
-    scores differ by more than 1e-6."""
-    import torch
-
-    err = float((ks - rs).abs().max())
-    if not torch.allclose(ks, rs, rtol=1e-5, atol=1e-7):
-        raise AssertionError(f"{what}: scores differ (max abs {err})")
-    d = (rs[:, 1:] - rs[:, :-1]).abs()
-    inf = torch.full_like(rs[:, :1], float("inf"))
-    gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
-    sure = gap > 1e-6
-    mism = int((ki[sure] != ri[sure]).sum())
-    log(f"check {what}: max_abs_err={err:.3e} unambiguous_slots={int(sure.sum())} "
-        f"index_mismatches={mism} emitted={int((ki >= 0).sum())}")
-    if mism:
-        raise AssertionError(f"{what}: emitted indices differ from the plain version")
-    return err
 
 
 def kernel_launches(fn) -> int:
@@ -552,13 +507,12 @@ def main(argv=None) -> int:
                                                         mhca_reference)
     from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
                                                make_train_step)
-    from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
-                                                       multiclass_soft_nms_reference,
-                                                       soft_nms, soft_nms_reference)
+    from unav_yolyolva_tpu_torch.ops.fused_nms import launch_info, multiclass_soft_nms, soft_nms
     from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
                                                           tblock_backward_reference,
                                                           tblock_reference)
-    from unav_yolyolva_tpu_torch.ops.nms import group_by_class
+    from unav_yolyolva_tpu_torch.tools import nms_bench
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
     from unav_yolyolva_tpu_torch.tools.grad_gaps import step_grads
 
     counted = (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward,
@@ -640,39 +594,33 @@ def main(argv=None) -> int:
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
                 f"bound {results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
 
-        segs, scores, cls = nms_case(gen, dev)
-        kw = dict(max_out=100, sigma=0.4, min_score=0.001)
-        ki, ks, _ = multiclass_soft_nms(segs, scores, cls, **kw)
-        ri, rs, _ = multiclass_soft_nms_reference(segs, scores, cls, **kw)
-        err = check_nms(ki, ks, ri, rs)
-        ms = cuda_ms(lambda: multiclass_soft_nms(segs, scores, cls, **kw), 20)
-        pms = cuda_ms(lambda: multiclass_soft_nms_reference(segs, scores, cls, **kw), 3)
-        steps = int((ri >= 0).sum(1).clamp(max=99).add(1).sum())  # steps this data runs
-        nbytes = segs.numel() * 4 + scores.numel() * 4 + cls.numel() * 4 + ki.numel() * 8
-        results["nms@64x10100"] = (err, ms, pms, *bound_ms(steps * segs.shape[1], nbytes))
-        log(f"time nms@64x10100: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"bound {results['nms@64x10100'][3]:.4f} ms ({results['nms@64x10100'][4]}) [{smi}]")
-
-        # single-class Soft-NMS: the per-class top-1024 buffers of the same
-        # batch (hard NMS, multiclass), and one row per video (single-class)
-        valid = torch.isfinite(scores)
-        bsegs, bscores, _ = group_by_class(segs, torch.where(valid, scores, 0.0), cls, valid,
-                                           100, 1024)
-        cases = [(f"soft_nms@6400x1024/m{m}", bsegs.reshape(6400, 1024, 2).contiguous(),
-                  bscores.reshape(6400, 1024).contiguous(), m) for m in (0, 1, 2)]
-        cases.append(("soft_nms@64x10100/m2", segs, scores, 2))
-        for label, csegs, cscores, method in cases:
-            kw = dict(max_out=100, iou_threshold=0.7, sigma=0.4, min_score=0.001, method=method)
-            ki, ks, _ = soft_nms(csegs, cscores, **kw)
-            ri, rs, _ = soft_nms_reference(csegs, cscores, **kw)
-            err = check_nms(ki, ks, ri, rs, label)
-            ms = cuda_ms(lambda: soft_nms(csegs, cscores, **kw), 20)
-            pms = cuda_ms(lambda: soft_nms_reference(csegs, cscores, **kw), 3)
-            steps = int((ri >= 0).sum(1).clamp(max=99).add(1).sum())
-            nbytes = csegs.numel() * 4 + cscores.numel() * 4 + ki.numel() * 8
-            results[label] = (err, ms, pms, *bound_ms(steps * csegs.shape[1], nbytes))
-            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        # the two Soft-NMS scans: merged at (64, 10100), at the capped (64,
+        # 2000) and with skewed classes; single-class on the per-class
+        # buffers (6400, 1024) for the three methods and at (64, 10100)
+        nms_ptxas = nms_bench.ptxas_table(reports.get("nms", ""))
+        nms_base = nms_bench.protocol_candidates(gen, dev)
+        nms_cases = {}
+        for label, merged, nargs, kw in nms_bench.cases(
+                nms_base, torch.Generator().manual_seed(args.seed + 3)):
+            ki, ks, _ = nms_bench.run(merged, nargs, kw)
+            ri, rs, _ = nms_bench.reference(merged, nargs, kw)
+            err = nms_bench.check_nms(ki, ks, ri, rs, label, log=log,
+                                        min_score=kw["min_score"])
+            nms_bench.check_edges(label, merged, nargs, kw, ki, ks, ri, rs, log=log)
+            ms = cuda_ms(lambda: nms_bench.run(merged, nargs, kw), 20)
+            pms = cuda_ms(lambda: nms_bench.reference(merged, nargs, kw), 3)
+            sms = nms_bench.raw_ms(merged, nargs, dict(kw, max_out=1))
+            steps = nms_bench.row_steps(ri, kw["max_out"])
+            n = nargs[1].shape[1]
+            nbytes = sum(x.numel() * 4 for x in nargs) + ki.numel() * 8
+            results[label] = (err, ms, pms, *bound_ms(int(steps.sum()) * n, nbytes))
+            nms_cases[label] = {"ms": ms, "plain_ms": pms, "bound_ms": results[label][3],
+                                "max_abs_err": err, "longest_row_steps": int(steps.max())}
+            log(f"time {label}: kernel {ms:.4f} ms, plain {pms:.3f} ms, "
                 f"bound {results[label][3]:.4f} ms ({results[label][4]}) [{smi}]")
+            log(nms_bench.stage_text(label, ms, sms, steps, launch_info(n, merged=merged),
+                                     merged, nms_ptxas) + f" [{smi}]")
+        del nms_base
 
         # the whole TransformerBlock, beside the default path for the same
         # block (the MHCA kernel, cuBLAS fp32 MLP, torch LayerNorm / GELU)
@@ -1099,8 +1047,10 @@ def main(argv=None) -> int:
               "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
         entry("csp", "csp@T224/4h", pkg + "csp.cu",
               "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
-        entry("nms", "nms@64x10100", pkg + "nms.cu",
-              "unav_yolyolva_tpu/ops/pallas_nms.py:233"),
+        dict(entry("nms", "nms@64x10100", pkg + "nms.cu",
+                   "unav_yolyolva_tpu/ops/pallas_nms.py:233"),
+             design="redesigned: a head per class bucket, the winner's bucket decayed",
+             cases={k: v for k, v in nms_cases.items() if k.startswith("nms@")}),
         entry("mhca_bwd", f"mhca_bwd@{B}x{T}x512", pkg + "mhca_bwd.cuh",
               "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
         entry("csp_bwd", f"csp_bwd@T{T}/8h", pkg + "csp_bwd.cu",
@@ -1110,8 +1060,10 @@ def main(argv=None) -> int:
              default_path_ms=default_ms["tblock@64x224x512"]),
         entry("tblock_bwd", f"tblock_bwd@{B}x{T}x512", pkg + "tblock_bwd.cu",
               "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
-        entry("soft_nms", "soft_nms@6400x1024/m0", pkg + "nms.cu",
-              "unav_yolyolva_tpu/ops/pallas_nms.py:290"),
+        dict(entry("soft_nms", "soft_nms@6400x1024/m0", pkg + "nms.cu",
+                   "unav_yolyolva_tpu/ops/pallas_nms.py:290"),
+             design="redesigned: live lanes compacted, the argmax inside the decay pass",
+             cases={k: v for k, v in nms_cases.items() if k.startswith("soft_nms@")}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

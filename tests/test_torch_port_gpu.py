@@ -187,30 +187,68 @@ def test_cuda_forward_with_grad_keeps_the_graph(cuda):
             assert a.grad is not None and a.grad.abs().sum() > 0, i
 
 
-def test_nms_kernel(cuda):
-    from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
-                                                       multiclass_soft_nms_reference)
-
-    gen = torch.Generator().manual_seed(2)
-    g, n = 5, 3000
-    start = torch.rand(g, n, generator=gen) * 100
-    segs = torch.stack([start, start + 1 + torch.rand(g, n, generator=gen) * 20], -1)
+def _nms_rows(seed, g, n, ncls, kind, dev):
+    """Candidate rows for the NMS kernels: overlapping segments with distinct
+    random scores and ~30% dead lanes scattered (`scattered`), the live lanes
+    first and score-descending as group_by_class gives them (`prefix`),
+    eight score levels equal across and within classes (`ties`), the same
+    on disjoint segments, where no score moves and the ties alone order
+    the emissions (`apart`), or half the lanes in class 0 and a quarter in
+    class 1 (`skewed`). Row 0 holds one class; the last row is all dead."""
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "apart":
+        start = torch.arange(n, dtype=torch.float32).expand(g, n) * 10
+        segs = torch.stack([start, start + 5], -1)
+    else:
+        start = torch.rand(g, n, generator=gen) * 100
+        segs = torch.stack([start, start + 1 + torch.rand(g, n, generator=gen) * 20], -1)
     scores = torch.rand(g, n, generator=gen)
+    if kind in ("ties", "apart"):
+        scores = torch.randint(1, 9, (g, n), generator=gen).float() / 8
     scores[torch.rand(g, n, generator=gen) < 0.3] = float("-inf")
+    if kind == "prefix":
+        scores = scores.sort(dim=1, descending=True).values
     scores[-1] = float("-inf")
-    cls = torch.randint(0, 20, (g, n), generator=gen, dtype=torch.int32)
-    kw = dict(max_out=100, sigma=0.4, min_score=0.001)
-    segs, scores, cls = segs.to(cuda), scores.to(cuda), cls.to(cuda)
-    ki, ks, _ = multiclass_soft_nms(segs, scores, cls, **kw)
-    ri, rs, _ = multiclass_soft_nms_reference(segs, scores, cls, **kw)
-    ki, ks, ri, rs = (x.cpu().numpy() for x in (ki, ks, ri, rs))
+    cls = torch.randint(0, ncls, (g, n), generator=gen, dtype=torch.int32)
+    if kind == "skewed":
+        cls[:, : n // 2], cls[:, n // 2: 3 * n // 4] = 0, 1
+    cls[0] = 0
+    return segs.contiguous().to(dev), scores.contiguous().to(dev), cls.to(dev)
+
+
+def _assert_nms(out, again, ref, exact):
+    """Scores within rtol 1e-5, indices equal where neighbouring scores
+    differ by more than 1e-6 (everywhere when `exact`), the same bits on
+    repeat, and the all-dead last row empty."""
+    ki, ks, _ = out
+    assert torch.equal(ki, again[0]) and torch.equal(ks, again[1])
+    ki, ks, ri, rs = (x.cpu().numpy() for x in (ki, ks, ref[0], ref[1]))
     np.testing.assert_allclose(ks, rs, rtol=1e-5, atol=1e-7)
     d = np.abs(np.diff(rs, axis=1))
     gap = np.full(rs.shape, np.inf)
     gap[:, 1:] = np.minimum(gap[:, 1:], d)
     gap[:, :-1] = np.minimum(gap[:, :-1], d)
-    np.testing.assert_array_equal(ki[gap > 1e-6], ri[gap > 1e-6])
-    assert (ki[-1] == -1).all()
+    sure = np.ones_like(ki, bool) if exact else gap > 1e-6
+    np.testing.assert_array_equal(ki[sure], ri[sure])
+    assert (ki[-1] == -1).all() and (ks[-1] == 0).all()
+
+
+@pytest.mark.parametrize("n,ncls,kind,max_out", [
+    (3000, 20, "scattered", 100), (1, 3, "scattered", 5), (2000, 100, "prefix", 100),
+    (10100, 100, "scattered", 100), (10100, 100, "skewed", 100), (16384, 100, "scattered", 100),
+    (3000, 300, "scattered", 100), (2000, 4, "ties", 100), (500, 5, "apart", 600)])
+def test_nms_kernel(cuda, n, ncls, kind, max_out):
+    from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms,
+                                                       multiclass_soft_nms_reference)
+
+    segs, scores, cls = _nms_rows(2, 5, n, ncls, kind, cuda)
+    kw = dict(max_out=max_out, sigma=0.4, min_score=0.001)
+    before = multiclass_soft_nms.launches
+    out = multiclass_soft_nms(segs, scores, cls, **kw)
+    again = multiclass_soft_nms(segs, scores, cls, **kw)
+    assert multiclass_soft_nms.launches == before + 2
+    _assert_nms(out, again, multiclass_soft_nms_reference(segs, scores, cls, **kw),
+                exact=kind == "apart")
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -376,31 +414,23 @@ def test_tblock_forward_with_grad_keeps_the_graph(cuda):
             assert a.grad is not None and a.grad.abs().sum() > 0, i
 
 
-@pytest.mark.parametrize("n,method", [(300, 0), (300, 1), (1024, 2), (3000, 0), (3000, 2)])
-def test_soft_nms_kernel(cuda, n, method):
+@pytest.mark.parametrize("n,method,kind,max_out", [
+    (300, 0, "scattered", 100), (300, 1, "scattered", 100), (1024, 2, "scattered", 100),
+    (3000, 0, "scattered", 100), (3000, 2, "scattered", 100), (1, 2, "scattered", 4),
+    (1024, 0, "prefix", 100), (1024, 1, "prefix", 100), (2000, 1, "scattered", 100),
+    (10100, 2, "scattered", 100), (16384, 0, "scattered", 100), (16384, 2, "prefix", 100),
+    (700, 2, "ties", 100), (400, 0, "apart", 450), (40, 1, "scattered", 50),
+    (5000, 1, "apart", 100)])
+def test_soft_nms_kernel(cuda, n, method, kind, max_out):
     from unav_yolyolva_tpu_torch.ops.fused_nms import soft_nms, soft_nms_reference
 
-    gen = torch.Generator().manual_seed(13)
-    g = 9
-    start = torch.rand(g, n, generator=gen) * 100
-    segs = torch.stack([start, start + 1 + torch.rand(g, n, generator=gen) * 20], -1)
-    scores = torch.rand(g, n, generator=gen)
-    scores[torch.rand(g, n, generator=gen) < 0.3] = float("-inf")
-    scores[-1] = float("-inf")
-    kw = dict(max_out=100, iou_threshold=0.5, sigma=0.4, min_score=0.001, method=method)
-    segs, scores = segs.to(cuda), scores.to(cuda)
+    segs, scores, _ = _nms_rows(13, 9, n, 1, kind, cuda)
+    kw = dict(max_out=max_out, iou_threshold=0.5, sigma=0.4, min_score=0.001, method=method)
     before = soft_nms.launches
-    ki, ks, _ = soft_nms(segs, scores, **kw)
-    ri, rs, _ = soft_nms_reference(segs, scores, **kw)
-    assert soft_nms.launches == before + 1
-    ki, ks, ri, rs = (x.cpu().numpy() for x in (ki, ks, ri, rs))
-    np.testing.assert_allclose(ks, rs, rtol=1e-5, atol=1e-7)
-    d = np.abs(np.diff(rs, axis=1))
-    gap = np.full(rs.shape, np.inf)
-    gap[:, 1:] = np.minimum(gap[:, 1:], d)
-    gap[:, :-1] = np.minimum(gap[:, :-1], d)
-    np.testing.assert_array_equal(ki[gap > 1e-6], ri[gap > 1e-6])
-    assert (ki[-1] == -1).all()
+    out = soft_nms(segs, scores, **kw)
+    again = soft_nms(segs, scores, **kw)
+    assert soft_nms.launches == before + 2
+    _assert_nms(out, again, soft_nms_reference(segs, scores, **kw), exact=kind == "apart")
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 # ctypes shorthands for the argtypes tables of the wrappers
 PTR, INT, LONG, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Optional[str]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -42,26 +42,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, source: Optional[Path] = None) -> Path:
+    """Where the library `name` is built from `source` (by default
+    `csrc/<name>.cu`): named by a hash of that file and the headers beside it."""
+    source = Path(source) if source else CSRC / f"{name}.cu"
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(source.parent.glob("*.cuh")) + [source]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libunav_{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = KERNEL_SOURCES,
+          sources: Optional[Dict[str, Path]] = None) -> Dict[str, str]:
     """Compile every library in `names` that is not built yet, all nvcc
-    processes at once. Returns {name: ptxas report} of what was compiled;
-    raises with nvcc's output if one fails."""
+    processes at once; `sources` {name: path} builds another file (e.g.
+    another checkout's `csrc/<name>.cu`) under a name. Returns {name: ptxas
+    report} of what was compiled; raises with nvcc's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
+        source = (sources or {}).get(name) or CSRC / f"{name}.cu"
+        out = library_path(name, source)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -76,14 +82,18 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
 
 def library(name: str, argtypes: Dict[str, Sequence],
-            restypes: Dict[str, Tuple[Sequence, type]] = None) -> ctypes.CDLL:
+            restypes: Dict[str, Tuple[Sequence, type]] = None,
+            source: Optional[Path] = None) -> ctypes.CDLL:
     """The loaded library `name`, built first if needed, with `argtypes`
     declared on its entry points (each returns a cudaError_t as int) and
-    `restypes` {fn: (argtypes, restype)} on its other functions."""
-    lib = _loaded.get(name)
+    `restypes` {fn: (argtypes, restype)} on its other functions. `source`
+    binds another file in place of `csrc/<name>.cu` (the wrappers keep
+    using this checkout's)."""
+    key = (name, str(source) if source else None)
+    lib = _loaded.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([name], {name: Path(source)} if source else None)
+        lib = ctypes.CDLL(str(library_path(name, source)))
         table = {fn: (types, ctypes.c_int) for fn, types in argtypes.items()}
         table.update(restypes or {})
         for fn, (types, res) in table.items():
@@ -92,7 +102,7 @@ def library(name: str, argtypes: Dict[str, Sequence],
             f.restype = res
         lib.unav_error_string.argtypes = [ctypes.c_int]
         lib.unav_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[key] = lib
     return lib
 
 

@@ -16,29 +16,41 @@ class, and the weight by method (0 hard: iou < thr; 1 linear: 1 - iou from
 thr on; 2 Gaussian). The min_score kill applies to every live lane. It
 serves the hard and single-class configurations through ops/nms.py.
 
-On the card (csrc/nms.cu, one templated scan) both are bound by latency:
-max_out dependent steps, each a row-wide argmax. A row's scores (and
-classes) stay in registers: a 1024-thread block holds a long row (two
-barriers a step), a warp holds a per-class buffer of at most 1024
-candidates with its segments (no barrier at all), so thousands of such
-rows run at once; the candidates are read once.
+On the card (csrc/nms.cu) both are bound by max_out dependent steps times
+the latency of one step; the candidates are read once, at setup. So each
+scan makes a step cost what changes at it, not N, and a lane that does not
+overlap the winner skips the two divisions (its IoU is exactly 0, its
+weight taken once). The merged scan buckets a row's live lanes by class
+(cls mod 128) in shared memory and keeps a head (best lane) per bucket in
+the registers of a 128-thread group: a step is the group's argmax over the
+heads, one pass over the winner's bucket and one named barrier, unless that
+bucket is large (one class holding much of the row), when the whole block
+takes the step. The single-class scan compacts each row's live lanes first
+and walks only those; its one pass a step decays and finds the next argmax
+together. A warp takes a row of at most 1024 candidates, a block a longer
+row.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, PTR
 
-MAX_CANDIDATES = 16384  # 1024 threads x 16 register slots
+MAX_CANDIDATES = 16384  # 14-bit lane indices; 14 bytes a lane of shared memory
 NMS_HARD, NMS_LINEAR, NMS_GAUSSIAN = 0, 1, 2
 
 _ARGTYPES = {
     "unav_multiclass_soft_nms": [PTR, PTR, PTR, INT, INT, INT, FLOAT, FLOAT,
                                  PTR, PTR, PTR],
     "unav_soft_nms": [PTR, PTR, INT, INT, INT, INT, FLOAT, FLOAT, FLOAT, PTR, PTR, PTR],
+    "unav_nms_launch_info": [INT, INT, PTR],
 }
+LAUNCH_INFO = ("blocks_per_sm", "threads", "rows_per_block", "slots", "smem_bytes",
+               "registers", "local_bytes")
 
 
 def _scan_reference(segs, scores, cls_idxs, *, max_out: int, iou_threshold: float,
@@ -165,3 +177,15 @@ def soft_nms(segs, scores, *, max_out: int, iou_threshold: float, sigma: float,
 
 
 soft_nms.launches = 0
+
+
+def launch_info(n: int, *, merged: bool) -> dict:
+    """What a launch on rows of n candidates runs on the current card:
+    resident blocks per SM, threads and rows per block, register slots per
+    thread (0 for the merged scan), dynamic shared bytes, registers and
+    local (spill) bytes per thread."""
+    lib = cuda_build.library("nms", _ARGTYPES)
+    info = (ctypes.c_int * len(LAUNCH_INFO))()
+    cuda_build.check(lib, lib.unav_nms_launch_info(int(merged), n, ctypes.addressof(info)),
+                     "nms launch info")
+    return dict(zip(LAUNCH_INFO, info))
