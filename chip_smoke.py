@@ -42,6 +42,18 @@ Phases (any failure exits non-zero):
      then the same batches with the whole-block stem (FUSED_TBLOCK
      "always": 12 TBlock and 3 MHCA launches), whose detections must agree
      with the default path's;
+ 4b. serves from files: make_synthetic_dataset writes 256 validation videos
+     at the flagship width (48-224 frames, 100 classes, ~300 MB of .npy)
+     and the model's weights go into a reference-format .pth.tar; the eval
+     CLI (eval/cli.py:main) serves them on the card, four batches of 64
+     through the pinned Batcher and the eval step's copy stream: the mAP
+     must be finite in [0, 1], the MHCA, CSP and merged NMS kernels must
+     launch, and the detections (--saveonly) must be bit-identical to
+     make_eval_step fed the same batches as pageable numpy arrays; then
+     the pipeline's videos/s (over the epoch, and after the first batch
+     arrived) beside the in-memory step's (in turns), one
+     batch's copy pinned beside pageable (CUDA events), and the share of
+     the copies spent under a kernel (torch.profiler);
   5. times each kernel and its plain version with CUDA events, and the eval
      step as videos/s, the default and the whole-block stem in turns;
   6. holds the two backward kernels against their plain versions
@@ -473,6 +485,168 @@ def check_step_grads(what, gpu_loss, gpu_g, cpu_loss, cpu_g):
     require(worst <= 1e-3, f"{what}: GPU and CPU train grads differ")
 
 
+def reference_checkpoint(model, path: str) -> None:
+    """The model's weights as a reference-format `.pth.tar`: DataParallel's
+    `module.` prefix, the EMA slot, and the alias slots of the shared
+    instances (multiway 1, fusion downsample 1..4) as the reference holds
+    them."""
+    import torch
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k in list(sd):
+        if k.startswith("alignment.multiway_list.0."):
+            sd[k.replace(".0.", ".1.", 1)] = sd[k]
+        if k.startswith("backbone.fusion_module.downsample_layers.0."):
+            for i in range(1, 5):
+                sd[k.replace("layers.0.", f"layers.{i}.")] = sd[k]
+    torch.save({"epoch": 0, "state_dict_ema": {"module." + k: v for k, v in sd.items()}}, path)
+
+
+def serve_from_files(model, seed, dev, smi, reset_counts, counts) -> None:
+    """Phase 4b: the eval CLI on feature files written at the flagship width
+    (256 validation videos of 48-224 frames, 100 classes), with `model`'s
+    weights in a reference `.pth.tar`: four batches of 64 through the
+    Batcher's worker processes into pinned memory, the eval step's copy
+    stream and valid_one_epoch's harvest; held bit for bit
+    against make_eval_step fed the same batches as pageable numpy arrays;
+    then the pipeline's videos/s beside the in-memory step's, one batch's
+    copy pinned beside pageable, and the copy's overlap with compute."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+    from unav_yolyolva_tpu_torch.eval import cli, make_eval_step
+    from unav_yolyolva_tpu_torch.train import valid_one_epoch
+    from unav_yolyolva_tpu_torch.utils.profiling import StepTimer, busy_and_overlap, trace
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        synth = make_synthetic_dataset(root, num_videos=256, num_classes=100, min_len=48,
+                                       max_len=224, visual_dim=2048, audio_dim=128,
+                                       val_fraction=1.0, seed=seed)
+        nbytes = sum(e.stat().st_size for e in os.scandir(synth["feat_folder"]))
+        with open(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["test_split"] = ["validation"]
+        raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+        cfg_yaml = os.path.join(root, "eval.yaml")
+        with open(cfg_yaml, "w") as f:
+            yaml.safe_dump(raw, f)
+        ckpt = os.path.join(root, "model_best.pth.tar")
+        reference_checkpoint(model, ckpt)
+        log(f"serve from files: 256 videos, {nbytes / 1e6:.1f} MB of .npy features and a "
+            f"reference .pth.tar written in {time.perf_counter() - t_phase:.1f} s")
+
+        reset_counts()
+        mAP = cli.main(cli.parse_args([cfg_yaml, ckpt, "--print-freq", "1000"]))
+        torch.cuda.synchronize()
+        got = counts()
+        log(f"serve from files: eval CLI average mAP {mAP!r}, kernel launches {got}")
+        require(math.isfinite(mAP) and 0.0 <= mAP <= 1.0, f"mAP {mAP} not in [0, 1]")
+        require(got["mhca"] >= 20 and got["csp"] == 40 and got["nms"] == 4,
+                f"the CLI did not run through every kernel of the path: {got}")
+
+        cli.main(cli.parse_args([cfg_yaml, ckpt, "--saveonly", "--print-freq", "1000"]))
+        with open(os.path.join(root, "eval_results.pkl"), "rb") as f:
+            piped = pickle.load(f)
+        cfg = load_config(cfg_yaml)
+        ds = UnAV100Dataset(False, cfg["test_split"], **cfg["dataset"])
+        step = make_eval_step(model, cfg, device=dev)
+        with make_batcher(ds, cfg, False, device="cpu") as batcher:
+            plain = list(batcher)                                     # numpy, pageable
+        ref_file = os.path.join(root, "in_memory.pkl")
+        valid_one_epoch(model, plain, step, -1, output_file=ref_file, print_freq=1000)
+        with open(ref_file, "rb") as f:
+            ref = pickle.load(f)
+        same = list(piped["video-id"]) == list(ref["video-id"]) and all(
+            piped[k].dtype == ref[k].dtype and np.array_equal(piped[k], ref[k])
+            for k in ("t-start", "t-end", "label", "score"))
+        log(f"check serve-from-files detections: {len(ref['video-id'])} detections of 256 "
+            f"videos, the CLI's (pinned batches, copy stream) bit-identical to in-memory "
+            f"make_eval_step's on pageable numpy batches: {same}")
+        require(same, "the CLI's detections differ from the in-memory step's")
+
+        piped_batcher = make_batcher(ds, cfg, False, device=dev)       # workers kept
+        arrivals = []
+
+        class Stamped:
+            """The pinned batcher, each batch's arrival at the loop noted."""
+
+            def __len__(self):
+                return len(piped_batcher)
+
+            def __iter__(self):
+                for b in piped_batcher:
+                    arrivals.append(time.perf_counter())
+                    yield b
+
+        def pipeline():
+            """(whole-epoch videos/s, videos/s after the first batch arrived)."""
+            arrivals.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            valid_one_epoch(model, Stamped(), step, -1, output_file=ref_file, print_freq=1000)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            return 256 / (t1 - t0), 64 * (len(arrivals) - 1) / (t1 - arrivals[0])
+
+        def in_memory():
+            for b in plain:
+                step(b)
+
+        pipeline()                      # warm-up: the workers start, the pinned ring fills
+        pipeline()
+        timer = StepTimer()
+        rates = {"pipeline": [], "in_memory": []}
+        for name in ("pipeline", "in_memory", "in_memory", "pipeline"):      # in turns
+            rates[name].append(pipeline() if name == "pipeline"
+                               else 256 / timer.time_fn(in_memory))
+        log(f"time serve pipeline (files in the page cache -> 4 worker processes -> shared "
+            f"memory -> pinned -> copy stream -> step -> harvest, 4 batches of 64): "
+            f"{[round(r[0], 1) for r in rates['pipeline']]} videos/s over the epoch, "
+            f"{[round(r[1], 1) for r in rates['pipeline']]} videos/s after the first batch "
+            f"[{smi}]")
+        log(f"time serve in_memory (make_eval_step on numpy batches in memory, pageable "
+            f"copy): {[round(r, 1) for r in rates['in_memory']]} videos/s [{smi}]")
+
+        for pinned in piped_batcher:
+            break
+        keys = ("visual", "audio", "mask", "fps", "duration", "feat_stride", "feat_num_frames")
+        mb = sum(pinned[k].numel() * pinned[k].element_size() for k in keys) / 1e6
+        side = torch.cuda.Stream()
+
+        def copy_pinned():
+            with torch.cuda.stream(side):
+                out = [pinned[k].to(dev, non_blocking=True) for k in keys]
+            torch.cuda.current_stream().wait_stream(side)
+            return out
+
+        pin_ms = cuda_ms(copy_pinned, 5)
+        page_ms = cuda_ms(lambda: [torch.as_tensor(plain[0][k]).to(dev) for k in keys], 5)
+        log(f"time copy of one batch of 64 ({mb:.1f} MB): pinned, non_blocking on a copy "
+            f"stream {pin_ms:.3f} ms ({mb / pin_ms:.2f} GB/s); pageable numpy "
+            f"{page_ms:.3f} ms ({mb / page_ms:.2f} GB/s) [{smi}]")
+
+        torch.cuda.synchronize()
+        with trace() as prof:
+            t0 = time.perf_counter()
+            pipeline()
+            wall = time.perf_counter() - t0
+        piped_batcher.close()
+        busy, copy_ms, under = busy_and_overlap(prof, wall)
+        log(f"overlap serve pipeline (torch.profiler, 4 batches): host-to-device copies "
+            f"{copy_ms:.2f} ms, {100 * under:.1f}% of that time under a kernel; busy share "
+            f"{busy:.3f}; the copy overlaps compute: {'yes' if under > 0 else 'no'} [{smi}]")
+    log(f"serve-from-files phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -789,6 +963,11 @@ def main(argv=None) -> int:
         compare_dets(fd, d, "whole-block-vs-default",
                      probe=lambda: [eval_step(pb) for pb in perturbed(b, gen)])
         set_stem("never")
+
+    # ---- 4b. serve from files: the eval CLI through the pinned pipeline ------
+    serve_from_files(model, args.seed, dev, smi, reset_counts,
+                     lambda: {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
+                              "nms": multiclass_soft_nms.launches})
 
     # ---- 5. time the eval step --------------------------------------------
     stems = {"never": [], "always": []}

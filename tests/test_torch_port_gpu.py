@@ -859,3 +859,109 @@ def test_tc_wrappers_refuse_unaligned_operands(cuda):
         x3 = torch.randn(2, 8, 72, device=cuda)
         ws = [w_.to(cuda) for w_ in _mhca_weights(72, torch.Generator().manual_seed(3), cuda)]
         fused_mhca(x3, x3, _mask(2, 8, [8, 8], cuda), *ws, heads=4)
+
+
+def _files(root, num_videos=16, num_classes=5, max_len=64):
+    from unav_yolyolva_tpu_torch.core import load_config_dict
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    synth = make_synthetic_dataset(str(root), num_videos=num_videos, num_classes=num_classes,
+                                   min_len=40, max_len=max_len, visual_dim=64, audio_dim=16,
+                                   seed=11, events_per_video=2, val_fraction=1.0)
+    cfg = load_config_dict({
+        "test_split": ["validation"],
+        "dataset": {"json_file": synth["json_file"], "feat_folder": synth["feat_folder"],
+                    "num_classes": num_classes, "max_seq_len": max_len, "max_num_events": 8},
+        "loader": {"batch_size": 4, "num_workers": 2, "prefetch": 2},
+        "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 32,
+                  "input_dim_A": 32, "embd_dim": 32, "head_dim": 32, "use_abs_pe": True,
+                  "class_aware": True},
+        "test_cfg": {"pre_nms_topk": 100, "max_seg_num": 20, "min_score": 0.001,
+                     "nms_sigma": 0.4, "iou_threshold": 0.7},
+    })
+    return synth, cfg
+
+
+def test_cuda_batcher_yields_pinned_tensors(cuda, tmp_path):
+    """Every array of a CUDA batch is a page-locked tensor holding the CPU
+    Batcher's numpy array."""
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+
+    _, cfg = _files(tmp_path)
+    ds = UnAV100Dataset(False, cfg["test_split"], **cfg["dataset"])
+    with make_batcher(ds, cfg, False, device=cuda) as b:
+        pinned = list(b)
+    with make_batcher(ds, cfg, False, device="cpu") as b:
+        plain = list(b)
+    assert len(pinned) == len(plain) == 4
+    for p, n in zip(pinned, plain):
+        assert p["video_id"] == n["video_id"]
+        for k, v in n.items():
+            if k == "video_id":
+                continue
+            assert isinstance(p[k], torch.Tensor) and p[k].is_pinned(), k
+            np.testing.assert_array_equal(p[k].numpy(), v, err_msg=k)
+
+
+def test_host_allocator_keeps_a_block_until_its_copy_ran(cuda):
+    """The premise of the pinned pipeline: a pinned block whose
+    non_blocking copy is still queued is not handed out again."""
+    side = torch.cuda.Stream()
+    src = torch.empty(1 << 22, pin_memory=True).fill_(1.0)
+    dst = torch.empty(1 << 22, device=cuda)
+    ptr = src.data_ptr()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)                 # the copy waits behind this
+        dst.copy_(src, non_blocking=True)
+    del src
+    again = torch.empty(1 << 22, pin_memory=True)
+    assert again.data_ptr() != ptr
+    torch.cuda.synchronize()
+    assert bool((dst == 1.0).all())
+
+
+def test_eval_step_pinned_batches_give_the_numpy_batches_bits(cuda, tmp_path):
+    """Four batches dispatched back to back from the pinned Batcher (two
+    prefetched while the first computes) give the bits of the same batches
+    fed as pageable numpy arrays: no pinned buffer is reused in flight."""
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+
+    _, cfg = _files(tmp_path)
+    ds = UnAV100Dataset(False, cfg["test_split"], **cfg["dataset"])
+    step = make_eval_step(build_model(cfg, device=cuda, seed=0), cfg, device=cuda)
+    with make_batcher(ds, cfg, False, device=cuda) as pb, \
+            make_batcher(ds, cfg, False, device="cpu") as nb:
+        for _ in range(2):
+            piped = [step(b) for b in pb]
+            plain = [step(b) for b in nb]
+            torch.cuda.synchronize()
+            assert len(piped) == len(plain) == 4
+            for p, n in zip(piped, plain):
+                for k in n:
+                    assert torch.equal(p[k], n[k]), k
+
+
+def test_valid_one_epoch_cuda_gives_the_cpu_map(cuda, tmp_path):
+    """valid_one_epoch through the pinned Batcher on the card returns the
+    CPU path's mAP at the golden width (tests/_golden_common.py)."""
+    import copy
+
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.eval.metrics import ANETdetection
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.train import valid_one_epoch
+
+    synth, cfg = _files(tmp_path, num_videos=8, num_classes=5, max_len=64)
+    ds = UnAV100Dataset(False, cfg["test_split"], **cfg["dataset"])
+    ev = ANETdetection(synth["json_file"], "validation", tiou_thresholds=np.linspace(0.1, 0.9, 9))
+    maps = []
+    model = build_model(cfg, device=cuda, seed=0)
+    for dev, m in ((cuda, model), ("cpu", copy.deepcopy(model).cpu())):
+        with make_batcher(ds, cfg, False, device=dev) as b:
+            maps.append(valid_one_epoch(m, b, make_eval_step(m, cfg, device=dev), -1,
+                                        evaluator=ev)[0])
+    assert np.isfinite(maps[0]) and 0 <= maps[0] <= 1
+    assert abs(maps[0] - maps[1]) <= 1e-6, maps

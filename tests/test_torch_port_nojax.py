@@ -1,5 +1,6 @@
-"""The PyTorch port (eval and train paths) and chip_smoke.py import neither
-JAX nor the JAX package."""
+"""The PyTorch port (the eval and train paths, the data pipeline, the eval
+harness and CLI, the bench) and chip_smoke.py import neither JAX nor the
+JAX package."""
 
 import os
 import subprocess
@@ -16,12 +17,16 @@ for name in names:
 import unav_yolyolva_tpu_torch.train, unav_yolyolva_tpu_torch.geometry.assign
 import unav_yolyolva_tpu_torch.ops.losses, unav_yolyolva_tpu_torch.utils.seed
 import chip_smoke
-assert {"unav_yolyolva_tpu_torch.train.step", "unav_yolyolva_tpu_torch.train.optim",
-        "unav_yolyolva_tpu_torch.train.checkpoint"} <= set(names)
+required = {"train.step", "train.optim", "train.checkpoint", "train.loop", "core.registry",
+            "builders", "data.annotations", "data.dataset", "data.pipeline", "data.synthetic",
+            "geometry.points", "eval.metrics", "eval.postprocessing", "eval.cli",
+            "utils.convert", "utils.profiling", "tools.bench"}
+missing = {"unav_yolyolva_tpu_torch." + n for n in required} - set(names)
+assert not missing, missing
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "unav_yolyolva_tpu"))
 print(len(names), bad)
-assert len(names) >= 20 and not bad, bad
+assert len(names) >= 30 and not bad, bad
 """
 
 

@@ -11,6 +11,15 @@ def pyramid_strides(scale_factor: int, num_levels: int) -> List[int]:
     return [scale_factor ** i for i in range(num_levels)]
 
 
+def eval_seq_len(feat_len: int, max_seq_len: int, max_div_factor: int) -> int:
+    """Padded sequence length at eval time: lengths up to max_seq_len pad to
+    max_seq_len; longer ones round up to the next multiple of the largest
+    pyramid stride."""
+    if feat_len <= max_seq_len:
+        return max_seq_len
+    return (feat_len + max_div_factor - 1) // max_div_factor * max_div_factor
+
+
 def generate_points(seq_len: int, regression_range: Sequence[Tuple[float, float]],
                     scale_factor: int = 2) -> List[np.ndarray]:
     """Per-level float32 (T_l, 4) point grids with T_l = seq_len / stride_l."""

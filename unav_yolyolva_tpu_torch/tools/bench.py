@@ -1,0 +1,245 @@
+"""The port bench: eval videos/s and train clips/s of the flagship model on
+the card (the port of the root bench.py).
+
+    python -m unav_yolyolva_tpu_torch.tools.bench [--iters 10] [--windows 5]
+        [--h2d] [--no-train] [--seed 0] [--commit SHA]
+
+Eval: the protocol of configs/avel_unav100_eval.yaml (B=64, T=224, 100
+classes, fp32, pre_nms_topk 2000, max_seg_num 100, multiclass Gaussian
+Soft-NMS), weights from --seed, one batch from synthetic_eval_batch. Each
+step's detections are copied to pinned host memory and read one step
+later, as valid_one_epoch does. By default the batch is already on the
+device (the root bench's default); with --h2d every step copies one of two
+pinned host batches (data/pipeline.py's pinned_empty) on the eval step's
+copy stream, the copy included in the time.
+
+Train: the protocol of configs/avel_unav100.yaml (B=8, T=224, fp32, AdamW
++ clip + warmup/cosine, droppath 0.1, EMA) on synthetic_train_batch
+batches already on the device; --no-train skips it.
+
+Both: one warm-up window, then --windows (at least 5) timed windows of
+--iters steps, host clock, the device synchronized at each window's end;
+the value is the median window, spread_pct = (max - min) / median. Beside
+it: the busy share (the union of the kernels' device intervals over the
+wall time of one torch.profiler window outside the timed ones), peak
+device memory (torch.cuda.max_memory_allocated), the card's name and power
+limit (nvidia-smi) and the commit (`git rev-parse HEAD`, else --commit).
+
+The last line of standard output is one JSON object with the root
+bench.py's key names where they apply. `--device cpu --tiny` runs a tiny
+width on the CPU, for the tests only: its numbers are not the card's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import yaml
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+TINY = {
+    "dataset": {"num_classes": 5, "max_seq_len": 64, "max_num_events": 8},
+    "loader": {"batch_size": 2},
+    "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 32,
+              "input_dim_A": 32, "embd_dim": 32, "head_dim": 32},
+    "test_cfg": {"pre_nms_topk": 100, "max_seg_num": 20},
+}
+
+
+def _deep_update(dst, src):
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_update(dst[k], v)
+        else:
+            dst[k] = copy.deepcopy(v)
+    return dst
+
+
+def load_protocol(name: str, tiny: bool):
+    from ..core import load_config_dict
+
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        raw = yaml.safe_load(f)
+    return load_config_dict(_deep_update(raw, TINY) if tiny else raw)
+
+
+def nvidia_smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def git_commit():
+    try:
+        res = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT, capture_output=True,
+                             text=True, timeout=60)
+    except FileNotFoundError:
+        return None
+    return res.stdout.strip() if res.returncode == 0 else None
+
+
+def windowed(run, iters: int, windows: int, per_step: int, sync):
+    """(median, spread_pct, windows) of per_step * iters / seconds over
+    `windows` timed calls of run(iters), after one warm-up call."""
+    run(iters)
+    sync()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        run(iters)
+        sync()
+        rates.append(per_step * iters / (time.perf_counter() - t0))
+    med = statistics.median(rates)
+    return med, (max(rates) - min(rates)) / med * 100, rates
+
+
+def profiled(run, iters: int, sync):
+    """(busy share, h2d copy ms, share of the copy under a kernel) of one
+    profiled run(iters); None for each without a card."""
+    import torch
+
+    from ..utils.profiling import busy_and_overlap, trace
+
+    if not torch.cuda.is_available():
+        return None, None, None
+    sync()
+    with trace() as prof:
+        t0 = time.perf_counter()
+        run(iters)
+        sync()
+        wall = time.perf_counter() - t0
+    return busy_and_overlap(prof, wall)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10, help="steps per window")
+    ap.add_argument("--windows", type=int, default=5, help="timed windows (at least 5)")
+    ap.add_argument("--h2d", action="store_true",
+                    help="copy a pinned host batch every eval step")
+    ap.add_argument("--no-train", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--commit", default=None,
+                    help="the commit to record where the checkout has no git metadata")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tiny", action="store_true", help="a tiny width (CPU tests only)")
+    args = ap.parse_args(argv)
+    if args.windows < 5 or args.iters < 1:
+        ap.error("--windows must be at least 5 and --iters at least 1")
+
+    import torch
+
+    from ..core import resolve_device
+    from ..data.pipeline import pinned_empty
+    from ..data.synthetic import synthetic_eval_batch, synthetic_train_batch
+    from ..eval.step import fetch_detections, make_eval_step
+    from ..models import build_model
+    from ..train import create_train_state, make_optimizer, make_train_step
+
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    record = {"metric": "eval_videos_per_sec"}
+
+    # ---- eval ---------------------------------------------------------------
+    cfg = load_protocol("avel_unav100_eval.yaml", args.tiny)
+    mcfg = cfg["model"]
+    b, t = cfg["loader"]["batch_size"], mcfg["max_seq_len"]
+    model = build_model(cfg, device=dev, seed=args.seed)
+    eval_step = make_eval_step(model, cfg, device=dev)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    host = [synthetic_eval_batch(gen, b, t, mcfg["raw_input_dim_V"], mcfg["raw_input_dim_A"])
+            for _ in range(2)]
+    if args.h2d and cuda:
+        batches = []
+        for hb in host:
+            pb = {k: pinned_empty(v.shape, v.numpy().dtype) for k, v in hb.items()}
+            for k, v in hb.items():
+                pb[k].copy_(v)
+            batches.append(pb)
+    else:
+        batches = [{k: v.to(dev) for k, v in host[0].items()}]
+
+    def read(pending):
+        dets, done = pending
+        if done is not None:
+            done.synchronize()
+        if not bool(torch.isfinite(dets["scores"]).all()):
+            raise AssertionError("non-finite detection scores")
+
+    def run_eval(n):
+        pending = None
+        for i in range(n):
+            fetched = fetch_detections(eval_step(batches[i % len(batches)]))
+            if pending is not None:
+                read(pending)
+            pending = fetched
+        read(pending)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    vps, spread, rates = windowed(run_eval, args.iters, args.windows, b, sync)
+    busy, copy_ms, overlap = profiled(run_eval, args.iters, sync)
+    record.update({
+        "value": vps, "unit": "videos/s", "spread_pct": spread, "windows": rates,
+        "protocol": ("h2d_pinned_copy_included" if args.h2d and cuda
+                     else "device_resident_inputs") + "_median_of_windows",
+        "batch": b, "seq_len": t, "num_classes": mcfg["num_classes"],
+        "dtype": cfg["tpu"]["compute_dtype"], "iters": args.iters,
+        "busy_share": busy, "h2d_copy_ms_per_window": copy_ms if args.h2d else None,
+        "h2d_copy_share_under_kernels": overlap if args.h2d else None,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+    })
+    del eval_step, model, batches, host
+
+    # ---- train --------------------------------------------------------------
+    if not args.no_train:
+        tcfg = load_protocol("avel_unav100.yaml", args.tiny)
+        tm = tcfg["model"]
+        tb_, tt = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+        model = build_model(tcfg, device=dev, seed=args.seed)
+        optimizer, _ = make_optimizer(model, tcfg["opt"], 100,
+                                      tcfg["train_cfg"]["clip_grad_l2norm"])
+        state = create_train_state(model, optimizer, tcfg["train_cfg"]["init_loss_norm"])
+        train_step = make_train_step(model, optimizer, tcfg, device=dev)
+        tbatches = [{k: v.to(dev) for k, v in synthetic_train_batch(
+            gen, tb_, tt, tm["raw_input_dim_V"], tm["raw_input_dim_A"], tm["num_classes"],
+            tcfg["dataset"]["max_num_events"]).items()} for _ in range(2)]
+
+        def run_train(n):
+            for i in range(n):
+                losses = train_step(state, tbatches[i % 2], args.seed)
+            if not torch.isfinite(losses["final_loss"]):
+                raise AssertionError("non-finite train loss")
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        cps, tspread, trates = windowed(run_train, args.iters, args.windows, tb_, sync)
+        tbusy, _, _ = profiled(run_train, args.iters, sync)
+        record.update({
+            "train_clips_per_sec": cps, "train_spread_pct": tspread, "train_windows": trates,
+            "train_batch": tb_, "train_dtype": tcfg["tpu"]["compute_dtype"],
+            "train_busy_share": tbusy,
+            "train_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+            else None,
+        })
+
+    record.update({
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "nvidia_smi": nvidia_smi() if cuda else None,
+        "commit": git_commit() or args.commit, "seed": args.seed, "tiny": args.tiny,
+    })
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@ torch.save of the model, EMA and optimizer state dicts) and `meta.json`
 optimizer state. Writes are atomic: everything goes into `<name>.tmp`
 (meta.json last), which is then renamed into place; the previous complete
 checkpoint survives as `<name>.old` until that rename has succeeded.
-Loading the JAX package's msgpack checkpoints is not ported.
+Loading the JAX package's msgpack checkpoints (`params.msgpack`,
+`ema.msgpack` beside the same `meta.json`) is not ported: load_checkpoint
+refuses such a directory.
 """
 
 from __future__ import annotations
@@ -76,6 +78,11 @@ def load_checkpoint(ckpt_dir: str, state: TrainState) -> Dict:
     """Restore a checkpoint into `state` in place; returns {state, epoch,
     meta}. Without optimizer state (the best checkpoint) the optimizer is
     left as it is."""
+    if os.path.exists(os.path.join(ckpt_dir, "ema.msgpack")):
+        raise NotImplementedError(
+            f"{ckpt_dir} is a JAX msgpack checkpoint; reading it is not ported yet "
+            "(ROADMAP Queue 1 item 4). Convert it to a reference .pth.tar with the JAX "
+            "package's utils/torch_convert.py, or serve a port checkpoint")
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
     dev = state.loss_normalizer.device

@@ -1,12 +1,18 @@
-"""The epoch loop over any iterable of host batches (the reference's
-train_one_epoch)."""
+"""The epoch loops over any iterable of host batches (the reference's
+train_one_epoch and valid_one_epoch)."""
 
 from __future__ import annotations
 
+import pickle
 import time
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
+
+from ..eval.postprocessing import postprocess_results
+from ..eval.step import fetch_detections
 from ..utils.meters import AverageMeter
+from ..utils.profiling import annotate
 
 
 def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: int,
@@ -45,3 +51,75 @@ def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: 
         last = track(losses)
     log(f"[Train]: Epoch {epoch:d} finished")
     return state, ({k: m.avg for k, m in trackers.items()} or last)
+
+
+def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable, epoch: int,
+                    *, evaluator=None, output_file: Optional[str] = None,
+                    ext_score_file: Optional[str] = None, print_freq: int = 20,
+                    log: Callable = print):
+    """Detections of every batch of `batcher` through eval_step (from
+    eval.make_eval_step), then the mAP of `evaluator` (ANETdetection), or
+    the detections pickled to output_file. Returns (mAP, losses); losses
+    is {} (validation losses are not ported).
+
+    model_or_state is the model eval_step serves (or a TrainState holding
+    it as model or ema); the step closes over its model, so this names the
+    one being validated and is checked against it.
+
+    Batch i + 1 is dispatched before batch i's detections are read, so
+    their copy to the host (started right after the step, waited on by an
+    event) overlaps the next batch's compute."""
+    if evaluator is None and output_file is None:
+        raise ValueError("valid_one_epoch: give an evaluator or an output_file")
+    served = getattr(eval_step, "model", None)
+    models = (getattr(model_or_state, "model", None), getattr(model_or_state, "ema", None),
+              model_or_state)
+    if served is None or not any(m is served for m in models):
+        raise ValueError("valid_one_epoch: eval_step does not serve model_or_state")
+    results = {"video-id": [], "t-start": [], "t-end": [], "label": [], "score": []}
+    batch_time = AverageMeter()
+    start = time.time()
+
+    def harvest(video_ids, host, done):
+        if done is not None:
+            done.synchronize()
+        dets = {k: v.cpu().numpy() for k, v in host.items()}
+        for vi, vid in enumerate(video_ids):
+            ok = dets["valid"][vi]
+            n = int(ok.sum())
+            if n == 0:
+                continue
+            results["video-id"].extend([vid] * n)
+            results["t-start"].append(dets["segments"][vi, ok, 0])
+            results["t-end"].append(dets["segments"][vi, ok, 1])
+            results["label"].append(dets["labels"][vi, ok])
+            results["score"].append(dets["scores"][vi, ok])
+
+    pending = None
+    num = len(batcher) if hasattr(batcher, "__len__") else -1
+    for it, batch in enumerate(batcher):
+        with annotate("eval_step"):
+            fetched = fetch_detections(eval_step(batch))
+        if pending is not None:
+            with annotate("harvest"):
+                harvest(*pending)
+        pending = (batch["video_id"], *fetched)
+        if it != 0 and it % print_freq == 0:
+            batch_time.update((time.time() - start) / print_freq)
+            start = time.time()
+            log(f"Test: [{it:05d}/{num:05d}]\tTime {batch_time.val:.2f} ({batch_time.avg:.2f})")
+    if pending is not None:
+        harvest(*pending)
+
+    for k in ("t-start", "t-end", "label", "score"):
+        results[k] = np.concatenate(results[k]) if results[k] else np.zeros((0,))
+
+    if evaluator is not None:
+        if ext_score_file:
+            results = postprocess_results(results, ext_score_file)
+        _, mAP = evaluator.evaluate(results, verbose=True)
+    else:
+        with open(output_file, "wb") as f:
+            pickle.dump(results, f)
+        mAP = 0.0
+    return mAP, {}

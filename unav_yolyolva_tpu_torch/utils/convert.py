@@ -1,5 +1,5 @@
-"""Weights carried across: the JAX package's flax parameter tree -> the
-port's state_dict.
+"""Weights carried across: the JAX package's flax parameter tree, or a
+reference checkpoint's state dict -> the port's state_dict.
 
 The port's modules are named after the reference torch key space, so its
 state_dict IS a reference state dict restricted to live parameters, each
@@ -210,3 +210,19 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     model.load_state_dict(sd, strict=True)."""
     tree = params["params"] if "params" in params else params
     return state_dict_from_entries(build_key_map(*_arch_of(tree)), tree)
+
+
+def state_dict_from_reference(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state dict (`state_dict_ema` or `state_dict`
+    of a `.pth.tar`, tensors, with or without the DataParallel `module.`
+    prefix) as the port's state_dict: the dead parameters and the alias
+    slots of shared instances dropped, so that load_state_dict(strict=True)
+    takes it."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith(DEAD_PREFIXES) or k.startswith(ALIAS_PREFIXES):
+            continue
+        out[k] = torch.as_tensor(v)
+    return out
