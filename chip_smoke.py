@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's eval (serving) and train paths on one NVIDIA GPU.
+"""Drives the PyTorch port's eval (serving) and train paths on one NVIDIA GPU,
+from memory and from feature files on disk, with and without the
+dependency block.
 
     python3 chip_smoke.py [--seed N]
 
@@ -91,10 +93,41 @@ Phases (any failure exits non-zero):
  11. serves one batch of 64 with tpu.nms_max_candidates 2000 (the merged
      Soft-NMS on the top 2000 candidates of each video): the first two
      videos agree with the CPU path;
- 12. counts the kernels one CSP backward (T=224 and T=7) and one MHCA
+ 13. trains from files: make_synthetic_dataset writes 64 train clips and 64
+     validation videos at the flagship width (48-224 frames, 100 classes);
+     the train CLI (train/cli.py:main) runs configs/avel_unav100.yaml with
+     its paths, epochs (2 + 1 of warmup) and eval_freq (1) overridden, -c 1:
+     3 epochs of 8 steps at B=8 through the pinned Batcher and the train
+     step's copy stream, the EMA validated with its losses every epoch, the
+     final pass on model_best's raw weights. Every loss finite, the
+     validation losses non-empty, each mAP in [0, 1], model_best, epoch_001
+     and epoch_002 written, the MHCA / CSP forward and backward and the
+     merged NMS kernels launched as often as the path needs; then
+     `--resume epoch_001` trains epoch 2 again, and its epoch_002 weights
+     must equal the straight run's (bit for bit, or within 1e-5 norm-wise
+     a tensor where an op is not deterministic); one step's grads taken
+     twice, with cuDNN's default and its deterministic algorithms (the
+     CLI's), name the op that is not; then, as information, clips/s from
+     files (over the epoch and after its first batch) beside the in-memory
+     step's (also with cuDNN's default algorithms), one train batch's copy
+     pinned beside pageable, the copies' share under a kernel;
+ 14. the dependency block (use_dependency: True): the MHCA kernel (one head
+     of width 128) against its plain version at the temporal branch's
+     (B*100, 224, 128) and the co-occurrence branch's (B*224, 100, 128),
+     forward at B=8 and B=64 and backward at B=8, with the padded frames'
+     fully masked rows exactly 0 and the same bits on repeat; the
+     whole-block TBlock kernel at hidden = C = 128 the same way; one batch
+     of 64 served (17 MHCA launches; the first two videos agree with the
+     CPU path), and with the whole-block stem (16 TBlock launches); two
+     train steps at B=8 (step 1 bit-identical, finite losses, every kernel
+     forward and backward); the block's ms in a batch and in a step, the
+     expand and squeeze convs' share, the peak memory;
+ 12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (with
+each kernel's launches on the train CLI's path and on the dependency
+block's, and the dependency shapes' checks and times); the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
 result. With --stages-only it builds, prints the CSP and whole-block TBlock
@@ -647,6 +680,500 @@ def serve_from_files(model, seed, dev, smi, reset_counts, counts) -> None:
     log(f"serve-from-files phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def host_ms(fn) -> float:
+    """Host ms of one call of fn between two synchronizations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def finite_losses(losses) -> bool:
+    return bool(losses) and all(math.isfinite(float(v)) for v in losses.values())
+
+
+def train_from_files(seed, dev, smi, reset_counts, counts) -> dict:
+    """Phase 13: the train CLI on feature files written at the flagship
+    width (64 train clips and 64 validation videos of 48-224 frames, 100
+    classes): configs/avel_unav100.yaml with its paths, epochs (2 + 1 of
+    warmup) and eval_freq (1) overridden, -c 1, B=8: 8 steps an epoch through
+    the pinned Batcher and the train step's copy stream, the EMA validated
+    with its losses after every epoch, then the final pass on model_best's
+    raw weights. Then `--resume epoch_001` trains epoch 2 again, whose
+    epoch_002 weights are held against the straight run's; one step's
+    grads taken twice name any op that is not deterministic. Then, as
+    information: clips/s from files beside the in-memory step's, one batch's
+    copy pinned beside pageable, and the copies' share under a kernel.
+    Returns the launches of the CLI's run."""
+    import tempfile
+
+    import torch
+    import yaml
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.tools.grad_gaps import step_grads
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+    from unav_yolyolva_tpu_torch.train import (cli, create_train_state, make_optimizer,
+                                               make_train_step, train_one_epoch)
+    from unav_yolyolva_tpu_torch.train.step import BATCH_KEYS
+    from unav_yolyolva_tpu_torch.utils.profiling import StepTimer, busy_and_overlap, trace
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        synth = make_synthetic_dataset(root, num_videos=128, num_classes=100, min_len=48,
+                                       max_len=224, visual_dim=2048, audio_dim=128,
+                                       val_fraction=0.5, seed=seed + 13)
+        with open(os.path.join(ROOT, "configs", "avel_unav100.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+        raw.update(train_split=["train"], val_split=["validation"],
+                   output_folder=os.path.join(root, "ckpt"))
+        raw["opt"].update(epochs=2, warmup_epochs=1)
+        raw["train_cfg"]["eval_freq"] = 1
+        cfg_yaml = os.path.join(root, "train.yaml")
+        with open(cfg_yaml, "w") as f:
+            yaml.safe_dump(raw, f)
+        log(f"train from files: 64 train clips and 64 validation videos written in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "straight"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        hist = out["history"]
+        log(f"train from files: the train CLI, 3 epochs of 8 steps at B=8 in {secs:.1f} s, "
+            f"kernel launches {got}")
+        for h in hist:
+            log(f"train from files: epoch {h['epoch']} train losses "
+                f"{ {k: round(v, 5) for k, v in h['train_losses'].items()} }, mAP "
+                f"{h['mAP']!r}, validation losses "
+                f"{ {k: round(v, 5) for k, v in (h['val_losses'] or {}).items()} }")
+        log(f"train from files: best mAP {out['best_mAP']!r}, final pass on model_best's raw "
+            f"weights {out['final_mAP']!r}")
+        require(len(hist) == 3 and all(finite_losses(h["train_losses"]) for h in hist),
+                "train from files: a non-finite train loss")
+        require(all(finite_losses(h["val_losses"]) for h in hist),
+                "train from files: validation losses empty or non-finite")
+        maps = [h["mAP"] for h in hist] + [out["final_mAP"]]
+        require(all(m is not None and math.isfinite(m) and 0.0 <= m <= 1.0 for m in maps),
+                f"train from files: mAP {maps} not in [0, 1]")
+        folder = out["ckpt_folder"]
+        have = sorted(os.listdir(folder))
+        require({"model_best", "epoch_001", "epoch_002"} <= set(have),
+                f"train from files: checkpoints {have}")
+        # 24 steps: 5 MHCA and 10 CSP a step, forward and backward; 4
+        # validations of 8 batches: 10 CSP and one merged NMS a batch
+        require(got["mhca_bwd"] == 5 * 24 and got["csp_bwd"] == 10 * 24
+                and got["csp"] == 10 * (24 + 32) and got["nms"] == 32
+                and got["mhca"] == 5 * (24 + 32),
+                f"train from files: the CLI did not run through every kernel: {got}")
+
+        t0 = time.perf_counter()
+        cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "resumed",
+                                 "--resume", os.path.join(folder, "epoch_001")]))
+        log(f"train from files: resumed from epoch_001, epoch 2 again in "
+            f"{time.perf_counter() - t0:.1f} s")
+        a = torch.load(os.path.join(folder, "epoch_002", "state.pt"), map_location="cpu")
+        b = torch.load(os.path.join(folder.replace("_straight", "_resumed"), "epoch_002",
+                                    "state.pt"), map_location="cpu")
+        same = [k for k in a["model"] if torch.equal(a["model"][k], b["model"][k])]
+        gaps = {k: float((a["model"][k] - b["model"][k]).norm()
+                         / a["model"][k].norm().clamp(min=1e-30)) for k in a["model"]}
+        worst = max(gaps, key=gaps.get)
+        log(f"check resume: epoch_002 of the resumed run against the straight run: "
+            f"{len(same)} of {len(gaps)} parameter tensors bit-identical; largest norm-wise "
+            f"gap {gaps[worst]:.3e} ({worst})")
+
+        cfg = load_config(cfg_yaml)
+        ds = UnAV100Dataset(True, cfg["train_split"], **cfg["dataset"])
+        cfg["train_cfg"]["head_empty_cls"] = ds.get_attributes()["empty_label_ids"]
+        cfg["model"]["train_cfg"] = cfg["train_cfg"]
+        with make_batcher(ds, cfg, True, seed=seed, device="cpu") as cpu_batcher:
+            plain = [{k: torch.as_tensor(v) for k, v in bt.items() if k != "video_id"}
+                     for bt in cpu_batcher]                           # numpy -> pageable
+        # which op is not deterministic: one step's grads taken twice, with
+        # cuDNN's default algorithms and with its deterministic ones (the
+        # CLI's setting, the reference's fix_random_seed)
+        probe = build_model(cfg, device=dev, seed=seed)
+        for mod in probe.modules():
+            if hasattr(mod, "drop_prob"):
+                mod.drop_prob = 0.0
+        differ = {}
+        for flag in (False, True):
+            torch.backends.cudnn.deterministic = flag
+            g1 = step_grads(copy.deepcopy(probe), cfg, plain[0], dev)[1]
+            g2 = step_grads(copy.deepcopy(probe), cfg, plain[0], dev)[1]
+            differ[flag] = sorted(n for n, g in g1.items()
+                                  if g is not None and not torch.equal(g, g2[n]))
+            convs = [n for n in differ[flag] if n.endswith("conv.weight")]
+            log(f"check determinism (cudnn.deterministic={flag}): one train step's grads "
+                f"taken twice on the card: {len(differ[flag])} of {len(g1)} tensors differ, "
+                f"among them {len(convs)} conv weights, e.g. {convs[:3]}")
+        del probe, g1, g2
+        require(not differ[True], "the train step is not deterministic with cuDNN's "
+                                  f"deterministic algorithms: {differ[True][:8]}")
+        require(len(same) == len(gaps) or gaps[worst] <= 1e-5,
+                f"train from files: the resumed run's epoch_002 is {gaps[worst]:.3e} off "
+                f"({worst})")
+
+        model = build_model(cfg, device=dev, seed=seed)
+        optimizer, _ = make_optimizer(model, cfg["opt"], len(plain),
+                                      cfg["train_cfg"]["clip_grad_l2norm"])
+        state = create_train_state(model, optimizer, cfg["train_cfg"]["init_loss_norm"])
+        step = make_train_step(model, optimizer, cfg, device=dev)
+        piped = make_batcher(ds, cfg, True, seed=seed, device=dev)
+        arrivals = []
+
+        class Stamped:
+            """The pinned batcher, each batch's arrival at the loop noted."""
+
+            def __len__(self):
+                return len(piped)
+
+            def set_epoch(self, epoch):
+                piped.set_epoch(epoch)
+
+            def __iter__(self):
+                for bt in piped:
+                    arrivals.append(time.perf_counter())
+                    yield bt
+
+        def pipeline():
+            """(whole-epoch clips/s, clips/s after the first batch arrived)."""
+            arrivals.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_one_epoch(state, Stamped(), step, seed, 0, print_freq=1000,
+                            log=lambda *a: None)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n = 8 * len(arrivals)
+            return n / (t1 - t0), 8 * (len(arrivals) - 1) / (t1 - arrivals[0])
+
+        def in_memory():
+            for bt in plain:
+                step(state, bt, seed)
+
+        torch.backends.cudnn.deterministic = True                  # as the CLI trains
+        pipeline()
+        timer = StepTimer()
+        rates = {"pipeline": [], "in_memory": [], "in_memory_cudnn_default": []}
+        for name in ("pipeline", "in_memory", "in_memory_cudnn_default",
+                     "in_memory_cudnn_default", "in_memory", "pipeline"):     # in turns
+            torch.backends.cudnn.deterministic = name != "in_memory_cudnn_default"
+            rates[name].append(pipeline() if name == "pipeline"
+                               else 8 * len(plain) / timer.time_fn(in_memory))
+        torch.backends.cudnn.deterministic = True
+        log(f"time train pipeline (files -> 4 worker processes -> shared memory -> pinned "
+            f"-> copy stream -> train step, 8 steps of 8 clips, cuDNN deterministic): "
+            f"{[round(r[0], 1) for r in rates['pipeline']]} clips/s over the epoch, "
+            f"{[round(r[1], 1) for r in rates['pipeline']]} clips/s after the first batch "
+            f"[{smi}]")
+        log(f"time train in_memory (make_train_step on batches in memory, pageable copy): "
+            f"{[round(r, 1) for r in rates['in_memory']]} clips/s with cuDNN deterministic, "
+            f"{[round(r, 1) for r in rates['in_memory_cudnn_default']]} with its default "
+            f"algorithms [{smi}]")
+
+        for pinned in piped:
+            break
+        mb = sum(pinned[k].numel() * pinned[k].element_size() for k in BATCH_KEYS) / 1e6
+        side = torch.cuda.Stream()
+
+        def copy_pinned():
+            with torch.cuda.stream(side):
+                moved = [pinned[k].to(dev, non_blocking=True) for k in BATCH_KEYS]
+            torch.cuda.current_stream().wait_stream(side)
+            return moved
+
+        pin_ms = cuda_ms(copy_pinned, 5)
+        page_ms = cuda_ms(lambda: [plain[0][k].to(dev) for k in BATCH_KEYS], 5)
+        log(f"time copy of one train batch of 8 ({mb:.1f} MB): pinned, non_blocking on a "
+            f"copy stream {pin_ms:.3f} ms ({mb / pin_ms:.2f} GB/s); pageable "
+            f"{page_ms:.3f} ms ({mb / page_ms:.2f} GB/s) [{smi}]")
+        torch.cuda.synchronize()
+        with trace() as prof:
+            t0 = time.perf_counter()
+            pipeline()
+            wall = time.perf_counter() - t0
+        piped.close()
+        torch.backends.cudnn.deterministic = False      # the other phases' setting
+        busy, copy_ms, under = busy_and_overlap(prof, wall)
+        log(f"overlap train pipeline (torch.profiler, 8 steps): host-to-device copies "
+            f"{copy_ms:.2f} ms, {100 * under:.1f}% of that time under a kernel; busy share "
+            f"{busy:.3f} [{smi}]")
+    log(f"train-from-files phase: {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def dependency_case(n, t, long_rows, gen, dev):
+    """A dependency branch's inputs at its protocol shape: (x1, x2, mask) of
+    n samples over rows of length t. The temporal branch (long_rows False):
+    n * 100 rows of the n samples' frame masks tiled c-major; the
+    co-occurrence branch: n * 224 rows of 100 classes, a padded frame's row
+    fully masked. The first sample is full, the others 16..224 frames."""
+    import torch
+
+    lengths = torch.randint(16, 225, (n,), generator=gen)
+    lengths[0] = 224
+    frames = torch.arange(224)[None, :] < lengths[:, None]                 # (n, 224)
+    if long_rows:
+        mask = frames.reshape(-1, 1).expand(-1, t).contiguous()           # (n*224, 100)
+    else:
+        mask = frames.repeat(100, 1)                                      # (100n, 224)
+    r = mask.shape[0]
+    x1 = torch.randn(r, t, 128, generator=gen)
+    x2 = torch.randn(r, t, 128, generator=gen)
+    return x1.to(dev), x2.to(dev), mask.to(dev)
+
+
+def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict:
+    """Phase 14: the dependency block (use_dependency: True). The MHCA
+    kernel (one head of width 128) against its plain version at the
+    branches' shapes, forward at the train (B=8) and eval (B=64) protocols
+    and backward at the train protocol; the whole-block TBlock kernel at
+    hidden = C = 128 the same way; exact zeros on the fully masked rows, the
+    same bits on repeat. Then one batch of 64 served with the dependency
+    block (default and whole-block stem, the first two videos held against
+    the CPU path), two train steps at B=8, and the block's time in a batch
+    and in a step, the expand and squeeze convs' share, the peak memory.
+    Returns the launches of the served batch and of the train steps."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch, synthetic_train_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
+                                                        mhca_backward_reference,
+                                                        mhca_reference)
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
+                                                          tblock_backward_reference,
+                                                          tblock_reference)
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
+    cfg["model"]["use_dependency"] = True
+    model = build_model(cfg, device=dev, seed=seed)
+    dep = model.dependency
+    log(f"dependency: model with the dependency block, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters "
+        f"({sum(p.numel() for p in dep.parameters()) / 1e6:.2f} M in the block)")
+    c = 128
+    cases = (("temporal", dep.temporal_branch, 8, 224, False, True),
+             ("cooccur", dep.cooccur_branch, 8, 100, True, True),
+             ("temporal", dep.temporal_branch, 64, 224, False, False),
+             ("cooccur", dep.cooccur_branch, 64, 100, True, False))
+    new = {"mhca": [], "mhca_bwd": [], "tblock": [], "tblock_bwd": []}
+    for name, blk, n, t, long_rows, train in cases:
+        x1, x2, mask = dependency_case(n, t, long_rows, gen, dev)
+        r = x1.shape[0]
+        dead = ~mask.any(1)
+        attn = [w.detach().contiguous() for w in blk.attn.packed_weights()]
+        label = f"mhca@{r}x{t}x{c}/1h"
+        with torch.inference_mode():
+            out = fused_mhca(x1, x2, mask, *attn, heads=1)
+            err = compare(f"{label} ({name})", out, mhca_reference(x1, x2, mask, *attn, heads=1))
+            require(bool((out[dead] == 0).all()) and torch.equal(
+                out, fused_mhca(x1, x2, mask, *attn, heads=1)),
+                f"{label}: fully masked rows not exactly 0, or another result on repeat")
+            ms = cuda_ms(lambda: fused_mhca(x1, x2, mask, *attn, heads=1), 10)
+            pms = cuda_ms(lambda: mhca_reference(x1, x2, mask, *attn, heads=1), 3)
+        nbytes = 4 * (3 * r * t * c + 4 * c * c + 19 * c) + r * t
+        results[label] = (err, ms, pms, *bound_ms(mhca_flops(r, t, c), nbytes,
+                                                  mhca_products(r, t, c)))
+        new["mhca"].append(label)
+        log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{results[label][3]:.3f} ms ({results[label][4]}); fully masked rows "
+            f"{int(dead.sum())} of {r} [{smi}]")
+        if train:
+            g = torch.randn(r, t, c, generator=gen).to(dev)
+            got = mhca_backward(x1, x2, mask, *attn, g, heads=1)
+            again = mhca_backward(x1, x2, mask, *attn, g, heads=1)
+            ref = mhca_backward_reference(x1, x2, mask, *attn, g, heads=1)
+            blabel = f"mhca_bwd@{r}x{t}x{c}/1h"
+            err = check_grads(f"{blabel} ({name})", got, again, ref, 2)
+            require(all(bool((d[dead] == 0).all()) for d in got[:2]),
+                    f"{blabel}: a fully masked row got a non-zero input grad")
+            ms = cuda_ms(lambda: mhca_backward(x1, x2, mask, *attn, g, heads=1), 10)
+            pms = cuda_ms(lambda: mhca_backward_reference(x1, x2, mask, *attn, g, heads=1), 3)
+            nbytes = 4 * (5 * r * t * c + 2 * (4 * c * c + 19 * c)) + r * t
+            flops = mhca_bwd_flops(r, t, c)
+            results[blabel] = (err, ms, pms, *bound_ms(flops, nbytes, flops - 18 * r * t * c))
+            new["mhca_bwd"].append(blabel)
+            log(f"time {blabel}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                f"{results[blabel][3]:.3f} ms ({results[blabel][4]}) [{smi}]")
+            del g, got, again, ref
+
+        # the whole block at hidden = C: its own x, multipliers, weights
+        mult_a = (0.7 + 0.3 * torch.randn(r, 1, c, generator=gen)).to(dev)
+        mult_m = (1.3 + 0.3 * torch.randn(r, 1, c, generator=gen)).to(dev)
+        a = (x1, mask, mult_a, mult_m, *[w.detach().contiguous() for w in blk.packed_weights()])
+        hid = a[11].shape[0]
+        label = f"tblock@{r}x{t}x{c}/h{hid}"
+        with torch.inference_mode():
+            out = fused_tblock(*a, heads=1)
+            err = compare(f"{label} ({name})", out, tblock_reference(*a, heads=1))
+            require(bool((out[dead] == 0).all()) and torch.equal(out, fused_tblock(*a, heads=1)),
+                    f"{label}: fully masked rows not exactly 0, or another result on repeat")
+            ms = cuda_ms(lambda: fused_tblock(*a, heads=1), 10)
+            pms = cuda_ms(lambda: tblock_reference(*a, heads=1), 3)
+        nbytes = 4 * (2 * r * t * c + 2 * r * c + sum(w.numel() for w in a[4:])) + r * t
+        results[label] = (err, ms, pms, *bound_ms(tblock_flops(r, t, c, hid), nbytes,
+                                                  mhca_products(r, t, c) + 4 * r * t * c * hid))
+        new["tblock"].append(label)
+        log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+            f"{results[label][3]:.3f} ms ({results[label][4]}) [{smi}]")
+        if train:
+            g = torch.randn(r, t, c, generator=gen).to(dev)
+            got = tblock_backward(*a, g=g, heads=1)
+            again = tblock_backward(*a, g=g, heads=1)
+            ref = tblock_backward_reference(*a, g=g, heads=1)
+            blabel = f"tblock_bwd@{r}x{t}x{c}/h{hid}"
+            err = check_grads(f"{blabel} ({name})", got, again, ref, 1)
+            require(bool((got[0][dead] == 0).all()),
+                    f"{blabel}: a fully masked row got a non-zero input grad")
+            ms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=1), 10)
+            pms = cuda_ms(lambda: tblock_backward_reference(*a, g=g, heads=1), 3)
+            nbytes = 4 * (3 * r * t * c + 4 * r * c + 2 * sum(w.numel() for w in a[4:])) + r * t
+            flops = tblock_bwd_flops(r, t, c, hid)
+            results[blabel] = (err, ms, pms, *bound_ms(flops, nbytes, flops - 18 * r * t * c))
+            new["tblock_bwd"].append(blabel)
+            log(f"time {blabel}: kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+                f"{results[blabel][3]:.3f} ms ({results[blabel][4]}) [{smi}]")
+            del g, got, again, ref
+        del x1, x2, mask, a, out
+    torch.cuda.empty_cache()
+
+    # one batch of 64 served with the block
+    mcfg = cfg["model"]
+    batch = synthetic_eval_batch(gen, 64, mcfg["max_seq_len"], mcfg["raw_input_dim_V"],
+                                 mcfg["raw_input_dim_A"])
+    eval_step = make_eval_step(model, cfg, device=dev)
+    eval_step(batch)                                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dets = eval_step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    served = counts()
+    log(f"dependency serve: 1 batch x 64 videos, kernel launches {served}, peak memory "
+        f"{peak:.2f} GiB [{smi}]")
+    require(served["mhca"] == 5 + 12 and served["csp"] == 10 and served["nms"] == 1,
+            f"the dependency path did not run through its kernels: {served}")
+    n = check_detections(dets, batch, mcfg["num_classes"])
+    two = {k: v[:2] for k, v in batch.items()}
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        heads_gpu = model({k: v.to(dev) for k, v in two.items()}, with_losses=False)
+        heads_cpu = cpu_model(two, with_losses=False)
+    for key in ("cls_logits", "offsets"):
+        a_ = torch.cat([x.flatten(1) for x in heads_gpu[key]], 1).cpu()
+        b_ = torch.cat([x.flatten(1) for x in heads_cpu[key]], 1)
+        rel = float((a_ - b_).norm() / b_.norm())
+        log(f"check dependency gpu-vs-cpu {key} (the heads' outputs, 2 videos, every "
+            f"level): norm-wise rel err {rel:.3e}")
+        require(rel <= 1e-4, f"dependency gpu-vs-cpu: the heads' {key} differ")
+    cpu_step = make_eval_step(cpu_model, cfg, device="cpu")
+    compare_dets(dets, cpu_step(two), "dependency gpu-vs-cpu",
+                 probe=lambda: [eval_step(pb) for pb in perturbed(two, gen)])
+    set_stem("always")
+    reset_counts()
+    fdets = eval_step(batch)
+    torch.cuda.synchronize()
+    fl = counts()
+    require(fused_tblock.launches == 4 + 12 and fl["mhca"] == 1 and fl["csp"] == 10,
+            f"the dependency path with the whole-block stem: {fl}, "
+            f"{fused_tblock.launches} TBlock launches")
+    compare_dets(fdets, dets, "dependency whole-block-vs-default",
+                 probe=lambda: [eval_step(pb) for pb in perturbed(batch, gen)])
+    set_stem("never")
+    log(f"dependency serve: {n} detections; with the whole-block stem "
+        f"{fused_tblock.launches} TBlock launches (4 stem + 12 dependency)")
+
+    # the block's share of a batch: its input captured, timed alone
+    grabbed = {}
+    hook = dep.register_forward_hook(lambda m, args, out: grabbed.update(args=args) and None)
+    eval_step(batch)
+    hook.remove()
+    feats, masks = grabbed["args"][0], grabbed["args"][1]
+    with torch.inference_mode():
+        dep_ms = cuda_ms(lambda: dep(feats, masks), 5)
+        conv_ms = cuda_ms(lambda: [dep.feature_squeeze(dep.feature_expand(f, m)[0], m)
+                                   for f, m in zip(feats, masks)], 5)
+    batch_ms = cuda_ms(lambda: eval_step(batch), 5)
+    model.dependency = None
+    base_ms = cuda_ms(lambda: eval_step(batch), 5)
+    model.dependency = dep
+    log(f"time dependency block in a batch of 64: {dep_ms:.3f} ms (the expand and squeeze "
+        f"convs, cuDNN fp32: {conv_ms:.3f} ms); the whole batch {batch_ms:.3f} ms, "
+        f"{base_ms:.3f} ms without the block [{smi}]")
+    del feats, masks, grabbed, dets, fdets, eval_step, cpu_step, cpu_model, model, dep
+    torch.cuda.empty_cache()
+
+    # two train steps at B=8
+    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
+    tcfg["model"]["use_dependency"] = True
+    tm = tcfg["model"]
+    b_, t_ = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+    tmodel = build_model(tcfg, device=dev, seed=seed)
+    optimizer, _ = make_optimizer(tmodel, tcfg["opt"], 2, tcfg["train_cfg"]["clip_grad_l2norm"])
+    state = create_train_state(tmodel, optimizer, tcfg["train_cfg"]["init_loss_norm"])
+    step = make_train_step(tmodel, optimizer, tcfg, device=dev)
+    tb = [synthetic_train_batch(gen, b_, t_, tm["raw_input_dim_V"], tm["raw_input_dim_A"],
+                                tm["num_classes"], tcfg["dataset"]["max_num_events"])
+          for _ in range(2)]
+    before = [p.detach().clone() for p in tmodel.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(state, tb[0], seed)]
+    torch.cuda.synchronize()
+    still = all(torch.equal(x, p) for x, p in zip(before, tmodel.parameters()))
+    losses.append(step(state, tb[1], seed))
+    torch.cuda.synchronize()
+    trained = counts()
+    tpeak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dependency train: 2 steps at B={b_}, final_loss "
+        f"{[float(x['final_loss']) for x in losses]}, launches {trained}, peak memory "
+        f"{tpeak:.2f} GiB [{smi}]")
+    require(still, "dependency train: step 1 (lr 0) changed a parameter")
+    require(all(finite_losses(x) for x in losses), "dependency train: a non-finite loss")
+    require(trained["mhca"] == trained["mhca_bwd"] == 2 * 17
+            and trained["csp"] == trained["csp_bwd"] == 2 * 10,
+            f"dependency train: not every kernel ran forward and backward: {trained}")
+    step_ms = [host_ms(lambda: step(state, tb[0], seed)) for _ in range(3)]
+    grabbed = {}
+    hook = tmodel.dependency.register_forward_hook(
+        lambda m, args, out: grabbed.update(args=args) and None)
+    step(state, tb[1], seed)
+    hook.remove()
+    feats = [f.detach().requires_grad_(True) for f in grabbed["args"][0]]
+    masks = grabbed["args"][1]
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+
+    def dep_fwd_bwd():
+        outs = tmodel.dependency(feats, masks, dgen)[0]
+        torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+    dep_step_ms = cuda_ms(dep_fwd_bwd, 5)
+    log(f"time dependency train step at B={b_}: {[round(x, 3) for x in step_ms]} ms a step "
+        f"(host clock, synchronized); the block's forward + backward {dep_step_ms:.3f} ms "
+        f"[{smi}]")
+    log(f"dependency phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"served": served, "trained": trained, "new": new}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -695,6 +1222,12 @@ def main(argv=None) -> int:
     def reset_counts():
         for fn in counted:
             fn.launches = 0
+
+    def counts():
+        return {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
+                "nms": multiclass_soft_nms.launches, "mhca_bwd": mhca_backward.launches,
+                "csp_bwd": csp_backward.launches, "tblock": fused_tblock.launches,
+                "tblock_bwd": tblock_backward.launches, "soft_nms": soft_nms.launches}
 
     os.environ.pop("UNAV_FUSED_TBLOCK", None)     # the stem path is set below, per phase
     set_stem("never")
@@ -1209,15 +1742,29 @@ def main(argv=None) -> int:
     compare_dets(cdets, make_eval_step(cpu_model, ncfg, device="cpu")(two),
                  "capped gpu-vs-cpu", probe=lambda: [capped(pb) for pb in perturbed(two, gen)])
 
+    # ---- 13. train from files: the train CLI over the pinned Batcher --------
+    cli_launches = train_from_files(args.seed, dev, smi, reset_counts, counts)
+
+    # ---- 14. the dependency block --------------------------------------------
+    dep = dependency_phase(args.seed, dev, smi, gen, reset_counts, counts, results)
+
     # ---- last: the kernels one CSP and one MHCA backward launch --------------
     backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)
 
     def entry(name, label, source, replaces):
         err, ms, pms, bms, by, ffma = results[label]
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": err, "ms": ms,
-                "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-                "bound_ffma_ms": ffma, "shape": label}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], "max_abs_err": err, "ms": ms,
+               "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "bound_ffma_ms": ffma, "shape": label,
+               "launches_train_cli": cli_launches[name],
+               "launches_dependency": {"serve": dep["served"][name],
+                                       "train": dep["trained"][name]}}
+        if dep["new"].get(name):
+            out["dependency_cases"] = {
+                k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "bound_ffma_ms"), results[k])) for k in dep["new"][name]}
+        return out
 
     pkg = "unav_yolyolva_tpu_torch/csrc/"
     log(f"nvidia-smi: {smi}")

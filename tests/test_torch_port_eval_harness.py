@@ -1,7 +1,7 @@
 """The port's eval harness against the JAX package's, on the CPU:
 ANETdetection, the score fusion, valid_one_epoch, the reference-checkpoint
-filter and the eval CLI (reference .pth.tar, port checkpoint folder,
---saveonly, --topk, an external score file) on the golden fixture
+filter and the eval CLI (reference .pth.tar, port checkpoint folder, JAX
+msgpack folder, --saveonly, --topk, an external score file) on the golden fixture
 (tests/_golden_common.py, tests/golden/eval_golden.npz)."""
 
 import json
@@ -297,12 +297,26 @@ def test_cli_fuses_an_external_score_file(golden, tmp_path):
 
 
 def test_cli_refuses_a_msgpack_folder_and_an_empty_split(golden, tmp_path):
+    """A JAX checkpoint folder (msgpack, written by the JAX save_checkpoint
+    with its optimizer state) is served: its EMA weights (the golden ones;
+    its params are not) give the JAX eval CLI's mAP within 1e-6. An empty
+    split is still refused."""
+    import argparse
+
+    import jax
+
+    import eval as jax_cli
     from unav_yolyolva_tpu.train.checkpoint import save_checkpoint
 
+    state = golden["state"]
+    state = state.replace(params=jax.tree.map(lambda p: p * 0.5, state.params))
     folder = str(tmp_path / "jax_ckpt")
-    save_checkpoint(golden["state"], 1, folder, is_best=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _cli(golden, folder)
+    save_checkpoint(state, 1, folder, file_name="epoch_001")
+    ref = jax_cli.main(argparse.Namespace(config=golden["cfg_yaml"], ckpt=folder, topk=-1,
+                                          saveonly=False, print_freq=10))
+    got = _cli(golden, folder)
+    assert abs(got - ref) <= 1e-6
+    assert abs(got - float(np.load(GOLDEN)["avg_map"])) <= 1e-6
     d = dict(golden["cfg_dict"], test_split=["no_such_split"])
     cfg_yaml = str(tmp_path / "cfg.yaml")
     with open(cfg_yaml, "w") as f:

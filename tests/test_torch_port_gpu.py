@@ -353,8 +353,8 @@ def test_train_step_cuda_matches_cpu(cuda):
         assert float(((a - b).abs() <= 1e-2 * lr).float().mean()) >= 0.99
 
 
-def _tblock_args(gen, cuda, r, t, c, heads, lengths):
-    hid = 4 * c
+def _tblock_args(gen, cuda, r, t, c, heads, lengths, hid=None):
+    hid = hid or 4 * c
     x = torch.randn(r, t, c, generator=gen)
     mult_a = 0.7 + 0.3 * torch.randn(r, 1, c, generator=gen)
     mult_a[min(1, r - 1)] = 0.0                                # a dropped branch
@@ -965,3 +965,120 @@ def test_valid_one_epoch_cuda_gives_the_cpu_map(cuda, tmp_path):
                                         evaluator=ev)[0])
     assert np.isfinite(maps[0]) and 0 <= maps[0] <= 1
     assert abs(maps[0] - maps[1]) <= 1e-6, maps
+
+
+# ---- the dependency block's shapes: one head of width 128 ----------------------
+
+def _dependency_rows(gen, cuda, r, t):
+    """(x1, x2, mask) of r rows of length t, as the co-occurrence branch
+    gives them: every third row fully masked (a padded frame), the others
+    full or partly masked."""
+    lengths = [0 if i % 3 == 1 else (t if i % 3 == 0 else max(1, t - 7 * i)) for i in range(r)]
+    x1, x2 = torch.randn(r, t, 128, generator=gen), torch.randn(r, t, 128, generator=gen)
+    return x1.to(cuda), x2.to(cuda), _mask(r, t, lengths, cuda)
+
+
+@pytest.mark.parametrize("t", [100, 224])
+def test_mhca_one_head_of_128_with_fully_masked_rows(cuda, t):
+    """Forward and backward at C = 128 with one head: fully masked rows give
+    exact zeros (output and input grads), weight grads stay finite, and two
+    runs give the same bits."""
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
+                                                        mhca_backward_reference,
+                                                        mhca_reference)
+
+    gen = torch.Generator().manual_seed(21)
+    x1, x2, mask = _dependency_rows(gen, cuda, 24, t)
+    ws = [w.to(cuda) for w in _mhca_weights(128, gen, cuda)]
+    dead = ~mask.any(1)
+    out = fused_mhca(x1, x2, mask, *ws, heads=1)
+    again = fused_mhca(x1, x2, mask, *ws, heads=1)
+    ref = mhca_reference(x1, x2, mask, *ws, heads=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+    assert torch.equal(out, again) and (out[dead] == 0).all() and int(dead.sum()) == 8
+    g = torch.randn(x1.shape, generator=gen).to(cuda)
+    got = mhca_backward(x1, x2, mask, *ws, g, heads=1)
+    got2 = mhca_backward(x1, x2, mask, *ws, g, heads=1)
+    ref = mhca_backward_reference(x1, x2, mask, *ws, g, heads=1)
+    torch.cuda.synchronize()
+    _check_grads(got, ref, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, got2)), "not deterministic"
+    assert (got[0][dead] == 0).all() and (got[1][dead] == 0).all()
+    assert all(bool(torch.isfinite(w).all()) for w in got[2:])
+
+
+@pytest.mark.parametrize("t", [100, 224])
+def test_tblock_kernel_at_hidden_c(cuda, t):
+    """The whole block at hidden = C = 128, one head (the dependency
+    block's), forward and backward, with fully masked rows."""
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
+                                                          tblock_backward_reference,
+                                                          tblock_reference)
+
+    gen = torch.Generator().manual_seed(22)
+    lengths = [t, 0, t - 9, 0, 5, t]
+    args = _tblock_args(gen, cuda, 6, t, 128, 1, lengths, hid=128)
+    assert args[11].shape == (128, 128)
+    out = fused_tblock(*args, heads=1)
+    ref = tblock_reference(*args, heads=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+    assert (out[1] == 0).all() and (out[3] == 0).all()
+    g = torch.randn(args[0].shape, generator=gen).to(cuda)
+    got = tblock_backward(*args, g=g, heads=1)
+    again = tblock_backward(*args, g=g, heads=1)
+    ref = tblock_backward_reference(*args, g=g, heads=1)
+    torch.cuda.synchronize()
+    _check_grads(got, ref, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+    assert (got[0][1] == 0).all() and (got[0][3] == 0).all()
+
+
+def test_train_step_pinned_batches_give_the_pageable_losses(cuda, tmp_path):
+    """Four train batches from the pinned Batcher, dispatched back to back
+    (the copy stream of the train step), give the losses of the same batches
+    fed as pageable numpy arrays to a second, identical state."""
+    from unav_yolyolva_tpu_torch.core import load_config_dict
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
+
+    synth = make_synthetic_dataset(str(tmp_path), num_videos=16, num_classes=5, min_len=40,
+                                   max_len=64, visual_dim=64, audio_dim=16, seed=11,
+                                   events_per_video=2, val_fraction=0.0)
+    cfg = load_config_dict({
+        "train_split": ["train"],
+        "dataset": {"json_file": synth["json_file"], "feat_folder": synth["feat_folder"],
+                    "num_classes": 5, "max_seq_len": 64, "max_num_events": 8},
+        "loader": {"batch_size": 4, "num_workers": 2, "prefetch": 2},
+        "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 32,
+                  "input_dim_A": 32, "embd_dim": 32, "head_dim": 32, "use_abs_pe": True,
+                  "class_aware": True},
+        "opt": {"learning_rate": 1e-3, "epochs": 2, "warmup_epochs": 1},
+    })
+    ds = UnAV100Dataset(True, cfg["train_split"], **cfg["dataset"])
+    losses = {}
+    # cuDNN's deterministic algorithms, as the train CLI sets them: its
+    # default weight-grad algorithms sum in a varying order
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for dev in ("pinned", "cpu"):
+        model = build_model(cfg, device=cuda, seed=0)
+        opt, _ = make_optimizer(model, cfg["opt"], 4)
+        state = create_train_state(model, opt, 100.0)
+        step = make_train_step(model, opt, cfg, device=cuda)
+        out = []
+        with make_batcher(ds, cfg, True, seed=5, device=cuda if dev == "pinned" else "cpu") as b:
+            for bt in b:
+                pinned = isinstance(bt["visual"], torch.Tensor) and bt["visual"].is_pinned()
+                assert pinned == (dev == "pinned")
+                out.append(step(state, bt, 3))
+        torch.cuda.synchronize()
+        losses[dev] = [{k: float(v) for k, v in o.items()} for o in out]
+    torch.backends.cudnn.deterministic = deterministic
+    assert len(losses["pinned"]) == 4
+    for p, n in zip(losses["pinned"], losses["cpu"]):
+        assert p == n

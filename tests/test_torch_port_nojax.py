@@ -1,6 +1,7 @@
 """The PyTorch port (the eval and train paths, the data pipeline, the eval
-harness and CLI, the bench) and chip_smoke.py import neither JAX nor the
-JAX package."""
+harness, both CLIs, the msgpack reader, the dependency block, the bench)
+and chip_smoke.py import neither JAX nor the JAX package: every module
+imports with jax, flax, optax and msgpack blocked."""
 
 import os
 import subprocess
@@ -10,6 +11,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = """
 import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "unav_yolyolva_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+
+sys.meta_path.insert(0, Block())
 import unav_yolyolva_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -20,11 +33,12 @@ import chip_smoke
 required = {"train.step", "train.optim", "train.checkpoint", "train.loop", "core.registry",
             "builders", "data.annotations", "data.dataset", "data.pipeline", "data.synthetic",
             "geometry.points", "eval.metrics", "eval.postprocessing", "eval.cli",
-            "utils.convert", "utils.profiling", "tools.bench"}
+            "utils.convert", "utils.profiling", "tools.bench", "train.cli", "utils.msgpack",
+            "models.dependency"}
 missing = {"unav_yolyolva_tpu_torch." + n for n in required} - set(names)
 assert not missing, missing
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "unav_yolyolva_tpu"))
+             if m.split(".")[0] in BLOCKED)
 print(len(names), bad)
 assert len(names) >= 30 and not bad, bad
 """

@@ -1,5 +1,5 @@
 """A string -> factory registry, the reference's decorator registries
-(datasets, models) as one generic class."""
+(datasets, dependency blocks) as one generic class."""
 
 from __future__ import annotations
 
@@ -39,3 +39,4 @@ class Registry:
 
 
 DATASETS = Registry("datasets")
+DEPENDENCY_BLOCKS = Registry("dependency_blocks")

@@ -6,9 +6,10 @@
 Serves the config's test_split from its feature files: UnAV100Dataset ->
 the Batcher (worker processes; pinned batches on CUDA) -> make_eval_step
 -> valid_one_epoch -> ANETdetection, and prints the per-tIoU and average
-mAP. <ckpt> is a reference-format `.pth.tar` (its state_dict_ema, else state_dict) or a
-port checkpoint folder (the latest checkpoint inside it, or the folder
-itself), whose EMA weights are served. --topk overrides
+mAP. <ckpt> is a reference-format `.pth.tar` (its state_dict_ema, else
+state_dict) or a checkpoint folder of the port or of the JAX package
+(msgpack; the latest checkpoint inside it, or the folder itself), whose EMA
+weights are served. --topk overrides
 test_cfg.max_seg_num; --saveonly writes the detections to
 eval_results.pkl beside the checkpoint instead of scoring them. Runs on
 CUDA unless --device cpu.
@@ -31,7 +32,8 @@ def load_served_model(cfg, ckpt: str, device):
     import torch
 
     from ..models import build_model
-    from ..train.checkpoint import find_latest_checkpoint, load_checkpoint
+    from ..train.checkpoint import (find_latest_checkpoint, is_jax_checkpoint,
+                                    load_checkpoint)
     from ..train.optim import make_optimizer
     from ..train.state import create_train_state
     from ..utils.convert import state_dict_from_reference
@@ -54,7 +56,8 @@ def load_served_model(cfg, ckpt: str, device):
     optimizer, _ = make_optimizer(model, cfg["opt"], 1, cfg["train_cfg"]["clip_grad_l2norm"])
     state = create_train_state(model, optimizer, cfg["train_cfg"]["init_loss_norm"])
     load_checkpoint(ckpt_dir, state)
-    print(f"=> loaded checkpoint '{ckpt_dir}' (EMA weights)")
+    print(f"=> loaded {'JAX ' if is_jax_checkpoint(ckpt_dir) else ''}checkpoint "
+          f"'{ckpt_dir}' (EMA weights)")
     return state.ema, ckpt_dir
 
 

@@ -7,57 +7,57 @@ from typing import Callable, Dict, List
 
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import make_batch_copier, resolve_device
 from ..geometry.points import generate_points
+from ..models.meta_arch import compute_losses
+from ..train.step import build_targets, loss_kwargs
 from .decode import decode_batch, postprocess_batch
 
 BATCH_KEYS = ("visual", "audio", "mask", "fps", "duration", "feat_stride",
               "feat_num_frames")
+GT_KEYS = ("gt_segments", "gt_labels", "gt_valid")
 
 
-def make_eval_step(model, cfg: Dict, device=None) -> Callable:
-    """eval_step(batch) -> detections, the reference inference protocol
-    (no losses). `batch` holds visual (B, T, Dv), audio (B, T, Da), mask
-    (B, T) and per-video fps, duration, feat_stride, feat_num_frames (B,),
-    as numpy arrays or tensors. Detections: segments (B, M, 2) in seconds,
-    scores (B, M), labels (B, M), valid (B, M), with M = max_seg_num, on
-    the device. Runs on CUDA unless device='cpu'. tpu.nms_max_candidates
-    caps the candidates before NMS as the JAX eval step does;
-    tpu.approx_topk is refused.
+def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool = False,
+                   use_ema: bool = True) -> Callable:
+    """eval_step(batch) -> detections, the reference inference protocol; with
+    with_losses=True, eval_step(batch) -> (detections, losses), the
+    validation of a train state.
 
-    A batch of pinned host tensors (data/pipeline.py on CUDA) is copied
-    with non_blocking=True on a copy stream of the step's own, so the copy
-    overlaps the compute already queued; the compute stream waits on an
-    event recorded after the copy. Any other batch takes the pageable copy
-    on the compute stream."""
+    `model_or_state` is the model to serve, or a TrainState: its EMA
+    (use_ema, the default) or its raw weights are served, and the losses
+    use its loss normalizer as it stands at each call (the JAX eval step's
+    `use_ema` and `state.loss_normalizer`). Losses need a TrainState.
+
+    `batch` holds visual (B, T, Dv), audio (B, T, Da), mask (B, T) and
+    per-video fps, duration, feat_stride, feat_num_frames (B,), and for the
+    losses the padded events gt_segments, gt_labels, gt_valid, as numpy
+    arrays or tensors. Detections: segments (B, M, 2) in seconds, scores
+    (B, M), labels (B, M), valid (B, M), with M = max_seg_num; losses: the
+    train step's device scalars, from dense targets built on the device as
+    the train step builds them. All on the device: no host sync. Runs on
+    CUDA unless device='cpu'. tpu.nms_max_candidates caps the candidates
+    before NMS as the JAX eval step does; tpu.approx_topk is refused.
+
+    A batch of pinned host tensors (data/pipeline.py on CUDA) is copied on a
+    copy stream of the step's own (core/device.py:make_batch_copier)."""
     device = resolve_device(device)
     mcfg, test_cfg, tpu = cfg["model"], cfg["test_cfg"], cfg.get("tpu", {})
     if tpu.get("approx_topk", False):
         raise NotImplementedError("tpu.approx_topk: lax.approx_max_k is a TPU approximation "
                                   "of the top-k that the port does not take; it runs the "
                                   "exact top-k with approx_topk False")
+    state = model_or_state if hasattr(model_or_state, "loss_normalizer") else None
+    if with_losses and state is None:
+        raise ValueError("make_eval_step: the losses need a TrainState (its loss normalizer)")
+    model = model_or_state if state is None else (state.ema if use_ema else state.model)
     max_candidates = int(tpu.get("nms_max_candidates", 0))
     model = model.to(device).eval()
-    class_aware = mcfg["class_aware"]
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    class_aware, num_classes = mcfg["class_aware"], mcfg["num_classes"]
+    kw = loss_kwargs(cfg) if with_losses else None
+    copy = make_batch_copier(device)
+    keys = BATCH_KEYS + (GT_KEYS if with_losses else ())
     points_by_len: Dict[int, List[torch.Tensor]] = {}
-
-    def to_device(batch: Dict) -> Dict[str, torch.Tensor]:
-        vals = {k: batch[k] for k in BATCH_KEYS}
-        if copy_stream is None or not all(isinstance(v, torch.Tensor) and v.is_pinned()
-                                          for v in vals.values()):
-            return {k: torch.as_tensor(v).to(device) for k, v in vals.items()}
-        compute = torch.cuda.current_stream(device)
-        with torch.cuda.stream(copy_stream):
-            # the host allocator records the copy on copy_stream: a pinned
-            # block is not handed out again before the copy has read it
-            b = {k: v.to(device, non_blocking=True) for k, v in vals.items()}
-            copied = torch.cuda.Event()
-            copied.record(copy_stream)
-        compute.wait_event(copied)
-        for v in b.values():        # allocated on copy_stream, used on compute
-            v.record_stream(compute)
-        return b
 
     def points_for(seq_len: int) -> List[torch.Tensor]:
         if seq_len not in points_by_len:
@@ -65,12 +65,17 @@ def make_eval_step(model, cfg: Dict, device=None) -> Callable:
                 seq_len, mcfg["regression_range"], mcfg["scale_factor"])]
         return points_by_len[seq_len]
 
-    def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
-        b = to_device(batch)
+    def eval_step(batch: Dict):
+        b = copy(batch, keys)
         b["mask"] = b["mask"].bool()
-        points = points_for(int(b["visual"].shape[1]))
+        seq_len = int(b["visual"].shape[1])
+        points = points_for(seq_len)
         with torch.inference_mode():
-            out = model(b, with_losses=False)
+            if with_losses:
+                b["gt_valid"] = b["gt_valid"].bool()
+                b["m_scores"], b["m_start_end"], b["m_labels"], gt_cls, gt_reg = build_targets(
+                    b, torch.cat(points), seq_len, num_classes, class_aware)
+            out = model(b, with_losses=with_losses)
             cands = decode_batch(
                 out["cls_logits"], out["offsets"], out["masks"], points,
                 pre_nms_thresh=test_cfg["pre_nms_thresh"],
@@ -80,15 +85,20 @@ def make_eval_step(model, cfg: Dict, device=None) -> Callable:
                 max_candidates=max_candidates,
             )
             segs, scores, labels, valid = postprocess_batch(
-                *cands, num_classes=mcfg["num_classes"], test_cfg=test_cfg,
+                *cands, num_classes=num_classes, test_cfg=test_cfg,
                 fps=b["fps"].float(),
                 duration=b["duration"].float(),
                 feat_stride=b["feat_stride"].float(),
                 num_frames=b["feat_num_frames"].float(),
             )
-        return {"segments": segs, "scores": scores, "labels": labels, "valid": valid}
+            dets = {"segments": segs, "scores": scores, "labels": labels, "valid": valid}
+            if not with_losses:
+                return dets
+            losses, _ = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer, **kw)
+        return dets, losses
 
     eval_step.model = model
+    eval_step.with_losses = with_losses
     return eval_step
 
 

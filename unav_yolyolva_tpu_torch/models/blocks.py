@@ -188,12 +188,15 @@ class MaskedMHCA(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: MHCA + (max-pool) skip + 4x MLP with exact erf GELU,
-    AffineDropPath scales on both branches when path_pdrop > 0."""
+    """Pre-LN block: MHCA + (max-pool) skip + MLP (hidden width n_hidden,
+    4 * n_embd by default) with exact erf GELU, AffineDropPath scales on both
+    branches when path_pdrop > 0."""
 
     def __init__(self, n_embd: int, n_head: int,
-                 n_ds_strides: Tuple[int, int] = (1, 1), path_pdrop: float = 0.0):
+                 n_ds_strides: Tuple[int, int] = (1, 1), path_pdrop: float = 0.0,
+                 n_hidden: Optional[int] = None):
         super().__init__()
+        n_hidden = n_hidden or 4 * n_embd
         self.n_ds_strides = tuple(n_ds_strides)
         self.ln11 = ChannelLayerNorm(n_embd)
         self.ln12 = ChannelLayerNorm(n_embd)
@@ -201,8 +204,8 @@ class TransformerBlock(nn.Module):
                                n_kv_stride=n_ds_strides[1])
         self.ln2 = ChannelLayerNorm(n_embd)
         # indices 0 and 3 as in the reference's Sequential(conv, GELU, drop, conv)
-        self.mlp = nn.Sequential(Conv1x1(n_embd, 4 * n_embd), nn.GELU(),
-                                 nn.Identity(), Conv1x1(4 * n_embd, n_embd))
+        self.mlp = nn.Sequential(Conv1x1(n_embd, n_hidden), nn.GELU(),
+                                 nn.Identity(), Conv1x1(n_hidden, n_embd))
         self.use_drop_path = path_pdrop > 0.0
         if self.use_drop_path:
             self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
@@ -210,8 +213,8 @@ class TransformerBlock(nn.Module):
 
     def packed_weights(self):
         """(lnw3, lnb3 (3, C) [ln11, ln12, ln2], the MHCA's five packed
-        weights, w1 (4C, C), b1 (4C), w2 (C, 4C), b2 (C)) in the fused
-        kernel's layout."""
+        weights, w1 (H, C), b1 (H), w2 (C, H), b2 (C)) in the fused kernel's
+        layout, H the hidden width."""
         lns = (self.ln11, self.ln12, self.ln2)
         return (torch.stack([n.weight.view(-1) for n in lns]),
                 torch.stack([n.bias.view(-1) for n in lns]),

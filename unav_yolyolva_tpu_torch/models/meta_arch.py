@@ -1,5 +1,5 @@
 """LocPointTransformer: Alignment -> backbone (fusion pyramid) -> per-level
-concat(V, A) -> cls/reg heads, plus the contrastive and score losses the
+concat(V, A) -> the optional dependency block -> cls/reg heads, plus the contrastive and score losses the
 forward reports, and `compute_losses`, the train loss assembly."""
 
 from __future__ import annotations
@@ -12,10 +12,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.registry import DEPENDENCY_BLOCKS
 from ..ops.losses import ctr_diou_loss_1d, diou_pair_weights, sigmoid_focal_loss
 from .alignment import Alignment
 from .backbone import ConvTransformerBackbone
 from .blocks import AffineDropPath, ChannelLayerNorm, Conv1x1, LearnableScale
+from .dependency import DependencyBlock  # noqa: F401  (registers itself)
 from .fusion import MaxSigmoidAttnBlock
 from .heads import ClsHead, RegHead, cls_prior_bias
 
@@ -84,7 +86,8 @@ class LocPointTransformer(nn.Module):
                  head_kernel_size: int = 3, head_num_layers: int = 3,
                  head_with_ln: bool = True, use_abs_pe: bool = True,
                  class_aware: bool = True, cls_prior_prob: float = 0.01,
-                 droppath: float = 0.1, head_empty_cls=()):
+                 droppath: float = 0.1, head_empty_cls=(), use_dependency: bool = False,
+                 dependency_type: str = "DependencyBlock"):
         super().__init__()
         self.num_classes, self.class_aware = num_classes, class_aware
         self.alignment = Alignment(raw_input_dim_V, raw_input_dim_A, embd_dim,
@@ -100,6 +103,11 @@ class LocPointTransformer(nn.Module):
                                 backbone_arch[2] + 1, head_num_layers,
                                 head_kernel_size, head_with_ln, class_aware)
         self.contrastive_losses = ContrastiveLosses()
+        # after every other module: its draws in init_weights come last
+        self.dependency = (DEPENDENCY_BLOCKS.build(
+            dependency_type, in_channel=2 * embd_dim, n_embd=128,
+            n_embd_ks=embd_kernel_size, num_classes=num_classes, path_pdrop=droppath)
+            if use_dependency else None)
 
     def forward(self, batch: Dict[str, torch.Tensor], with_losses: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -113,6 +121,8 @@ class LocPointTransformer(nn.Module):
                                          mask, targets)
         feats_v, feats_a, masks = self.backbone(v_al, a_al, mask, generator)
         feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
+        if self.dependency is not None:
+            feats, masks = self.dependency(feats, masks, generator)
         cls_logits = self.cls_head(feats, masks)
         offsets = self.reg_head(feats, masks)
         if self.class_aware:
@@ -244,8 +254,6 @@ def build_model(cfg: Dict[str, Any], device=None, seed: Optional[int] = 0
     dtype = cfg.get("tpu", {}).get("compute_dtype", "float32")
     if dtype != "float32":
         raise NotImplementedError(f"compute_dtype {dtype}: the port runs fp32 only")
-    if m["use_dependency"]:
-        raise NotImplementedError("use_dependency: the dependency block is not ported")
     with torch.device("meta"):
         model = LocPointTransformer(
             raw_input_dim_V=m.get("raw_input_dim_V", 2048),
@@ -263,6 +271,8 @@ def build_model(cfg: Dict[str, Any], device=None, seed: Optional[int] = 0
             cls_prior_prob=m["train_cfg"]["cls_prior_prob"],
             droppath=m["train_cfg"]["droppath"],
             head_empty_cls=tuple(m["train_cfg"]["head_empty_cls"]),
+            use_dependency=m["use_dependency"],
+            dependency_type=m.get("dependency_type", "DependencyBlock"),
         )
     model = model.to_empty(device="cpu")
     if seed is not None:

@@ -6,9 +6,11 @@ torch.save of the model, EMA and optimizer state dicts) and `meta.json`
 optimizer state. Writes are atomic: everything goes into `<name>.tmp`
 (meta.json last), which is then renamed into place; the previous complete
 checkpoint survives as `<name>.old` until that rename has succeeded.
-Loading the JAX package's msgpack checkpoints (`params.msgpack`,
-`ema.msgpack` beside the same `meta.json`) is not ported: load_checkpoint
-refuses such a directory.
+load_checkpoint also reads the JAX package's checkpoints (`params.msgpack`,
+`ema.msgpack`, the optional `opt_state.msgpack` beside the same
+`meta.json`) without flax: utils/msgpack.py reads the bytes, the port's key
+map carries params, EMA and the optimizer's moments across
+(utils/convert.py: params_from_jax, opt_state_from_jax).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils import msgpack
+from ..utils.convert import opt_state_from_jax, params_from_jax
 from .state import TrainState
 
 
@@ -74,23 +78,33 @@ def _recover_displaced(folder: str) -> None:
                     pass  # a concurrent saver or recoverer won the race
 
 
+def is_jax_checkpoint(ckpt_dir: str) -> bool:
+    return os.path.exists(os.path.join(ckpt_dir, "params.msgpack"))
+
+
 def load_checkpoint(ckpt_dir: str, state: TrainState) -> Dict:
-    """Restore a checkpoint into `state` in place; returns {state, epoch,
-    meta}. Without optimizer state (the best checkpoint) the optimizer is
-    left as it is."""
-    if os.path.exists(os.path.join(ckpt_dir, "ema.msgpack")):
-        raise NotImplementedError(
-            f"{ckpt_dir} is a JAX msgpack checkpoint; reading it is not ported yet "
-            "(ROADMAP Queue 1 item 4). Convert it to a reference .pth.tar with the JAX "
-            "package's utils/torch_convert.py, or serve a port checkpoint")
+    """Restore a checkpoint, the port's or the JAX package's, into `state`
+    in place; returns {state, epoch, meta}. Without optimizer state (the
+    best checkpoint) the optimizer is left as it is."""
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
     dev = state.loss_normalizer.device
-    blob = torch.load(os.path.join(ckpt_dir, "state.pt"), map_location=dev)
-    state.model.load_state_dict(blob["model"], strict=True)
-    state.ema.load_state_dict(blob["ema"], strict=True)
-    if meta.get("has_opt_state") and "optimizer" in blob:
-        state.optimizer.load_state_dict(blob["optimizer"])
+    if is_jax_checkpoint(ckpt_dir):
+        params = msgpack.read_file(os.path.join(ckpt_dir, "params.msgpack"))
+        state.model.load_state_dict(params_from_jax(params), strict=True)
+        state.ema.load_state_dict(
+            params_from_jax(msgpack.read_file(os.path.join(ckpt_dir, "ema.msgpack"))),
+            strict=True)
+        opt_path = os.path.join(ckpt_dir, "opt_state.msgpack")
+        if meta.get("has_opt_state") and os.path.exists(opt_path):
+            state.optimizer.load_jax_state(
+                *opt_state_from_jax(msgpack.read_file(opt_path), params))
+    else:
+        blob = torch.load(os.path.join(ckpt_dir, "state.pt"), map_location=dev)
+        state.model.load_state_dict(blob["model"], strict=True)
+        state.ema.load_state_dict(blob["ema"], strict=True)
+        if meta.get("has_opt_state") and "optimizer" in blob:
+            state.optimizer.load_state_dict(blob["optimizer"])
     state.loss_normalizer = torch.tensor(meta["loss_normalizer"], dtype=torch.float32,
                                          device=dev)
     state.step = int(meta["step"])

@@ -1,5 +1,5 @@
-"""The epoch loops over any iterable of host batches (the reference's
-train_one_epoch and valid_one_epoch)."""
+"""The epoch loops over a Batcher or any iterable of host batches (the
+reference's train_one_epoch and valid_one_epoch)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import time
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
+import torch
 
 from ..eval.postprocessing import postprocess_results
 from ..eval.step import fetch_detections
@@ -17,14 +18,20 @@ from ..utils.profiling import annotate
 
 def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: int,
                     epoch: int, *, print_freq: int = 20, schedule: Callable = None,
-                    log: Callable = print):
-    """Runs train_step over `batches`; returns (state, epoch_losses).
+                    tb_writer=None, log: Callable = print):
+    """Runs train_step over `batches` (a Batcher is set to `epoch` first);
+    returns (state, epoch_losses).
 
     Losses are read on the host every `print_freq` steps and at the last
     step (each once), and the epoch's losses are the AVERAGES of those
-    samples, the reference's AverageMeter semantics, not the last value."""
+    samples, the reference's AverageMeter semantics, not the last value.
+    With a tb_writer the sampled losses and the learning rate are logged
+    against the step."""
     batch_time = AverageMeter()
     trackers: Dict[str, AverageMeter] = {}
+    if hasattr(batches, "set_epoch"):
+        batches.set_epoch(epoch)
+    num_iters = len(batches) if hasattr(batches, "__len__") else -1
     log(f"\n[Train]: Epoch {epoch:d} started")
     start = time.time()
     losses, last = None, {}
@@ -43,10 +50,14 @@ def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: 
             batch_time.update((time.time() - start) / print_freq)
             start = time.time()
             tracked = it
-            lr = schedule(state.step - 1) if schedule else float("nan")
-            log(f"Epoch: [{epoch:03d}][{it:05d}]\tTime {batch_time.val:.2f} "
-                f"({batch_time.avg:.2f})\tLoss {trackers['final_loss'].val:.2f} "
-                f"({trackers['final_loss'].avg:.2f})\tlr {lr:.3e}")
+            if tb_writer is not None:
+                lr = schedule(state.step - 1) if schedule else float("nan")
+                tb_writer.add_scalar("train/learning_rate", lr, state.step)
+                for k, v in last.items():
+                    tb_writer.add_scalar(f"train/{k}", v, state.step)
+            fl = trackers["final_loss"]
+            log(f"Epoch: [{epoch:03d}][{it:05d}/{num_iters:05d}]\tTime {batch_time.val:.2f} "
+                f"({batch_time.avg:.2f})\tLoss {fl.val:.2f} ({fl.avg:.2f})")
     if losses is not None and tracked != it:
         last = track(losses)
     log(f"[Train]: Epoch {epoch:d} finished")
@@ -56,11 +67,13 @@ def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: 
 def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable, epoch: int,
                     *, evaluator=None, output_file: Optional[str] = None,
                     ext_score_file: Optional[str] = None, print_freq: int = 20,
-                    log: Callable = print):
+                    tb_writer=None, log: Callable = print):
     """Detections of every batch of `batcher` through eval_step (from
     eval.make_eval_step), then the mAP of `evaluator` (ANETdetection), or
-    the detections pickled to output_file. Returns (mAP, losses); losses
-    is {} (validation losses are not ported).
+    the detections pickled to output_file. Returns (mAP, losses): with an
+    eval step made with_losses, the EPOCH-AVERAGED validation losses (the
+    mean over batches of each loss, read on the host once, at the end, so
+    that no batch fences the pipelined dispatch), else {}.
 
     model_or_state is the model eval_step serves (or a TrainState holding
     it as model or ema); the step closes over its model, so this names the
@@ -96,10 +109,16 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
             results["score"].append(dets["scores"][vi, ok])
 
     pending = None
+    loss_samples = []          # device scalars, read once at the end
+    with_losses = getattr(eval_step, "with_losses", False)
     num = len(batcher) if hasattr(batcher, "__len__") else -1
     for it, batch in enumerate(batcher):
         with annotate("eval_step"):
-            fetched = fetch_detections(eval_step(batch))
+            out = eval_step(batch)
+            if with_losses:
+                out, losses = out
+                loss_samples.append(losses)
+            fetched = fetch_detections(out)
         if pending is not None:
             with annotate("harvest"):
                 harvest(*pending)
@@ -122,4 +141,10 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
         with open(output_file, "wb") as f:
             pickle.dump(results, f)
         mAP = 0.0
-    return mAP, {}
+    losses = {}
+    if loss_samples:
+        losses = {k: float(np.mean(torch.stack([d[k] for d in loss_samples]).cpu().numpy()))
+                  for k in loss_samples[0]}
+    if tb_writer is not None:
+        tb_writer.add_scalar("validation/mAP", mAP, epoch)
+    return mAP, losses

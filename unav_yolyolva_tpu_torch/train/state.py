@@ -9,19 +9,19 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .optim import ClippedAdamW
+from .optim import ClippedOptimizer
 
 
 @dataclass
 class TrainState:
     model: nn.Module
-    optimizer: ClippedAdamW
+    optimizer: ClippedOptimizer
     ema: nn.Module
     loss_normalizer: torch.Tensor   # scalar fp32 EMA of the positive count
     step: int = 0
 
 
-def create_train_state(model: nn.Module, optimizer: ClippedAdamW,
+def create_train_state(model: nn.Module, optimizer: ClippedOptimizer,
                        init_loss_norm: float) -> TrainState:
     """A state at step 0 whose EMA copy starts at the model's weights."""
     ema = copy.deepcopy(model).eval().requires_grad_(False)

@@ -1,7 +1,9 @@
 """The train step: a batch of host features and padded ground-truth events
 in, one optimizer update out.
 
-In order: dense targets built on the device (label assignment and the
+In order: the batch's copy to the device (pinned batches on a copy stream
+of the step's own, core/device.py:make_batch_copier), dense targets built
+on the device (label assignment and the
 per-frame targets), the forward in training mode with the stochastic depth
 drawn from a generator seeded from (seed, step), the loss assembly, the
 backward (through the MHCA and CSP backward kernels on CUDA), the global-
@@ -15,7 +17,7 @@ from typing import Callable, Dict
 
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import make_batch_copier, resolve_device
 from ..geometry.assign import assign_labels_batch, frame_targets_batch
 from ..geometry.points import concat_points, generate_points
 from ..models.meta_arch import compute_losses
@@ -55,9 +57,10 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
     create_train_state(model, optimizer, ...). `batch` holds visual
     (B, T, Dv), audio (B, T, Da), mask (B, T) and the events gt_segments
     (B, N, 2) in feature-grid units, gt_labels (B, N), gt_valid (B, N), as
-    numpy arrays or tensors. The state is updated in place; the returned
-    losses are device scalars (no host sync). Runs on CUDA unless
-    device='cpu'."""
+    numpy arrays or tensors; pinned host tensors (the Batcher's on CUDA) are
+    copied on a copy stream, overlapping the compute already queued. The
+    state is updated in place; the returned losses are device scalars (no
+    host sync). Runs on CUDA unless device='cpu'."""
     device = resolve_device(device)
     model.to(device).train()
     mcfg = cfg["model"]
@@ -66,9 +69,12 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
     points = torch.from_numpy(concat_points(generate_points(
         seq_len, mcfg["regression_range"], mcfg["scale_factor"]))).to(device)
     kw = loss_kwargs(cfg)
+    copy = make_batch_copier(device)
 
     def train_step(state: TrainState, batch: Dict, seed: int = 0) -> Dict[str, torch.Tensor]:
-        b = {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
+        if not model.training:          # a validation of the raw weights set eval()
+            model.train()
+        b = copy(batch, BATCH_KEYS)
         b["mask"], b["gt_valid"] = b["mask"].bool(), b["gt_valid"].bool()
         m_scores, m_start_end, m_labels, gt_cls, gt_reg = build_targets(
             b, points, seq_len, num_classes, class_aware)

@@ -1,5 +1,6 @@
-"""Weights carried across: the JAX package's flax parameter tree, or a
-reference checkpoint's state dict -> the port's state_dict.
+"""Weights carried across: the JAX package's flax parameter tree (and its
+optimizer state's moments, opt_state_from_jax), or a reference
+checkpoint's state dict -> the port's state_dict.
 
 The port's modules are named after the reference torch key space, so its
 state_dict IS a reference state dict restricted to live parameters, each
@@ -108,7 +109,19 @@ def csp_entries(t: str, f: Tuple[str, ...]):
     return out
 
 
-def build_key_map(arch=(2, 3, 5), with_droppath: bool = True) -> List:
+def dependency_entries(with_droppath: bool):
+    """The dependency block (models/dependency.py). The reference converter
+    names none of its keys, so the port's follow the flax module names."""
+    D = ("dependency",)
+    e = [(f"dependency.{c}.conv.weight", D + (c, "conv", "kernel"), _conv)
+         for c in ("feature_expand", "feature_squeeze")]
+    for branch in ("temporal_branch", "cooccur_branch"):
+        e += tblock_entries(f"dependency.{branch}", D + (branch,), with_droppath)
+    return e
+
+
+def build_key_map(arch=(2, 3, 5), with_droppath: bool = True,
+                  with_dependency: bool = False) -> List:
     """(torch key, flax path, flax -> torch layout fn) for every live
     parameter of the model."""
     A, MW = ("alignment",), ("alignment", "multiway")
@@ -181,16 +194,26 @@ def build_key_map(arch=(2, 3, 5), with_droppath: bool = True) -> List:
     e += [("contrastive_losses.logit_scale_inter", ("contrastive", "logit_scale_inter"), _ident),
           ("contrastive_losses.NCE_video.logit_scale", ("contrastive", "nce_video_logit_scale"), _ident),
           ("contrastive_losses.NCE_text.logit_scale", ("contrastive", "nce_text_logit_scale"), _ident)]
+    if with_dependency:
+        e += dependency_entries(with_droppath)
     return e
 
 
-def _arch_of(tree: Dict) -> Tuple[Tuple[int, int, int], bool]:
+def _arch_of(tree: Dict) -> Tuple[Tuple[int, int, int], bool, bool]:
     bb = tree["backbone"]
     n_embd = sum(1 for k in bb if k.startswith("embd_V_"))
     n_stem = sum(1 for k in bb if k.startswith("self_att_V_"))
     n_down = sum(1 for k in bb if k.startswith("downsample_"))
-    with_droppath = n_stem > 0 and "drop_path_attn" in bb["self_att_V_0"]
-    return (n_embd, n_stem + 1, n_down), with_droppath
+    with_dependency = "dependency" in tree
+    first = (bb["self_att_V_0"] if n_stem else
+             tree["dependency"]["temporal_branch"] if with_dependency else {})
+    return (n_embd, n_stem + 1, n_down), "drop_path_attn" in first, with_dependency
+
+
+def jax_key_map(params: Dict) -> List:
+    """The key map of a JAX parameter tree (`{'params': ...}` or the inner
+    tree): its architecture, droppath scales and dependency block."""
+    return build_key_map(*_arch_of(params.get("params", params)))
 
 
 def state_dict_from_entries(entries: List, tree: Dict) -> Dict[str, torch.Tensor]:
@@ -208,8 +231,85 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """The port's state_dict from a JAX parameter tree with numpy leaves
     (`{'params': ...}` as jax.device_get gives it); loads with
     model.load_state_dict(sd, strict=True)."""
-    tree = params["params"] if "params" in params else params
-    return state_dict_from_entries(build_key_map(*_arch_of(tree)), tree)
+    return state_dict_from_entries(jax_key_map(params), params.get("params", params))
+
+
+def unravel_like(flat: np.ndarray, params: Dict) -> Dict:
+    """A flat vector in `jax.flatten_util.ravel_pytree` order of the leaves
+    of `params` (dict keys sorted at every level, each leaf in C order) as a
+    tree of `params`' structure."""
+    pos = 0
+
+    def walk(node):
+        nonlocal pos
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        shape = np.shape(node)
+        n = int(np.prod(shape))
+        out = np.asarray(flat[pos: pos + n]).reshape(shape)
+        pos += n
+        return out
+
+    tree = walk(params)
+    if pos != np.size(flat):
+        raise ValueError(f"a flat optimizer vector of {np.size(flat)} elements against "
+                         f"params of {pos}")
+    return tree
+
+
+def _find(node, pred, path=()):
+    """(path, node) of every dict under `node` for which pred holds."""
+    out = []
+    if isinstance(node, dict):
+        if pred(node):
+            out.append((path, node))
+        for k, v in node.items():
+            out += _find(v, pred, path + (k,))
+    return out
+
+
+def _outline(node, depth: int = 0) -> str:
+    if not isinstance(node, dict):
+        return f"array{tuple(np.shape(node))}"
+    if depth == 3:
+        return "{...}"
+    return "{" + ", ".join(f"{k}: {_outline(v, depth + 1)}" for k, v in node.items()) + "}"
+
+
+def opt_state_from_jax(opt: Dict, params: Dict):
+    """(kind, count, {moment name: state dict}) of a JAX optimizer state tree
+    (`opt_state.msgpack` as utils/msgpack.py restores it), its moments
+    carried through the key map of `params` with the parameters' layout
+    changes. Three layouts are recognised:
+      * `flat_adamw` (FlatAdamWState): count, and mu / nu as single vectors
+        in ravel_pytree order of the params -> 'adamw';
+      * the optax chain with adamw (ScaleByAdamState: count, mu / nu trees)
+        -> 'adamw';
+      * the optax chain with sgd (TraceState: trace tree, the schedule's
+        count beside it) -> 'sgd'.
+    Moment names are torch's: exp_avg / exp_avg_sq, momentum_buffer."""
+    entries = jax_key_map(params)
+
+    def to_sd(tree):
+        return state_dict_from_entries(entries, tree.get("params", tree))
+
+    adam = _find(opt, lambda d: {"count", "mu", "nu"} <= set(d))
+    trace = _find(opt, lambda d: set(d) == {"trace"})
+    counts = [int(d["count"]) for _, d in _find(opt, lambda d: set(d) == {"count"})]
+    if len(adam) == 1 and not trace:
+        d = adam[0][1]
+        if isinstance(d["mu"], dict):
+            mu, nu = d["mu"], d["nu"]
+        else:
+            mu, nu = unravel_like(d["mu"], params), unravel_like(d["nu"], params)
+        count = int(d["count"])
+        if any(c != count for c in counts):
+            raise ValueError(f"adam count {count} against schedule counts {counts}")
+        return "adamw", count, {"exp_avg": to_sd(mu), "exp_avg_sq": to_sd(nu)}
+    if len(trace) == 1 and not adam and len(set(counts)) == 1:
+        return "sgd", counts[0], {"momentum_buffer": to_sd(trace[0][1]["trace"])}
+    raise ValueError(f"an optimizer state of no known layout (flat_adamw, the optax adamw "
+                     f"chain, the optax sgd chain): {_outline(opt)}")
 
 
 def state_dict_from_reference(state_dict: Dict) -> Dict[str, torch.Tensor]:
@@ -222,6 +322,10 @@ def state_dict_from_reference(state_dict: Dict) -> Dict[str, torch.Tensor]:
     for k, v in state_dict.items():
         if k.startswith("module."):
             k = k[len("module."):]
+        if "dependency" in k:
+            raise ValueError(f"{k}: the reference names of the dependency block's keys are "
+                             f"not known to the port; carry such weights across from a "
+                             f"JAX checkpoint instead")
         if k.startswith(DEAD_PREFIXES) or k.startswith(ALIAS_PREFIXES):
             continue
         out[k] = torch.as_tensor(v)
