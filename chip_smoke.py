@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's eval (serving) and train paths on one NVIDIA GPU,
 from memory and from feature files on disk, with and without the
-dependency block.
+dependency block, and its serving path at the bf16 compute policy.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero):
   1. the card: name, count, nvidia-smi name and power limit;
-  2. builds the eight hand-written CUDA kernel libraries (the eight
-     kernels and the tensor-core product alone) from
-     unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
+  2. builds the twelve hand-written CUDA kernel libraries (the eight
+     kernels, the three bf16 forward kernels, and the tensor-core products
+     alone, 3xTF32 and bf16) from unav_yolyolva_tpu_torch/csrc (one nvcc
+     each, all at once);
   3. holds each forward kernel against its plain PyTorch version on the
      card at the shapes of the eval protocol (configs/avel_unav100_eval.yaml):
      MHCA at (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7
@@ -122,12 +123,33 @@ Phases (any failure exits non-zero):
      train steps at B=8 (step 1 bit-identical, finite losses, every kernel
      forward and backward); the block's ms in a batch and in a step, the
      expand and squeeze convs' share, the peak memory;
+ 15. the bf16 compute policy on the serving path: the bf16 MHCA (64, 224,
+     512) and (128, 224, 256), CSP layer (T=224 with 4 and 8 heads, T=7)
+     and whole-block TBlock (64, 224, 512) kernels against their plain
+     versions (norm-wise <= 8e-3, each one's error against the fp32 plain
+     version within 1.25x of the other's, the same bits on repeat), timed
+     beside the fp32 kernel on the same inputs, with per-launch breakdowns
+     (`stages csp_bf16@...`, `stages tblock_bf16@...`); the bf16 product
+     alone at the CSP final conv's shape (its fp32 sums against fp64 within
+     2x fp32 torch.matmul's error, its bf16 output's error beside cuBLAS's
+     bf16 torch.matmul, both times); three batches of 64 served at bf16
+     with the default stem (15 bf16 MHCA, 30 bf16 CSP launches, no fp32
+     MHCA / CSP / TBlock launch) and the whole-block stem (12 bf16 TBlock
+     launches), the first two videos' heads against the CPU's bf16 path
+     (at most 1/4 of the bf16-vs-fp32 gap or 2x the model's own move under
+     one input value moved by one bf16 ulp, and at most 2e-2) and their
+     detections likewise; the eval CLI on configs/avel_unav100_bf16.yaml
+     over 64 synthetic videos, bit-identical to the in-memory step; the
+     bench's eval at fp32 and bf16 in turns (videos/s, busy share, peak
+     memory);
  12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
-The line before the last is a JSON object with one entry per kernel (with
-each kernel's launches on the train CLI's path and on the dependency
-block's, and the dependency shapes' checks and times); the
+The line before the last is a JSON object with one entry per kernel, the
+eight fp32 kernels and the three bf16 ones (with each fp32 kernel's
+launches on the train CLI's path and on the dependency block's, and the
+dependency shapes' checks and times; a bf16 kernel's launches are on the
+bf16 served path); the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
 result. With --stages-only it builds, prints the CSP and whole-block TBlock
@@ -150,6 +172,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 on the tensor cores
+BF16_TOL = 8e-3              # a bf16 kernel vs its plain version, norm-wise
 RTOL, ATOL = 1e-3, 1e-4      # fp32 with another summation order
 
 
@@ -455,7 +479,7 @@ def dets_agree(a, ref):
     return agree, float(sdiff.max()), float(gdiff.max()), int(sure.sum())
 
 
-def compare_dets(got, ref, what="gpu-vs-cpu", probe=None):
+def compare_dets(got, ref, what="gpu-vs-cpu", probe=None, moved_by="a 1e-7 input perturbation"):
     """Detections of the same videos by two paths (dets_agree) must agree.
     With probe, a video may differ where its detections are not fixed at
     fp32 precision: probe() gives the detections of got's path for its
@@ -473,12 +497,11 @@ def compare_dets(got, ref, what="gpu-vs-cpu", probe=None):
             moved |= ~dets_agree(p, {k: v[: bad.shape[0]] for k, v in got.items()})[0]
     require(bool((moved | agree).all()),
             f"{what}: videos {(bad & ~moved).nonzero().flatten().tolist()} differ (max score "
-            f"err {err}, max segment err {seg_err} s) and do not move under a 1e-7 input "
-            f"perturbation")
+            f"err {err}, max segment err {seg_err} s) and do not move under {moved_by}")
     log(f"check {what} detections: videos={agree.shape[0]} "
         f"detections={int(ref['valid'].sum())} max_score_err={err:.3e} "
         f"max_segment_err_s={seg_err:.3e} unambiguous={sure}; videos differing "
-        f"{int(bad.sum())}, each moving under a 1e-7 input perturbation")
+        f"{int(bad.sum())}, each moving under {moved_by}")
 
 
 def perturbed(batch, gen):
@@ -1174,6 +1197,337 @@ def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict
     return {"served": served, "trained": trained, "new": new}
 
 
+def bound_bf16_ms(flops: float, nbytes: float, tc_flops: float):
+    """(bound ms, what bounds it) of a bf16 kernel: the `tc_flops` of its
+    products at the dense bf16 peak, the rest at the fp32 FFMA peak, or its
+    bytes at the memory rate where larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (tc_flops / PEAK_BF16_FLOPS + (flops - tc_flops) / PEAK_FP32_FLOPS) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_err(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def check_bf16(name, run, plain, plain32):
+    """A bf16 kernel against its plain version on the same bf16 inputs:
+    norm-wise <= BF16_TOL, each one's error against the fp32 plain version
+    of the same inputs within 1.25x of the other's, the same bits on repeat.
+    Returns (max abs err against the plain version, kernel output)."""
+    import torch
+
+    out, again, ref, ref32 = run(), run(), plain(), plain32()
+    torch.cuda.synchronize()
+    err, ek, ep = rel_err(out, ref), rel_err(out, ref32), rel_err(ref, ref32)
+    same = torch.equal(out, again)
+    max_abs = float((out.float() - ref.float()).abs().max())
+    log(f"check {name}: norm-wise rel err vs plain bf16 {err:.3e} (max abs {max_abs:.3e}); vs "
+        f"the fp32 plain version: kernel {ek:.3e}, plain {ep:.3e}; bit-identical on repeat: "
+        f"{same}; finite: {bool(torch.isfinite(out).all())}")
+    require(err <= BF16_TOL and ek <= 1.25 * ep and ep <= 1.25 * ek and same
+            and bool(torch.isfinite(out).all()), f"{name}: off its bf16 gate")
+    return max_abs, out
+
+
+def bf16_bump(batch, gen, sign):
+    """batch with one valid visual value per video moved by one bf16 ulp
+    (up with sign +1, down with -1): the smallest change the bf16 program
+    sees."""
+    import torch
+
+    v = batch["visual"].clone()
+    lengths = batch["mask"].sum(1)
+    for i in range(v.shape[0]):
+        if lengths[i] == 0:
+            continue
+        j = int(torch.randint(int(lengths[i]), (1,), generator=gen))
+        k = int(torch.randint(v.shape[-1], (1,), generator=gen))
+        bits = v[i, j, k:k + 1].bfloat16().view(torch.int16)
+        up = sign if float(v[i, j, k]) >= 0 else -sign
+        v[i, j, k] = (bits + up).view(torch.bfloat16).float()[0]
+    return dict(batch, visual=v)
+
+
+def heads_gap(model, batch, dev):
+    """(cls_logits, offsets) of model on batch, all levels flattened."""
+    import torch
+
+    with torch.inference_mode():
+        out = model({"visual": batch["visual"].to(dev), "audio": batch["audio"].to(dev),
+                     "mask": batch["mask"].bool().to(dev)}, with_losses=False)
+    return [torch.cat([o.float().reshape(-1) for o in out[k]]).cpu()
+            for k in ("cls_logits", "offsets")]
+
+
+def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
+    """Phase 15: the bf16 compute policy on the serving path. The three bf16
+    forward kernels against their plain versions at the protocol shapes,
+    beside the fp32 kernels' times; the bf16 product alone against fp64 and
+    cuBLAS; three batches of 64 served at bf16 with the default and the
+    whole-block stem (the bf16 kernels launched, no fp32 kernel), the first
+    two videos against the CPU's bf16 path; the eval CLI on
+    configs/avel_unav100_bf16.yaml over 64 synthetic videos, bit-identical to
+    the in-memory step; the bench at fp32 and bf16 in turns. Returns the bf16
+    kernels' launches on the served path."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                                        synthetic_eval_batch)
+    from unav_yolyolva_tpu_torch.eval import cli, make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, csp_stage_times, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
+    from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_reference,
+                                                          tblock_stage_times)
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_products
+    from unav_yolyolva_tpu_torch.tools import bench
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+    from unav_yolyolva_tpu_torch.train import valid_one_epoch
+
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+
+    # ---- the three bf16 kernels at the protocol shapes ----------------------
+    with torch.inference_mode():
+        for label, key, r, c in (("mhca_bf16@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
+                                 ("mhca_bf16@128x224x256",
+                                  "backbone.fusion_module.top_down_layers.4.blocks.0", 128, 256)):
+            a = mhca_case(model32, key, r, 224, c, gen, dev)
+            heads = dict(model32.named_modules())[key].n_head
+            ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+            a32 = (ab[0].float(), ab[1].float(), *a[2:])
+            err, _ = check_bf16(label, lambda: fused_mhca(*ab, heads=heads),
+                                lambda: mhca_reference(*ab, heads=heads),
+                                lambda: mhca_reference(*a32, heads=heads))
+            ms = cuda_ms(lambda: fused_mhca(*ab, heads=heads), 10)
+            pms = cuda_ms(lambda: mhca_reference(*ab, heads=heads), 5)
+            fms = cuda_ms(lambda: fused_mhca(*a32, heads=heads), 10)
+            nbytes = (2 * (r * 224 * c * 2) + 4 * (4 * c * c + 19 * c) + r * 224)
+            results[label] = (err, ms, pms, *bound_bf16_ms(mhca_flops(r, 224, c), nbytes,
+                                                           mhca_products(r, 224, c)), None)
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
+                f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
+                f"({results[label][4]}) [{smi}]")
+
+        for label, key, t in (("csp_bf16@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
+                              ("csp_bf16@T224/8h", "backbone.fusion_module.bottom_up_layers.0", 224),
+                              ("csp_bf16@T7/8h", "backbone.fusion_module.bottom_up_layers.4", 7)):
+            a, heads = csp_case(model32, key, 128, t, gen, dev)
+            ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+            a32 = (ab[0].float(), ab[1].float(), *a[2:])
+            err, _ = check_bf16(label, lambda: fused_csp(*ab, attn_heads=heads),
+                                lambda: csp_reference(*ab, attn_heads=heads),
+                                lambda: csp_reference(*a32, attn_heads=heads))
+            ms = cuda_ms(lambda: fused_csp(*ab, attn_heads=heads), 10)
+            pms = cuda_ms(lambda: csp_reference(*ab, attn_heads=heads), 5)
+            fms = cuda_ms(lambda: fused_csp(*a32, attn_heads=heads), 10)
+            cin, fg = a[0].shape[-1], a[1].shape[-1]
+            nbytes = (2 * (ab[0].numel() + ab[1].numel() + 128 * t * 512)
+                      + 4 * sum(x.numel() for x in a[3:]) + 128 * t)
+            results[label] = (err, ms, pms, *bound_bf16_ms(
+                csp_flops(128, t, cin, 256, 512, fg, 512), nbytes,
+                csp_products(128, t, cin, 256, 512, fg, 512)), None)
+            log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
+                f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
+                f"({results[label][4]}; gate FFMA) [{smi}]")
+            if label != "csp_bf16@T224/8h":
+                stage_line(label, lambda: csp_stage_times(*ab, attn_heads=heads), smi)
+
+        label = "tblock_bf16@64x224x512"
+        blk, a = tblock_case(model32, "backbone.self_att_V.0", 64, 224, gen, dev)
+        heads, c, hid = blk.attn.n_head, a[0].shape[-1], a[11].shape[0]
+        err, _ = check_bf16(label, lambda: fused_tblock(*a, heads=heads, cdtype=bf),
+                            lambda: tblock_reference(*a, heads=heads, cdtype=bf),
+                            lambda: tblock_reference(*a, heads=heads))
+        ms = cuda_ms(lambda: fused_tblock(*a, heads=heads, cdtype=bf), 10)
+        pms = cuda_ms(lambda: tblock_reference(*a, heads=heads, cdtype=bf), 5)
+        fms = cuda_ms(lambda: fused_tblock(*a, heads=heads), 10)
+        nbytes = 4 * (2 * 64 * 224 * c + 2 * 64 * c + sum(w.numel() for w in a[4:])) + 64 * 224
+        results[label] = (err, ms, pms, *bound_bf16_ms(
+            tblock_flops(64, 224, c, hid), nbytes,
+            mhca_products(64, 224, c) + 4 * 64 * 224 * c * hid), None)
+        log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
+            f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
+            f"({results[label][4]}) [{smi}]")
+        stage_line(label, lambda: tblock_stage_times(*a, heads=heads, cdtype=bf), smi)
+
+        # the bf16 product alone at the CSP final conv's shape, beside cuBLAS's
+        # bf16 torch.matmul (fp32 sums: allow_bf16_reduced_precision_reduction
+        # off), which the port never calls for its kernels' products
+        m, n, k = 128 * 224, 512, 6 * 256
+        xa = torch.randn(m, k, generator=gen).to(dev, bf)
+        wa = (torch.randn(n, k, generator=gen) / math.sqrt(k)).to(dev, bf)
+        ref = xa.double() @ wa.double().T
+        sums = bf16_products([dict(x=xa, w=wa, raw=True)])[0]
+        y = bf16_products([dict(x=xa, w=wa)])[0]
+        err_sums = rel_err(sums, ref)
+        err_32 = rel_err(torch.matmul(xa.float(), wa.float().T), ref)
+        err_y, err_lib = rel_err(y, ref), rel_err(torch.matmul(xa, wa.T), ref)
+        same = torch.equal(y, bf16_products([dict(x=xa, w=wa)])[0])
+        log(f"check gemm_bf16@{m}x{n}x{k}: norm-wise err vs fp64 of its fp32 sums {err_sums:.3e} "
+            f"(fp32 torch.matmul of the same bf16 values {err_32:.3e}), of its bf16 output "
+            f"{err_y:.3e} (cuBLAS bf16 torch.matmul {err_lib:.3e}, allow_bf16_reduced_precision"
+            f"_reduction={torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}); "
+            f"bit-identical on repeat: {same}")
+        require(err_sums <= 2 * err_32 and err_y <= 1.25 * err_lib and same,
+                "the bf16 product is off its gate")
+        del ref, sums
+        ms = cuda_ms(lambda: bf16_products([dict(x=xa, w=wa)]), 20)
+        lms = cuda_ms(lambda: torch.matmul(xa, wa.T), 20)
+        flops = 2 * m * n * k
+        bms, by = bound_bf16_ms(flops, 2 * (m * k + n * k + m * n), flops)
+        log(f"time gemm_bf16@{m}x{n}x{k}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"library cuBLAS bf16 torch.matmul {lms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
+        del xa, wa, y
+
+    # ---- serve three batches of 64 at bf16 ---------------------------------
+    cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
+    cfg["tpu"]["compute_dtype"] = "bfloat16"
+    mcfg = cfg["model"]
+    model = build_model(cfg, device=dev, seed=seed)
+    step = make_eval_step(model, cfg, device=dev)
+    batches = [synthetic_eval_batch(gen, 64, mcfg["max_seq_len"], mcfg["raw_input_dim_V"],
+                                    mcfg["raw_input_dim_A"]) for _ in range(3)]
+    counted = (fused_mhca, fused_csp, fused_tblock)
+
+    def reset():
+        for fn in counted:
+            fn.launches = fn.bf16_launches = 0
+        multiclass_soft_nms.launches = 0
+
+    def got():
+        return {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
+                "tblock": fused_tblock.launches, "mhca_bf16": fused_mhca.bf16_launches,
+                "csp_bf16": fused_csp.bf16_launches, "tblock_bf16": fused_tblock.bf16_launches,
+                "nms": multiclass_soft_nms.launches}
+
+    launches = {}
+    served = {}
+    for stem in ("never", "always"):
+        set_stem(stem)
+        reset()
+        served[stem] = [step(b) for b in batches]
+        torch.cuda.synchronize()
+        n = got()
+        log(f"serve bf16 ({'whole-block' if stem == 'always' else 'default'} stem): 3 batches "
+            f"x 64 videos, kernel launches {n}")
+        want = ({"tblock_bf16": 12, "mhca_bf16": 3} if stem == "always"
+                else {"tblock_bf16": 0, "mhca_bf16": 15})
+        require(n["mhca"] == n["csp"] == n["tblock"] == 0 and n["csp_bf16"] == 30
+                and n["nms"] == 3 and all(n[k] == v for k, v in want.items()),
+                f"the bf16 path did not run through its kernels alone: {n}")
+        launches.update({k: n[k] for k in (("tblock_bf16",) if stem == "always"
+                                           else ("mhca_bf16", "csp_bf16"))})
+        for d, b in zip(served[stem], batches):
+            check_detections(d, b, mcfg["num_classes"])
+    set_stem("never")
+
+    # the first two videos against the CPU's bf16 path: the heads' outputs by
+    # the CPU tests' criterion (tests/test_torch_port_bf16.py: at most 1/4 of
+    # the bf16-vs-fp32 gap, or 2x the model's own move under one input value
+    # moved by one bf16 ulp, and at most 2e-2), the detections as the fp32
+    # phases compare them, near-ties (here: videos that move under a one-ulp
+    # change of one input value) allowed
+    two = {k: v[:2] for k, v in batches[0].items()}
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu32 = copy.deepcopy(model32).cpu()
+    gpu_h = heads_gap(model, two, dev)
+    cpu_h = heads_gap(cpu_model, two, "cpu")
+    cpu32_h = heads_gap(cpu32, two, "cpu")
+    bumps = [heads_gap(model, bf16_bump(two, gen, s), dev) for s in (1, -1)]
+    for i, name in enumerate(("cls_logits", "offsets")):
+        gap, ref_gap = rel_err(gpu_h[i], cpu_h[i]), rel_err(cpu_h[i], cpu32_h[i])
+        sens = float(np.mean([rel_err(bp[i], gpu_h[i]) for bp in bumps]))
+        log(f"check bf16 gpu-vs-cpu {name} (B=2): norm-wise {gap:.3e}; CPU bf16 vs fp32 "
+            f"{ref_gap:.3e}; the card's bf16 heads moved by one input value one bf16 ulp "
+            f"{sens:.3e}")
+        require(gap <= 2e-2 and gap <= max(0.25 * ref_gap, 2 * sens),
+                f"bf16 {name}: the card and the CPU differ by {gap:.3e}")
+    cpu_step = make_eval_step(cpu_model, cfg, device="cpu")
+    ulp = "one input value of each video moved by one bf16 ulp"
+    compare_dets(served["never"][0], cpu_step(two), "bf16 gpu-vs-cpu",
+                 probe=lambda: [step(bf16_bump(two, gen, s)) for s in (1, -1)], moved_by=ulp)
+    set_stem("always")
+    for fd, d, b in zip(served["always"], served["never"], batches):
+        compare_dets(fd, d, "bf16 whole-block-vs-default",
+                     probe=lambda: [step(bf16_bump(b, gen, s)) for s in (1, -1)], moved_by=ulp)
+    set_stem("never")
+    del cpu_model, cpu32, cpu_step
+
+    # ---- the eval CLI on configs/avel_unav100_bf16.yaml ----------------------
+    with tempfile.TemporaryDirectory() as root:
+        synth = make_synthetic_dataset(root, num_videos=64, num_classes=100, min_len=48,
+                                       max_len=224, visual_dim=2048, audio_dim=128,
+                                       val_fraction=1.0, seed=seed)
+        with open(os.path.join(ROOT, "configs", "avel_unav100_bf16.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["test_split"] = ["validation"]
+        raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+        cfg_yaml = os.path.join(root, "bf16.yaml")
+        with open(cfg_yaml, "w") as f:
+            yaml.safe_dump(raw, f)
+        ccfg = load_config(cfg_yaml)
+        ckpt = os.path.join(root, "model_best.pth.tar")
+        reference_checkpoint(build_model(ccfg, device=dev, seed=seed), ckpt)
+        reset()
+        mAP = cli.main(cli.parse_args([cfg_yaml, ckpt, "--print-freq", "1000"]))
+        torch.cuda.synchronize()
+        n = got()
+        log(f"serve bf16 from files (eval CLI, configs/avel_unav100_bf16.yaml, 64 videos, "
+            f"batch {ccfg['loader']['batch_size']}): average mAP {mAP!r}, kernel launches {n}")
+        require(math.isfinite(mAP) and 0.0 <= mAP <= 1.0 and n["mhca"] == n["csp"] == 0
+                and n["mhca_bf16"] > 0 and n["csp_bf16"] > 0 and n["nms"] > 0,
+                f"the bf16 CLI did not serve through the bf16 kernels: {n}, mAP {mAP}")
+        cli.main(cli.parse_args([cfg_yaml, ckpt, "--saveonly", "--print-freq", "1000"]))
+        with open(os.path.join(root, "eval_results.pkl"), "rb") as f:
+            piped = pickle.load(f)
+        ds = UnAV100Dataset(False, ccfg["test_split"], **ccfg["dataset"])
+        cmodel = build_model(ccfg, device=dev, seed=seed)
+        with make_batcher(ds, ccfg, False, device="cpu") as batcher:
+            plain = list(batcher)
+        ref_file = os.path.join(root, "in_memory.pkl")
+        valid_one_epoch(cmodel, plain, make_eval_step(cmodel, ccfg, device=dev), -1,
+                        output_file=ref_file, print_freq=1000)
+        with open(ref_file, "rb") as f:
+            ref = pickle.load(f)
+        same = list(piped["video-id"]) == list(ref["video-id"]) and all(
+            piped[k].dtype == ref[k].dtype and np.array_equal(piped[k], ref[k])
+            for k in ("t-start", "t-end", "label", "score"))
+        log(f"check bf16 serve-from-files detections: {len(ref['video-id'])} detections of 64 "
+            f"videos, the CLI's bit-identical to in-memory make_eval_step's: {same}")
+        require(same, "the bf16 CLI's detections differ from the in-memory step's")
+        del cmodel
+
+    # ---- the bench at fp32 and bf16, in turns ------------------------------------
+    del model, step
+    torch.cuda.empty_cache()
+    rates = {"float32": [], "bfloat16": []}
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--no-train", "--compute-dtype", dtype, "--commit", "unknown",
+                        "--seed", str(seed)])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rates[dtype].append(rec)
+        log(f"time bench eval {dtype}: {rec['value']:.1f} videos/s (median of "
+            f"{len(rec['windows'])} windows of {rec['iters']} steps, spread "
+            f"{rec['spread_pct']:.1f}%), busy share {rec['busy_share']:.3f}, peak memory "
+            f"{rec['peak_memory_gib']:.2f} GiB [{smi}]")
+    log(f"bf16 phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1748,6 +2102,9 @@ def main(argv=None) -> int:
     # ---- 14. the dependency block --------------------------------------------
     dep = dependency_phase(args.seed, dev, smi, gen, reset_counts, counts, results)
 
+    # ---- 15. the bf16 compute policy on the serving path ----------------------
+    bf16_launches = bf16_phase(eval_model, args.seed, dev, smi, gen, results)
+
     # ---- last: the kernels one CSP and one MHCA backward launch --------------
     backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)
 
@@ -1765,6 +2122,18 @@ def main(argv=None) -> int:
                 k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "bound_ffma_ms"), results[k])) for k in dep["new"][name]}
         return out
+
+    def bf16_entry(name, label, source, replaces):
+        """A bf16 kernel (the bf16 instantiation of a TPU kernel): its
+        launches on the bf16 served path, its bound at the bf16 peak."""
+        err, ms, pms, bms, by, _ = results[label]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": bf16_launches[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": label,
+                "compute_dtype": "bfloat16", "headers": [pkg + "bf16.cuh"],
+                "cases": {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by"), results[k][:5]))
+                          for k in results if k.startswith(name + "@") and k != label}}
 
     pkg = "unav_yolyolva_tpu_torch/csrc/"
     log(f"nvidia-smi: {smi}")
@@ -1790,6 +2159,12 @@ def main(argv=None) -> int:
                    "unav_yolyolva_tpu/ops/pallas_nms.py:290"),
              design="redesigned: live lanes compacted, the argmax inside the decay pass",
              cases={k: v for k, v in nms_cases.items() if k.startswith("soft_nms@")}),
+        bf16_entry("mhca_bf16", "mhca_bf16@64x224x512", pkg + "mhca_bf16.cu",
+                   "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
+        bf16_entry("csp_bf16", "csp_bf16@T224/4h", pkg + "csp_bf16.cu",
+                   "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
+        bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
+                   "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

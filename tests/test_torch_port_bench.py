@@ -57,3 +57,17 @@ def test_busy_share_and_copy_overlap_of_a_trace():
                               ev("Memset (Device)", 30, 40), ev("aten::add", 0, 40, "CPU")])
     busy, copy_ms, under = busy_and_overlap(prof, 40e-6)
     assert busy == 25 / 40 and copy_ms == 6e-3 and under == 4 / 6
+
+
+def test_bench_serves_at_bf16():
+    """--compute-dtype bfloat16 serves the eval half at the bf16 policy; the
+    train half is skipped here (it stays fp32 whatever the flag says)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-m", "unav_yolyolva_tpu_torch.tools.bench",
+                          "--device", "cpu", "--tiny", "--iters", "1", "--no-train",
+                          "--compute-dtype", "bfloat16", "--commit", "abc"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rec["dtype"] == "bfloat16" and rec["value"] > 0 and len(rec["windows"]) >= 5
+    assert "train_clips_per_sec" not in rec

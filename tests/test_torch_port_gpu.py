@@ -1082,3 +1082,205 @@ def test_train_step_pinned_batches_give_the_pageable_losses(cuda, tmp_path):
     assert len(losses["pinned"]) == 4
     for p, n in zip(losses["pinned"], losses["cpu"]):
         assert p == n
+
+
+# ---- the bf16 compute policy's kernels (csrc/bf16.cuh) -------------------------
+#
+# Each bf16 kernel against its plain version on the same bf16 inputs: their
+# fp32 sums are taken in another order, so a few values round to the other
+# bf16 neighbour; held norm-wise (<= 8e-3), and each one's error against the
+# fp32 plain version of the same (bf16-valued) inputs within 1.25x of the
+# other's. Two runs of a kernel give the same bits.
+
+BF16_TOL = 8e-3
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def _bf16_vs_plain(name, run, plain, plain32):
+    out, again, ref, ref32 = run(), run(), plain(), plain32()
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and torch.isfinite(out).all()
+    assert torch.equal(out, again), f"{name}: two runs of the bf16 kernel differ"
+    err, ek, ep = _rel(out, ref), _rel(out, ref32), _rel(ref, ref32)
+    assert err <= BF16_TOL, f"{name}: kernel vs plain {err:.3e}"
+    assert ek <= 1.25 * ep and ep <= 1.25 * ek, f"{name}: vs fp32 kernel {ek:.3e}, plain {ep:.3e}"
+    return out
+
+
+@pytest.mark.parametrize("case", ["plain", "conv_bias_mask", "gelu_scale", "tail", "raw"])
+def test_bf16_product_against_plain_and_fp64(cuda, case):
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_product_reference, bf16_products
+
+    gen = torch.Generator().manual_seed(40)
+    bf = torch.bfloat16
+    m, n, kc, seq = 100, 72, 96, 20
+    taps = 3 if case == "conv_bias_mask" else 1
+    x = torch.randn(m, kc, generator=gen).to(cuda, bf)
+    w = (torch.randn(n, taps * kc, generator=gen) / (taps * kc) ** 0.5).to(cuda, bf)
+    call = dict(x=x, w=w)
+    if case == "conv_bias_mask":
+        call.update(taps=3, seq=seq, bias=(0.1 * torch.randn(n, generator=gen)).to(cuda, bf),
+                    rowmask=_mask(m // seq, seq, [seq, 7, 0, 20, 3], cuda).reshape(m))
+    elif case == "gelu_scale":
+        call.update(act="gelu", scale=0.3, bias=(0.1 * torch.randn(n, generator=gen)).to(cuda, bf))
+    elif case == "tail":
+        call.update(seq=seq, seqmul=(1 + 0.3 * torch.randn(m // seq, n, generator=gen)).to(cuda),
+                    out=torch.randn(m, n, generator=gen).to(cuda),
+                    rowmask=_mask(m // seq, seq, [seq, 7, 0, 20, 3], cuda).reshape(m))
+    elif case == "raw":
+        call.update(raw=True)
+    start = call["out"].clone() if "out" in call else None
+
+    def run():
+        if start is not None:
+            call["out"].copy_(start)
+        return bf16_products([call])[0].clone()
+
+    def plain(**kw):
+        c = dict(call, out=start, **kw)
+        return bf16_product_reference(c.pop("x"), c.pop("w"), c.pop("bias", None), **c)
+
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = plain()
+    if case == "raw":
+        # the fp32 sums of the bf16 operands against fp64: within 2x the error
+        # of fp32 torch.matmul of the same operands (TF32 off)
+        ref64 = x.double() @ w.double().T
+        err_k = _rel(out, ref64)
+        err_32 = _rel(x.float() @ w.float().T, ref64)
+        assert err_k <= 2 * err_32, f"bf16 product sums {err_k:.3e} vs fp32 matmul {err_32:.3e}"
+    else:
+        assert out.dtype == ref.dtype
+        assert _rel(out, ref) <= BF16_TOL
+        assert (out != ref).float().mean() <= 0.01   # only rounding flips
+
+
+@pytest.mark.parametrize("t,c,heads", [(40, 64, 4), (7, 128, 4), (64, 96, 3), (130, 256, 2)])
+def test_bf16_mhca_kernel(cuda, t, c, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
+
+    gen = torch.Generator().manual_seed(41)
+    b = 3
+    x1 = torch.randn(b, t, c, generator=gen).to(cuda, torch.bfloat16)
+    x2 = torch.randn(b, t, c, generator=gen).to(cuda, torch.bfloat16)
+    ws = [w.to(cuda) for w in _mhca_weights(c, gen, cuda)]
+    mask = _mask(b, t, [t, t // 2, 0], cuda)
+    before = fused_mhca.bf16_launches
+    out = _bf16_vs_plain(
+        f"mhca_bf16 {t}x{c}/{heads}", lambda: fused_mhca(x1, x2, mask, *ws, heads=heads),
+        lambda: mhca_reference(x1, x2, mask, *ws, heads=heads),
+        lambda: mhca_reference(x1.float(), x2.float(), mask, *ws, heads=heads))
+    assert fused_mhca.bf16_launches == before + 2
+    assert (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("t,heads", [(7, 4), (20, 8), (130, 4)])
+def test_bf16_csp_kernel(cuda, t, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
+
+    gen = torch.Generator().manual_seed(42)
+    b, cin, mid, ng, fg = 3, 128, 64, 40, 24
+    packs = [_mhca_weights(mid, gen, cuda) for _ in range(3)]
+    stacked = [torch.stack([p[i] for p in packs]) for i in range(5)]
+    args = [torch.randn(b, t, cin, generator=gen), torch.randn(b, ng, fg, generator=gen),
+            None, torch.randn(2 * mid, cin, generator=gen) / cin ** 0.5,
+            0.1 * torch.randn(2 * mid, generator=gen), *stacked,
+            torch.randn(mid, fg, generator=gen) / fg ** 0.5, 0.1 * torch.randn(mid, generator=gen),
+            torch.randn(heads, generator=gen),
+            torch.randn(mid, mid, 3, generator=gen) / (3 * mid) ** 0.5,
+            0.1 * torch.randn(mid, generator=gen),
+            torch.randn(cin, 6 * mid, generator=gen) / (6 * mid) ** 0.5,
+            0.1 * torch.randn(cin, generator=gen)]
+    args = [a.to(cuda) if a is not None else _mask(b, t, [t, 3, t - 1], cuda) for a in args]
+    args[0], args[1] = args[0].bfloat16(), args[1].bfloat16()
+    f32 = [args[0].float(), args[1].float(), *args[2:]]
+    before = fused_csp.bf16_launches
+    _bf16_vs_plain(f"csp_bf16 T{t}/{heads}", lambda: fused_csp(*args, attn_heads=heads),
+                   lambda: csp_reference(*args, attn_heads=heads),
+                   lambda: csp_reference(*f32, attn_heads=heads))
+    assert fused_csp.bf16_launches == before + 2
+
+
+@pytest.mark.parametrize("r,t,c,heads", [(3, 40, 64, 4), (3, 7, 128, 4), (3, 130, 96, 3)])
+def test_bf16_tblock_kernel(cuda, r, t, c, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_reference
+
+    gen = torch.Generator().manual_seed(43)
+    a = _tblock_args(gen, cuda, r, t, c, heads, [t, t // 2, 0])
+    before = fused_tblock.bf16_launches
+    out = _bf16_vs_plain(
+        f"tblock_bf16 {r}x{t}x{c}",
+        lambda: fused_tblock(*a, heads=heads, cdtype=torch.bfloat16),
+        lambda: tblock_reference(*a, heads=heads, cdtype=torch.bfloat16),
+        lambda: tblock_reference(*a, heads=heads))
+    assert out.dtype == torch.float32 and fused_tblock.bf16_launches == before + 2
+
+
+def test_bf16_kernels_refuse_a_grad(cuda):
+    """No bf16 backward kernel yet: a bf16 CUDA call that needs a grad raises
+    instead of reaching the fp32 backward kernels."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock
+
+    gen = torch.Generator().manual_seed(44)
+    c, t = 64, 16
+    x = torch.randn(2, t, c, generator=gen).to(cuda, torch.bfloat16).requires_grad_(True)
+    mask = _mask(2, t, [t, 5], cuda)
+    ws = [w.to(cuda) for w in _mhca_weights(c, gen, cuda)]
+    with pytest.raises(NotImplementedError, match="5b"):
+        fused_mhca(x, x, mask, *ws, heads=4)
+    a = _tblock_args(gen, cuda, 2, t, c, 4, [t, 5])
+    xt = a[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="5b"):
+        fused_tblock(xt, *a[1:], heads=4, cdtype=torch.bfloat16)
+    cin, mid, ng, fg = 128, 64, 8, 16
+    packs = [_mhca_weights(mid, gen, cuda) for _ in range(3)]
+    stacked = [torch.stack([p[i] for p in packs]).to(cuda) for i in range(5)]
+    xc = torch.randn(2, t, cin, generator=gen).to(cuda, torch.bfloat16).requires_grad_(True)
+    guide = torch.randn(2, ng, fg, generator=gen).to(cuda, torch.bfloat16)
+    ws = [torch.randn(2 * mid, cin), torch.zeros(2 * mid), *[s.cpu() for s in stacked],
+          torch.randn(mid, fg), torch.zeros(mid), torch.zeros(4), torch.randn(mid, mid, 3),
+          torch.zeros(mid), torch.randn(cin, 6 * mid), torch.zeros(cin)]
+    with pytest.raises(NotImplementedError, match="5b"):
+        fused_csp(xc, guide, mask, *[w.to(cuda) for w in ws], attn_heads=4)
+
+
+def test_bf16_wrappers_refuse_unaligned_widths(cuda):
+    """bf16 rows of 16 bytes are 8 values: a head width of 4 is refused."""
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+
+    gen = torch.Generator().manual_seed(45)
+    x = torch.randn(2, 8, 16, generator=gen).to(cuda, torch.bfloat16)
+    ws = [w.to(cuda) for w in _mhca_weights(16, gen, cuda)]
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fused_mhca(x, x, _mask(2, 8, [8, 3], cuda), *ws, heads=4)
+
+
+def test_bf16_stage_times(cuda):
+    """The staged bf16 CSP and TBlock forwards time each of their launches
+    (the weights' cast first) with finite, positive ms and are not counted
+    as launches."""
+    import math
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import BF16_STAGES as CSP_STAGES
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_stage_times, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import BF16_STAGES as TB_STAGES
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_stage_times
+
+    gen = torch.Generator().manual_seed(46)
+    cargs = _csp_args(gen, cuda, 3, 7, 128, 64, 40, 24, 4)
+    cargs = [cargs[0].bfloat16(), cargs[1].bfloat16(), *cargs[2:]]
+    targs = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 0, 17])
+    before = (fused_csp.bf16_launches, fused_tblock.bf16_launches)
+    csp = csp_stage_times(*cargs, attn_heads=4)
+    tb = tblock_stage_times(*targs, heads=4, cdtype=torch.bfloat16)
+    assert (fused_csp.bf16_launches, fused_tblock.bf16_launches) == before
+    assert list(csp) == list(CSP_STAGES) and len(CSP_STAGES) == 18
+    assert list(tb) == list(TB_STAGES) and len(TB_STAGES) == 9
+    assert all(math.isfinite(v) and v > 0 for v in [*csp.values(), *tb.values()])

@@ -1,7 +1,8 @@
 """The PyTorch port (the eval and train paths, the data pipeline, the eval
-harness, both CLIs, the msgpack reader, the dependency block, the bench)
-and chip_smoke.py import neither JAX nor the JAX package: every module
-imports with jax, flax, optax and msgpack blocked."""
+harness, both CLIs, the msgpack reader, the dependency block, the bench,
+the bf16 compute policy's kernels and their plain versions) and
+chip_smoke.py import neither JAX nor the JAX package: every module imports
+with jax, flax, optax and msgpack blocked."""
 
 import os
 import subprocess
@@ -34,9 +35,17 @@ required = {"train.step", "train.optim", "train.checkpoint", "train.loop", "core
             "builders", "data.annotations", "data.dataset", "data.pipeline", "data.synthetic",
             "geometry.points", "eval.metrics", "eval.postprocessing", "eval.cli",
             "utils.convert", "utils.profiling", "tools.bench", "train.cli", "utils.msgpack",
-            "models.dependency"}
+            "models.dependency", "ops.gemm_tc", "ops.fused_mhca", "ops.fused_csp",
+            "ops.fused_tblock", "models.meta_arch"}
 missing = {"unav_yolyolva_tpu_torch." + n for n in required} - set(names)
 assert not missing, missing
+# the bf16 policy: its kernels' wrappers, plain versions and sources
+from unav_yolyolva_tpu_torch.ops import cuda_build
+from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_product_reference, bf16_products
+from unav_yolyolva_tpu_torch.core.config import COMPUTE_DTYPES
+for lib in ("mhca_bf16", "csp_bf16", "tblock_bf16", "gemm_bf16"):
+    assert lib in cuda_build.KERNEL_SOURCES and (cuda_build.CSRC / (lib + ".cu")).exists(), lib
+assert set(COMPUTE_DTYPES) == {"float32", "bfloat16"}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in BLOCKED)
 print(len(names), bad)

@@ -109,7 +109,7 @@ DEFAULTS: Dict[str, Any] = {
         "eta_min": 1e-8,
     },
     # section name kept from the JAX package so one YAML serves both; the
-    # port reads compute_dtype (float32 only), nms_max_candidates (the
+    # port reads compute_dtype (float32 or bfloat16), nms_max_candidates (the
     # eval step's cap before NMS) and approx_topk (refused when True), not
     # num_devices
     "tpu": {
@@ -132,8 +132,15 @@ def _merge(src: Dict, dst: Dict) -> None:
             dst[key] = copy.deepcopy(value)
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def _update_config(config: Dict) -> Dict:
-    """Propagate shared fields between sections."""
+    """Propagate shared fields between sections; refuse a compute dtype the
+    port has no kernels for."""
+    if config["tpu"]["compute_dtype"] not in COMPUTE_DTYPES:
+        raise ValueError(f"tpu.compute_dtype {config['tpu']['compute_dtype']!r}: the port "
+                         f"computes in one of {COMPUTE_DTYPES}")
     config["model"]["num_classes"] = config["dataset"]["num_classes"]
     config["model"]["max_seq_len"] = config["dataset"]["max_seq_len"]
     config["dataset"]["backbone_arch"] = config["model"]["backbone_arch"]

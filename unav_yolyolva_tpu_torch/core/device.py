@@ -13,6 +13,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
     On CUDA the fp32 eval protocol is kept exact: TF32 is turned off for
     matrix products and for cuDNN convolutions (cuDNN defaults to TF32).
+    cuBLAS's bf16 products are kept from reducing partial sums in bf16
+    (PyTorch allows it by default): under the bf16 policy the products
+    outside the port's kernels accumulate in fp32, as XLA's do.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -23,6 +26,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -1,0 +1,129 @@
+// MaxSigmoidCSPLayer forward in bf16 for Hopper: the bf16 instantiation of the
+// Pallas kernel `_csp_kernel` / `_csp_compute`
+// (unav_yolyolva_tpu/ops/pallas_csp.py), the launches of csp.cu on the bf16
+// kernels of bf16.cuh over one (R*T, 6*mid) bf16 concat buffer:
+//   0. the layer's fp32 weights cast to bf16 into scratch (one launch);
+//   1. main 1x1 conv, bias, row mask                    -> slices 0, 1
+//   2. three MaskedMHCA blocks (bf16.cuh)                -> slices 2, 3, 4
+//   3. guide_fc, one product over the whole batch's guide tokens
+//   4. k=3 projection conv of slice 4, one product of depth 3*mid, bias,
+//      row mask                                          -> slice 5
+//   5. gate_bf16_kernel: fp32 scores (FFMA on bf16 loads), max, sigmoid,
+//      the gate rounded to bf16 and multiplied into slice 5
+//   6. final 1x1 conv, bias, row mask                    -> out
+// Bound: operations; every product and the MHCAs' attention on the bf16
+// tensor cores, the gate's scores and the MHCAs' conv + LayerNorm on FFMA.
+#include "bf16.cuh"
+
+static long csp_bf16_weight_elems(int Cin, int mid, int Fg, int Cout) {
+  return cast_elems(2L * mid * Cin) + cast_elems(2L * mid) + cast_elems(12L * mid * mid) +
+         cast_elems(12L * mid) + cast_elems((long)mid * Fg) + cast_elems(mid) +
+         cast_elems(3L * mid * mid) + cast_elems(mid) + cast_elems(6L * mid * Cout) +
+         cast_elems(Cout);
+}
+
+// bf16 elements of scratch unav_csp_bf16_forward needs: the concat, the
+// projected guide, one MHCA's scratch, the cast weights
+extern "C" long unav_csp_bf16_scratch(int R, int T, int Cin, int mid, int Ng, int Fg,
+                                      int Cout) {
+  const long P = (long)R * T;
+  return cast_elems(P * 6 * mid) + cast_elems((long)R * Ng * mid) +
+         mhca_bf16_scratch_elems(R, T, mid) + csp_bf16_weight_elems(Cin, mid, Fg, Cout);
+}
+
+// x (R*T, Cin), guide (R*Ng, Fg), out (R*T, Cout) bf16; mask (R*T). fp32
+// weights in torch layout, as csp.cu takes them: wmain (2mid, Cin); per MHCA
+// block (3, stacked) dw (3, mid, 3), lnw / lnb (3, mid), w (4, mid, mid), b
+// (4, mid); wg (emb, Fg); battn (H); wproj (mid, 3, mid) [out, tap, in];
+// wfinal (Cout, 6mid).
+#define UNAV_CSP_BF16_PARAMS                                                             \
+  const bf16 *x, const bf16 *guide, const unsigned char *mask, int R, int T, int Cin,    \
+      int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads,                  \
+      const float *wmain, const float *bmain, const float *dw, const float *lnw,          \
+      const float *lnb, const float *w, const float *b, const float *wg, const float *bg, \
+      const float *battn, const float *wproj, const float *bproj, const float *wfinal,    \
+      const float *bfinal, float eps, bf16 *out, bf16 *scratch, void *stream
+#define UNAV_CSP_BF16_ARGS                                                               \
+  x, guide, mask, R, T, Cin, mid, Ng, Fg, Cout, attn_heads, mhca_heads, wmain, bmain, dw, \
+      lnw, lnb, w, b, wg, bg, battn, wproj, bproj, wfinal, bfinal, eps, out, scratch, stream
+
+// The forward; marks, if given, gets an event after each launch
+// (CSP_BF16_STAGES of them).
+static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int P = R * T, C6 = 6 * mid, emb = mid;
+  bf16* cat = scratch;
+  bf16* gp = cat + cast_elems((long)P * C6);
+  bf16* mhca = gp + cast_elems((long)R * Ng * mid);
+  bf16* next = mhca + mhca_bf16_scratch_elems(R, T, mid);
+  CastList l;
+  l.count = 0;
+  const bf16* wmain_b = cast_push(l, next, wmain, 2L * mid * Cin);
+  const bf16* bmain_b = cast_push(l, next, bmain, 2L * mid);
+  const bf16* w_b = cast_push(l, next, w, 12L * mid * mid);
+  const bf16* b_b = cast_push(l, next, b, 12L * mid);
+  const bf16* wg_b = cast_push(l, next, wg, (long)mid * Fg);
+  const bf16* bg_b = cast_push(l, next, bg, mid);
+  const bf16* wproj_b = cast_push(l, next, wproj, 3L * mid * mid);
+  const bf16* bproj_b = cast_push(l, next, bproj, mid);
+  const bf16* wfinal_b = cast_push(l, next, wfinal, 6L * mid * Cout);
+  const bf16* bfinal_b = cast_push(l, next, bfinal, Cout);
+  int rc = launch_cast(l, s);
+  if (rc) return rc;
+  mark_stage(marks, s);
+
+  if ((rc = launch_gemm_bf16_one(
+           bf16_gemm(x, Cin, wmain_b, Cin, cat, C6, bmain_b, mask, P, 2 * mid, Cin), s)))
+    return rc;
+  mark_stage(marks, s);
+  for (int bi = 0; bi < 3; ++bi) {
+    const bf16* src = cat + (1 + bi) * mid;
+    rc = mhca_bf16_forward_impl(src, C6, src, C6, mask, R, T, mid, mhca_heads,
+                                dw + (long)bi * 3 * mid * 3, lnw + (long)bi * 3 * mid,
+                                lnb + (long)bi * 3 * mid, w_b + (long)bi * 4 * mid * mid,
+                                b_b + (long)bi * 4 * mid, eps, cat + (2 + bi) * mid, C6, mhca,
+                                s, marks);
+    if (rc) return rc;
+  }
+  if ((rc = launch_gemm_bf16_one(
+           bf16_gemm(guide, Fg, wg_b, Fg, gp, emb, bg_b, nullptr, R * Ng, emb, Fg), s)))
+    return rc;
+  mark_stage(marks, s);
+  Bf16Gemm pj = bf16_gemm(cat + 4 * mid, C6, wproj_b, 3 * mid, cat + 5 * mid, C6, bproj_b, mask,
+                          P, mid, 3 * mid);
+  pj.taps = 3; pj.Kc = mid; pj.seq = T;
+  if ((rc = launch_gemm_bf16_one(pj, s))) return rc;
+  mark_stage(marks, s);
+
+  const int hc = emb / attn_heads;
+  const size_t smem = gate_smem_bytes(hc);
+  static int limit = 0;
+  raise_smem_limit((const void*)gate_bf16_kernel, (int)smem, limit);
+  gate_bf16_kernel<<<dim3(ceil_div(T, GATE_T), attn_heads, R), 256, smem, s>>>(
+      cat + 4 * mid, C6, gp, battn, T, Ng, emb, attn_heads, (float)sqrt((double)hc),
+      cat + 5 * mid, C6, mid / attn_heads);
+  UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, s);
+
+  rc = launch_gemm_bf16_one(
+      bf16_gemm(cat, C6, wfinal_b, C6, out, Cout, bfinal_b, mask, P, Cout, C6), s);
+  mark_stage(marks, s);
+  return rc;
+}
+
+extern "C" int unav_csp_bf16_forward(UNAV_CSP_BF16_PARAMS) {
+  return csp_bf16_forward_impl(UNAV_CSP_BF16_ARGS, nullptr);
+}
+
+// stages of one forward, in launch order: the weights' cast; main conv; per
+// MHCA block its conv + LayerNorm, q/k/v, attention and proj; guide_fc;
+// projection conv; gate; final conv
+constexpr int CSP_BF16_STAGES = 2 + 3 * 4 + 4;
+
+// The same forward, synchronised, with the device time of each stage in
+// stage_ms (CSP_BF16_STAGES floats, CUDA events between the launches).
+extern "C" int unav_csp_bf16_forward_stages(UNAV_CSP_BF16_PARAMS, float* stage_ms) {
+  return time_stages<CSP_BF16_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
+    return csp_bf16_forward_impl(UNAV_CSP_BF16_ARGS, marks);
+  });
+}

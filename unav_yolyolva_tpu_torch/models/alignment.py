@@ -9,6 +9,13 @@ modality attends its own valid keys plus the other modality's token at the
 same index (CLS has no partner), so no (B, N, N) mask is built. The
 auxiliary per-frame score/class heads, score losses and contrastive
 candidates are computed only when losses are asked for.
+
+Under the bf16 policy (`dtype`) the LayerNorms keep fp32 statistics and
+store bf16 (the JAX package's `_ln_dtype` at its default), every dense
+layer computes in bf16, the fp32 embeddings are cast to bf16 before the
+concat and the adds, the attention accumulates in fp32 and stores bf16,
+and the auxiliary outputs (score heads, cls tokens, contrastive
+statistics) are fp32.
 """
 
 from __future__ import annotations
@@ -21,13 +28,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import focal_loss_score
-from .blocks import Conv1x1
+from ..ops.masked import cast, gelu, layer_norm
+from .blocks import Conv1x1, dense
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return dense(x, lin.weight, lin.bias, dtype)
 
 
 class AlignmentMHA(nn.Module):
-    def __init__(self, dims: int, heads: int = 8):
+    def __init__(self, dims: int, heads: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.dims, self.heads = dims, heads
+        self.dims, self.heads, self.dtype = dims, heads, dtype
         self.q = nn.Linear(dims, dims)
         self.k = nn.Linear(dims, dims)
         self.v = nn.Linear(dims, dims)
@@ -37,55 +49,63 @@ class AlignmentMHA(nn.Module):
         b, n, _ = fused.shape
         hd = self.dims // self.heads
         scale = 1.0 / math.sqrt(hd)
-        qh = self.q(fused).reshape(b, n, self.heads, hd)
-        kh = self.k(fused).reshape(b, n, self.heads, hd)
-        vh = self.v(fused).reshape(b, n, self.heads, hd)
+        qh = _linear(self.q, fused, self.dtype).reshape(b, n, self.heads, hd)
+        kh = _linear(self.k, fused, self.dtype).reshape(b, n, self.heads, hd)
+        vh = _linear(self.v, fused, self.dtype).reshape(b, n, self.heads, hd)
         neg = torch.finfo(torch.float32).min
 
         def half(q_s, k_s, v_s, k_o, v_o, key_mask):
+            # fp32 sums of the exact products of the compute-dtype values,
+            # softmax weights stored in the compute dtype, output likewise
+            dt = v_s.dtype
+            q_s, k_s, v_s, k_o, v_o = (a.float() for a in (q_s, k_s, v_s, k_o, v_o))
             n_s = q_s.shape[1]
             att = torch.einsum("bqhd,bkhd->bhqk", q_s, k_s) * scale
             att = att.masked_fill(~key_mask[:, None, None, :], neg)
             cross = torch.einsum("bqhd,bqhd->bhq", q_s, k_o) * scale
             is_cls = torch.arange(n_s, device=q_s.device) == 0
             cross = cross.masked_fill(is_cls, neg)     # CLS has no band entry
-            w = torch.cat([att, cross[..., None]], dim=-1).softmax(dim=-1)
+            w = torch.cat([att, cross[..., None]], dim=-1).softmax(dim=-1).to(dt).float()
             out = torch.einsum("bhqk,bkhd->bqhd", w[..., :n_s], v_s)
-            return out + w[..., n_s].permute(0, 2, 1)[..., None] * v_o
+            return (out + w[..., n_s].permute(0, 2, 1)[..., None] * v_o).to(dt)
 
         out_v = half(qh[:, :n_video], kh[:, :n_video], vh[:, :n_video],
                      kh[:, n_video:], vh[:, n_video:], mask_video)
         out_t = half(qh[:, n_video:], kh[:, n_video:], vh[:, n_video:],
                      kh[:, :n_video], vh[:, :n_video], mask_text)
-        return self.m(torch.cat([out_v, out_t], dim=1).reshape(b, n, self.dims))
+        return _linear(self.m, torch.cat([out_v, out_t], dim=1).reshape(b, n, self.dims),
+                       self.dtype)
 
 
 class AlignmentFFN(nn.Module):
-    def __init__(self, num_input: int, ratio: int = 4):
+    def __init__(self, num_input: int, ratio: int = 4, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(num_input, num_input * ratio)
         self.fc2 = nn.Linear(num_input * ratio, num_input)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return _linear(self.fc2, gelu(_linear(self.fc1, x, self.dtype)), self.dtype)
 
 
 class MultiWayBlock(nn.Module):
-    def __init__(self, num_hidden: int):
+    def __init__(self, num_hidden: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.norm1_fused = nn.LayerNorm(num_hidden, eps=1e-5)
-        self.attn_fusion = AlignmentMHA(num_hidden)
+        self.attn_fusion = AlignmentMHA(num_hidden, dtype=dtype)
         self.norm2_video = nn.LayerNorm(num_hidden, eps=1e-5)
         self.norm2_text = nn.LayerNorm(num_hidden, eps=1e-5)
-        self.ffn_video = AlignmentFFN(num_hidden)
-        self.ffn_text = AlignmentFFN(num_hidden)
+        self.ffn_video = AlignmentFFN(num_hidden, dtype=dtype)
+        self.ffn_text = AlignmentFFN(num_hidden, dtype=dtype)
 
     def forward(self, fused, mask_video, mask_text, n_video: int):
-        residual = fused + self.attn_fusion(self.norm1_fused(fused), mask_video,
-                                            mask_text, n_video)
+        ln = self.dtype or torch.float32
+        residual = fused + self.attn_fusion(layer_norm(fused, self.norm1_fused, ln),
+                                            mask_video, mask_text, n_video)
         res_v, res_t = residual[:, :n_video], residual[:, n_video:]
-        video = res_v + self.ffn_video(self.norm2_video(res_v))
-        text = res_t + self.ffn_text(self.norm2_text(res_t))
+        video = res_v + self.ffn_video(layer_norm(res_v, self.norm2_video, ln))
+        text = res_t + self.ffn_text(layer_norm(res_t, self.norm2_text, ln))
         return video, text
 
 
@@ -131,9 +151,10 @@ def select_contrastive_candidates(score, embedding, mask, key_indicator,
 class Alignment(nn.Module):
     def __init__(self, video_dim: int = 2048, audio_dim: int = 128,
                  num_hidden: int = 512, num_layers: int = 2,
-                 num_classes: int = 100, max_positions: int = 5000):
+                 num_classes: int = 100, max_positions: int = 5000,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.dtype = num_layers, dtype
         c = num_hidden
         self.proj_fc_video = nn.Sequential(nn.Linear(video_dim, c))
         self.proj_fc_text = nn.Sequential(nn.Linear(audio_dim, c))
@@ -143,7 +164,7 @@ class Alignment(nn.Module):
         self.pos_embed_text = nn.Parameter(torch.empty(1, max_positions, c))
         self.type_video = nn.Parameter(torch.empty(1, 1, c))
         self.type_text = nn.Parameter(torch.empty(1, 1, c))
-        self.multiway_list = nn.ModuleList([MultiWayBlock(c)])
+        self.multiway_list = nn.ModuleList([MultiWayBlock(c, dtype)])
         self.norm_video = nn.LayerNorm(c, eps=1e-5)
         self.norm_text = nn.LayerNorm(c, eps=1e-5)
         # indices 0 and 3 as in the reference's Sequential(Linear, ReLU, Dropout, LN)
@@ -161,17 +182,22 @@ class Alignment(nn.Module):
         """video (B, T, Dv), text (B, T, Da), masks (B, T). `targets`
         (m_start_end, m_scores, m_labels) turns on the auxiliary outputs."""
         b, t, _ = video.shape
-        video = self.proj_fc_video(video)
-        text = self.proj_fc_text(text)
+        dt = self.dtype
+        ln = dt or torch.float32
+        video = _linear(self.proj_fc_video[0], video, dt)
+        text = _linear(self.proj_fc_text[0], text, dt)
         residual_video, residual_text = video, text
         n = t + 1
-        v = torch.cat([self.cls_token_video.expand(b, -1, -1), video], dim=1)
-        x = torch.cat([self.cls_token_text.expand(b, -1, -1), text], dim=1)
+        # the fp32 embeddings cast to the compute dtype before the concat
+        # and the adds, which would otherwise promote the sequence
+        cdt = video.dtype
+        v = torch.cat([cast(self.cls_token_video, cdt).expand(b, -1, -1), video], dim=1)
+        x = torch.cat([cast(self.cls_token_text, cdt).expand(b, -1, -1), text], dim=1)
         ones = torch.ones((b, 1), dtype=torch.bool, device=video.device)
         mv = torch.cat([ones, mask_video], dim=1)
         mt = torch.cat([ones, mask_text], dim=1)
-        v = v + self.pos_embed_video[:, :n] + self.type_video
-        x = x + self.pos_embed_text[:, :n] + self.type_text
+        v = v + cast(self.pos_embed_video[:, :n], cdt) + cast(self.type_video, cdt)
+        x = x + cast(self.pos_embed_text[:, :n], cdt) + cast(self.type_text, cdt)
 
         block = self.multiway_list[0]
         fused = torch.cat([v, x], dim=1)
@@ -181,22 +207,24 @@ class Alignment(nn.Module):
 
         cls_v, v = v[:, 0], v[:, 1:]
         cls_x, x = x[:, 0], x[:, 1:]
-        v = self.fc_video(self.norm_video(residual_video + v))
-        x = self.fc_text(self.norm_text(residual_text + x))
+        v = layer_norm(residual_video + v, self.norm_video, ln)
+        v = layer_norm(F.relu(_linear(self.fc_video[0], v, dt)), self.fc_video[3], ln)
+        x = layer_norm(residual_text + x, self.norm_text, ln)
+        x = layer_norm(F.relu(_linear(self.fc_text[0], x, dt)), self.fc_text[3], ln)
         if targets is None:
             return v, x, None
 
         m_start_end, m_scores, m_labels = targets
-        score_v = self.fc_video_score(v)[..., 0]
+        score_v = self.fc_video_score(v)[..., 0]            # fp32 (promoted)
         score_x = self.fc_text_score(x)[..., 0]
         k_max = max(1, -(-(t - 1) // 8))
         cls_gt = m_labels.argmax(dim=2)
         sel_v = select_contrastive_candidates(
             score_v, v, mask_video, m_start_end,
-            self.fc_video_cls(v).argmax(dim=2), cls_gt, k_max)
+            _linear(self.fc_video_cls, v, dt).argmax(dim=2), cls_gt, k_max)
         sel_x = select_contrastive_candidates(
             score_x, x, mask_text, m_start_end,
-            self.fc_text_cls(x).argmax(dim=2), cls_gt, k_max)
+            _linear(self.fc_text_cls, x, dt).argmax(dim=2), cls_gt, k_max)
         aux = {
             "cls_video": cls_v.float(),
             "cls_text": cls_x.float(),

@@ -6,6 +6,10 @@ FusionModule. The reference runs the shared downsample chain and fusion
 twice (V guided by A, then A guided by V); every op is batch-parallel with
 shared weights, so both passes run as one pass at batch 2B. The
 reference's never-called cross-attention blocks are not allocated.
+
+Under the bf16 policy (`dtype`) the embedding convs, LayerNorms, stem
+blocks, pyramid and fusion compute in bf16; the fp32 sinusoid PE promotes
+the stem's input to fp32, and the stem's residual stream stays fp32.
 """
 
 from __future__ import annotations
@@ -13,10 +17,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masked import interpolate_pe_linear, sinusoid_encoding
+from ..ops.masked import gelu, interpolate_pe_linear, sinusoid_encoding
 from .blocks import ChannelLayerNorm, MaskedConv1D, TransformerBlock
 from .fusion import FusionModule
 
@@ -24,11 +27,12 @@ from .fusion import FusionModule
 class DownsamplePyramidLevel(nn.Module):
     """Depthwise strided k=3 conv + channel LayerNorm."""
 
-    def __init__(self, n_embd: int, scale_factor: int = 2):
+    def __init__(self, n_embd: int, scale_factor: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.down_conv = MaskedConv1D(n_embd, n_embd, 3, stride=scale_factor,
-                                      groups=n_embd, bias=False)
-        self.down_norm = ChannelLayerNorm(n_embd)
+                                      groups=n_embd, bias=False, dtype=dtype)
+        self.down_norm = ChannelLayerNorm(n_embd, dtype=dtype)
 
     def forward(self, x, mask):
         x, mask = self.down_conv(x, mask)
@@ -40,7 +44,7 @@ class ConvTransformerBackbone(nn.Module):
                  n_head: int = 4, n_embd_ks: int = 3, max_len: int = 224,
                  arch: Tuple[int, int, int] = (2, 3, 5), scale_factor: int = 2,
                  with_ln: bool = True, path_pdrop: float = 0.0,
-                 use_abs_pe: bool = False):
+                 use_abs_pe: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.arch, self.n_embd, self.max_len = tuple(arch), n_embd, max_len
         self.with_ln, self.use_abs_pe = with_ln, use_abs_pe
@@ -48,22 +52,24 @@ class ConvTransformerBackbone(nn.Module):
         def embd(n_in):
             return nn.ModuleList([
                 MaskedConv1D(n_in if i == 0 else n_embd, n_embd, n_embd_ks,
-                             bias=not with_ln) for i in range(arch[0])])
+                             bias=not with_ln, dtype=dtype) for i in range(arch[0])])
 
         def norms():
-            return nn.ModuleList([ChannelLayerNorm(n_embd) if with_ln else nn.Identity()
-                                  for _ in range(arch[0])])
+            return nn.ModuleList([ChannelLayerNorm(n_embd, dtype=dtype) if with_ln
+                                  else nn.Identity() for _ in range(arch[0])])
 
         def stem():
-            return nn.ModuleList([TransformerBlock(n_embd, n_head, path_pdrop=path_pdrop)
+            return nn.ModuleList([TransformerBlock(n_embd, n_head, path_pdrop=path_pdrop,
+                                                   dtype=dtype)
                                   for _ in range(arch[1] - 1)])
 
         self.embd_V, self.embd_A = embd(n_in_V), embd(n_in_A)
         self.embd_norm_V, self.embd_norm_A = norms(), norms()
         self.self_att_V, self.self_att_A = stem(), stem()
         self.downsample_list = nn.ModuleList(
-            [DownsamplePyramidLevel(n_embd, scale_factor) for _ in range(arch[2])])
-        self.fusion_module = FusionModule(n_embd, seq_len=max_len, num_levels=arch[2] + 1)
+            [DownsamplePyramidLevel(n_embd, scale_factor, dtype) for _ in range(arch[2])])
+        self.fusion_module = FusionModule(n_embd, seq_len=max_len, num_levels=arch[2] + 1,
+                                          dtype=dtype)
 
     def forward(self, x_v, x_a, mask, generator: Optional[torch.Generator] = None):
         """`generator` draws the stem's stochastic depth in training."""
@@ -72,9 +78,9 @@ class ConvTransformerBackbone(nn.Module):
         for conv_v, norm_v, conv_a, norm_a in zip(self.embd_V, self.embd_norm_V,
                                                   self.embd_A, self.embd_norm_A):
             x_v, mask_v = conv_v(x_v, mask_v)
-            x_v = F.gelu(norm_v(x_v))
+            x_v = gelu(norm_v(x_v))
             x_a, mask_a = conv_a(x_a, mask_a)
-            x_a = F.gelu(norm_a(x_a))
+            x_a = gelu(norm_a(x_a))
 
         if self.use_abs_pe:
             pe = torch.from_numpy(sinusoid_encoding(self.max_len, self.n_embd)).to(

@@ -7,19 +7,22 @@ one module; the guide is the other modality's (B, T, C) map read as C
 tokens of width T (so guide_fc's input width is the train sequence length);
 the text enhancer pools with adaptive AVERAGE pooling and ignores the mask;
 the top-down path upsamples the coarse level's mask.
+
+Under the bf16 policy (`dtype`) each CSP layer casts its input and guide
+to bf16 before the fused layer, as the JAX package's does; the shared
+downsample and the text enhancer compute in bf16.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_csp import fused_csp
 from ..ops.masked import (adaptive_avg_pool1d, resample_mask_nearest,
-                          resample_time_linear)
+                          resample_time_linear, silu)
 from .blocks import ChannelLayerNorm, Conv1x1, MaskedConv1D, MaskedMHCA
 
 
@@ -44,8 +47,10 @@ class MaxSigmoidCSPLayer(nn.Module):
     attention, final conv over the 6-part concat; runs as ops/fused_csp."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 guide_in_features: int, embed_channels: int, num_heads: int):
+                 guide_in_features: int, embed_channels: int, num_heads: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         mid = out_channels // 2
         self.main_conv = MaskedConv1D(in_channels, 2 * mid, 1)
         self.blocks = nn.ModuleList([MaskedMHCA(mid, 4) for _ in range(3)])
@@ -56,8 +61,9 @@ class MaxSigmoidCSPLayer(nn.Module):
     def forward(self, x: torch.Tensor, guide: torch.Tensor, mask: torch.Tensor):
         packs = [blk.packed_weights() for blk in self.blocks]
         ab = self.attn_block
+        dt = self.dtype or x.dtype
         out = fused_csp(
-            x.contiguous(), guide.contiguous(), mask.contiguous(),
+            x.to(dt).contiguous(), guide.to(dt).contiguous(), mask.contiguous(),
             self.main_conv.conv.weight[:, :, 0], self.main_conv.conv.bias,
             *[torch.stack([p[i] for p in packs]) for i in range(5)],
             ab.guide_fc.weight, ab.guide_fc.bias, ab.bias,
@@ -71,15 +77,16 @@ class MaxSigmoidCSPLayer(nn.Module):
 class DownsampleSiLU(nn.Module):
     """Strided conv + channel LayerNorm + SiLU."""
 
-    def __init__(self, n_embd: int, scale_factor: int = 2):
+    def __init__(self, n_embd: int, scale_factor: int = 2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         k = scale_factor + 1 if scale_factor > 1 else 3
-        self.down_conv = MaskedConv1D(n_embd, n_embd, k, stride=scale_factor)
-        self.down_norm = ChannelLayerNorm(n_embd)
+        self.down_conv = MaskedConv1D(n_embd, n_embd, k, stride=scale_factor, dtype=dtype)
+        self.down_norm = ChannelLayerNorm(n_embd, dtype=dtype)
 
     def forward(self, x, mask):
         x, mask = self.down_conv(x, mask)
-        return F.silu(self.down_norm(x)), mask
+        return silu(self.down_norm(x)), mask
 
 
 class FusionModule(nn.Module):
@@ -87,22 +94,23 @@ class FusionModule(nn.Module):
     (run together at batch 2B by the backbone)."""
 
     def __init__(self, n_embd: int = 512, seq_len: int = 224, num_levels: int = 6,
-                 pool_size: int = 4, pool_levels: int = 3):
+                 pool_size: int = 4, pool_levels: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.seq_len, self.num_levels = seq_len, num_levels
         self.pool_size, self.pool_levels = pool_size, pool_levels
         embed_ch = n_embd // 2
 
         def csp(heads):
-            return MaxSigmoidCSPLayer(2 * n_embd, n_embd, seq_len, embed_ch, heads)
+            return MaxSigmoidCSPLayer(2 * n_embd, n_embd, seq_len, embed_ch, heads, dtype)
 
         self.top_down_layers = nn.ModuleList(
             [csp(h) for h in [8, 4, 4, 4, 4][: num_levels - 1]])
         self.bottom_up_layers = nn.ModuleList(
             [csp(8) for _ in range(num_levels - 1)])
         # one shared instance; the reference lists it five times
-        self.downsample_layers = nn.ModuleList([DownsampleSiLU(n_embd)])
-        self.text_enhancer = MaskedMHCA(n_embd, 4)
+        self.downsample_layers = nn.ModuleList([DownsampleSiLU(n_embd, dtype=dtype)])
+        self.text_enhancer = MaskedMHCA(n_embd, 4, dtype=dtype)
         self.match_projection = Conv1x1(pool_levels * pool_size, seq_len)
 
     def forward(self, img_feats: List[torch.Tensor], txt_feats: torch.Tensor,
@@ -126,8 +134,8 @@ class FusionModule(nn.Module):
         pooled = torch.cat([adaptive_avg_pool1d(inner_outs[i], self.pool_size)
                             for i in range(self.pool_levels)], dim=1)   # (B, 12, C)
         mp = self.match_projection
-        mlvl = torch.einsum("bkc,ok->boc", pooled, mp.weight[:, :, 0]) \
-            + mp.bias[None, :, None]                                # (B, T, C)
+        mlvl = torch.einsum("bkc,ok->boc", pooled.float(), mp.weight[:, :, 0]) \
+            + mp.bias[None, :, None]                                # (B, T, C) fp32
         txt_enh, mask_txt = self.text_enhancer(txt_feats, mlvl, mask_txt)
         guide_enh = txt_enh.transpose(1, 2).contiguous()
 

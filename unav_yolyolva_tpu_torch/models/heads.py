@@ -1,13 +1,15 @@
 """Classification and regression towers shared over the pyramid levels.
 
 Run level by level; the JAX package's level-packed form is proven equal to
-this loop to the last ULP (tests/test_packed_heads.py).
+this loop to the last ULP (tests/test_packed_heads.py). Under the bf16
+policy (`dtype`) the towers compute in bf16 and the final cls / offset
+convs in fp32 on the promoted tower output, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -30,14 +32,14 @@ class ConvTower(nn.Module):
     as in the reference."""
 
     def __init__(self, input_dim: int, feat_dim: int, num_layers: int,
-                 kernel_size: int, with_ln: bool):
+                 kernel_size: int, with_ln: bool, dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [input_dim] + [feat_dim] * (num_layers - 1)
         self.head = nn.ModuleList([
-            MaskedConv1D(dims[i], feat_dim, kernel_size, bias=not with_ln)
+            MaskedConv1D(dims[i], feat_dim, kernel_size, bias=not with_ln, dtype=dtype)
             for i in range(num_layers - 1)])
         self.norm = nn.ModuleList([
-            ChannelLayerNorm(feat_dim) if with_ln else nn.Identity()
+            ChannelLayerNorm(feat_dim, dtype=dtype) if with_ln else nn.Identity()
             for _ in range(num_layers - 1)])
         self.out_dim = dims[-1]
 
@@ -52,8 +54,8 @@ class ClsHead(ConvTower):
     def __init__(self, input_dim: int, feat_dim: int, num_classes: int,
                  prior_prob: float = 0.01, num_layers: int = 3,
                  kernel_size: int = 3, with_ln: bool = True,
-                 empty_cls: Sequence[int] = ()):
-        super().__init__(input_dim, feat_dim, num_layers, kernel_size, with_ln)
+                 empty_cls: Sequence[int] = (), dtype: Optional[torch.dtype] = None):
+        super().__init__(input_dim, feat_dim, num_layers, kernel_size, with_ln, dtype)
         self.prior_prob, self.empty_cls = prior_prob, tuple(empty_cls)
         self.cls_head = MaskedConv1D(self.out_dim, num_classes, kernel_size)
 
@@ -64,8 +66,9 @@ class ClsHead(ConvTower):
 class RegHead(ConvTower):
     def __init__(self, input_dim: int, feat_dim: int, num_classes: int,
                  fpn_levels: int, num_layers: int = 3, kernel_size: int = 3,
-                 with_ln: bool = True, class_aware: bool = True):
-        super().__init__(input_dim, feat_dim, num_layers, kernel_size, with_ln)
+                 with_ln: bool = True, class_aware: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(input_dim, feat_dim, num_layers, kernel_size, with_ln, dtype)
         out_dim = 2 * num_classes if class_aware else 2
         self.offset_head = MaskedConv1D(self.out_dim, out_dim, kernel_size)
         self.scale = nn.ModuleList([LearnableScale() for _ in range(fpn_levels)])

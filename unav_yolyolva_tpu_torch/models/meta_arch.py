@@ -1,6 +1,13 @@
 """LocPointTransformer: Alignment -> backbone (fusion pyramid) -> per-level
 concat(V, A) -> the optional dependency block -> cls/reg heads, plus the contrastive and score losses the
-forward reports, and `compute_losses`, the train loss assembly."""
+forward reports, and `compute_losses`, the train loss assembly.
+
+`compute_dtype` (config `tpu.compute_dtype`, "float32" or "bfloat16") is
+the JAX package's compute policy: parameters stay fp32; under bfloat16 the
+Alignment, backbone and head towers compute in bf16 (module by module, as
+the JAX modules' `dtype=`), while LayerNorm statistics, softmax, the stem's
+residual stream, the head logits and offsets, the dependency block (which
+has no dtype) and every loss stay fp32."""
 
 from __future__ import annotations
 
@@ -87,21 +94,24 @@ class LocPointTransformer(nn.Module):
                  head_with_ln: bool = True, use_abs_pe: bool = True,
                  class_aware: bool = True, cls_prior_prob: float = 0.01,
                  droppath: float = 0.1, head_empty_cls=(), use_dependency: bool = False,
-                 dependency_type: str = "DependencyBlock"):
+                 dependency_type: str = "DependencyBlock",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes, self.class_aware = num_classes, class_aware
+        self.compute_dtype = compute_dtype
+        dt = None if compute_dtype == torch.float32 else compute_dtype
         self.alignment = Alignment(raw_input_dim_V, raw_input_dim_A, embd_dim,
-                                   num_classes=num_classes)
+                                   num_classes=num_classes, dtype=dt)
         self.backbone = ConvTransformerBackbone(
             input_dim_V, input_dim_A, embd_dim, n_head, embd_kernel_size,
             max_seq_len, backbone_arch, scale_factor, embd_with_ln, droppath,
-            use_abs_pe)
+            use_abs_pe, dtype=dt)
         self.cls_head = ClsHead(2 * embd_dim, head_dim, num_classes,
                                 cls_prior_prob, head_num_layers, head_kernel_size,
-                                head_with_ln, head_empty_cls)
+                                head_with_ln, head_empty_cls, dtype=dt)
         self.reg_head = RegHead(2 * embd_dim, head_dim, num_classes,
                                 backbone_arch[2] + 1, head_num_layers,
-                                head_kernel_size, head_with_ln, class_aware)
+                                head_kernel_size, head_with_ln, class_aware, dtype=dt)
         self.contrastive_losses = ContrastiveLosses()
         # after every other module: its draws in init_weights come last
         self.dependency = (DEPENDENCY_BLOCKS.build(
@@ -246,14 +256,12 @@ def init_weights(model: LocPointTransformer, generator: torch.Generator) -> None
 def build_model(cfg: Dict[str, Any], device=None, seed: Optional[int] = 0
                 ) -> LocPointTransformer:
     """The detector of a full config dict, in eval mode on `device` (CUDA
-    unless the caller asks for the CPU). Weights are drawn on the CPU from
-    `seed`, so they do not depend on the device; seed=None leaves them
-    uninitialized (for load_state_dict)."""
+    unless the caller asks for the CPU), computing in `tpu.compute_dtype`
+    (one of core/config.py:COMPUTE_DTYPES) with fp32 parameters. Weights are drawn on the CPU from `seed`, so they
+    do not depend on the device; seed=None leaves them uninitialized (for
+    load_state_dict)."""
     device = resolve_device(device)
     m = cfg["model"]
-    dtype = cfg.get("tpu", {}).get("compute_dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {dtype}: the port runs fp32 only")
     with torch.device("meta"):
         model = LocPointTransformer(
             raw_input_dim_V=m.get("raw_input_dim_V", 2048),
@@ -273,6 +281,7 @@ def build_model(cfg: Dict[str, Any], device=None, seed: Optional[int] = 0
             head_empty_cls=tuple(m["train_cfg"]["head_empty_cls"]),
             use_dependency=m["use_dependency"],
             dependency_type=m.get("dependency_type", "DependencyBlock"),
+            compute_dtype=getattr(torch, cfg["tpu"]["compute_dtype"]),
         )
     model = model.to_empty(device="cpu")
     if seed is not None:

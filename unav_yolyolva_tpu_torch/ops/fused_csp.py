@@ -30,6 +30,16 @@ and attention) runs in 3xTF32 on the tensor cores; `csp_backward_stage_times`
 times it stage by stage. On CUDA with grad enabled, `fused_csp` runs
 through `CSPFunction`, whose backward is that kernel.
 
+Under the bf16 compute policy (bf16 x and guide) the layer is the JAX
+package's bf16 program: every product's fp32 sum rounded to bf16 before
+its bias is added in bf16, the three MHCAs in bf16 (`fused_mhca`), the
+gate's scores summed in fp32 with its max and sigmoid in fp32, the gate
+rounded to bf16 before it multiplies the bf16 projection. On the card it
+is a launch sequence of its own (csrc/csp_bf16.cu on csrc/bf16.cuh): the
+products on the bf16 tensor cores, the weights cast to bf16 once per call,
+the gate's scores FFMA on bf16 loads. Its backward is ROADMAP Queue 1 item
+5b: a bf16 CUDA call that needs a grad raises.
+
 Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
 stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
 w (3, 4, mid, mid), b (3, 4, mid); wg (emb, Fg), bg (emb), battn (H),
@@ -47,8 +57,8 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
-from .fused_mhca import MAX_T, _check, mhca_reference
-from .gemm_tc import conv3_taps
+from .fused_mhca import BF16_TRAIN, MAX_T, _check, mhca_reference
+from .gemm_tc import bf16_product_reference, conv3_taps
 
 _FWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5
 _ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
@@ -57,6 +67,12 @@ _ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
 STAGES = (("main",) + tuple(f"mhca{i}.{part}" for i in range(3)
                             for part in ("ln", "qkv", "attention", "proj"))
           + ("guide_fc", "proj_conv", "gate", "final"))
+_BF16_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 3
+_BF16_ARGTYPES = {"unav_csp_bf16_forward": _BF16_TYPES,
+                  "unav_csp_bf16_forward_stages": _BF16_TYPES + [PTR]}
+# the launches of one bf16 forward, in order (csp_bf16.cu: CSP_BF16_STAGES)
+BF16_STAGES = ("cast",) + STAGES
+_BF16_RESTYPES = {"unav_csp_bf16_scratch": ([INT] * 7, LONG)}
 _BWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19
 _BWD_ARGTYPES = {"unav_csp_backward": _BWD_TYPES,
                  "unav_csp_backward_stages": _BWD_TYPES + [PTR]}
@@ -73,13 +89,17 @@ def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
                   battn, wproj, bproj, wfinal, bfinal, *, attn_heads: int,
                   mhca_heads: int = 4, eps: float = 1e-5, linear=F.linear,
                   matmul=torch.matmul) -> torch.Tensor:
-    """Plain PyTorch version of the fused CSP layer. `linear` computes the
+    """Plain PyTorch version of the fused CSP layer, in the dtype of x and
+    guide (fp32, or bf16 under the bf16 policy). `linear` computes the fp32
     convs and dense layers, `matmul` the MHCAs' attention products (the
-    kernel's 3xTF32 rounding: ops/gemm_tc.py); the k=3 projection conv is
-    one product of depth 3*mid, as the kernel runs it."""
+    kernel's 3xTF32 rounding: ops/gemm_tc.py); in bf16 the products are
+    `bf16_product_reference`. The k=3 projection conv is one product of depth
+    3*mid, as the kernel runs it."""
     r, t, _ = x.shape
     mid = w.shape[-1]
     mm = mask[..., None].to(x.dtype)
+    if x.dtype != torch.float32:
+        linear = bf16_product_reference
     y = linear(x, wmain, bmain) * mm
     parts = [y[..., :mid], y[..., mid:]]
     for bi in range(3):
@@ -92,10 +112,10 @@ def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
     taps = conv3_taps(p.reshape(r * t, mid), t)                   # (R*T, 3 mid)
     wtaps = wproj.permute(0, 2, 1).reshape(mid, 3 * mid)          # [out, tap, in]
     pc = linear(taps, wtaps, bproj).reshape(r, t, mid) * mm
-    sc = torch.einsum("rthc,rnhc->rhtn", p.reshape(r, t, attn_heads, hc),
-                      gp.reshape(r, -1, attn_heads, hc))
+    sc = torch.einsum("rthc,rnhc->rhtn", p.float().reshape(r, t, attn_heads, hc),
+                      gp.float().reshape(r, -1, attn_heads, hc))  # fp32 sums
     mx = sc.amax(dim=-1) / math.sqrt(hc)                          # (R, H, T)
-    gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2)
+    gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2).to(pc.dtype)
     gated = pc.reshape(r, t, attn_heads, -1) * gate[..., None]
     parts.append(gated.reshape(r, t, mid))
     return linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
@@ -119,15 +139,19 @@ def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
     _, ng, fg = guide.shape
     mid, cout = w.shape[-1], wfinal.shape[0]
     # the products copy rows of 16 bytes: Cin, Fg and the MHCA head width
-    # (so mid) multiples of 4 floats, Cout even
-    if (mid % attn_heads or mid % mhca_heads or (mid // mhca_heads) % 4
+    # (so mid) multiples of 4 floats (8 bf16), Cout even
+    q = 16 // x.element_size()
+    if (mid % attn_heads or mid % mhca_heads or (mid // mhca_heads) % q
             or mid // mhca_heads > 128 or mid // attn_heads > 128 or mid > 1024
-            or cin % 4 or fg % 4 or cout % 2 or t > MAX_T or wg.shape[0] != mid):
+            or cin % q or fg % q or cout % 2 or t > MAX_T or wg.shape[0] != mid
+            or x.dtype not in (torch.float32, torch.bfloat16)):
         raise ValueError(f"fused_csp: unsupported shape (T={t}, Cin={cin}, mid={mid}, "
                          f"Fg={fg}, Cout={cout}, heads={attn_heads}/{mhca_heads}, "
-                         f"emb={wg.shape[0]})")
+                         f"emb={wg.shape[0]}, {x.dtype})")
+    _check(x, "x", dtype=x.dtype)
+    _check(guide, "guide", (r, ng, fg), x.dtype)
     for name, ten, shape in (
-        ("x", x, None), ("guide", guide, (r, ng, fg)), ("wmain", wmain, (2 * mid, cin)),
+        ("wmain", wmain, (2 * mid, cin)),
         ("bmain", bmain, (2 * mid,)), ("dw", dw, (3, 3, mid, 3)), ("lnw", lnw, (3, 3, mid)),
         ("lnb", lnb, (3, 3, mid)), ("w", w, (3, 4, mid, mid)), ("b", b, (3, 4, mid)),
         ("wg", wg, (mid, fg)), ("bg", bg, (mid,)), ("battn", battn, (attn_heads,)),
@@ -164,7 +188,33 @@ def _launch_forward(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg,
     return out
 
 
+def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
+                         battn, wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps,
+                         *extra):
+    r, t, cin, mid, ng, fg, cout = _check_args(
+        x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
+        wfinal, bfinal, attn_heads, mhca_heads)
+    wproj = wproj.permute(0, 2, 1).contiguous()                   # (mid, 3, mid)
+    out = torch.empty((r, t, cout), device=x.device, dtype=torch.bfloat16)
+    lib = cuda_build.library("csp_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
+    scratch = torch.empty(lib.unav_csp_bf16_scratch(r, t, cin, mid, ng, fg, cout),
+                          device=x.device, dtype=torch.bfloat16)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg,
+        cout, attn_heads, mhca_heads,
+        *[a.data_ptr() for a in (wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj,
+                                 bproj, wfinal, bfinal)],
+        eps, out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        *extra)
+    cuda_build.check(lib, rc, entry)
+    return out
+
+
 def _forward_kernel(*args):
+    if args[0].dtype == torch.bfloat16:
+        out = _launch_forward_bf16("unav_csp_bf16_forward", *args)
+        fused_csp.bf16_launches += 1
+        return out
     out = _launch_forward("unav_csp_forward", *args)
     fused_csp.launches += 1
     return out
@@ -174,7 +224,13 @@ def csp_stage_times(x, guide, mask, *weights, attn_heads: int, mhca_heads: int =
                     eps: float = 1e-5):
     """One CUDA forward of the kernel sequence, synchronised, and the device
     ms of each of its launches (CUDA events between them): {stage: ms} in
-    launch order, the names of STAGES. Not counted in fused_csp.launches."""
+    launch order, the names of STAGES (of BF16_STAGES for bf16 x and
+    guide). Not counted in the launch counts."""
+    if x.dtype == torch.bfloat16:
+        ms = (ctypes.c_float * len(BF16_STAGES))()
+        _launch_forward_bf16("unav_csp_bf16_forward_stages", x, guide, mask, *weights,
+                             attn_heads, mhca_heads, eps, ms)
+        return dict(zip(BF16_STAGES, ms))
     ms = (ctypes.c_float * len(STAGES))()
     _launch_forward("unav_csp_forward_stages", x, guide, mask, *weights, attn_heads,
                     mhca_heads, eps, ms)
@@ -241,6 +297,8 @@ class CSPFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, guide, mask, *rest):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAIN)
         *weights, attn_heads, mhca_heads, eps = rest
         ctx.save_for_backward(x, guide, mask, *weights)
         ctx.heads = (attn_heads, mhca_heads, eps)
@@ -259,10 +317,12 @@ class CSPFunction(torch.autograd.Function):
 def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
               wproj, bproj, wfinal, bfinal, *, attn_heads: int,
               mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
-    """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens, with
-    a (R, T) bool mask. CPU tensors take the plain version (autograd
-    differentiates it); CUDA tensors launch the kernel sequence, through
-    CSPFunction when a grad is needed."""
+    """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens (both
+    fp32, or both bf16 under the bf16 policy; weights fp32), with a (R, T)
+    bool mask, in x's dtype. CPU tensors take the plain version (autograd
+    differentiates it); CUDA tensors launch the kernel sequence of their
+    dtype, through CSPFunction when a grad is needed (fp32 only: a bf16 grad
+    raises NotImplementedError)."""
     args = (x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
             wproj, bproj, wfinal, bfinal)
     if x.device.type == "cpu":
@@ -274,4 +334,5 @@ def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
 
 
 fused_csp.launches = 0
+fused_csp.bf16_launches = 0
 csp_backward.launches = 0

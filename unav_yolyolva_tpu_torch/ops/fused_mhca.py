@@ -28,6 +28,17 @@ forward's own fragments and order, so P = exp(S - lse) is the forward's P.
 On CUDA with grad enabled, `fused_mhca` runs through `MHCAFunction`, whose
 backward is that kernel.
 
+Under the bf16 compute policy (bf16 inputs) the same function runs the
+JAX package's bf16 program (`_mhca_compute` with bf16 x1, x2): the dwconv
+in bf16 with every product and sum rounded, LayerNorm statistics in fp32
+stored bf16, each dense layer's fp32 sum rounded to bf16 before its bias
+is added in bf16, q scaled by bf16(1/sqrt(d)), fp32 logits and softmax, P
+rounded to bf16 before P.V, whose fp32 sum is stored bf16. On the card it
+is a kernel of its own (csrc/bf16.cuh, csrc/mhca_bf16.cu): the products
+and both attention products on the bf16 tensor cores (mma m16n8k16, fp32
+sums), the weights cast to bf16 once per call. Its backward is not ported
+yet (ROADMAP Queue 1 item 5b): a bf16 CUDA call that needs a grad raises.
+
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
 lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
 """
@@ -41,12 +52,18 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
+from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
 
 _ARGTYPES = {
     "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                           PTR, PTR, FLOAT, PTR, PTR, PTR],
 }
+_BF16_ARGTYPES = {
+    "unav_mhca_bf16_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
+                               PTR, PTR, FLOAT, PTR, PTR, PTR],
+}
+_BF16_RESTYPES = {"unav_mhca_bf16_scratch": ([INT] * 3, LONG)}
 _BWD_ARGTYPES = {
     "unav_mhca_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                            PTR, PTR, FLOAT] + [PTR] * 10,
@@ -57,6 +74,9 @@ _BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
 # key / value ring, fits in a block's shared memory at head width 128
 MAX_T = 512
 
+BF16_TRAIN = ("training at compute_dtype bfloat16 is not ported yet: the bf16 "
+              "backward kernels are ROADMAP Queue 1 item 5b")
+
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_mask: torch.Tensor, heads: int, *, matmul=torch.matmul) -> torch.Tensor:
@@ -64,33 +84,53 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled) over (B, Tk, C) keys/values. Masked keys get finfo.min; a row
     without any valid key outputs 0 instead of NaN. `matmul` computes the
     two products (ops/gemm_tc.py:tf32x3_matmul_reference emulates the
-    kernel's)."""
+    kernel's). In bf16 the logits and the softmax are fp32 (exact products
+    of the bf16 values, fp32 sums), P is rounded to bf16 before P.V, whose
+    fp32 sum is stored bf16."""
     b, tq, c = q.shape
     tk = k.shape[1]
     d = c // heads
+    dtype = q.dtype
+    if dtype != torch.float32:
+        q, k, v = q.float(), k.float(), v.float()
     att = matmul(q.reshape(b, tq, heads, d).transpose(1, 2),
                  k.reshape(b, tk, heads, d).permute(0, 2, 3, 1))          # (B, H, Tq, Tk)
     any_kv = kv_mask.any(dim=-1)[:, None, None, None]
     att = att.masked_fill(~kv_mask[:, None, None, :], torch.finfo(att.dtype).min)
     att = torch.where(any_kv, att, torch.zeros((), dtype=att.dtype, device=att.device))
     att = att.softmax(dim=-1) * any_kv.to(att.dtype)
+    if dtype != torch.float32:
+        att = att.to(dtype).float()
     out = matmul(att, v.reshape(b, tk, heads, d).transpose(1, 2))         # (B, H, Tq, d)
-    return out.transpose(1, 2).reshape(b, tq, c)
+    return out.transpose(1, 2).reshape(b, tq, c).to(dtype)
 
 
 def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
                    eps: float = 1e-5, linear=F.linear, matmul=torch.matmul) -> torch.Tensor:
-    """Plain PyTorch version of the fused MHCA (stride 1). `linear` computes
-    the dense layers and `matmul` the attention's products (the kernel's
-    3xTF32 rounding: ops/gemm_tc.py)."""
+    """Plain PyTorch version of the fused MHCA (stride 1), in the dtype of
+    x1 and x2 (fp32, or bf16 under the bf16 policy). `linear` computes the
+    fp32 dense layers and `matmul` the attention's products (the kernel's
+    3xTF32 rounding: ops/gemm_tc.py); in bf16 the dense layers are
+    `bf16_product_reference` and the products fp32 sums of bf16 values."""
     c = x1.shape[-1]
-    mm = mask[..., None].to(x1.dtype)
+    dtype = x1.dtype
+    mm = mask[..., None].to(dtype)
+    if dtype != torch.float32:
+        linear = bf16_product_reference
 
     def dwconv_ln(x, i):
-        y = F.conv1d(x.transpose(1, 2), dw[i][:, None, :], padding=1, groups=c)
-        return channel_layer_norm(y.transpose(1, 2) * mm, lnw[i], lnb[i], eps)
+        if dtype == torch.float32:
+            y = F.conv1d(x.transpose(1, 2), dw[i][:, None, :], padding=1,
+                         groups=c).transpose(1, 2)
+        else:   # the Pallas body's bf16 taps, each product and sum rounded
+            wt = dw[i].to(dtype)
+            left = F.pad(x[:, :-1], (0, 0, 1, 0))
+            right = F.pad(x[:, 1:], (0, 0, 0, 1))
+            y = left * wt[:, 0] + x * wt[:, 1] + right * wt[:, 2]
+        return channel_layer_norm(y * mm, lnw[i], lnb[i], eps)
 
-    q = linear(dwconv_ln(x2, 0), w[0], b[0]) * (1.0 / math.sqrt(c // heads))
+    scale = torch.tensor(1.0 / math.sqrt(c // heads), dtype=dtype)
+    q = linear(dwconv_ln(x2, 0), w[0], b[0]) * scale
     k = linear(dwconv_ln(x1, 1), w[1], b[1])
     v = linear(dwconv_ln(x1, 2), w[2], b[2]) * mm
     return linear(attend(q, k, v, mask, heads, matmul=matmul), w[3], b[3]) * mm
@@ -107,10 +147,10 @@ def mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
 
 
 def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
-    # fp32 operands 16-byte aligned: the tensor-core products and the
-    # attention copy rows in 16-byte chunks
+    # operands 16-byte aligned: the tensor-core products and the attention
+    # copy rows in 16-byte chunks
     if (t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous()
-            or (dtype == torch.float32 and t.data_ptr() % 16)):
+            or (dtype != torch.bool and t.data_ptr() % 16)):
         raise ValueError(f"{name}: needs a contiguous, 16-byte aligned {dtype} CUDA tensor, "
                          f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()}, "
                          f"address {t.data_ptr():#x})")
@@ -120,11 +160,17 @@ def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
 
 def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     r, t, c = x1.shape
-    # head widths of whole 16-byte chunks: rows and heads start on 16 bytes
-    if c % heads or (c // heads) % 4 or c // heads > 128 or c > 1024 or t > MAX_T:
-        raise ValueError(f"fused_mhca: unsupported shape (T={t}, C={c}, heads={heads})")
-    _check(x1, "x1")
-    _check(x2, "x2", x1.shape)
+    # head widths of whole 16-byte chunks (4 floats, 8 bf16): rows and heads
+    # start on 16 bytes
+    per_chunk = 16 // x1.element_size()
+    if (c % heads or (c // heads) % per_chunk or c // heads > 128 or c > 1024
+            or t > MAX_T):
+        raise ValueError(f"fused_mhca: unsupported shape (T={t}, C={c}, heads={heads}, "
+                         f"{x1.dtype})")
+    if x1.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_mhca: {x1.dtype} inputs; the kernels take fp32 or bf16")
+    _check(x1, "x1", dtype=x1.dtype)
+    _check(x2, "x2", x1.shape, x1.dtype)
     _check(mask, "mask", (r, t), torch.bool)
     _check(dw, "dw", (3, c, 3))
     _check(lnw, "lnw", (3, c))
@@ -133,8 +179,27 @@ def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     _check(b, "b", (4, c))
 
 
+def _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+    r, t, c = x1.shape
+    out = torch.empty_like(x1)
+    lib = cuda_build.library("mhca_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
+    scratch = torch.empty(lib.unav_mhca_bf16_scratch(r, t, c), device=x1.device,
+                          dtype=torch.bfloat16)
+    rc = lib.unav_mhca_bf16_forward(
+        x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
+        dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
+        eps, out.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(x1.device).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "fused_mhca (bf16)")
+    fused_mhca.bf16_launches += 1
+    return out
+
+
 def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
     _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
+    if x1.dtype == torch.bfloat16:
+        return _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
     r, t, c = x1.shape
     out = torch.empty_like(x1)
     scratch = torch.empty(6 * r * t * c, device=x1.device, dtype=torch.float32)
@@ -183,6 +248,8 @@ class MHCAFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+        if x1.dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAIN)
         ctx.save_for_backward(x1, x2, mask, dw, lnw, lnb, w, b)
         ctx.heads, ctx.eps = heads, eps
         return _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
@@ -197,9 +264,11 @@ class MHCAFunction(torch.autograd.Function):
 
 def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
                eps: float = 1e-5) -> torch.Tensor:
-    """MaskedMHCA forward of (R, T, C) inputs with a (R, T) bool mask.
+    """MaskedMHCA forward of (R, T, C) inputs (fp32, or bf16 under the bf16
+    policy; weights fp32) with a (R, T) bool mask, in the inputs' dtype.
     CPU tensors take the plain version (autograd differentiates it); CUDA
-    tensors launch the kernel, through MHCAFunction when a grad is needed."""
+    tensors launch the kernel of their dtype, through MHCAFunction when a
+    grad is needed (fp32 only: a bf16 grad raises NotImplementedError)."""
     if x1.device.type == "cpu":
         return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
     args = (x1, x2, mask, dw, lnw, lnb, w, b)
@@ -209,4 +278,5 @@ def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
 
 
 fused_mhca.launches = 0
+fused_mhca.bf16_launches = 0
 mhca_backward.launches = 0

@@ -21,8 +21,17 @@ the epilogue of the product that makes du), fc1, ln2, the residual, the
 MHCA backward of csrc/mhca_bwd.cuh and ln11 / ln12. Every weight and
 multiplier grad is a fixed-order sum (split-K A^T.B, csrc/colsum.cuh,
 per-sequence sums): two runs give the same bits. `tblock_stage_times` and
-`tblock_backward_stage_times` time them launch by launch. The port computes
-in fp32 only.
+`tblock_backward_stage_times` time them launch by launch.
+
+Under the bf16 compute policy (`cdtype` bfloat16, the JAX package's
+`tblock_fused(cdtype=...)`) the residual stream x, the output and the
+branch multipliers stay fp32; ln11, ln12 and ln2 store bf16, the MHCA runs
+in bf16 (`fused_mhca`), fc1's fp32 sum is rounded to bf16, its bias added
+in bf16 and GELU taken of and stored in bf16, fc2 likewise before the row
+mask, and `out + y * mult_m` is fp32. On the card it is a launch sequence of
+its own (csrc/tblock_bf16.cu on csrc/bf16.cuh: the MHCA and both MLP
+products on the bf16 tensor cores). Its backward is ROADMAP Queue 1 item
+5b: a bf16 CUDA call that needs a grad raises.
 
 Weight layout (torch, packed by TransformerBlock.packed_weights()):
 lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
@@ -38,7 +47,8 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
-from .fused_mhca import MAX_T, _check, mhca_reference
+from .fused_mhca import BF16_TRAIN, MAX_T, _check, mhca_reference
+from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
 
 _FWD_TYPES = [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR, PTR, PTR]
@@ -48,6 +58,11 @@ _RESTYPES = {"unav_tblock_forward_scratch": ([INT] * 4, LONG)}
 # the launches of one forward, in order (tblock.cuh: TBLOCK_STAGES)
 STAGES = ("ln_pair", "mhca.ln", "mhca.qkv", "mhca.attention", "mhca.proj", "residual_ln2",
           "fc1", "fc2")
+# the launches of one bf16 forward (tblock_bf16.cu: TBLOCK_BF16_STAGES)
+BF16_STAGES = ("cast",) + STAGES
+_BF16_ARGTYPES = {"unav_tblock_bf16_forward": _FWD_TYPES,
+                  "unav_tblock_bf16_forward_stages": _FWD_TYPES + [PTR]}
+_BF16_RESTYPES = {"unav_tblock_bf16_scratch": ([INT] * 4, LONG)}
 _BWD_TYPES = ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR]
               + [PTR] * 14 + [PTR, PTR])
 _BWD_ARGTYPES = {"unav_tblock_backward": _BWD_TYPES,
@@ -65,18 +80,23 @@ N_WEIGHTS = 11
 
 def tblock_reference(x, mask, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1,
                      w2, b2, *, heads: int, eps: float = 1e-5, linear=F.linear,
-                     matmul=torch.matmul) -> torch.Tensor:
-    """Plain PyTorch version of the whole block (`_tblock_compute` in fp32).
-    `linear` computes the dense layers (the MHCA's and the MLP's), `matmul`
-    the attention's products (the kernels' 3xTF32 rounding:
-    ops/gemm_tc.py)."""
+                     matmul=torch.matmul, cdtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the whole block (`_tblock_compute`) at
+    compute dtype `cdtype` (fp32 x, multipliers and output). `linear`
+    computes the fp32 dense layers (the MHCA's and the MLP's), `matmul` the
+    attention's products (the kernels' 3xTF32 rounding: ops/gemm_tc.py);
+    in bf16 the products are `bf16_product_reference`."""
     mm = mask[..., None].to(x.dtype)
-    h1 = channel_layer_norm(x, lnw3[0], lnb3[0], eps)
-    h2 = channel_layer_norm(x, lnw3[1], lnb3[1], eps)
+    h1 = channel_layer_norm(x, lnw3[0], lnb3[0], eps, cdtype)
+    h2 = channel_layer_norm(x, lnw3[1], lnb3[1], eps, cdtype)
     attn = mhca_reference(h1, h2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps,
                           linear=linear, matmul=matmul)
-    out = x * mm + attn * mult_a
-    h = channel_layer_norm(out, lnw3[2], lnb3[2], eps)
+    out = x * mm + attn.to(x.dtype) * mult_a
+    h = channel_layer_norm(out, lnw3[2], lnb3[2], eps, cdtype)
+    if cdtype != torch.float32:
+        y = bf16_product_reference(h, w1, b1, act="gelu")
+        y = bf16_product_reference(y, w2, b2, rowmask=mask)
+        return out + y.to(x.dtype) * mult_m
     y = linear(F.gelu(linear(h, w1, b1)), w2, b2) * mm
     return out + y * mult_m
 
@@ -132,16 +152,47 @@ def _launch_forward(entry, x, mask, mult_a, mult_m, weights, heads, eps, *extra)
     return out
 
 
-def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps):
+def _launch_forward_bf16(entry, x, mask, mult_a, mult_m, weights, heads, eps, *extra):
+    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
+    if (c // heads) % 8 or hid % 8:   # bf16 rows of 16 bytes
+        raise ValueError(f"fused_tblock (bf16): head width {c // heads} and hidden "
+                         f"{hid} must be multiples of 8")
+    lib = cuda_build.library("tblock_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
+    out = torch.empty_like(x)
+    scratch = torch.empty(lib.unav_tblock_bf16_scratch(r, t, c, hid), device=x.device,
+                          dtype=torch.bfloat16)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
+        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, out.data_ptr(),
+        scratch.data_ptr(), _stream(x), *extra)
+    cuda_build.check(lib, rc, entry)
+    return out
+
+
+def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps, cdtype=torch.float32):
+    if cdtype == torch.bfloat16:
+        out = _launch_forward_bf16("unav_tblock_bf16_forward", x, mask, mult_a, mult_m,
+                                   weights, heads, eps)
+        fused_tblock.bf16_launches += 1
+        return out
+    if cdtype != torch.float32:
+        raise ValueError(f"fused_tblock: compute dtype {cdtype}; the kernels take fp32 or bf16")
     out = _launch_forward("unav_tblock_forward", x, mask, mult_a, mult_m, weights, heads, eps)
     fused_tblock.launches += 1
     return out
 
 
-def tblock_stage_times(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5):
+def tblock_stage_times(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5,
+                       cdtype: torch.dtype = torch.float32):
     """One CUDA forward, synchronised, and the device ms of each of its
     launches (CUDA events between them): {stage: ms} in launch order, the
-    names of STAGES. Not counted in fused_tblock.launches."""
+    names of STAGES (of BF16_STAGES at cdtype bf16). Not counted in the
+    launch counts."""
+    if cdtype == torch.bfloat16:
+        ms = (ctypes.c_float * len(BF16_STAGES))()
+        _launch_forward_bf16("unav_tblock_bf16_forward_stages", x, mask, mult_a, mult_m,
+                             weights, heads, eps, ms)
+        return dict(zip(BF16_STAGES, ms))
     ms = (ctypes.c_float * len(STAGES))()
     _launch_forward("unav_tblock_forward_stages", x, mask, mult_a, mult_m, weights, heads,
                     eps, ms)
@@ -193,7 +244,9 @@ class TBlockFunction(torch.autograd.Function):
     mask gets no grad."""
 
     @staticmethod
-    def forward(ctx, x, mask, mult_a, mult_m, heads, eps, *weights):
+    def forward(ctx, x, mask, mult_a, mult_m, heads, eps, cdtype, *weights):
+        if cdtype != torch.float32:
+            raise NotImplementedError(BF16_TRAIN)
         ctx.save_for_backward(x, mask, mult_a, mult_m, *weights)
         ctx.heads, ctx.eps = heads, eps
         return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps)
@@ -203,22 +256,26 @@ class TBlockFunction(torch.autograd.Function):
         x, mask, mult_a, mult_m, *ws = ctx.saved_tensors
         dx, dma, dmm, *gws = tblock_backward(x, mask, mult_a, mult_m, *ws, g=g.contiguous(),
                                              heads=ctx.heads, eps=ctx.eps)
-        return (dx, None, dma, dmm, None, None, *gws)
+        return (dx, None, dma, dmm, None, None, None, *gws)
 
 
-def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int,
-                 eps: float = 1e-5) -> torch.Tensor:
-    """The block's forward of (R, T, C) x with a (R, T) bool mask and (R, 1, C)
-    branch multipliers. CPU tensors take the plain version (autograd
-    differentiates it); CUDA tensors launch the kernel, through
-    TBlockFunction when a grad is needed."""
+def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5,
+                 cdtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The block's forward of (R, T, C) fp32 x with a (R, T) bool mask and
+    (R, 1, C) branch multipliers at compute dtype `cdtype` (fp32 or bf16),
+    fp32 out. CPU tensors take the plain version (autograd differentiates
+    it); CUDA tensors launch the kernel of `cdtype`, through TBlockFunction
+    when a grad is needed (fp32 only: a bf16 grad raises
+    NotImplementedError)."""
     if x.device.type == "cpu":
-        return tblock_reference(x, mask, mult_a, mult_m, *weights, heads=heads, eps=eps)
+        return tblock_reference(x, mask, mult_a, mult_m, *weights, heads=heads, eps=eps,
+                                cdtype=cdtype)
     args = (x, mask, mult_a, mult_m, *weights)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return TBlockFunction.apply(x, mask, mult_a, mult_m, heads, eps, *weights)
-    return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps)
+        return TBlockFunction.apply(x, mask, mult_a, mult_m, heads, eps, cdtype, *weights)
+    return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps, cdtype)
 
 
 fused_tblock.launches = 0
+fused_tblock.bf16_launches = 0
 tblock_backward.launches = 0

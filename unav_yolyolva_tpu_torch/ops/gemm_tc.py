@@ -25,6 +25,17 @@ CSP versions through. The emulation rounds, splits and orders slices and
 chunks exactly as the kernel does; its fp32 sums are rounded to nearest,
 the tensor cores' partial sums are not, so it matches the kernel's error
 budget, not its bits.
+
+The bf16 compute policy's product (`csrc/bf16.cuh`, `bf16_products`) is
+the JAX package's `jnp.dot(a.astype(bf16), w.astype(bf16),
+preferred_element_type=f32)` followed by `.astype(bf16)` and the bias
+added in bf16: one mma.m16n8k16 per 16-deep step, fp32 sums, each 32-deep
+slice of k from zero, then the epilogue in the JAX order (round, + bias,
+GELU, scale, row mask, each rounded to bf16). Its plain version,
+`bf16_product_reference`, rounds the operands to bf16, multiplies them in
+fp32 (the products of bf16 values are exact there) and rounds the sum to
+bf16; the port's bf16 products on the CPU (the kernels' plain versions)
+run through it.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from .cuda_build import INT, LONG, PTR
 
 _ARGTYPES = {"unav_gemm_tc": [INT, PTR, PTR, PTR, PTR, LONG, PTR],
              "unav_gemm_split_chunk": [INT, INT, INT]}
+_BF16_ARGTYPES = {"unav_gemm_bf16": [INT, PTR, PTR, PTR, PTR]}
 SLICE = 32          # k summed from zero before it joins the total (TC_BK)
 MAX_BATCH = 4       # products of one launch (GEMM_MAX_BATCH)
 MAX_SPLITS = 8      # chunks of K of a weight grad (GEMM_MAX_SPLITS)
@@ -322,3 +334,126 @@ def tf32x3_linear(x, w, bias=None, *, rowmask=None, scale: float = 1.0, taps: in
 
 
 tf32x3_linear.launches = 0
+
+
+# ---- the bf16 compute policy's product ----------------------------------------
+
+BF16_ACTS = {"none": 0, "gelu": 1}     # the bf16 epilogue's act (csrc/bf16.cuh)
+
+
+def bf16_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (batched as torch.matmul) of the operands rounded to bf16, in
+    fp32: the exact products of bf16 values summed in fp32."""
+    return torch.matmul(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
+
+
+def bf16_product_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0,
+                           taps: int = 1, seq: int = 1, act: str = "none", out=None,
+                           seqmul=None, raw: bool = False) -> torch.Tensor:
+    """Plain version of one product of `bf16_products`: x (..., K) (with
+    taps == 3 the k=3 conv of x (M, Kc), K = 3*Kc), w (N, K) fp32 or bf16,
+    both rounded to bf16, their fp32 product rounded to bf16; then, each
+    step rounded to bf16: + bias, act "gelu" (exact erf GELU of the bf16
+    value in fp32), times bf16(scale), times rowmask. With seqmul (M // seq,
+    N) fp32 the result is out + y * seqmul[m // seq] in fp32 (the TBlock's
+    residual tail); with raw the fp32 sum alone."""
+    a = conv3_taps(x, seq) if taps == 3 else x
+    y = bf16_matmul_reference(a, w.transpose(0, 1))
+    if raw:
+        return y
+    y = y.to(torch.bfloat16)
+    if bias is not None:
+        y = y + bias.to(torch.bfloat16)
+    if act not in BF16_ACTS:
+        raise ValueError(f"bf16_product_reference: act {act!r}, expected one of "
+                         f"{list(BF16_ACTS)}")
+    if act == "gelu":
+        y = gelu_erf(y.float()).to(torch.bfloat16)
+    if scale != 1.0:
+        y = y * torch.tensor(scale, dtype=torch.bfloat16)
+    if rowmask is not None:
+        y = y * rowmask[..., None].to(y.dtype)
+    if seqmul is not None:
+        return out + y.float() * seqmul.repeat_interleave(seq, 0).reshape(y.shape)
+    return y
+
+
+def bf16_products(calls):
+    """Run up to four products of the bf16 policy in one launch (the
+    kernels' products: A.B^T, the k=3 conv loader on A, the epilogue of
+    `bf16_product_reference`). Each call is a dict of x (M, K) bf16 (a
+    row-strided view is read in place), w (N, K) bf16, and optional bias
+    (N) bf16, rowmask (M) bool, scale, taps, seq, act, out (M, N) (bf16;
+    fp32 with seqmul or raw), seqmul (M // seq, N) fp32, raw. Returns the
+    outputs. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (rows of 16 bytes: K, the row strides and Kc multiples of 8, N
+    even)."""
+    if not 1 <= len(calls) <= MAX_BATCH:
+        raise ValueError(f"bf16_products: 1 to {MAX_BATCH} products, got {len(calls)}")
+    if calls[0]["x"].device.type == "cpu":
+        outs = []
+        for c in calls:
+            y = bf16_product_reference(
+                c["x"], c["w"], c.get("bias"), rowmask=c.get("rowmask"),
+                scale=c.get("scale", 1.0), taps=c.get("taps", 1), seq=c.get("seq", 1),
+                act=c.get("act", "none"), out=c.get("out"), seqmul=c.get("seqmul"),
+                raw=c.get("raw", False))
+            if c.get("out") is not None:
+                c["out"].copy_(y)
+                y = c["out"]
+            outs.append(y)
+        return outs
+    bf = torch.bfloat16
+    ptrs, ints, scales, outs = [], [], [], []
+    for c in calls:
+        x, w = c["x"], c["w"]
+        taps, seq, act = c.get("taps", 1), c.get("seq", 1), c.get("act", "none")
+        seqmul, raw = c.get("seqmul"), bool(c.get("raw", False))
+        _check("x", x, 2, bf)
+        _check("w", w, 2, bf)
+        m, kc = x.shape
+        n, k = w.shape
+        if (taps not in (1, 3) or k != taps * kc or x.stride(1) != 1 or not w.is_contiguous()
+                or act not in BF16_ACTS or (raw and (seqmul is not None or act != "none"))):
+            raise ValueError(f"bf16_products: x {tuple(x.shape)} (strides {x.stride()}), "
+                             f"w {tuple(w.shape)}, taps {taps}, act {act!r}, raw {raw}")
+        wide = seqmul is not None or raw
+        out = c.get("out")
+        if out is None:
+            if seqmul is not None:
+                raise ValueError("bf16_products: seqmul needs out")
+            out = torch.empty((m, n), device=x.device, dtype=torch.float32 if raw else bf)
+        _check("out", out, 2, torch.float32 if wide else bf)
+        if tuple(out.shape) != (m, n) or out.stride(1) != 1:
+            raise ValueError(f"out: shape {tuple(out.shape)}, strides {out.stride()}")
+        bias, rowmask = c.get("bias"), c.get("rowmask")
+        if bias is not None:
+            _check("bias", bias, 1, bf)
+        if rowmask is not None:
+            _check("rowmask", rowmask, 1, torch.bool)
+        if seqmul is not None:
+            _check("seqmul", seqmul, 2)
+            if m % seq or tuple(seqmul.shape) != (m // seq, n) or not seqmul.is_contiguous():
+                raise ValueError(f"seqmul: shape {tuple(seqmul.shape)}, needs {(m // seq, n)}")
+        # the ring copies 16-byte chunks (8 bf16) along the rows of x and w
+        if (x.data_ptr() % 16 or w.data_ptr() % 16 or x.stride(0) % 8 or k % 8 or kc % 8
+                or n % 2 or out.stride(0) % 2 or out.data_ptr() % (8 if wide else 4)):
+            raise ValueError("bf16_products: x and w need 16-byte aligned rows (K, Kc and "
+                             "the row strides multiples of 8), N and out's row stride even")
+        ptrs += [x.data_ptr(), w.data_ptr(), out.data_ptr()] + [
+            a.data_ptr() if a is not None else None for a in (bias, rowmask, seqmul)]
+        ints += [x.stride(0), w.stride(0), out.stride(0), m, n, k, taps, seq,
+                 BF16_ACTS[act], int(raw)]
+        scales.append(float(torch.tensor(c.get("scale", 1.0), dtype=bf)))
+        outs.append(out)
+    dev = outs[0].device
+    lib = cuda_build.library("gemm_bf16", _BF16_ARGTYPES)
+    rc = lib.unav_gemm_bf16(
+        len(calls), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_long * len(ints))(*ints),
+        (ctypes.c_float * len(scales))(*scales), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, rc, "bf16_products")
+    bf16_products.launches += 1
+    return outs
+
+
+bf16_products.launches = 0

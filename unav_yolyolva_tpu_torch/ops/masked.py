@@ -6,8 +6,12 @@ package, so every function here has a same-named counterpart there.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def masked_conv1d_out_mask(mask: torch.Tensor, stride: int) -> torch.Tensor:
@@ -18,15 +22,52 @@ def masked_conv1d_out_mask(mask: torch.Tensor, stride: int) -> torch.Tensor:
     return mask[:, ::stride]
 
 
+def cast(w: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
+    """An fp32 parameter cast to the compute dtype at the call, as flax's
+    `dtype=` casts a module's kernel and bias (the parameters themselves
+    stay fp32); None and dtype None pass through."""
+    return w if w is None or dtype is None else w.to(dtype)
+
+
 def channel_layer_norm(x: torch.Tensor, weight: torch.Tensor,
-                       bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis with biased variance, fp32 statistics."""
+                       bias: torch.Tensor, eps: float = 1e-5,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LayerNorm over the last axis with biased variance, fp32 statistics
+    and fp32 affine; stored in `out_dtype` (default: x's), as the JAX
+    package's ChannelLayerNorm(dtype=) stores it."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     res = xf - mu
     sigma = (res * res).mean(dim=-1, keepdim=True)
     out = res * torch.rsqrt(sigma + eps)
-    return (out * weight + bias).to(x.dtype)
+    return (out * weight + bias).to(out_dtype or x.dtype)
+
+
+def layer_norm(x: torch.Tensor, ln: torch.nn.LayerNorm,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An nn.LayerNorm with fp32 statistics and affine, stored in
+    `out_dtype` (default: x's): flax's LayerNorm(dtype=)."""
+    if x.dtype == torch.float32 and out_dtype in (None, torch.float32):
+        return ln(x)
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    return y.to(out_dtype or x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU. In bf16 each step rounds to bf16 as jax.nn.gelu's
+    ops do: 0.5 x * erfc(-x * bf16(sqrt(1/2)))."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    s = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+    return (0.5 * x) * torch.special.erfc(-x * s)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x). In bf16 each step rounds to bf16 as jax.nn.silu's
+    ops do (sigmoid as 1 / (1 + exp(-x)))."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:

@@ -2,11 +2,14 @@
 the card (the port of the root bench.py).
 
     python -m unav_yolyolva_tpu_torch.tools.bench [--iters 10] [--windows 5]
-        [--h2d] [--no-train] [--seed 0] [--commit SHA]
+        [--h2d] [--no-train] [--compute-dtype float32|bfloat16] [--seed 0]
+        [--commit SHA]
 
 Eval: the protocol of configs/avel_unav100_eval.yaml (B=64, T=224, 100
-classes, fp32, pre_nms_topk 2000, max_seg_num 100, multiclass Gaussian
-Soft-NMS), weights from --seed, one batch from synthetic_eval_batch. Each
+classes, pre_nms_topk 2000, max_seg_num 100, multiclass Gaussian
+Soft-NMS) at --compute-dtype (fp32 by default; bfloat16 is the bf16
+policy of configs/avel_unav100_bf16.yaml, fp32 weights), weights from
+--seed, one batch from synthetic_eval_batch. Each
 step's detections are copied to pinned host memory and read one step
 later, as valid_one_epoch does. By default the batch is already on the
 device (the root bench's default); with --h2d every step copies one of two
@@ -15,7 +18,9 @@ copy stream, the copy included in the time.
 
 Train: the protocol of configs/avel_unav100.yaml (B=8, T=224, fp32, AdamW
 + clip + warmup/cosine, droppath 0.1, EMA) on synthetic_train_batch
-batches already on the device; --no-train skips it.
+batches already on the device; --no-train skips it. It stays fp32 whatever
+--compute-dtype says (training at bf16 is not ported yet) and reports its
+own train_dtype.
 
 Both: one warm-up window, then --windows (at least 5) timed windows of
 --iters steps, host clock, the device synchronized at each window's end;
@@ -126,6 +131,8 @@ def main(argv=None) -> int:
     ap.add_argument("--h2d", action="store_true",
                     help="copy a pinned host batch every eval step")
     ap.add_argument("--no-train", action="store_true")
+    ap.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the eval half's compute dtype (tpu.compute_dtype)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--commit", default=None,
                     help="the commit to record where the checkout has no git metadata")
@@ -151,6 +158,7 @@ def main(argv=None) -> int:
 
     # ---- eval ---------------------------------------------------------------
     cfg = load_protocol("avel_unav100_eval.yaml", args.tiny)
+    cfg["tpu"]["compute_dtype"] = args.compute_dtype
     mcfg = cfg["model"]
     b, t = cfg["loader"]["batch_size"], mcfg["max_seq_len"]
     model = build_model(cfg, device=dev, seed=args.seed)

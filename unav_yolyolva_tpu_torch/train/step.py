@@ -21,6 +21,7 @@ from ..core.device import make_batch_copier, resolve_device
 from ..geometry.assign import assign_labels_batch, frame_targets_batch
 from ..geometry.points import concat_points, generate_points
 from ..models.meta_arch import compute_losses
+from ..ops.fused_mhca import BF16_TRAIN
 from ..utils.seed import fold_in
 from .ema import ema_update
 from .state import TrainState
@@ -60,7 +61,10 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
     numpy arrays or tensors; pinned host tensors (the Batcher's on CUDA) are
     copied on a copy stream, overlapping the compute already queued. The
     state is updated in place; the returned losses are device scalars (no
-    host sync). Runs on CUDA unless device='cpu'."""
+    host sync). Runs on CUDA unless device='cpu'. A model that computes in
+    bf16 is refused: its backward kernels are not ported yet."""
+    if getattr(model, "compute_dtype", torch.float32) != torch.float32:
+        raise NotImplementedError(BF16_TRAIN)
     device = resolve_device(device)
     model.to(device).train()
     mcfg = cfg["model"]
