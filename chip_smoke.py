@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's eval (serving) and train paths on one NVIDIA GPU,
 from memory and from feature files on disk, with and without the
-dependency block, and its serving path at the bf16 compute policy.
+dependency block, and its serving and train paths at the bf16 compute
+policy.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero):
   1. the card: name, count, nvidia-smi name and power limit;
-  2. builds the twelve hand-written CUDA kernel libraries (the eight
-     kernels, the three bf16 forward kernels, and the tensor-core products
-     alone, 3xTF32 and bf16) from unav_yolyolva_tpu_torch/csrc (one nvcc
-     each, all at once);
+  2. builds the fifteen hand-written CUDA kernel libraries (the eight
+     kernels, the three bf16 forward and three bf16 backward kernels, and
+     the tensor-core products alone, 3xTF32 and bf16) from
+     unav_yolyolva_tpu_torch/csrc (one nvcc each, all at once);
   3. holds each forward kernel against its plain PyTorch version on the
      card at the shapes of the eval protocol (configs/avel_unav100_eval.yaml):
      MHCA at (64, 224, 512) and (128, 224, 256), CSP layers at T=224 and T=7
@@ -142,19 +143,43 @@ Phases (any failure exits non-zero):
      over 64 synthetic videos, bit-identical to the in-memory step; the
      bench's eval at fp32 and bf16 in turns (videos/s, busy share, peak
      memory);
+ 16. the bf16 train step (configs/avel_unav100_bf16.yaml, B=8, T=224): the
+     three bf16 backward kernels against their plain versions, small (3 x
+     16 x 64, the CSP at T=16 and T=7) and at the protocol (MHCA (8, 224,
+     512) and (16, 224, 256); CSP at T=224 with 4 and 8 heads and T=7, 2B=16;
+     TBlock (8, 224, 512)): every grad within 1/4 of the plain version's
+     bf16-vs-fp32 gap, or, where the two programs' fp32 sums round a few
+     bf16 values apart and the flips spread, within 2x the kernel's own move
+     under one input value of each row moved by one bf16 ulp
+     (check_bf16_grads; at the protocol beside the plain version's own
+     distance from the CPU's), the same bits on repeat; the small CSP and
+     TBlock cases with the row picker at 1, each weight grad moving as the
+     CPU plain version's (check_row_blocks); at the protocol timed beside
+     the fp32 backward kernel on the same inputs, profiled launch by launch;
+     the backward's bf16 product alone (A.B, and A^T.B in row blocks) at the
+     CSP final conv, beside cuBLAS; three train steps with each stem, each
+     bf16 backward kernel launched as often as its forward and no fp32 MHCA
+     / CSP / TBlock kernel; one step's grads at B=2 against the CPU's bf16
+     plain path (within 1/4 of the gap or 2x the card's one-ulp move, and
+     about a gap from the CPU's fp32 grads); the train CLI
+     on the bf16 config from files (3 epochs of 4 steps, validation) and a
+     resume whose last epoch equals the straight run's bit for bit; the
+     bench's train half at fp32 and bf16 in turns (clips/s, busy share,
+     peak memory);
  12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel, the
-eight fp32 kernels and the three bf16 ones (with each fp32 kernel's
+eight fp32 kernels and the six bf16 ones (with each fp32 kernel's
 launches on the train CLI's path and on the dependency block's, and the
-dependency shapes' checks and times; a bf16 kernel's launches are on the
-bf16 served path); the
+dependency shapes' checks and times; a bf16 forward kernel's launches are
+on the bf16 served path, a bf16 backward kernel's on phase 16's train
+steps and bf16 train CLI); the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
 result. With --stages-only it builds, prints the CSP and whole-block TBlock
 forward's and backward's breakdowns (`stages ...` lines) and launch counts,
-and stops.
+and stops; with --bf16-train-only it builds and runs phase 16 alone.
 """
 
 from __future__ import annotations
@@ -434,6 +459,46 @@ def backward_launch_lines(tmodel, b, t_max, gen, dev):
     n = kernel_launches(lambda: mhca_backward(*a, g, heads=heads))
     log(f"launches mhca_bwd@{b}x{t_max}x512: {n} kernels in one mhca_backward call "
         f"(torch.profiler)")
+
+
+def bf16_backward_profile(tmodel, b, t_max, gen, dev):
+    """Each bf16 backward kernel's launches at the protocol shape, by device
+    time (torch.profiler over one call, after its timed runs): the kernels'
+    names, calls and ms, so that the slow stages of the first design show."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward
+
+    bf = torch.bfloat16
+    a, heads = csp_case(tmodel, "backbone.fusion_module.top_down_layers.4", 2 * b, t_max, gen,
+                        dev)
+    ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+    gc = torch.randn(2 * b, t_max, 512, generator=gen).to(dev, bf)
+    m = mhca_case(tmodel, "backbone.self_att_V.0.attn", b, t_max, 512, gen, dev)
+    mb = (m[0].to(bf), m[1].to(bf), *m[2:])
+    gm = torch.randn(b, t_max, 512, generator=gen).to(dev, bf)
+    blk, ta = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
+    gt = torch.randn(b, t_max, 512, generator=gen).to(dev)
+    for label, fn in ((f"csp_bwd_bf16@T{t_max}/{heads}h",
+                       lambda: csp_backward(*ab, g=gc, attn_heads=heads)),
+                      (f"mhca_bwd_bf16@{b}x{t_max}x512",
+                       lambda: mhca_backward(*mb, gm, heads=blk.attn.n_head)),
+                      (f"tblock_bwd_bf16@{b}x{t_max}x512",
+                       lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.count, e.device_time_total / 1e3)
+                       for e in prof.key_averages() if e.device_time_total > 0),
+                      key=lambda r: -r[2])
+        total = sum(r[2] for r in rows)
+        log(f"profile {label}: {sum(r[1] for r in rows)} launches, {total:.3f} ms of kernels; "
+            + "; ".join(f"{k[:48]} x{c} {ms:.3f} ms" for k, c, ms in rows[:8]))
 
 
 def require(cond, msg: str) -> None:
@@ -1528,12 +1593,553 @@ def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
     return launches
 
 
+def check_bf16_grads(name, run, plain, plain32, n_inputs, moved, plain_cpu=None):
+    """A bf16 backward kernel against its plain version on the same inputs:
+    every grad tensor finite, of the plain version's dtype, the same bits on
+    repeat, and norm-wise within 1/4 of the plain version's own gap to the
+    fp32 plain version (exactly 0 where that is 0). The kernel's and the
+    plain version's fp32 sums, taken in other orders, round a few bf16
+    values apart, and each such flip spreads through every later bf16 op
+    (the CSP layer's three MHCAs, the TBlock's MHCA and MLP). A grad beyond
+    1/4 of the gap is held instead within 2x the kernel's own move when one
+    input value of each row moves by one bf16 ulp (`moved(sign)` runs the
+    kernel so, the larger of up and down): PR 10's fallback for the whole
+    model, taken per kernel. With `plain_cpu` (the plain version on the
+    CPU) each grad's line also gives the order floor: how far the same plain
+    bf16 program, summed in the CPU's orders, sits from the plain version on
+    the card. Returns the max abs error of the input grads against the plain
+    version."""
+    import torch
+
+    got, again, ref, ref32 = run(), run(), plain(), plain32()
+    ups, downs = moved(1), moved(-1)
+    torch.cuda.synchronize()
+    order = [rel_err(c, p.cpu()) for c, p in zip(plain_cpu(), ref)] if plain_cpu else None
+    worst, lines, bad, loose = 0.0, [], [], []
+    for i, (k, p, p32) in enumerate(zip(got, ref, ref32)):
+        err, gap = rel_err(k, p), rel_err(p, p32)
+        move = max(rel_err(ups[i], k), rel_err(downs[i], k))
+        worst = max(worst, err / gap if gap else (0.0 if err == 0 else math.inf))
+        lines.append(f"{i}:{err:.2e}/{gap:.2e}/{move:.2e}"
+                     + (f"/{order[i]:.2e}" if order else ""))
+        ok = k.dtype == p.dtype and bool(torch.isfinite(k).all())
+        if not (err <= 0.25 * gap if gap else bool((k == p).all())):
+            loose.append(i)
+            ok = ok and err <= 2 * move
+        if not ok:
+            bad.append(i)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    max_abs = max(float((got[i].float() - ref[i].float()).abs().max()) for i in range(n_inputs))
+    floor = " / the plain version on the CPU vs on the card" if order else ""
+    log(f"check {name}: per grad, norm-wise err vs plain bf16 / plain bf16-vs-fp32 gap / "
+        f"the kernel's one-ulp move{floor} {' '.join(lines)}; worst err/gap {worst:.3f}; "
+        f"beyond 1/4 of the gap (held within 2x the one-ulp move instead): {loose}; input "
+        f"grads max abs {max_abs:.3e}; bit-identical on repeat: {same}")
+    require(not bad, f"{name}: grads {bad} off their bf16 gate")
+    require(same, f"{name}: two runs of the bf16 backward kernel differ")
+    return max_abs
+
+
+def check_row_blocks(name, module, picker, rows, kernel, plain_cpu, first_weight, n_inputs):
+    """The kernel follows the JAX row blocks. With the port's copy of the
+    JAX row picker (`module.picker`) set to `rows` instead of its own R:
+    the kernel's input grads do not move (its per-row program does not
+    depend on R); each weight grad that the plain version on the CPU moves
+    (the JAX program rounds it per block) the kernel moves by as much
+    (within 2x either way: as many roundings), and, where the two programs
+    agree bit for bit on the input grads (no rounding flip between them, so
+    the blocks' sums are the same values), by the same amounts: the
+    kernel's move minus the plain version's within 1/4 of the plain
+    version's; each grad the plain version leaves in place (fp32 sums, such
+    as the LayerNorms' affine grads) the kernel moves by the fp32 sums'
+    order at most (1e-5 norm-wise). The plain version runs on the CPU,
+    whose values do not depend on R (the card's picks cuBLAS algorithms by
+    the block's rows). A kernel that rounded its weight grads once, or
+    summed a bias in fp32, would not move."""
+    import torch
+
+    base_k, base_p = kernel(), plain_cpu()
+    own = getattr(module, picker)
+    setattr(module, picker, lambda *a, **k: rows)
+    try:
+        k1, p1 = kernel(), plain_cpu()
+    finally:
+        setattr(module, picker, own)
+    still = all(torch.equal(k1[i], base_k[i]) for i in range(n_inputs))
+    exact = all(torch.equal(base_k[i].cpu(), base_p[i]) for i in range(n_inputs))
+    lines, bad, moved = [], [], 0
+    for i in range(first_weight, len(p1)):
+        norm = float(p1[i].double().norm()) or 1.0
+        dp = p1[i].double() - base_p[i].double()
+        dk = (k1[i].double() - base_k[i].double()).cpu()
+        shift, kmove = float(dp.norm()) / norm, float(dk.norm()) / norm
+        off = float((dk - dp).norm()) / norm
+        lines.append(f"{i}:{kmove:.2e}/{shift:.2e}/{off:.2e}")
+        if shift > 1e-5:
+            moved += 1
+            ok = 0.5 * shift <= kmove <= 2 * shift and (off <= 0.25 * shift or not exact)
+        else:
+            ok = kmove <= 1e-5
+        if not ok:
+            bad.append(i)
+    log(f"check {name} row blocks: with {picker} at {rows}, per weight grad (norm-wise) the "
+        f"kernel's move / the CPU plain version's / their difference {' '.join(lines)}; input "
+        f"grads unmoved: {still}; equal to the plain version's (moves compared value by "
+        f"value): {exact}")
+    require(still and moved >= 4 and not bad,
+            f"{name}: the kernel does not follow the row blocks ({moved} moved, off {bad})")
+
+
+def bf16_backward_checks(model32, dev, smi, gen, results, B, T):
+    """Phase 16, part 1: the three bf16 backward kernels against their plain
+    versions, small and at the train protocol's shapes (check_bf16_grads);
+    the small CSP and TBlock cases again with the row picker at 1
+    (check_row_blocks); at the protocol each kernel timed beside the fp32
+    backward kernel on the same inputs; then the backward's bf16 product
+    alone in its A.B and A^T.B layouts at the CSP backward's final conv."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops import fused_csp, fused_tblock
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_reference
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_reference
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (tblock_backward,
+                                                          tblock_backward_reference)
+    from unav_yolyolva_tpu_torch.tools.grad_gaps import gate_margins, ulp_bump
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    bf = torch.bfloat16
+
+    def bump(x, mask, sign):
+        return ulp_bump(x, mask, gen, sign)
+
+    # small cases, short sums: most grads take the plain versions' roundings
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    def mhca_ws(c):
+        return [rnd(3, c, 3, scale=0.5), 1 + rnd(3, c, scale=0.1), rnd(3, c, scale=0.1),
+                rnd(4, c, c, scale=c ** -0.5), rnd(4, c, scale=0.1)]
+
+    r, t, c = 3, 16, 64
+    mask = torch.arange(t, device=dev)[None, :] < torch.tensor([t, 9, 0], device=dev)[:, None]
+    x1, x2, g = rnd(r, t, c).to(bf), rnd(r, t, c).to(bf), rnd(r, t, c).to(bf)
+    ws = mhca_ws(c)
+    check_bf16_grads("mhca_bwd_bf16@3x16x64", lambda: mhca_backward(x1, x2, mask, *ws, g, heads=4),
+                     lambda: mhca_backward_reference(x1, x2, mask, *ws, g, heads=4),
+                     lambda: mhca_backward_reference(x1.float(), x2.float(), mask, *ws,
+                                                     g.float(), heads=4), 2,
+                     lambda s: mhca_backward(bump(x1, mask, s), x2, mask, *ws, g, heads=4))
+    for t, heads in ((16, 4), (7, 8)):
+        mid, cin, ng, fg = 32, 64, 16, 24
+        packs = [mhca_ws(mid) for _ in range(3)]
+        a = [rnd(r, t, cin).to(bf), rnd(r, ng, fg).to(bf),
+             torch.arange(t, device=dev)[None, :] < torch.tensor([t, 3, t - 1],
+                                                                 device=dev)[:, None],
+             rnd(2 * mid, cin, scale=cin ** -0.5), rnd(2 * mid, scale=0.1),
+             *[torch.stack([p[i] for p in packs]) for i in range(5)],
+             rnd(mid, fg, scale=fg ** -0.5), rnd(mid, scale=0.1), rnd(heads),
+             rnd(mid, mid, 3, scale=(3 * mid) ** -0.5), rnd(mid, scale=0.1),
+             rnd(cin, 6 * mid, scale=(6 * mid) ** -0.5), rnd(cin, scale=0.1)]
+        gc = rnd(r, t, cin).to(bf)
+        a32 = [a[0].float(), a[1].float(), *a[2:]]
+        name = f"csp_bwd_bf16@T{t}/{heads}h small"
+        check_bf16_grads(name, lambda: csp_backward(*a, g=gc, attn_heads=heads),
+                         lambda: csp_backward_reference(*a, g=gc, attn_heads=heads),
+                         lambda: csp_backward_reference(*a32, g=gc.float(), attn_heads=heads),
+                         2, lambda s: csp_backward(bump(a[0], a[2], s), *a[1:], g=gc,
+                                                   attn_heads=heads))
+        check_row_blocks(name, fused_csp, "pick_rows_csp_bwd", 1,
+                         lambda: csp_backward(*a, g=gc, attn_heads=heads),
+                         lambda: csp_backward_reference(*[v.cpu() for v in a], g=gc.cpu(),
+                                                        attn_heads=heads), 2, 2)
+    t, hid = 16, 4 * c
+    a = [rnd(r, t, c), mask, 0.7 + rnd(r, 1, c, scale=0.3), 1.3 + rnd(r, 1, c, scale=0.3),
+         1 + rnd(3, c, scale=0.1), rnd(3, c, scale=0.1), *mhca_ws(c),
+         rnd(hid, c, scale=c ** -0.5), rnd(hid, scale=0.1), rnd(c, hid, scale=hid ** -0.5),
+         rnd(c, scale=0.1)]
+    gt = rnd(r, t, c)
+    check_bf16_grads("tblock_bwd_bf16@3x16x64",
+                     lambda: tblock_backward(*a, g=gt, heads=4, cdtype=bf),
+                     lambda: tblock_backward_reference(*a, g=gt, heads=4, cdtype=bf),
+                     lambda: tblock_backward_reference(*a, g=gt, heads=4), 1,
+                     lambda s: tblock_backward(bump(a[0], mask, s), *a[1:], g=gt, heads=4,
+                                               cdtype=bf))
+    check_row_blocks("tblock_bwd_bf16@3x16x64", fused_tblock, "pick_rows_tb_bwd", 1,
+                     lambda: tblock_backward(*a, g=gt, heads=4, cdtype=bf),
+                     lambda: tblock_backward_reference(*[v.cpu() for v in a], g=gt.cpu(),
+                                                       heads=4, cdtype=bf), 3, 1)
+
+    for label, key, r, c in ((f"mhca_bwd_bf16@{B}x{T}x512", "backbone.self_att_V.0.attn", B, 512),
+                             (f"mhca_bwd_bf16@{2 * B}x{T}x256",
+                              "backbone.fusion_module.top_down_layers.4.blocks.0", 2 * B, 256)):
+        a = mhca_case(model32, key, r, T, c, gen, dev)
+        heads = dict(model32.named_modules())[key].n_head
+        ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+        a32 = (ab[0].float(), ab[1].float(), *a[2:])
+        g = torch.randn(r, T, c, generator=gen).to(dev, bf)
+
+        def moved(sign, selfattn=a[1] is a[0]):
+            xb = bump(ab[0], ab[2], sign)
+            return mhca_backward(xb, xb if selfattn else ab[1], *ab[2:], g, heads=heads)
+
+        err = check_bf16_grads(label, lambda: mhca_backward(*ab, g, heads=heads),
+                               lambda: mhca_backward_reference(*ab, g, heads=heads),
+                               lambda: mhca_backward_reference(*a32, g.float(), heads=heads), 2,
+                               moved)
+        ms = cuda_ms(lambda: mhca_backward(*ab, g, heads=heads), 10)
+        fms = cuda_ms(lambda: mhca_backward(*a32, g.float(), heads=heads), 10)
+        pms = cuda_ms(lambda: mhca_backward_reference(*ab, g, heads=heads), 3)
+        flops = mhca_bwd_flops(r, T, c)
+        nbytes = 2 * 5 * r * T * c + 4 * 2 * (4 * c * c + 19 * c) + r * T
+        results[label] = (err, ms, pms, *bound_bf16_ms(flops, nbytes, flops - 18 * r * T * c),
+                          fms)
+        log(f"time {label}: kernel {ms:.3f} ms, the fp32 backward kernel on the same inputs "
+            f"{fms:.3f} ms, plain {pms:.3f} ms, bound {results[label][3]:.3f} ms "
+            f"({results[label][4]}) [{smi}]")
+    for label, key, t in ((f"csp_bwd_bf16@T{T}/4h", "backbone.fusion_module.top_down_layers.4", T),
+                          (f"csp_bwd_bf16@T{T}/8h", "backbone.fusion_module.bottom_up_layers.0",
+                           T),
+                          ("csp_bwd_bf16@T7/8h", "backbone.fusion_module.bottom_up_layers.4", 7),
+                          ("csp_bwd_bf16@T7/4h", "backbone.fusion_module.top_down_layers.4", 7)):
+        a, heads = csp_case(model32, key, 2 * B, t, gen, dev)
+        ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+        a32 = (ab[0].float(), ab[1].float(), *a[2:])
+        g = torch.randn(2 * B, t, 512, generator=gen).to(dev, bf)
+        margins = []
+
+        def plain():
+            with gate_margins(margins):
+                return csp_backward_reference(*ab, g=g, attn_heads=heads)
+
+        err = check_bf16_grads(label, lambda: csp_backward(*ab, g=g, attn_heads=heads), plain,
+                               lambda: csp_backward_reference(*a32, g=g.float(),
+                                                              attn_heads=heads), 2,
+                               lambda s: csp_backward(bump(ab[0], ab[2], s), *ab[1:], g=g,
+                                                      attn_heads=heads),
+                               lambda: csp_backward_reference(*[v.cpu() for v in ab],
+                                                              g=g.cpu(), attn_heads=heads))
+        low, ties, n = min(m[1] for m in margins), sum(m[2] for m in margins), margins[0][3]
+        log(f"gates {label}: the plain version's smallest top-2 margin of the gate's max "
+            f"{low:.3e}, valid positions under 1e-5: {ties} of {n * len(margins)}")
+        ms = cuda_ms(lambda: csp_backward(*ab, g=g, attn_heads=heads), 10)
+        fms = cuda_ms(lambda: csp_backward(*a32, g=g.float(), attn_heads=heads), 10)
+        pms = cuda_ms(lambda: csp_backward_reference(*ab, g=g, attn_heads=heads), 1, warmup=1)
+        cin, fg = a[0].shape[-1], a[1].shape[-1]
+        nbytes = (2 * 2 * (ab[0].numel() + ab[1].numel()) + 2 * g.numel()
+                  + 4 * 2 * sum(x.numel() for x in a[3:]) + a[2].numel())
+        # every product on the bf16 tensor cores; the gate's scores (forward
+        # and their grads) and the MHCAs' conv + LN on FFMA
+        flops = csp_bwd_flops(2 * B, t, cin, 256, 512, fg, 512)
+        results[label] = (err, ms, pms, *bound_bf16_ms(
+            flops, nbytes, flops - 3 * 2 * 2 * B * t * 256 * 512 - 3 * 18 * 2 * B * t * 256),
+            fms)
+        log(f"time {label}: kernel {ms:.3f} ms, the fp32 backward kernel on the same inputs "
+            f"{fms:.3f} ms, plain {pms:.3f} ms, bound {results[label][3]:.3f} ms "
+            f"({results[label][4]}) [{smi}]")
+    label = f"tblock_bwd_bf16@{B}x{T}x512"
+    blk, a = tblock_case(model32, "backbone.self_att_V.0", B, T, gen, dev)
+    heads, c, hid = blk.attn.n_head, a[0].shape[-1], a[11].shape[0]
+    g = torch.randn(B, T, c, generator=gen).to(dev)
+    err = check_bf16_grads(label, lambda: tblock_backward(*a, g=g, heads=heads, cdtype=bf),
+                           lambda: tblock_backward_reference(*a, g=g, heads=heads, cdtype=bf),
+                           lambda: tblock_backward_reference(*a, g=g, heads=heads), 1,
+                           lambda s: tblock_backward(bump(a[0], a[1], s), *a[1:], g=g,
+                                                     heads=heads, cdtype=bf),
+                           lambda: tblock_backward_reference(*[v.cpu() for v in a], g=g.cpu(),
+                                                             heads=heads, cdtype=bf))
+    ms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=heads, cdtype=bf), 10)
+    fms = cuda_ms(lambda: tblock_backward(*a, g=g, heads=heads), 10)
+    pms = cuda_ms(lambda: tblock_backward_reference(*a, g=g, heads=heads, cdtype=bf), 2)
+    nbytes = 4 * (3 * B * T * c + 4 * B * c + 2 * sum(w.numel() for w in a[4:])) + B * T
+    flops = tblock_bwd_flops(B, T, c, hid)
+    results[label] = (err, ms, pms, *bound_bf16_ms(flops, nbytes, flops - 18 * B * T * c), fms)
+    log(f"time {label}: kernel {ms:.3f} ms, the fp32 backward kernel on the same inputs "
+        f"{fms:.3f} ms, plain {pms:.3f} ms, bound {results[label][3]:.3f} ms "
+        f"({results[label][4]}) [{smi}]")
+    bf16_layout_checks(dev, smi, gen, B, T)
+
+
+def bf16_layout_checks(dev, smi, gen, B, T):
+    """The backward's bf16 product alone (ops/gemm_tc.py:bf16_layout_product)
+    at the CSP backward's final conv (T=224, 2B=16 of the train protocol):
+    dcat = g Wfinal (A.B) and Wfinal's grad g^T cat (A^T.B), summed in JAX
+    row blocks of T rows (R=1), each block rounded to bf16. Their fp32 sums'
+    error against fp64 within 2x that of fp32 torch.matmul of the same bf16
+    values; the rounded weight grad within a flip of its plain version on at
+    most 1% of the values; the same bits on repeat; each timed beside
+    cuBLAS's bf16 torch.matmul (fp32 sums, rounded once)."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_layout_product, bf16_layout_reference
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    bf = torch.bfloat16
+    pb, cout, c6 = 2 * B * T, 512, 6 * 256
+    gb = torch.randn(pb, cout, generator=gen).to(dev, bf)
+    wf = (torch.randn(cout, c6, generator=gen) / math.sqrt(cout)).to(dev, bf)
+    cat = torch.randn(pb, c6, generator=gen).to(dev, bf)
+    for label, a, b, layout, kw, lib in (
+            (f"gemm_bf16_nn@{pb}x{c6}x{cout}", gb, wf, "nn", {}, lambda: torch.matmul(gb, wf)),
+            (f"gemm_bf16_wgrad@{cout}x{c6}x{pb}", gb, cat, "tn", dict(kblock=T),
+             lambda: torch.matmul(gb.T, cat))):
+        sums = bf16_layout_product(a, b, layout, out_bf16=False, **kw)
+        exact = (a.double().T if layout == "tn" else a.double()) @ b.double()
+        err, err_32 = rel_err(sums, exact), rel_err(torch.matmul(
+            a.float().T if layout == "tn" else a.float(), b.float()), exact)
+        ok = err <= 2 * err_32
+        what = f"fp32 sums' norm-wise err vs fp64 {err:.3e} (fp32 torch.matmul {err_32:.3e})"
+        if layout == "tn":
+            kw = dict(kw, round_blocks=True)
+            y = bf16_layout_product(a, b, layout, out_bf16=False, **kw)
+            flips = float((y != bf16_layout_reference(a, b, layout, out_bf16=False,
+                                                      **kw)).float().mean())
+            ok = ok and flips <= 0.01
+            what += f"; blocks of {T} rows rounded: share of values a flip apart {flips:.2e}"
+        same = torch.equal(bf16_layout_product(a, b, layout, **kw),
+                           bf16_layout_product(a, b, layout, **kw))
+        log(f"check {label}: {what}; bit-identical on repeat: {same}")
+        require(ok and same, f"{label}: off its gate")
+        ms = cuda_ms(lambda: bf16_layout_product(a, b, layout, **kw), 20)
+        lms = cuda_ms(lib, 20)
+        flops = 2 * pb * cout * c6
+        bms, by = bound_bf16_ms(flops, 2 * (pb * cout + cout * c6 + pb * c6), flops)
+        log(f"time {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), library "
+            f"cuBLAS bf16 torch.matmul {lms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
+        del sums, exact
+
+
+def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
+    """Phase 16: the bf16 train step (configs/avel_unav100_bf16.yaml, B=8,
+    T=224, AdamW, warmup + cosine, droppath 0.1, EMA; fp32 parameters,
+    AdamW state, EMA and losses). The three bf16 backward kernels against
+    their plain versions (bf16_backward_checks); three train steps with the
+    default and the whole-block stem, each bf16 backward kernel launched as
+    often as its forward and no fp32 MHCA, CSP or TBlock kernel; one step's
+    grads at B=2 on the card against the CPU's bf16 plain path; the train
+    CLI on the bf16 config from files, 3 epochs of 4 steps with validation,
+    then a resume that repeats the straight run's last epoch bit for bit; the
+    bench's train half at fp32 and bf16 in turns. Returns the bf16 backward
+    kernels' launches (per 3 steps, and in the CLI's run)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    import yaml
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                                        synthetic_train_batch)
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_backward
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
+    from unav_yolyolva_tpu_torch.tools import bench
+    from unav_yolyolva_tpu_torch.tools.grad_gaps import step_grads
+    from unav_yolyolva_tpu_torch.train import (cli, create_train_state, make_optimizer,
+                                               make_train_step)
+
+    t_phase = time.perf_counter()
+    fns = {"mhca": fused_mhca, "csp": fused_csp, "tblock": fused_tblock,
+           "mhca_bwd": mhca_backward, "csp_bwd": csp_backward, "tblock_bwd": tblock_backward}
+
+    def reset():
+        for f in fns.values():
+            f.launches = f.bf16_launches = 0
+
+    def got():
+        out = {k: f.launches for k, f in fns.items()}
+        out.update({f"{k}_bf16": f.bf16_launches for k, f in fns.items()})
+        return out
+
+    def through_bf16(n, steps, per_step, what):
+        """The bf16 backward kernels ran as often as their forwards in
+        training (per_step a step), and no fp32 kernel ran."""
+        fp32 = {k: v for k, v in n.items() if not k.endswith("_bf16") and v}
+        want = {f"{k}_bwd_bf16": steps * v for k, v in per_step.items()}
+        require(not fp32 and all(n[k] == v for k, v in want.items())
+                and all(n[f"{k}_bf16"] >= steps * v for k, v in per_step.items()),
+                f"{what}: the bf16 train path's launches {n}, expected backward {want} and "
+                f"no fp32 kernel")
+
+    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
+    tmodel = build_model(tcfg, device=dev, seed=seed)
+    bf16_backward_checks(tmodel, dev, smi, gen, results, B, T)
+    bf16_backward_profile(tmodel, B, T, gen, dev)
+    del tmodel
+
+    # ---- the train step at bf16, both stems ------------------------------------
+    cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_bf16.yaml"))
+    m = cfg["model"]
+    require(cfg["tpu"]["compute_dtype"] == "bfloat16" and cfg["loader"]["batch_size"] == B
+            and m["max_seq_len"] == T, "configs/avel_unav100_bf16.yaml is not the protocol")
+    batches = [synthetic_train_batch(gen, B, T, m["raw_input_dim_V"], m["raw_input_dim_A"],
+                                     m["num_classes"], cfg["dataset"]["max_num_events"])
+               for _ in range(3)]
+    launches = {}
+    for stem, per_step in (("never", {"mhca": 5, "csp": 10}),
+                           ("always", {"mhca": 1, "csp": 10, "tblock": 4})):
+        set_stem(stem)
+        model = build_model(cfg, device=dev, seed=seed)
+        opt, _ = make_optimizer(model, cfg["opt"], 100, cfg["train_cfg"]["clip_grad_l2norm"])
+        state = create_train_state(model, opt, cfg["train_cfg"]["init_loss_norm"])
+        step = make_train_step(model, opt, cfg, device=dev)
+        step(state, batches[0], seed)                                   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        losses = [step(state, bt, seed) for bt in batches]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = got()
+        launches[stem] = n
+        log(f"train bf16 ({'whole-block' if stem == 'always' else 'default'} stem): 3 steps "
+            f"at B={B} in {secs:.2f} s, final losses "
+            f"{[round(float(x['final_loss']), 5) for x in losses]}, kernel launches {n}")
+        require(all(finite_losses(x) for x in losses)
+                and all(x["final_loss"].dtype == torch.float32 for x in losses)
+                and all(p.dtype == torch.float32 for p in model.parameters())
+                and all(p.dtype == torch.float32 for p in state.ema.parameters()),
+                "train bf16: non-finite or non-fp32 losses, parameters or EMA")
+        through_bf16(n, 3, per_step, f"train bf16 stem {stem}")
+        del model, opt, state, step
+    set_stem("never")
+
+    # ---- one step's grads: the card against the CPU's bf16 plain path ----------
+    gen2 = torch.Generator().manual_seed(seed + 16)
+    two = synthetic_train_batch(gen2, 2, T, m["raw_input_dim_V"], m["raw_input_dim_A"],
+                                m["num_classes"], cfg["dataset"]["max_num_events"])
+    probe = build_model(cfg, device=dev, seed=seed)
+    for mod in probe.modules():
+        if hasattr(mod, "drop_prob"):
+            mod.drop_prob = 0.0
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["tpu"]["compute_dtype"] = "float32"
+    probe32 = build_model(cfg32, device="cpu", seed=seed)
+    probe32.load_state_dict(probe.state_dict())
+    for mod in probe32.modules():
+        if hasattr(mod, "drop_prob"):
+            mod.drop_prob = 0.0
+    t0 = time.perf_counter()
+    gl, gg = step_grads(copy.deepcopy(probe), cfg, two, dev)
+    gms = [step_grads(copy.deepcopy(probe), cfg, bf16_bump(two, gen2, sign), dev)[1]
+           for sign in (1, -1, 1, -1)]
+    cl, cg = step_grads(copy.deepcopy(probe).cpu(), cfg, two, "cpu")
+    _, c32 = step_grads(probe32, cfg32, two, "cpu")
+    log(f"train bf16 grads: one step at B=2 on the card (five times: the batch, and one "
+        f"input value a video moved one bf16 ulp up, then down, at two draws) and on the CPU "
+        f"at bf16 and fp32 in {time.perf_counter() - t0:.1f} s")
+    none = {n for n, g in gg.items() if g is None}
+    require(none <= ARGMAX_ONLY and none == {n for n, g in cg.items() if g is None},
+            f"train bf16 grads: parameters without a grad: {sorted(none)}")
+    zero = 1e-6 * max(float(g.norm()) for g in c32.values() if g is not None)
+    strict = fallback = 0
+    worst = (0.0, "", 0.0, 0.0, 0.0)
+    to_fp32 = []
+    for n, g in gg.items():
+        if g is None:
+            continue
+        g, c, f = g.cpu(), cg[n], c32[n]
+        require(bool(torch.isfinite(g).all()), f"{n}: non-finite grad")
+        if float(f.norm()) < zero:               # exactly 0 in exact arithmetic
+            require(float(g.norm()) < 100 * zero, f"{n}: grad should vanish")
+            continue
+        err, gap = rel_err(g, c), rel_err(c, f)
+        to_fp32.append(rel_err(g, f) / gap)
+        move = max(rel_err(gm[n].cpu(), g) for gm in gms)
+        if err <= 0.25 * gap:
+            strict += 1
+            continue
+        fallback += 1
+        worst = max(worst, (err / (2 * move), n, err, gap, move))
+        require(err <= 2 * move, f"train bf16 grads {n}: card vs CPU bf16 {err:.3e}, CPU "
+                                 f"bf16 vs fp32 {gap:.3e}, the card's one-ulp move {move:.3e}")
+    # a card that took these grads in fp32 would pass the bounds above where
+    # the one-ulp move exceeds half the gap; its grads would sit ~1e-6 from
+    # the CPU's fp32 ones, a bf16 step's about a gap away
+    bf16ness = sorted(to_fp32)[len(to_fp32) // 2]
+    log(f"check train bf16 grads gpu-vs-cpu: loss {gl:.6f} vs {cl:.6f}; {strict} tensors "
+        f"within 1/4 of the CPU's bf16-vs-fp32 gap, {fallback} (rounding flips that spread, "
+        f"and the CSP gates' argmax, which the card and the CPU score in other orders) within "
+        f"2x the card's own move under one input value a video moved by one bf16 ulp (the "
+        f"largest of up and down at two draws); worst {worst[1]}: {worst[2]:.3e} against "
+        f"move {worst[4]:.3e} (gap {worst[3]:.3e}); median over tensors of the card's "
+        f"distance to the CPU's fp32 grads over the CPU's bf16-vs-fp32 gap {bf16ness:.3f}")
+    require(bf16ness >= 0.5, "train bf16 grads: the card's grads sit at the CPU's fp32 ones")
+    require(abs(gl - cl) <= 1e-2 * abs(cl), f"train bf16 grads: loss {gl} vs {cl}")
+    del probe, probe32, gg, gms, cg, c32
+
+    # ---- the train CLI on the bf16 config, from files, with a resume -----------
+    with tempfile.TemporaryDirectory() as root:
+        synth = make_synthetic_dataset(root, num_videos=64, num_classes=100, min_len=48,
+                                       max_len=224, visual_dim=2048, audio_dim=128,
+                                       val_fraction=0.5, seed=seed + 16)
+        with open(os.path.join(ROOT, "configs", "avel_unav100_bf16.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+        raw.update(train_split=["train"], val_split=["validation"],
+                   output_folder=os.path.join(root, "ckpt"))
+        raw["opt"].update(epochs=2, warmup_epochs=1)
+        raw["train_cfg"]["eval_freq"] = 1
+        cfg_yaml = os.path.join(root, "train_bf16.yaml")
+        with open(cfg_yaml, "w") as f:
+            yaml.safe_dump(raw, f)
+        reset()
+        t0 = time.perf_counter()
+        out = cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "straight"]))
+        torch.cuda.synchronize()
+        cli_n = got()
+        hist = out["history"]
+        log(f"train bf16 from files: the train CLI on configs/avel_unav100_bf16.yaml, "
+            f"{len(hist)} epochs of 4 steps at B=8 in {time.perf_counter() - t0:.1f} s, "
+            f"train losses {[round(h['train_losses']['final_loss'], 5) for h in hist]}, mAP "
+            f"{[h['mAP'] for h in hist]}, final {out['final_mAP']!r}; kernel launches {cli_n}")
+        require(len(hist) == 3 and all(finite_losses(h["train_losses"]) for h in hist)
+                and all(finite_losses(h["val_losses"]) for h in hist),
+                "train bf16 from files: non-finite or missing losses")
+        through_bf16(cli_n, 12, {"mhca": 5, "csp": 10}, "train bf16 from files")
+        folder = out["ckpt_folder"]
+        cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "resumed",
+                                 "--resume", os.path.join(folder, "epoch_001")]))
+        a = torch.load(os.path.join(folder, "epoch_002", "state.pt"), map_location="cpu")
+        b = torch.load(os.path.join(folder.replace("_straight", "_resumed"), "epoch_002",
+                                    "state.pt"), map_location="cpu")
+        same = [k for k in a["model"] if torch.equal(a["model"][k], b["model"][k])]
+        log(f"check resume bf16: epoch_002 of the run resumed from epoch_001 against the "
+            f"straight run's: {len(same)} of {len(a['model'])} parameter tensors bit-identical")
+        require(len(same) == len(a["model"]), "train bf16: the resumed run differs")
+        torch.backends.cudnn.deterministic = False      # the other phases' setting
+
+    # ---- the bench's train half at fp32 and bf16, in turns ------------------------
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--compute-dtype", dtype, "--commit", "unknown", "--seed", str(seed),
+                        "--iters", "5"])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rec["train_dtype"] == dtype, f"the bench trained at {rec['train_dtype']}")
+        log(f"time bench train {dtype}: {rec['train_clips_per_sec']:.1f} clips/s (median of "
+            f"{len(rec['train_windows'])} windows of {rec['iters']} steps, spread "
+            f"{rec['train_spread_pct']:.1f}%), busy share {rec['train_busy_share']:.3f}, peak "
+            f"memory {rec['train_peak_memory_gib']:.2f} GiB; eval {rec['value']:.1f} videos/s "
+            f"[{smi}]")
+    log(f"bf16 train phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"mhca_bwd_bf16": launches["never"]["mhca_bwd_bf16"],
+            "csp_bwd_bf16": launches["never"]["csp_bwd_bf16"],
+            "tblock_bwd_bf16": launches["always"]["tblock_bwd_bf16"],
+            "cli": {k: cli_n[k] for k in ("mhca_bwd_bf16", "csp_bwd_bf16",
+                                          "tblock_bwd_bf16")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stages-only", action="store_true",
                     help="only build, then print the CSP and TBlock forward's and "
                          "backward's per-launch breakdowns and launch counts")
+    ap.add_argument("--bf16-train-only", action="store_true",
+                    help="only build, then run phase 16 (the bf16 train step)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "unav_yolyolva_tpu_torch")):
@@ -1623,6 +2229,9 @@ def main(argv=None) -> int:
         backward_launch_lines(tmodel, B, T, gen, dev)
         return 0
     results = {}
+    if args.bf16_train_only:
+        bf16_train_phase(args.seed, dev, smi, gen, results, B, T)
+        return 0
     with torch.inference_mode():
         for label, key, r, c in (("mhca@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
                                  ("mhca@128x224x256", "backbone.fusion_module.top_down_layers.4.blocks.0", 128, 256)):
@@ -2105,6 +2714,9 @@ def main(argv=None) -> int:
     # ---- 15. the bf16 compute policy on the serving path ----------------------
     bf16_launches = bf16_phase(eval_model, args.seed, dev, smi, gen, results)
 
+    # ---- 16. the bf16 train step --------------------------------------------------
+    bf16_train = bf16_train_phase(args.seed, dev, smi, gen, results, B, T)
+
     # ---- last: the kernels one CSP and one MHCA backward launch --------------
     backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)
 
@@ -2133,6 +2745,21 @@ def main(argv=None) -> int:
                 "compute_dtype": "bfloat16", "headers": [pkg + "bf16.cuh"],
                 "cases": {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by"), results[k][:5]))
+                          for k in results if k.startswith(name + "@") and k != label}}
+
+    def bf16_bwd_entry(name, label, source, replaces):
+        """A bf16 backward kernel: its launches in phase 16's three bf16
+        train steps (the whole-block stem's for the TBlock) and in the bf16
+        train CLI's run, the fp32 backward kernel's ms on the same inputs."""
+        err, ms, pms, bms, by, fms = results[label]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": bf16_train[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": label,
+                "fp32_kernel_ms": fms, "compute_dtype": "bfloat16",
+                "launches_train_cli": bf16_train["cli"][name],
+                "headers": [pkg + "bf16_bwd.cuh", pkg + "bf16.cuh"],
+                "cases": {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "fp32_kernel_ms"), results[k]))
                           for k in results if k.startswith(name + "@") and k != label}}
 
     pkg = "unav_yolyolva_tpu_torch/csrc/"
@@ -2165,6 +2792,12 @@ def main(argv=None) -> int:
                    "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
         bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
                    "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
+        bf16_bwd_entry("mhca_bwd_bf16", f"mhca_bwd_bf16@{B}x{T}x512",
+                       pkg + "mhca_bwd_bf16.cu", "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
+        bf16_bwd_entry("csp_bwd_bf16", f"csp_bwd_bf16@T{T}/8h", pkg + "csp_bwd_bf16.cu",
+                       "unav_yolyolva_tpu/ops/pallas_csp.py:373"),
+        bf16_bwd_entry("tblock_bwd_bf16", f"tblock_bwd_bf16@{B}x{T}x512",
+                       pkg + "tblock_bwd_bf16.cu", "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

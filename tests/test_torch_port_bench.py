@@ -60,14 +60,15 @@ def test_busy_share_and_copy_overlap_of_a_trace():
 
 
 def test_bench_serves_at_bf16():
-    """--compute-dtype bfloat16 serves the eval half at the bf16 policy; the
-    train half is skipped here (it stays fp32 whatever the flag says)."""
+    """--compute-dtype bfloat16 serves the eval half and trains the train
+    half at the bf16 policy, and says so."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-m", "unav_yolyolva_tpu_torch.tools.bench",
-                          "--device", "cpu", "--tiny", "--iters", "1", "--no-train",
+                          "--device", "cpu", "--tiny", "--iters", "1",
                           "--compute-dtype", "bfloat16", "--commit", "abc"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     rec = json.loads(res.stdout.strip().splitlines()[-1])
     assert rec["dtype"] == "bfloat16" and rec["value"] > 0 and len(rec["windows"]) >= 5
-    assert "train_clips_per_sec" not in rec
+    assert rec["train_dtype"] == "bfloat16" and rec["train_clips_per_sec"] > 0
+    assert len(rec["train_windows"]) >= 5

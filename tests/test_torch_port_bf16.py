@@ -27,9 +27,9 @@ FUSED_MHCA "always", as the JAX package's own tests run them.
   at least 1e-4 (the policy is live).
 - The bf16 product's plain version: its fp32 sums of bf16 operands against
   fp64, within 2x the error of fp32 torch.matmul.
-- Refusals: parameters stay fp32; training at bf16 raises
-  NotImplementedError naming ROADMAP Queue 1 item 5b; a compute dtype other
-  than float32 or bfloat16 is refused."""
+- Parameters stay fp32; training at bf16 runs on the CPU (make_train_step
+  and the train CLI, the plain bf16 backwards); a compute dtype other than
+  float32 or bfloat16 is refused."""
 
 import os
 
@@ -350,16 +350,53 @@ def test_bf16_product_reference_against_fp64():
     assert (y.double() - ref).abs().le(ref.abs() * 2.0 ** -8 + 1e-6).all()
 
 
-def test_training_at_bf16_is_refused(models, tmp_path):
-    from unav_yolyolva_tpu_torch.train import make_optimizer, make_train_step
+def test_training_at_bf16_runs_on_the_cpu(models, tmp_path):
+    """make_train_step and the train CLI run at bf16 on the CPU (the bf16
+    plain backwards) and write their outputs; parameters, optimizer state
+    and losses stay fp32. A compute dtype other than float32 or bfloat16 is
+    refused before any output."""
+    import yaml
+
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+    from unav_yolyolva_tpu_torch.train import (create_train_state, make_optimizer,
+                                               make_train_step)
     from unav_yolyolva_tpu_torch.train import cli
 
-    port, _ = models["ports"]["bfloat16"]
-    optimizer, _ = make_optimizer(port, load_config_dict(_over("bfloat16"))["opt"], 4, 1.0)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        make_train_step(port, optimizer, load_config_dict(_over("bfloat16")), device="cpu")
-    cfg = tmp_path / "bf16.yaml"
-    cfg.write_text("tpu: {compute_dtype: bfloat16}\n")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        cli.main(cli.parse_args([str(cfg), "--device", "cpu"]))
-    assert os.listdir(tmp_path) == ["bf16.yaml"]      # refused before any output
+    cfg = load_config_dict(_over("bfloat16"))
+    port = build_model(cfg, device="cpu", seed=None)
+    port.load_state_dict(params_from_jax(models["params"]), strict=True)
+    optimizer, _ = make_optimizer(port, cfg["opt"], 4, 1.0)
+    state = create_train_state(port, optimizer, 100.0)
+    step = make_train_step(port, optimizer, cfg, device="cpu")
+    before = [p.detach().clone() for p in port.parameters()]
+    rng = np.random.default_rng(75)
+    batch = _batch(rng)
+    batch.update(gt_segments=np.tile([[2.0, 9.0], [12.0, 20.0]], (B, 1, 1)).astype(np.float32),
+                 gt_labels=np.zeros((B, 2), np.int32), gt_valid=np.ones((B, 2), bool))
+    for _ in range(2):            # the warmup's learning rate is 0 at the first step
+        losses = step(state, batch)
+        assert losses["final_loss"].dtype == torch.float32
+        assert torch.isfinite(losses["final_loss"])
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+    assert any(not torch.equal(a, p) for a, p in zip(before, port.parameters()))
+    assert all(v.dtype == torch.float32 for st in optimizer.inner.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+
+    synth = make_synthetic_dataset(str(tmp_path / "data"), num_videos=8, num_classes=NCLS,
+                                   min_len=16, max_len=T, visual_dim=24, audio_dim=16, seed=3,
+                                   events_per_video=2)
+    over = _over("bfloat16")
+    over["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+    over.update(output_folder=str(tmp_path / "out"), loader={"batch_size": 2, "num_workers": 1},
+                opt=dict(epochs=1, warmup_epochs=0),
+                test_cfg={"pre_nms_topk": 50, "max_seg_num": 10})
+    path = tmp_path / "bf16.yaml"
+    path.write_text(yaml.safe_dump(over))
+    out = cli.main(cli.parse_args([str(path), "--device", "cpu", "-c", "1", "--output", "run"]))
+    assert {"epoch_000", "model_best"} <= set(os.listdir(out["ckpt_folder"]))
+    assert np.isfinite(out["history"][-1]["train_losses"]["final_loss"])
+
+    bad = tmp_path / "f16.yaml"
+    bad.write_text("tpu: {compute_dtype: float16}\n")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        cli.main(cli.parse_args([str(bad), "--device", "cpu"]))

@@ -1179,12 +1179,7 @@ def test_bf16_mhca_kernel(cuda, t, c, heads):
     assert (out[2] == 0).all()
 
 
-@pytest.mark.parametrize("t,heads", [(7, 4), (20, 8), (130, 4)])
-def test_bf16_csp_kernel(cuda, t, heads):
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
-
-    gen = torch.Generator().manual_seed(42)
-    b, cin, mid, ng, fg = 3, 128, 64, 40, 24
+def _bf16_csp_args(gen, cuda, b, t, heads, cin=128, mid=64, ng=40, fg=24):
     packs = [_mhca_weights(mid, gen, cuda) for _ in range(3)]
     stacked = [torch.stack([p[i] for p in packs]) for i in range(5)]
     args = [torch.randn(b, t, cin, generator=gen), torch.randn(b, ng, fg, generator=gen),
@@ -1196,8 +1191,17 @@ def test_bf16_csp_kernel(cuda, t, heads):
             0.1 * torch.randn(mid, generator=gen),
             torch.randn(cin, 6 * mid, generator=gen) / (6 * mid) ** 0.5,
             0.1 * torch.randn(cin, generator=gen)]
-    args = [a.to(cuda) if a is not None else _mask(b, t, [t, 3, t - 1], cuda) for a in args]
+    args = [a.to(cuda) if a is not None else _mask(b, t, [t, 3, t - 1][:b], cuda) for a in args]
     args[0], args[1] = args[0].bfloat16(), args[1].bfloat16()
+    return args
+
+
+@pytest.mark.parametrize("t,heads", [(7, 4), (20, 8), (130, 4)])
+def test_bf16_csp_kernel(cuda, t, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
+
+    gen = torch.Generator().manual_seed(42)
+    args = _bf16_csp_args(gen, cuda, 3, t, heads)
     f32 = [args[0].float(), args[1].float(), *args[2:]]
     before = fused_csp.bf16_launches
     _bf16_vs_plain(f"csp_bf16 T{t}/{heads}", lambda: fused_csp(*args, attn_heads=heads),
@@ -1221,34 +1225,214 @@ def test_bf16_tblock_kernel(cuda, r, t, c, heads):
     assert out.dtype == torch.float32 and fused_tblock.bf16_launches == before + 2
 
 
-def test_bf16_kernels_refuse_a_grad(cuda):
-    """No bf16 backward kernel yet: a bf16 CUDA call that needs a grad raises
-    instead of reaching the fp32 backward kernels."""
-    from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock
+@pytest.mark.parametrize("layout,a_f32,kblock,round_blocks",
+                         [("nt", False, None, False), ("nn", False, None, False),
+                          ("nn", True, None, False), ("tn", False, 48, True),
+                          ("tn", True, 100, False), ("tn", False, None, False)])
+def test_bf16_backward_product_layouts(cuda, layout, a_f32, kblock, round_blocks):
+    """The backward's strided bf16 product in each layout against its plain
+    version: fp32 sums within 1e-5 of the sum of the products' magnitudes
+    (both add exact products in fp32, in other orders: K = 200 roundings of
+    ~6e-8 at most), so rounded weight grads agree but where a sum sits on a
+    bf16 rounding edge; the bf16 output a rounding flip apart at most, on at
+    most 1% of the elements."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_layout_product, bf16_layout_reference
+
+    gen = torch.Generator().manual_seed(49)
+    m, n, k = 70, 56, 200
+    a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=gen).to(cuda)
+    if not a_f32:
+        a = a.bfloat16()
+    b = (torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=gen) / k ** 0.5).to(
+        cuda, torch.bfloat16)
+    kw = dict(kblock=kblock, round_blocks=round_blocks)
+    out32 = bf16_layout_product(a, b, layout, out_bf16=False, **kw)
+    again = bf16_layout_product(a, b, layout, out_bf16=False, **kw)
+    ref32 = bf16_layout_reference(a, b, layout, out_bf16=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out32, again)
+    if round_blocks:
+        assert (out32 != ref32).float().mean() <= 0.01
+        assert _rel(out32, ref32) <= BF16_TOL
+    else:
+        mag = bf16_layout_reference(a.abs(), b.abs(), layout, out_bf16=False, **kw)
+        assert ((out32 - ref32).abs() <= 1e-5 * mag).all()
+    y = bf16_layout_product(a, b, layout, scale=0.5, **kw)
+    yr = bf16_layout_reference(a, b, layout, scale=0.5, **kw)
+    assert y.dtype == torch.bfloat16 and (y != yr).float().mean() <= 0.01
+    assert _rel(y, yr) <= BF16_TOL
+
+
+def _bf16_grads_vs_plain(name, run, plain, plain32, moved):
+    """Every grad of a bf16 backward kernel against its plain version: the
+    same dtype, finite, the same bits on repeat, norm-wise within 1/4 of the
+    plain version's own gap to the fp32 plain version; or, where the two
+    programs' fp32 sums round a bf16 value apart and the flip spreads,
+    within 2x the kernel's own move when one input value of each row moves
+    by one bf16 ulp (`moved(sign)`, the larger of up and down), as
+    chip_smoke.py:check_bf16_grads holds it."""
+    got, again, ref, ref32 = run(), run(), plain(), plain32()
+    ups, downs = moved(1), moved(-1)
+    torch.cuda.synchronize()
+    for i, (k, k2, p, p32) in enumerate(zip(got, again, ref, ref32)):
+        assert k.dtype == p.dtype and torch.isfinite(k).all(), (name, i)
+        assert torch.equal(k, k2), f"{name} grad {i}: two runs differ"
+        err, gap = _rel(k, p), _rel(p, p32)
+        move = max(_rel(ups[i], k), _rel(downs[i], k))
+        assert err <= 0.25 * gap or err <= 2 * move, (
+            f"{name} grad {i}: kernel vs plain {err:.3e}, plain vs fp32 {gap:.3e}, the "
+            f"kernel's one-ulp move {move:.3e}")
+    return got
+
+
+def _bump(x, mask, gen):
+    from unav_yolyolva_tpu_torch.tools.grad_gaps import ulp_bump
+
+    return lambda sign: ulp_bump(x, mask, gen, sign)
+
+
+@pytest.mark.parametrize("cross", [True, False])
+def test_bf16_mhca_backward_kernel(cuda, cross):
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_reference
+
+    gen = torch.Generator().manual_seed(46)
+    b, t, c, heads = 3, 16, 64, 4
+    x1 = torch.randn(b, t, c, generator=gen).to(cuda, torch.bfloat16)
+    x2 = torch.randn(b, t, c, generator=gen).to(cuda, torch.bfloat16) if cross else x1
+    g = torch.randn(b, t, c, generator=gen).to(cuda, torch.bfloat16)
+    ws = [w.to(cuda) for w in _mhca_weights(c, gen, cuda)]
+    mask = _mask(b, t, [t, 9, 0], cuda)
+    bump = _bump(x1, mask, gen)
+
+    def moved(sign):
+        xb = bump(sign)
+        return mhca_backward(xb, xb if x2 is x1 else x2, mask, *ws, g, heads=heads)
+
+    before = mhca_backward.bf16_launches
+    got = _bf16_grads_vs_plain(
+        "mhca_bwd_bf16", lambda: mhca_backward(x1, x2, mask, *ws, g, heads=heads),
+        lambda: mhca_backward_reference(x1, x2, mask, *ws, g, heads=heads),
+        lambda: mhca_backward_reference(x1.float(), x2.float(), mask, *ws, g.float(),
+                                        heads=heads), moved)
+    assert mhca_backward.bf16_launches == before + 4
+    assert (got[0][2] == 0).all() and (got[1][2] == 0).all()
+
+
+@pytest.mark.parametrize("t,heads", [(16, 4), (7, 8)])
+def test_bf16_csp_backward_kernel(cuda, t, heads):
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_reference
+
+    gen = torch.Generator().manual_seed(47)
+    args = _bf16_csp_args(gen, cuda, 3, t, heads)
+    g = torch.randn(3, t, 128, generator=gen).to(cuda, torch.bfloat16)
+    f32 = [args[0].float(), args[1].float(), *args[2:]]
+    bump = _bump(args[0], args[2], gen)
+    before = csp_backward.bf16_launches
+    _bf16_grads_vs_plain(
+        f"csp_bwd_bf16 T{t}", lambda: csp_backward(*args, g=g, attn_heads=heads),
+        lambda: csp_backward_reference(*args, g=g, attn_heads=heads),
+        lambda: csp_backward_reference(*f32, g=g.float(), attn_heads=heads),
+        lambda sign: csp_backward(bump(sign), *args[1:], g=g, attn_heads=heads))
+    assert csp_backward.bf16_launches == before + 4
+
+
+def test_bf16_tblock_backward_kernel(cuda):
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (tblock_backward,
+                                                          tblock_backward_reference)
+
+    gen = torch.Generator().manual_seed(48)
+    a = _tblock_args(gen, cuda, 3, 16, 64, 4, [16, 9, 0])
+    g = torch.randn(3, 16, 64, generator=gen).to(cuda)
+    bump = _bump(a[0], a[1], gen)
+    before = tblock_backward.bf16_launches
+    _bf16_grads_vs_plain(
+        "tblock_bwd_bf16", lambda: tblock_backward(*a, g=g, heads=4, cdtype=torch.bfloat16),
+        lambda: tblock_backward_reference(*a, g=g, heads=4, cdtype=torch.bfloat16),
+        lambda: tblock_backward_reference(*a, g=g, heads=4),
+        lambda sign: tblock_backward(bump(sign), *a[1:], g=g, heads=4,
+                                     cdtype=torch.bfloat16))
+    assert tblock_backward.bf16_launches == before + 4
+
+
+@pytest.mark.parametrize("which", ["csp", "tblock"])
+def test_bf16_backward_kernels_follow_the_row_blocks(cuda, monkeypatch, which):
+    """With the port's copy of the JAX row picker at 1 (3 blocks of a row
+    where it picks one of 3 rows), as chip_smoke.py:check_row_blocks holds
+    it: the kernel's input grads do not move; each weight grad that the
+    plain version on the CPU moves (the JAX program rounds it per block) the
+    kernel moves by as much (within 2x either way), and by the same amounts
+    (the difference within 1/4) where the two agree bit for bit on the input
+    grads; the grads the plain version leaves in place (fp32 sums) the
+    kernel moves by 1e-5 at most."""
+    from unav_yolyolva_tpu_torch.ops import fused_csp, fused_tblock
+
+    gen = torch.Generator().manual_seed(50)
+    if which == "csp":
+        args = _bf16_csp_args(gen, cuda, 3, 16, 4)
+        g = torch.randn(3, 16, 128, generator=gen).to(cuda, torch.bfloat16)
+        kernel = lambda: fused_csp.csp_backward(*args, g=g, attn_heads=4)
+        plain = lambda: fused_csp.csp_backward_reference(*[a.cpu() for a in args], g=g.cpu(),
+                                                         attn_heads=4)
+        module, picker, n_in, first = fused_csp, "pick_rows_csp_bwd", 2, 2
+        assert fused_csp.csp_backward_rows(*args, attn_heads=4) == 3
+    else:
+        a = _tblock_args(gen, cuda, 3, 16, 64, 4, [16, 9, 0])
+        g = torch.randn(3, 16, 64, generator=gen).to(cuda)
+        kernel = lambda: fused_tblock.tblock_backward(*a, g=g, heads=4, cdtype=torch.bfloat16)
+        plain = lambda: fused_tblock.tblock_backward_reference(
+            *[v.cpu() for v in a], g=g.cpu(), heads=4, cdtype=torch.bfloat16)
+        module, picker, n_in, first = fused_tblock, "pick_rows_tb_bwd", 1, 3
+        assert fused_tblock.tblock_backward_rows(a[0], *a[4:], heads=4) == 3
+    base_k, base_p = kernel(), plain()
+    monkeypatch.setattr(module, picker, lambda *a, **k: 1)
+    k1, p1 = kernel(), plain()
+    assert all(torch.equal(k1[i], base_k[i]) for i in range(n_in))
+    exact = all(torch.equal(base_k[i].cpu(), base_p[i]) for i in range(n_in))
+    moved = 0
+    for i in range(first, len(p1)):
+        norm = float(p1[i].double().norm())
+        dp = p1[i].double() - base_p[i].double()
+        dk = (k1[i].double() - base_k[i].double()).cpu()
+        if float(dp.norm()) > 1e-5 * norm:
+            moved += 1
+            assert 0.5 <= float(dk.norm()) / float(dp.norm()) <= 2, (which, i)
+            assert not exact or float((dk - dp).norm()) <= 0.25 * float(dp.norm()), (which, i)
+        else:
+            assert float(dk.norm()) <= 1e-5 * norm, (which, i)
+    assert moved >= 4, (which, moved)
+
+
+def test_bf16_grads_run_the_bf16_backward_kernels(cuda):
+    """A bf16 CUDA call that needs a grad goes through its Function: the
+    backward launches the bf16 backward kernel, never the fp32 one."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_backward
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
 
     gen = torch.Generator().manual_seed(44)
     c, t = 64, 16
+    counts = lambda: (mhca_backward.launches, csp_backward.launches, tblock_backward.launches,
+                      mhca_backward.bf16_launches, csp_backward.bf16_launches,
+                      tblock_backward.bf16_launches)
+    before = counts()
     x = torch.randn(2, t, c, generator=gen).to(cuda, torch.bfloat16).requires_grad_(True)
     mask = _mask(2, t, [t, 5], cuda)
     ws = [w.to(cuda) for w in _mhca_weights(c, gen, cuda)]
-    with pytest.raises(NotImplementedError, match="5b"):
-        fused_mhca(x, x, mask, *ws, heads=4)
+    out = fused_mhca(x, x, mask, *ws, heads=4)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad.float()).all()
     a = _tblock_args(gen, cuda, 2, t, c, 4, [t, 5])
     xt = a[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="5b"):
-        fused_tblock(xt, *a[1:], heads=4, cdtype=torch.bfloat16)
-    cin, mid, ng, fg = 128, 64, 8, 16
-    packs = [_mhca_weights(mid, gen, cuda) for _ in range(3)]
-    stacked = [torch.stack([p[i] for p in packs]).to(cuda) for i in range(5)]
-    xc = torch.randn(2, t, cin, generator=gen).to(cuda, torch.bfloat16).requires_grad_(True)
-    guide = torch.randn(2, ng, fg, generator=gen).to(cuda, torch.bfloat16)
-    ws = [torch.randn(2 * mid, cin), torch.zeros(2 * mid), *[s.cpu() for s in stacked],
-          torch.randn(mid, fg), torch.zeros(mid), torch.zeros(4), torch.randn(mid, mid, 3),
-          torch.zeros(mid), torch.randn(cin, 6 * mid), torch.zeros(cin)]
-    with pytest.raises(NotImplementedError, match="5b"):
-        fused_csp(xc, guide, mask, *[w.to(cuda) for w in ws], attn_heads=4)
+    fused_tblock(xt, *a[1:], heads=4, cdtype=torch.bfloat16).sum().backward()
+    assert xt.grad.dtype == torch.float32 and torch.isfinite(xt.grad).all()
+    args = _bf16_csp_args(gen, cuda, 2, t, 4)
+    xc = args[0].clone().requires_grad_(True)
+    fused_csp(xc, *args[1:], attn_heads=4).float().sum().backward()
+    assert xc.grad.dtype == torch.bfloat16 and torch.isfinite(xc.grad.float()).all()
+    after = counts()
+    assert after[:3] == before[:3]
+    assert [a - b for a, b in zip(after[3:], before[3:])] == [1, 1, 1]
 
 
 def test_bf16_wrappers_refuse_unaligned_widths(cuda):

@@ -1,6 +1,8 @@
-// The bf16 policy's product of bf16.cuh alone (ops/gemm_tc.py:bf16_products),
-// for testing and timing it by itself: `count` products in one launch.
-#include "bf16.cuh"
+// The bf16 policy's products alone, for testing and timing them by
+// themselves: bf16.cuh's (ops/gemm_tc.py:bf16_products, `count` products in
+// one launch) and the backward's strided product of bf16_bwd.cuh
+// (bf16_layout_product).
+#include "bf16_bwd.cuh"
 
 constexpr int BG_PTRS = 6, BG_INTS = 10;
 
@@ -28,4 +30,28 @@ extern "C" int unav_gemm_bf16(int count, void* const* ptrs, const long* ints,
     if (a.act != BF16_ACT_NONE && a.act != BF16_ACT_GELU) return (int)cudaErrorInvalidValue;
   }
   return launch_gemm_bf16(batch, count, (cudaStream_t)stream);
+}
+
+// One xgemm (bf16_bwd.cuh) on contiguous row-major operands: layout 0 A (M,
+// K) . B (N, K)^T, 1 A (M, K) . B (K, N), 2 A (K, M)^T . B (K, N); A bf16 or
+// (a_f32) fp32, B bf16; K in blocks of kblock, rounded per block with
+// round_blocks; C (M, N) fp32 (c_f32) or bf16 with the epilogue's scale.
+extern "C" int unav_xgemm_bf16(int layout, int M, int N, int K, int kblock, int round_blocks,
+                               const void* A, int a_f32, const bf16* B, void* C, int c_f32,
+                               float scale, void* stream) {
+  if (layout < 0 || layout > 2) return (int)cudaErrorInvalidValue;
+  XGemm g = xgemm(M, N, K);
+  if (layout == 2)
+    xg_at(g, A, M, a_f32);
+  else
+    xg_a(g, A, K, a_f32);
+  if (layout == 0)
+    xg_bt(g, B, K);
+  else
+    xg_b(g, B, N);
+  xg_c(g, C, N, c_f32);
+  g.kblock = kblock;
+  g.round_blocks = round_blocks;
+  g.scale = scale;
+  return launch_xgemm(g, (cudaStream_t)stream);
 }

@@ -37,8 +37,13 @@ gate's scores summed in fp32 with its max and sigmoid in fp32, the gate
 rounded to bf16 before it multiplies the bf16 projection. On the card it
 is a launch sequence of its own (csrc/csp_bf16.cu on csrc/bf16.cuh): the
 products on the bf16 tensor cores, the weights cast to bf16 once per call,
-the gate's scores FFMA on bf16 loads. Its backward is ROADMAP Queue 1 item
-5b: a bf16 CUDA call that needs a grad raises.
+the gate's scores FFMA on bf16 loads. Its backward is the JAX package's
+bf16 `_csp_bwd_kernel`, `jax.vjp` of the bf16 body once per block of the
+TPU kernel's rows (T padded to 8): the plain version is autograd of the bf16
+forward per block, with JAX's bf16 reduction and cotangent orders
+(ops/bf16_grad.py); on the card csrc/csp_bwd_bf16.cu (the three MHCAs in
+csrc/bf16_bwd.cuh's form MHCA_VJP, the gate rescored with the forward's own
+fmaf chain, weight grads rounded to bf16 per row block).
 
 Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
 stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
@@ -57,8 +62,9 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
-from .fused_mhca import BF16_TRAIN, MAX_T, _check, mhca_reference
-from .gemm_tc import bf16_product_reference, conv3_taps
+from .bf16_grad import broadcast_mul, fan_out, pick_rows_csp_bwd, row_blocks
+from .fused_mhca import MAX_T, _check, mhca_input_uses, mhca_reference
+from .gemm_tc import bf16_product_reference
 
 _FWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5
 _ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
@@ -83,6 +89,9 @@ BWD_STAGES = (("recompute", "final.dx", "final.dw", "gate", "gate_guide", "proj_
               + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_STAGES)
               + ("main.dx", "main.dw", "colsum"))
 _BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
+_BWD_BF16_ARGTYPES = {"unav_csp_bf16_backward": [PTR] * 3 + [INT] * 11 + [PTR] * 15 + [FLOAT]
+                      + [PTR] * 19}
+_BWD_BF16_RESTYPES = {"unav_csp_bf16_backward_scratch": ([INT] * 9, LONG)}
 
 
 def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
@@ -103,34 +112,73 @@ def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
     y = linear(x, wmain, bmain) * mm
     parts = [y[..., :mid], y[..., mid:]]
     for bi in range(3):
+        uses = None
+        if x.dtype == torch.bfloat16:   # the concat's grad first, then the MHCA's
+            parts[-1], *uses = mhca_input_uses(parts[-1], parts[-1], lead=1)
         parts.append(mhca_reference(parts[-1], parts[-1], mask, dw[bi], lnw[bi],
                                     lnb[bi], w[bi], b[bi], heads=mhca_heads, eps=eps,
-                                    linear=linear, matmul=matmul))
-    p = parts[-1]
+                                    linear=linear, matmul=matmul, uses=uses))
+    # p's grads add as the JAX program adds them: the concat's, the gate
+    # scores', then the projection conv's centre, right and left taps
+    parts[-1], p_sc, p_c, p_r, p_l = fan_out(parts[-1], 5)
     gp = linear(guide, wg, bg)                                    # (R, Ng, emb)
     hc = gp.shape[-1] // attn_heads
-    taps = conv3_taps(p.reshape(r * t, mid), t)                   # (R*T, 3 mid)
+    taps = torch.cat([F.pad(p_l[:, :-1], (0, 0, 1, 0)), p_c, F.pad(p_r[:, 1:], (0, 0, 0, 1))],
+                     -1).reshape(r * t, 3 * mid)                  # conv3_taps: (R*T, 3 mid)
     wtaps = wproj.permute(0, 2, 1).reshape(mid, 3 * mid)          # [out, tap, in]
     pc = linear(taps, wtaps, bproj).reshape(r, t, mid) * mm
-    sc = torch.einsum("rthc,rnhc->rhtn", p.float().reshape(r, t, attn_heads, hc),
+    sc = torch.einsum("rthc,rnhc->rhtn", p_sc.float().reshape(r, t, attn_heads, hc),
                       gp.float().reshape(r, -1, attn_heads, hc))  # fp32 sums
     mx = sc.amax(dim=-1) / math.sqrt(hc)                          # (R, H, T)
     gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2).to(pc.dtype)
-    gated = pc.reshape(r, t, attn_heads, -1) * gate[..., None]
+    gated = broadcast_mul(pc.reshape(r, t, attn_heads, -1), gate[..., None])
     parts.append(gated.reshape(r, t, mid))
     return linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
+
+
+def _csp_grads(x, guide, mask, g, *weights, attn_heads, mhca_heads, eps):
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, guide, *weights)]
+        out = csp_reference(ins[0], ins[1], mask, *ins[2:], attn_heads=attn_heads,
+                            mhca_heads=mhca_heads, eps=eps)
+        return torch.autograd.grad(out, ins, g)
+
+
+def csp_backward_rows(x, guide, mask, *weights, attn_heads: int, mhca_heads: int = 4) -> int:
+    """The batch block R of the JAX bf16 backward kernel for these inputs
+    (`pick_rows_csp_bwd` at T padded to a multiple of 8 and the itemsize of
+    x, as the JAX kernel reads them)."""
+    r, t, cin = x.shape
+    mid = weights[5].shape[-1]
+    return pick_rows_csp_bwd(r, -(-t // 8) * 8, cin, mid, guide.shape[1], guide.shape[2],
+                             weights[7].shape[0], weights[12].shape[0], x.element_size(),
+                             attn_heads, mhca_heads)
 
 
 def csp_backward_reference(x, guide, mask, *weights, g, attn_heads: int,
                            mhca_heads: int = 4, eps: float = 1e-5):
     """Plain version of the backward: (dx, dguide, grad of each of the 14
     weights), torch.autograd.grad of `csp_reference` for the upstream grad
-    g."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(True) for t in (x, guide, *weights)]
-        out = csp_reference(ins[0], ins[1], mask, *ins[2:], attn_heads=attn_heads,
-                            mhca_heads=mhca_heads, eps=eps)
-        return torch.autograd.grad(out, ins, g)
+    g. For bf16 x, guide and g, the JAX package's bf16 backward kernel: T
+    padded to a multiple of 8 (zero rows, masked), the grads taken once per
+    block of `csp_backward_rows` rows, each block's bf16 weight grads added
+    in fp32 (ops/bf16_grad.py)."""
+    if x.dtype != torch.bfloat16:
+        return _csp_grads(x, guide, mask, g, *weights, attn_heads=attn_heads,
+                          mhca_heads=mhca_heads, eps=eps)
+    t = x.shape[1]
+    pad = -t % 8
+    rows = csp_backward_rows(x, guide, mask, *weights, attn_heads=attn_heads,
+                             mhca_heads=mhca_heads)
+    xp, maskp, gpd = (F.pad(x, (0, 0, 0, pad)), F.pad(mask, (0, pad)),
+                      F.pad(g, (0, 0, 0, pad)))
+
+    def block(xb, gdb, mb, gb, *ws):
+        return _csp_grads(xb, gdb, mb, gb, *ws, attn_heads=attn_heads,
+                          mhca_heads=mhca_heads, eps=eps)
+
+    dx, *rest = row_blocks(block, rows, (xp, guide, maskp, gpd), weights, 2)
+    return (dx[:, :t], *rest)
 
 
 def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
@@ -264,15 +312,46 @@ def _launch_backward(entry, x, guide, mask, *weights, g, attn_heads, mhca_heads,
     return tuple(grads)
 
 
+def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps):
+    r, t, cin, mid, ng, fg, cout = _check_args(x, guide, mask, *weights, attn_heads,
+                                               mhca_heads)
+    _check(g, "g", (r, t, cout), torch.bfloat16)
+    rows = csp_backward_rows(x, guide, mask, *weights, attn_heads=attn_heads,
+                             mhca_heads=mhca_heads)
+    wproj = weights[10]
+    ws = (list(weights[:10]) + [wproj.permute(0, 2, 1).contiguous(),
+                                wproj.permute(2, 0, 1).contiguous()] + list(weights[11:]))
+    grads = [torch.empty_like(a) for a in (x, guide, *weights[:10])]
+    grads += [torch.empty((3, mid, mid), device=x.device)] + [torch.empty_like(a)
+                                                               for a in weights[11:]]
+    lib = cuda_build.library("csp_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
+    scratch = torch.empty(lib.unav_csp_bf16_backward_scratch(r, t, cin, mid, ng, fg, cout,
+                                                             attn_heads, mhca_heads),
+                          device=x.device, dtype=torch.float32)
+    rc = lib.unav_csp_bf16_backward(
+        x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
+        attn_heads, mhca_heads, rows, -(-t // 8) * 8, *[a.data_ptr() for a in ws], eps,
+        g.data_ptr(), *[a.data_ptr() for a in grads], scratch.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "csp_backward (bf16)")
+    grads[12] = grads[12].permute(1, 2, 0).contiguous()          # -> (mid, mid, 3)
+    return tuple(grads)
+
+
 def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,
                  eps: float = 1e-5):
     """Grads of the CSP layer forward for the upstream grad g (R, T, Cout):
     (dx, dguide, grad of each of the 14 weights), each in its input's layout
     (wproj's as (mid, mid, 3)). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel of x's dtype."""
     if x.device.type == "cpu":
         return csp_backward_reference(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
                                       mhca_heads=mhca_heads, eps=eps)
+    if x.dtype == torch.bfloat16:
+        grads = _launch_backward_bf16(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
+                                      mhca_heads=mhca_heads, eps=eps)
+        csp_backward.bf16_launches += 1
+        return grads
     grads = _launch_backward("unav_csp_backward", x, guide, mask, *weights, g=g,
                              attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps)
     csp_backward.launches += 1
@@ -297,11 +376,12 @@ class CSPFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, guide, mask, *rest):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAIN)
         *weights, attn_heads, mhca_heads, eps = rest
         ctx.save_for_backward(x, guide, mask, *weights)
         ctx.heads = (attn_heads, mhca_heads, eps)
+        if x.device.type == "cpu":
+            return csp_reference(x, guide, mask, *weights, attn_heads=attn_heads,
+                                 mhca_heads=mhca_heads, eps=eps)
         return _forward_kernel(x, guide, mask, *weights, attn_heads, mhca_heads, eps)
 
     @staticmethod
@@ -319,16 +399,18 @@ def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
               mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:
     """CSP layer forward of x (R, T, Cin) guided by (R, Ng, Fg) tokens (both
     fp32, or both bf16 under the bf16 policy; weights fp32), with a (R, T)
-    bool mask, in x's dtype. CPU tensors take the plain version (autograd
-    differentiates it); CUDA tensors launch the kernel sequence of their
-    dtype, through CSPFunction when a grad is needed (fp32 only: a bf16 grad
-    raises NotImplementedError)."""
+    bool mask, in x's dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel sequence of their dtype. When a grad is needed
+    the call goes through CSPFunction, whose backward is the backward kernel
+    of the dtype (on the CPU its plain version, by row blocks in bf16), but
+    for fp32 CPU tensors, where autograd differentiates the plain forward."""
     args = (x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
             wproj, bproj, wfinal, bfinal)
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+    if x.device.type == "cpu" and not (grad and x.dtype == torch.bfloat16):
         return csp_reference(*args, attn_heads=attn_heads, mhca_heads=mhca_heads,
                              eps=eps)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if grad:
         return CSPFunction.apply(*args, attn_heads, mhca_heads, eps)
     return _forward_kernel(*args, attn_heads, mhca_heads, eps)
 
@@ -336,3 +418,4 @@ def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
 fused_csp.launches = 0
 fused_csp.bf16_launches = 0
 csp_backward.launches = 0
+csp_backward.bf16_launches = 0

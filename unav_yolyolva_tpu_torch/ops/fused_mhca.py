@@ -36,8 +36,15 @@ is added in bf16, q scaled by bf16(1/sqrt(d)), fp32 logits and softmax, P
 rounded to bf16 before P.V, whose fp32 sum is stored bf16. On the card it
 is a kernel of its own (csrc/bf16.cuh, csrc/mhca_bf16.cu): the products
 and both attention products on the bf16 tensor cores (mma m16n8k16, fp32
-sums), the weights cast to bf16 once per call. Its backward is not ported
-yet (ROADMAP Queue 1 item 5b): a bf16 CUDA call that needs a grad raises.
+sums), the weights cast to bf16 once per call. Its backward is the bf16
+instantiation of `_mhca_bwd_kernel` (JAX's hand-written backward, op by op:
+the recomputed forward in bf16, datt and ds fp32 with ds rounded to bf16
+before dq and dk, each input grad rounded to bf16, the weight grads fp32
+sums): `_mhca_backward_bf16_reference`, and on the card csrc/bf16_bwd.cuh's
+form MHCA_HAND (csrc/mhca_bwd_bf16.cu: every product on the bf16 tensor
+cores through one strided product, the attention backward on each head's
+materialized (T, T)). It runs for bf16 inputs on either device: a bf16 call
+that needs a grad goes through MHCAFunction on the CPU too.
 
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
 lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
@@ -52,6 +59,7 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
+from .bf16_grad import broadcast_mul, fan_out
 from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
 
@@ -69,14 +77,15 @@ _BWD_ARGTYPES = {
                            PTR, PTR, FLOAT] + [PTR] * 10,
 }
 _BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
+_BWD_BF16_ARGTYPES = {
+    "unav_mhca_bf16_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
+                                PTR, PTR, FLOAT] + [PTR] * 10,
+}
+_BWD_BF16_RESTYPES = {"unav_mhca_bf16_backward_scratch": ([INT] * 4, LONG)}
 
 # longest sequence whose 64-query logits tile, beside the query tile and the
 # key / value ring, fits in a block's shared memory at head width 128
 MAX_T = 512
-
-BF16_TRAIN = ("training at compute_dtype bfloat16 is not ported yet: the bf16 "
-              "backward kernels are ROADMAP Queue 1 item 5b")
-
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_mask: torch.Tensor, heads: int, *, matmul=torch.matmul) -> torch.Tensor:
@@ -105,28 +114,44 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(b, tq, c).to(dtype)
 
 
+def mhca_input_uses(x1, x2, lead: int = 0):
+    """The nine uses of the inputs by the bf16 MHCA's convs, (centre, right
+    tap, left tap) of v, k (from x1) and q (from x2), as aliases whose grads
+    add in the order of JAX's backward pass: v's, k's, then q's, after the
+    grads of `lead` other uses of x1 (aliases returned ahead of the nine)."""
+    if x1 is x2:
+        return fan_out(x1, lead + 9)
+    return fan_out(x1, lead + 6) + fan_out(x2, 3)
+
+
 def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
-                   eps: float = 1e-5, linear=F.linear, matmul=torch.matmul) -> torch.Tensor:
+                   eps: float = 1e-5, linear=F.linear, matmul=torch.matmul,
+                   uses=None) -> torch.Tensor:
     """Plain PyTorch version of the fused MHCA (stride 1), in the dtype of
     x1 and x2 (fp32, or bf16 under the bf16 policy). `linear` computes the
     fp32 dense layers and `matmul` the attention's products (the kernel's
     3xTF32 rounding: ops/gemm_tc.py); in bf16 the dense layers are
-    `bf16_product_reference` and the products fp32 sums of bf16 values."""
+    `bf16_product_reference` and the products fp32 sums of bf16 values, and
+    the inputs' grads add as JAX adds them (`mhca_input_uses`, or the nine
+    aliases `uses` of a caller that uses x1 too)."""
     c = x1.shape[-1]
     dtype = x1.dtype
     mm = mask[..., None].to(dtype)
     if dtype != torch.float32:
         linear = bf16_product_reference
+        uses = uses or mhca_input_uses(x1, x2)
 
     def dwconv_ln(x, i):
         if dtype == torch.float32:
             y = F.conv1d(x.transpose(1, 2), dw[i][:, None, :], padding=1,
                          groups=c).transpose(1, 2)
         else:   # the Pallas body's bf16 taps, each product and sum rounded
+            xc, xr, xl = uses[3 * (2 - i):3 * (3 - i)]
             wt = dw[i].to(dtype)
-            left = F.pad(x[:, :-1], (0, 0, 1, 0))
-            right = F.pad(x[:, 1:], (0, 0, 0, 1))
-            y = left * wt[:, 0] + x * wt[:, 1] + right * wt[:, 2]
+            left = F.pad(xl[:, :-1], (0, 0, 1, 0))
+            right = F.pad(xr[:, 1:], (0, 0, 0, 1))
+            y = (broadcast_mul(left, wt[:, 0]) + broadcast_mul(xc, wt[:, 1])
+                 + broadcast_mul(right, wt[:, 2]))
         return channel_layer_norm(y * mm, lnw[i], lnb[i], eps)
 
     scale = torch.tensor(1.0 / math.sqrt(c // heads), dtype=dtype)
@@ -138,12 +163,107 @@ def mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
 
 def mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
                             eps: float = 1e-5):
-    """Plain version of the backward: (dx1, dx2, gdw, glnw, glnb, gw, gb),
-    torch.autograd.grad of `mhca_reference` for the upstream grad g."""
+    """Plain version of the backward: (dx1, dx2, gdw, glnw, glnb, gw, gb).
+    In fp32 torch.autograd.grad of `mhca_reference` for the upstream grad g;
+    for bf16 x1, x2 and g the JAX package's hand-written bf16 backward
+    (`_mhca_backward_bf16_reference`)."""
+    if x1.dtype == torch.bfloat16:
+        return _mhca_backward_bf16_reference(x1, x2, mask, dw, lnw, lnb, w, b, g,
+                                             heads=heads, eps=eps)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x1, x2, dw, lnw, lnb, w, b)]
         out = mhca_reference(ins[0], ins[1], mask, *ins[2:], heads=heads, eps=eps)
         return torch.autograd.grad(out, ins, g)
+
+
+def _mhca_backward_bf16_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
+                                  eps: float = 1e-5):
+    """The bf16 backward of the JAX package's `_mhca_bwd_kernel`
+    (pallas_fusion.py:303-486) op by op: the recomputed forward in bf16 (LN
+    statistics and the softmax fp32); g.m times Wp rounded to bf16; per
+    head the fp32 softmax, datt = g_o v^T fp32, ds = att (datt - sum(att
+    datt)) fp32 rounded to bf16 before dq = ds k and dk = ds^T q, dv = bf16(att)^T
+    g_o, each rounded to bf16; dq times bf16(scale), dv masked; each dense
+    layer's input grad rounded to bf16, its weight and bias grads fp32 sums;
+    the LayerNorm backward fp32, its input grad rounded; the conv's input
+    grad in bf16 ((right w0 + dz w1) + left w2, each step rounded), its taps'
+    grads fp32 sums. dx1 = dx1(k) + dx1(v) in bf16; weight grads fp32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    r, t, c = x1.shape
+    d = c // heads
+    mm = mask[..., None].to(bf)
+    dwb, wb, bb = dw.to(bf), w.to(bf).float(), b.to(bf)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=bf)
+
+    def shl(x):                 # y[t] = x[t-1], zero at t=0
+        return F.pad(x[:, :-1], (0, 0, 1, 0))
+
+    def shr(x):                 # y[t] = x[t+1], zero at t=T-1
+        return F.pad(x[:, 1:], (0, 0, 0, 1))
+
+    def ln_fwd(z, i):
+        zf = z.float()
+        res = zf - zf.mean(-1, keepdim=True)
+        inv = torch.rsqrt((res * res).mean(-1, keepdim=True) + eps)
+        yhat = res * inv
+        return (yhat * lnw[i] + lnb[i]).to(bf), yhat, inv
+
+    def project(x, i):          # fp32 sum of bf16 values, rounded, + bf16 bias
+        return (x.float() @ wb[i].T).to(bf) + bb[i]
+
+    saved = []
+    for i, x in ((0, x2), (1, x1), (2, x1)):
+        z = (shl(x) * dwb[i, :, 0] + x * dwb[i, :, 1] + shr(x) * dwb[i, :, 2]) * mm
+        y, yhat, inv = ln_fwd(z, i)
+        saved.append((y, yhat, inv))
+    q = project(saved[0][0], 0) * scale
+    k = project(saved[1][0], 1)
+    v = project(saved[2][0], 2) * mm
+
+    def heads_of(x):            # (R, T, C) -> (R, H, T, d) fp32
+        return x.float().reshape(r, t, heads, d).transpose(1, 2)
+
+    def cat(x):                 # (R, H, T, d) -> (R, T, C)
+        return x.transpose(1, 2).reshape(r, t, c)
+
+    gp = g * mm
+    g_o = (gp.float() @ wb[3]).to(bf)
+    qh, kh, vh, goh = heads_of(q), heads_of(k), heads_of(v), heads_of(g_o)
+    logits = (qh @ kh.transpose(-1, -2)).masked_fill(~mask[:, None, None, :],
+                                                     torch.finfo(f32).min)
+    any_kv = mask.any(-1)[:, None, None, None]
+    logits = torch.where(any_kv, logits, torch.zeros((), dtype=f32))
+    att = logits.softmax(-1) * any_kv.to(f32)
+    att_c = att.to(bf).float()
+    o_cat = cat((att_c @ vh).to(bf))
+    datt = goh @ vh.transpose(-1, -2)
+    ds = (att * (datt - (att * datt).sum(-1, keepdim=True))).to(bf).float()
+    dq = cat((ds @ kh).to(bf)) * scale
+    dk = cat((ds.transpose(-1, -2) @ qh).to(bf))
+    dv = cat((att_c.transpose(-1, -2) @ goh).to(bf)) * mm
+
+    gdw, glnw, glnb, gw, gb, dxs = [], [], [], [], [], []
+    for i, (dy, x_src) in enumerate(((dq, x2), (dk, x1), (dv, x1))):
+        y, yhat, inv = saved[i]
+        dyf = dy.float()
+        gw.append(dyf.reshape(-1, c).T @ y.float().reshape(-1, c))
+        gb.append(dyf.sum((0, 1)))
+        dyl = (dyf @ wb[i]).to(bf).float()                  # the LN output's grad
+        glnw.append((dyl * yhat).sum((0, 1)))
+        glnb.append(dyl.sum((0, 1)))
+        dyhat = dyl * lnw[i]
+        dz = inv * (dyhat - dyhat.mean(-1, keepdim=True)
+                    - yhat * (dyhat * yhat).mean(-1, keepdim=True))
+        dzm = dz.to(bf) * mm
+        dxs.append(shr(dzm) * dwb[i, :, 0] + dzm * dwb[i, :, 1] + shl(dzm) * dwb[i, :, 2])
+        xf, dzf = x_src.float(), dzm.float()
+        gdw.append(torch.stack([(shl(xf) * dzf).sum((0, 1)), (xf * dzf).sum((0, 1)),
+                                (shr(xf) * dzf).sum((0, 1))], -1))
+    gpf = gp.float()
+    gw.append(gpf.reshape(-1, c).T @ o_cat.float().reshape(-1, c))
+    gb.append(gpf.sum((0, 1)))
+    return (dxs[1] + dxs[2], dxs[0], torch.stack(gdw), torch.stack(glnw), torch.stack(glnb),
+            torch.stack(gw), torch.stack(gb))
 
 
 def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
@@ -215,6 +335,22 @@ def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
     return out
 
 
+def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps):
+    r, t, c = x1.shape
+    lib = cuda_build.library("mhca_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
+    scratch = torch.empty(lib.unav_mhca_bf16_backward_scratch(r, t, c, heads),
+                          device=x1.device, dtype=torch.float32)
+    rc = lib.unav_mhca_bf16_backward(
+        x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
+        dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
+        eps, g.data_ptr(), *[x.data_ptr() for x in grads], scratch.data_ptr(),
+        torch.cuda.current_stream(x1.device).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "mhca_backward (bf16)")
+    mhca_backward.bf16_launches += 1
+    return tuple(grads)
+
+
 def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
                   eps: float = 1e-5):
     """Grads of the MaskedMHCA forward for the upstream grad g (R, T, C):
@@ -224,9 +360,11 @@ def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
         return mhca_backward_reference(x1, x2, mask, dw, lnw, lnb, w, b, g,
                                        heads=heads, eps=eps)
     _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
-    _check(g, "g", x1.shape)
+    _check(g, "g", x1.shape, x1.dtype)
     r, t, c = x1.shape
     grads = [torch.empty_like(x) for x in (x1, x2, dw, lnw, lnb, w, b)]
+    if x1.dtype == torch.bfloat16:
+        return _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps)
     lib = cuda_build.library("mhca_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_backward_scratch(r, t, c, heads),
                           device=x1.device, dtype=torch.float32)
@@ -248,10 +386,10 @@ class MHCAFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
-        if x1.dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAIN)
         ctx.save_for_backward(x1, x2, mask, dw, lnw, lnb, w, b)
         ctx.heads, ctx.eps = heads, eps
+        if x1.device.type == "cpu":
+            return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
         return _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
 
     @staticmethod
@@ -266,13 +404,16 @@ def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
                eps: float = 1e-5) -> torch.Tensor:
     """MaskedMHCA forward of (R, T, C) inputs (fp32, or bf16 under the bf16
     policy; weights fp32) with a (R, T) bool mask, in the inputs' dtype.
-    CPU tensors take the plain version (autograd differentiates it); CUDA
-    tensors launch the kernel of their dtype, through MHCAFunction when a
-    grad is needed (fp32 only: a bf16 grad raises NotImplementedError)."""
-    if x1.device.type == "cpu":
-        return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their dtype. When a grad is needed the call goes through MHCAFunction,
+    whose backward is the backward kernel of the dtype (on the CPU its plain
+    version), but for fp32 CPU tensors, where autograd differentiates the
+    plain forward (the same function in fp32)."""
     args = (x1, x2, mask, dw, lnw, lnb, w, b)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    grad = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+    if x1.device.type == "cpu" and not (grad and x1.dtype == torch.bfloat16):
+        return mhca_reference(x1, x2, mask, dw, lnw, lnb, w, b, heads=heads, eps=eps)
+    if grad:
         return MHCAFunction.apply(*args, heads, eps)
     return _forward_kernel(*args, heads, eps)
 
@@ -280,3 +421,4 @@ def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
 fused_mhca.launches = 0
 fused_mhca.bf16_launches = 0
 mhca_backward.launches = 0
+mhca_backward.bf16_launches = 0

@@ -30,8 +30,11 @@ in bf16 (`fused_mhca`), fc1's fp32 sum is rounded to bf16, its bias added
 in bf16 and GELU taken of and stored in bf16, fc2 likewise before the row
 mask, and `out + y * mult_m` is fp32. On the card it is a launch sequence of
 its own (csrc/tblock_bf16.cu on csrc/bf16.cuh: the MHCA and both MLP
-products on the bf16 tensor cores). Its backward is ROADMAP Queue 1 item
-5b: a bf16 CUDA call that needs a grad raises.
+products on the bf16 tensor cores). Its backward is the JAX package's bf16
+`_tblock_bwd_kernel`, `jax.vjp` of the bf16 body once per block of the TPU
+kernel's rows: dx and the multipliers' grads fp32, the weight grads rounded
+to bf16 per block; the plain version is autograd of the bf16 forward per
+block (ops/bf16_grad.py), the kernel csrc/tblock_bwd_bf16.cu.
 
 Weight layout (torch, packed by TransformerBlock.packed_weights()):
 lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
@@ -47,7 +50,8 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, LONG, PTR
-from .fused_mhca import BF16_TRAIN, MAX_T, _check, mhca_reference
+from .bf16_grad import pick_rows_tb_bwd, row_blocks
+from .fused_mhca import MAX_T, _check, mhca_reference
 from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
 
@@ -68,6 +72,9 @@ _BWD_TYPES = ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOA
 _BWD_ARGTYPES = {"unav_tblock_backward": _BWD_TYPES,
                  "unav_tblock_backward_stages": _BWD_TYPES + [PTR]}
 _BWD_RESTYPES = {"unav_tblock_backward_scratch": ([INT] * 5, LONG)}
+_BWD_BF16_ARGTYPES = {"unav_tblock_bf16_backward": [PTR, PTR] + [INT] * 6 + [PTR] * 13
+                      + [FLOAT] + [PTR] * 15 + [PTR, PTR]}
+_BWD_BF16_RESTYPES = {"unav_tblock_bf16_backward_scratch": ([INT] * 5, LONG)}
 # the stages of one backward, in order (tblock_bwd.cu: TBLOCK_BWD_STAGES)
 BWD_STAGES = (("ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2", "dmult_m",
                "du", "dh_dw", "ln2", "dmult_a")
@@ -101,14 +108,38 @@ def tblock_reference(x, mask, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1
     return out + y * mult_m
 
 
-def tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g, heads: int,
-                              eps: float = 1e-5):
-    """Plain version of the backward: (dx, d(mult_a), d(mult_m), *weight
-    grads), torch.autograd.grad of `tblock_reference` for the upstream g."""
+def _tblock_grads(x, mask, mult_a, mult_m, g, *weights, heads, eps, cdtype):
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, mult_a, mult_m, *weights)]
-        out = tblock_reference(ins[0], mask, *ins[1:], heads=heads, eps=eps)
+        out = tblock_reference(ins[0], mask, *ins[1:], heads=heads, eps=eps, cdtype=cdtype)
         return torch.autograd.grad(out, ins, g)
+
+
+def tblock_backward_rows(x, *weights, heads: int) -> int:
+    """The batch block R of the JAX bf16 backward kernel for these inputs
+    (`pick_rows_tb_bwd` at the itemsize of x: 4, the fp32 residual stream,
+    as the JAX kernel reads it)."""
+    r, t, c = x.shape
+    return pick_rows_tb_bwd(r, t, c, weights[7].shape[0], heads, x.element_size())
+
+
+def tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g, heads: int,
+                              eps: float = 1e-5, cdtype: torch.dtype = torch.float32):
+    """Plain version of the backward: (dx, d(mult_a), d(mult_m), *weight
+    grads), torch.autograd.grad of `tblock_reference` at `cdtype` for the
+    upstream g. At bf16 the JAX package's bf16 backward kernel: the grads
+    taken once per block of `tblock_backward_rows` rows, each block's weight
+    grads added in fp32 (ops/bf16_grad.py); dx and the multipliers' grads
+    stay fp32, as the residual stream."""
+    if cdtype != torch.bfloat16:
+        return _tblock_grads(x, mask, mult_a, mult_m, g, *weights, heads=heads, eps=eps,
+                             cdtype=cdtype)
+    rows = tblock_backward_rows(x, *weights, heads=heads)
+
+    def block(xb, mb, mab, mmb, gb, *ws):
+        return _tblock_grads(xb, mb, mab, mmb, gb, *ws, heads=heads, eps=eps, cdtype=cdtype)
+
+    return row_blocks(block, rows, (x, mask, mult_a, mult_m, g), weights, 3)
 
 
 def _check_args(x, mask, mult_a, mult_m, weights, heads):
@@ -214,13 +245,38 @@ def _launch_backward(entry, x, mask, mult_a, mult_m, weights, g, heads, eps, *ex
     return tuple(grads)
 
 
-def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float = 1e-5):
-    """Grads of the block for the upstream grad g (R, T, C): (dx, d(mult_a),
-    d(mult_m), *the 11 weight grads), in the layouts of the inputs. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
+    r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
+    if (c // heads) % 8 or hid % 8:   # bf16 rows of 16 bytes
+        raise ValueError(f"tblock_backward (bf16): head width {c // heads} and hidden "
+                         f"{hid} must be multiples of 8")
+    _check(g, "g", x.shape)
+    rows = tblock_backward_rows(x, *weights, heads=heads)
+    grads = [torch.empty_like(a) for a in (x, mult_a, mult_m, *weights)]
+    lib = cuda_build.library("tblock_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
+    scratch = torch.empty(lib.unav_tblock_bf16_backward_scratch(r, t, c, hid, heads),
+                          device=x.device, dtype=torch.float32)
+    rc = lib.unav_tblock_bf16_backward(
+        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, rows, mult_a.data_ptr(),
+        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
+        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "tblock_backward (bf16)")
+    return tuple(grads)
+
+
+def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float = 1e-5,
+                    cdtype: torch.dtype = torch.float32):
+    """Grads of the block at compute dtype `cdtype` for the upstream grad g
+    (R, T, C): (dx, d(mult_a), d(mult_m), *the 11 weight grads), in the
+    layouts of the inputs. CPU tensors take the plain version; CUDA tensors
+    launch the kernel of `cdtype`."""
     if x.device.type == "cpu":
         return tblock_backward_reference(x, mask, mult_a, mult_m, *weights, g=g,
-                                         heads=heads, eps=eps)
+                                         heads=heads, eps=eps, cdtype=cdtype)
+    if cdtype == torch.bfloat16:
+        grads = _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps)
+        tblock_backward.bf16_launches += 1
+        return grads
     grads = _launch_backward("unav_tblock_backward", x, mask, mult_a, mult_m, weights, g,
                              heads, eps)
     tblock_backward.launches += 1
@@ -245,17 +301,18 @@ class TBlockFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mask, mult_a, mult_m, heads, eps, cdtype, *weights):
-        if cdtype != torch.float32:
-            raise NotImplementedError(BF16_TRAIN)
         ctx.save_for_backward(x, mask, mult_a, mult_m, *weights)
-        ctx.heads, ctx.eps = heads, eps
-        return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps)
+        ctx.heads, ctx.eps, ctx.cdtype = heads, eps, cdtype
+        if x.device.type == "cpu":
+            return tblock_reference(x, mask, mult_a, mult_m, *weights, heads=heads, eps=eps,
+                                    cdtype=cdtype)
+        return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps, cdtype)
 
     @staticmethod
     def backward(ctx, g):
         x, mask, mult_a, mult_m, *ws = ctx.saved_tensors
         dx, dma, dmm, *gws = tblock_backward(x, mask, mult_a, mult_m, *ws, g=g.contiguous(),
-                                             heads=ctx.heads, eps=ctx.eps)
+                                             heads=ctx.heads, eps=ctx.eps, cdtype=ctx.cdtype)
         return (dx, None, dma, dmm, None, None, None, *gws)
 
 
@@ -263,15 +320,17 @@ def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-
                  cdtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The block's forward of (R, T, C) fp32 x with a (R, T) bool mask and
     (R, 1, C) branch multipliers at compute dtype `cdtype` (fp32 or bf16),
-    fp32 out. CPU tensors take the plain version (autograd differentiates
-    it); CUDA tensors launch the kernel of `cdtype`, through TBlockFunction
-    when a grad is needed (fp32 only: a bf16 grad raises
-    NotImplementedError)."""
-    if x.device.type == "cpu":
+    fp32 out. CPU tensors take the plain version; CUDA tensors launch the
+    kernel of `cdtype`. When a grad is needed the call goes through
+    TBlockFunction, whose backward is the backward kernel of `cdtype` (on the
+    CPU its plain version, by row blocks in bf16), but at fp32 on the CPU,
+    where autograd differentiates the plain forward."""
+    args = (x, mask, mult_a, mult_m, *weights)
+    grad = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+    if x.device.type == "cpu" and not (grad and cdtype == torch.bfloat16):
         return tblock_reference(x, mask, mult_a, mult_m, *weights, heads=heads, eps=eps,
                                 cdtype=cdtype)
-    args = (x, mask, mult_a, mult_m, *weights)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+    if grad:
         return TBlockFunction.apply(x, mask, mult_a, mult_m, heads, eps, cdtype, *weights)
     return _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps, cdtype)
 
@@ -279,3 +338,4 @@ def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-
 fused_tblock.launches = 0
 fused_tblock.bf16_launches = 0
 tblock_backward.launches = 0
+tblock_backward.bf16_launches = 0

@@ -35,7 +35,10 @@ GELU, scale, row mask, each rounded to bf16). Its plain version,
 `bf16_product_reference`, rounds the operands to bf16, multiplies them in
 fp32 (the products of bf16 values are exact there) and rounds the sum to
 bf16; the port's bf16 products on the CPU (the kernels' plain versions)
-run through it.
+run through it. The backward's bf16 product (`bf16_layout_product`, the
+kernel of csrc/bf16_bwd.cuh) adds the A.B and A^T.B layouts, an fp32 A taken
+exactly, and a weight grad's K summed in row blocks whose fp32 sums are
+rounded to bf16 and added in fp32 in order (`bf16_layout_reference`).
 """
 
 from __future__ import annotations
@@ -46,11 +49,13 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .cuda_build import INT, LONG, PTR
+from .bf16_grad import bias_add
+from .cuda_build import FLOAT, INT, LONG, PTR
 
 _ARGTYPES = {"unav_gemm_tc": [INT, PTR, PTR, PTR, PTR, LONG, PTR],
              "unav_gemm_split_chunk": [INT, INT, INT]}
-_BF16_ARGTYPES = {"unav_gemm_bf16": [INT, PTR, PTR, PTR, PTR]}
+_BF16_ARGTYPES = {"unav_gemm_bf16": [INT, PTR, PTR, PTR, PTR],
+                  "unav_xgemm_bf16": [INT] * 6 + [PTR, INT, PTR, PTR, INT, FLOAT, PTR]}
 SLICE = 32          # k summed from zero before it joins the total (TC_BK)
 MAX_BATCH = 4       # products of one launch (GEMM_MAX_BATCH)
 MAX_SPLITS = 8      # chunks of K of a weight grad (GEMM_MAX_SPLITS)
@@ -363,7 +368,7 @@ def bf16_product_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0,
         return y
     y = y.to(torch.bfloat16)
     if bias is not None:
-        y = y + bias.to(torch.bfloat16)
+        y = bias_add(y, bias.to(torch.bfloat16))
     if act not in BF16_ACTS:
         raise ValueError(f"bf16_product_reference: act {act!r}, expected one of "
                          f"{list(BF16_ACTS)}")
@@ -376,6 +381,68 @@ def bf16_product_reference(x, w, bias=None, *, rowmask=None, scale: float = 1.0,
     if seqmul is not None:
         return out + y.float() * seqmul.repeat_interleave(seq, 0).reshape(y.shape)
     return y
+
+
+def bf16_layout_reference(a, b, layout: str, *, kblock: int = None, round_blocks: bool = False,
+                          out_bf16: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """Plain version of the backward's strided bf16 product
+    (csrc/bf16_bwd.cuh:xgemm) in one of its layouts: "nt" a (M, K) . b (N,
+    K)^T, "nn" a (M, K) . b (K, N), "tn" a (K, M)^T . b (K, N). a is bf16 or
+    fp32 (an fp32 a is taken exactly: the kernel splits it into three bf16
+    terms), b is rounded to bf16; the products are exact in fp32. K is summed
+    in blocks of kblock rows (default all of K), each from zero, and the
+    blocks added in fp32 in order, each block's sum rounded to bf16 first
+    with round_blocks (a JAX row block's bf16 weight grad). The result is
+    rounded to bf16, then times bf16(scale) rounded again, with out_bf16;
+    else the fp32 sum."""
+    if layout not in ("nt", "nn", "tn"):
+        raise ValueError(f"bf16_layout_reference: layout {layout!r}")
+    a = a.float() if a.dtype == torch.float32 else a.to(torch.bfloat16).float()
+    b = b.to(torch.bfloat16).float()
+    a = a.transpose(-1, -2) if layout == "tn" else a
+    b = b.transpose(-1, -2) if layout == "nt" else b
+    k = a.shape[-1]
+    out = None
+    for k0 in range(0, k, kblock or k):
+        blk = (a[..., k0:k0 + (kblock or k)].double() @ b[..., k0:k0 + (kblock or k), :].double()
+               ).float()
+        if round_blocks:
+            blk = blk.to(torch.bfloat16).float()
+        out = blk if out is None else out + blk
+    if not out_bf16:
+        return out
+    y = out.to(torch.bfloat16)
+    return y * torch.tensor(scale, dtype=torch.bfloat16) if scale != 1.0 else y
+
+
+def bf16_layout_product(a, b, layout: str, *, kblock: int = None, round_blocks: bool = False,
+                        out_bf16: bool = True, scale: float = 1.0) -> torch.Tensor:
+    """One product of the backward's strided bf16 kernel (xgemm) in `layout`
+    on contiguous operands, as `bf16_layout_reference` describes it. CPU
+    tensors take that plain version; CUDA tensors launch the kernel."""
+    if a.device.type == "cpu":
+        return bf16_layout_reference(a, b, layout, kblock=kblock, round_blocks=round_blocks,
+                                     out_bf16=out_bf16, scale=scale)
+    if (layout not in ("nt", "nn", "tn") or a.dim() != 2 or b.dim() != 2
+            or a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != torch.bfloat16
+            or not a.is_contiguous() or not b.is_contiguous()):
+        raise ValueError(f"bf16_layout_product: layout {layout!r}, a {a.dtype} "
+                         f"{tuple(a.shape)}, b {b.dtype} {tuple(b.shape)}")
+    m, k = a.shape if layout != "tn" else a.shape[::-1]
+    n = b.shape[0] if layout == "nt" else b.shape[1]
+    if (b.shape[1] if layout == "nt" else b.shape[0]) != k:
+        raise ValueError(f"bf16_layout_product: a {tuple(a.shape)} and b {tuple(b.shape)} "
+                         f"do not chain in layout {layout!r}")
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.bfloat16 if out_bf16 else torch.float32)
+    lib = cuda_build.library("gemm_bf16", _BF16_ARGTYPES)
+    rc = lib.unav_xgemm_bf16(
+        ("nt", "nn", "tn").index(layout), m, n, k, kblock or k, int(round_blocks),
+        a.data_ptr(), int(a.dtype == torch.float32), b.data_ptr(), out.data_ptr(),
+        int(not out_bf16), float(torch.tensor(scale, dtype=torch.bfloat16)),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_build.check(lib, rc, "bf16_layout_product")
+    return out
 
 
 def bf16_products(calls):

@@ -18,9 +18,10 @@ copy stream, the copy included in the time.
 
 Train: the protocol of configs/avel_unav100.yaml (B=8, T=224, fp32, AdamW
 + clip + warmup/cosine, droppath 0.1, EMA) on synthetic_train_batch
-batches already on the device; --no-train skips it. It stays fp32 whatever
---compute-dtype says (training at bf16 is not ported yet) and reports its
-own train_dtype.
+batches already on the device, at --compute-dtype (bfloat16: the bf16 train
+step of configs/avel_unav100_bf16.yaml, through the bf16 backward kernels;
+fp32 parameters, optimizer state and EMA); --no-train skips it. It reports
+its train_dtype.
 
 Both: one warm-up window, then --windows (at least 5) timed windows of
 --iters steps, host clock, the device synchronized at each window's end;
@@ -132,7 +133,7 @@ def main(argv=None) -> int:
                     help="copy a pinned host batch every eval step")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="the eval half's compute dtype (tpu.compute_dtype)")
+                    help="the compute dtype of both halves (tpu.compute_dtype)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--commit", default=None,
                     help="the commit to record where the checkout has no git metadata")
@@ -211,6 +212,7 @@ def main(argv=None) -> int:
     # ---- train --------------------------------------------------------------
     if not args.no_train:
         tcfg = load_protocol("avel_unav100.yaml", args.tiny)
+        tcfg["tpu"]["compute_dtype"] = args.compute_dtype
         tm = tcfg["model"]
         tb_, tt = tcfg["loader"]["batch_size"], tm["max_seq_len"]
         model = build_model(tcfg, device=dev, seed=args.seed)

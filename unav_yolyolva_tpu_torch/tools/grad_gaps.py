@@ -53,6 +53,28 @@ def step_grads(model, cfg, batch, dev):
     return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
 
 
+def ulp_bump(x, mask, gen, sign):
+    """x (R, T, C), bf16 or fp32, with one valid value of each row moved by
+    one bf16 ulp of its bf16 rounding (away from zero with sign +1, towards
+    it with -1): the smallest change a bf16 program sees. A row without a
+    valid position is left as it is."""
+    import torch
+
+    x = x.clone()
+    lengths = mask.sum(1).cpu()
+    for i in range(x.shape[0]):
+        if lengths[i] == 0:
+            continue
+        valid = mask[i].nonzero().flatten().cpu()
+        j = int(valid[int(torch.randint(len(valid), (1,), generator=gen))])
+        k = int(torch.randint(x.shape[-1], (1,), generator=gen))
+        b = x[i, j, k:k + 1].bfloat16()
+        step = sign if float(b) != 0 else 1          # 0 - 1 in bits is a NaN
+        moved = (b.view(torch.int16) + step).view(torch.bfloat16)
+        x[i, j, k] += (moved.float() - b.float()).to(x.dtype)[0]
+    return x
+
+
 @contextlib.contextmanager
 def gate_margins(rows):
     """Inside, each CPU CSP forward appends (T, smallest relative top-2

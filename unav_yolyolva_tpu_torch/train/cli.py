@@ -75,9 +75,6 @@ def main(args) -> Dict:
     if not os.path.isfile(args.config):
         raise FileNotFoundError(f"config file {args.config} does not exist")
     cfg = load_config(args.config)
-    if cfg["tpu"]["compute_dtype"] != "float32":
-        from ..ops.fused_mhca import BF16_TRAIN
-        raise NotImplementedError(BF16_TRAIN)
     pprint(cfg)
     device = resolve_device(args.device)
 

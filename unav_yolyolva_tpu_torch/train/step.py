@@ -6,7 +6,8 @@ of the step's own, core/device.py:make_batch_copier), dense targets built
 on the device (label assignment and the
 per-frame targets), the forward in training mode with the stochastic depth
 drawn from a generator seeded from (seed, step), the loss assembly, the
-backward (through the MHCA and CSP backward kernels on CUDA), the global-
+backward (through the MHCA and CSP backward kernels of the compute dtype
+on CUDA), the global-
 norm clip and AdamW update at the scheduled learning rate, the EMA update
 and the loss-normalizer EMA.
 """
@@ -21,7 +22,6 @@ from ..core.device import make_batch_copier, resolve_device
 from ..geometry.assign import assign_labels_batch, frame_targets_batch
 from ..geometry.points import concat_points, generate_points
 from ..models.meta_arch import compute_losses
-from ..ops.fused_mhca import BF16_TRAIN
 from ..utils.seed import fold_in
 from .ema import ema_update
 from .state import TrainState
@@ -62,9 +62,8 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
     copied on a copy stream, overlapping the compute already queued. The
     state is updated in place; the returned losses are device scalars (no
     host sync). Runs on CUDA unless device='cpu'. A model that computes in
-    bf16 is refused: its backward kernels are not ported yet."""
-    if getattr(model, "compute_dtype", torch.float32) != torch.float32:
-        raise NotImplementedError(BF16_TRAIN)
+    bf16 (tpu.compute_dtype) trains through the bf16 backward kernels; its
+    parameters, optimizer state, EMA and losses stay fp32, as in JAX."""
     device = resolve_device(device)
     model.to(device).train()
     mcfg = cfg["model"]
