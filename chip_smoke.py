@@ -155,7 +155,12 @@ Phases (any failure exits non-zero):
      distance from the CPU's), the same bits on repeat; the small CSP and
      TBlock cases with the row picker at 1, each weight grad moving as the
      CPU plain version's (check_row_blocks); at the protocol timed beside
-     the fp32 backward kernel on the same inputs, profiled launch by launch;
+     the fp32 backward kernel on the same inputs, profiled launch by launch
+     (a warm-up profile first; an empty profile is said so and fails the
+     phase): the CSP backward at T=224 and T=7 within 70 launches, the
+     attention at most 3 a MHCA (the recompute's forward and the fused
+     backward's two), and the CSP and MHCA backward's stages by CUDA
+     events (`stages csp_bwd_bf16@...`, `stages mhca_bwd_bf16@...`);
      the backward's bf16 product alone (A.B, and A^T.B in row blocks) at the
      CSP final conv, beside cuBLAS; three train steps with each stem, each
      bf16 backward kernel launched as often as its forward and no fp32 MHCA
@@ -170,7 +175,8 @@ Phases (any failure exits non-zero):
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel, the
-eight fp32 kernels and the six bf16 ones (with each fp32 kernel's
+eight fp32 kernels and the six bf16 ones (the redesigned bf16 backward ones with
+their `design`; with each fp32 kernel's
 launches on the train CLI's path and on the dependency block's, and the
 dependency shapes' checks and times; a bf16 forward kernel's launches are
 on the bf16 served path, a bf16 backward kernel's on phase 16's train
@@ -179,7 +185,9 @@ last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
 result. With --stages-only it builds, prints the CSP and whole-block TBlock
 forward's and backward's breakdowns (`stages ...` lines) and launch counts,
-and stops; with --bf16-train-only it builds and runs phase 16 alone.
+and stops; with --bf16-train-only it builds and runs phase 16 alone; with
+--bf16-profile-only, phase 16's profile of the bf16 backward kernels alone
+(phase 16 runs it so, in a process of its own).
 """
 
 from __future__ import annotations
@@ -370,18 +378,31 @@ def set_stem(mode: str) -> None:
     blocks.FUSED_TBLOCK = mode
 
 
-def kernel_launches(fn) -> int:
-    """CUDA kernels that one call of fn launches (torch.profiler; copies and
-    memsets not counted)."""
+def kernel_profile(fn):
+    """{kernel name: (launches, device ms)} of one call of fn (torch.profiler;
+    copies and memsets not counted), after a warm-up profile of its own: the
+    first profile of a process may come back without device events. An empty
+    result means the profiler saw no kernel, and its caller says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
-               and not e.key.startswith(("Memcpy", "Memset")))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels that one call of fn launches (kernel_profile); 0 where the
+    profile came back empty."""
+    return sum(n for n, _ in kernel_profile(fn).values())
+
+
+def launches_text(n: int) -> str:
+    return f"{n} kernels" if n else "the profile came back empty (no kernel seen)"
 
 
 def stage_line(label, run, smi):
@@ -450,55 +471,121 @@ def backward_launch_lines(tmodel, b, t_max, gen, dev):
         a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
         g = torch.randn(2 * b, t, 512, generator=gen).to(dev)
         n = kernel_launches(lambda: csp_backward(*a, g=g, attn_heads=heads))
-        log(f"launches {label}/{heads}h: {n} kernels in one csp_backward call "
+        log(f"launches {label}/{heads}h: {launches_text(n)} in one csp_backward call "
             f"(torch.profiler, the wrapper's copies included)")
     key = "backbone.self_att_V.0.attn"
     a = mhca_case(tmodel, key, b, t_max, 512, gen, dev)
     g = torch.randn(b, t_max, 512, generator=gen).to(dev)
     heads = dict(tmodel.named_modules())[key].n_head
     n = kernel_launches(lambda: mhca_backward(*a, g, heads=heads))
-    log(f"launches mhca_bwd@{b}x{t_max}x512: {n} kernels in one mhca_backward call "
+    log(f"launches mhca_bwd@{b}x{t_max}x512: {launches_text(n)} in one mhca_backward call "
         f"(torch.profiler)")
 
 
-def bf16_backward_profile(tmodel, b, t_max, gen, dev):
-    """Each bf16 backward kernel's launches at the protocol shape, by device
-    time (torch.profiler over one call, after its timed runs): the kernels'
-    names, calls and ms, so that the slow stages of the first design show."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+# launches a bf16 backward may make (the fused design's budget): a CSP layer's, and its
+# attention backward's per MHCA (the kernels named attn_bwd_*, and the
+# recompute's attention forward where the MHCA recomputes its output)
+CSP_BWD_BF16_LAUNCHES, ATTN_BWD_BF16_LAUNCHES = 70, 3
 
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+
+def host_split_line(label, a, g, heads, smi, n=20):
+    """One bf16 CSP backward's host work, medians of n calls: the whole
+    wrapper (`_launch_backward_bf16`, the stream synchronised before and
+    after), its C entry's enqueue alone (the wrapper's Python work is the
+    first less the second); the kernels' device time (kernel_profile) and
+    the mean of n back-to-back calls (CUDA events)."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops import cuda_build, fused_csp
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    def enqueue_ms(call):        # host ms until call returns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    kw = dict(g=g, attn_heads=heads, mhca_heads=4, eps=1e-5)
+    wrap, enq = [], []
+    for _ in range(n):
+        wrap.append(enqueue_ms(lambda: fused_csp._launch_backward_bf16(*a, **kw)))
+        lib, args, grads, scratch = fused_csp._prepare_backward_bf16(*a, **kw)
+        enq.append(enqueue_ms(lambda: cuda_build.check(
+            lib, lib.unav_csp_bf16_backward(*args), "csp_backward (bf16)")))
+    prof = kernel_profile(lambda: fused_csp.csp_backward(*a, **kw))
+    launches, dev_ms = sum(c for c, _ in prof.values()), sum(ms for _, ms in prof.values())
+    wrap_ms, enq_ms = sorted(wrap)[n // 2], sorted(enq)[n // 2]
+    log(f"host {label}: wrapper {wrap_ms:.4f} ms (its Python work {wrap_ms - enq_ms:.4f}, "
+        f"the C entry's enqueue {enq_ms:.4f}), device {dev_ms:.4f} ms in "
+        f"{launches_text(launches)}; back-to-back calls "
+        f"{cuda_ms(lambda: fused_csp.csp_backward(*a, **kw), n):.4f} ms a call "
+        f"(host times medians of {n}, back-to-back the mean of {n}) [{smi}]")
+
+
+def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
+    """Each bf16 backward kernel's launches at the protocol shape, by device
+    time (kernel_profile over one call, after its timed runs): the kernels'
+    names, calls and ms; then the CSP layer's launches at T=224 and T=7 held
+    to CSP_BWD_BF16_LAUNCHES and its and the MHCA's attention backward to
+    ATTN_BWD_BF16_LAUNCHES a MHCA (a profile that stays empty is said so,
+    and fails the phase); and each one's stages by CUDA events (`stages
+    csp_bwd_bf16@...`, `stages mhca_bwd_bf16@...`); at T=7 the CSP layer's
+    host work (`host csp_bwd_bf16@T7/...`, host_split_line)."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_stage_times
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_stage_times
     from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward
 
     bf = torch.bfloat16
-    a, heads = csp_case(tmodel, "backbone.fusion_module.top_down_layers.4", 2 * b, t_max, gen,
-                        dev)
-    ab = (a[0].to(bf), a[1].to(bf), *a[2:])
-    gc = torch.randn(2 * b, t_max, 512, generator=gen).to(dev, bf)
+    cases = []
+    for key, t in (("backbone.fusion_module.top_down_layers.4", t_max),
+                   ("backbone.fusion_module.bottom_up_layers.4", 7)):
+        a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
+        ab = (a[0].to(bf), a[1].to(bf), *a[2:])
+        gc = torch.randn(2 * b, t, 512, generator=gen).to(dev, bf)
+        if t == 7:
+            host_args = (ab, gc, heads)
+        cases.append((f"csp_bwd_bf16@T{t}/{heads}h", 3,
+                      lambda ab=ab, gc=gc, heads=heads: csp_backward(*ab, g=gc,
+                                                                     attn_heads=heads),
+                      lambda ab=ab, gc=gc, heads=heads: csp_backward_stage_times(
+                          *ab, g=gc, attn_heads=heads)))
     m = mhca_case(tmodel, "backbone.self_att_V.0.attn", b, t_max, 512, gen, dev)
     mb = (m[0].to(bf), m[1].to(bf), *m[2:])
     gm = torch.randn(b, t_max, 512, generator=gen).to(dev, bf)
+    nh = dict(tmodel.named_modules())["backbone.self_att_V.0.attn"].n_head
+    cases.append((f"mhca_bwd_bf16@{b}x{t_max}x512", 1,
+                  lambda: mhca_backward(*mb, gm, heads=nh),
+                  lambda: mhca_backward_stage_times(*mb, gm, heads=nh)))
     blk, ta = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
     gt = torch.randn(b, t_max, 512, generator=gen).to(dev)
-    for label, fn in ((f"csp_bwd_bf16@T{t_max}/{heads}h",
-                       lambda: csp_backward(*ab, g=gc, attn_heads=heads)),
-                      (f"mhca_bwd_bf16@{b}x{t_max}x512",
-                       lambda: mhca_backward(*mb, gm, heads=blk.attn.n_head)),
-                      (f"tblock_bwd_bf16@{b}x{t_max}x512",
-                       lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf))):
+    cases.append((f"tblock_bwd_bf16@{b}x{t_max}x512", 1,
+                  lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf), None))
+    for label, n_mhca, fn, stages in cases:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = sorted(((e.key, e.count, e.device_time_total / 1e3)
-                       for e in prof.key_averages() if e.device_time_total > 0),
-                      key=lambda r: -r[2])
-        total = sum(r[2] for r in rows)
-        log(f"profile {label}: {sum(r[1] for r in rows)} launches, {total:.3f} ms of kernels; "
+        prof = kernel_profile(fn)
+        rows = sorted(((k, c, ms) for k, (c, ms) in prof.items()), key=lambda r: -r[2])
+        total = sum(r[1] for r in rows)
+        attn = sum(c for k, c, _ in rows if "attn" in k)
+        log(f"profile {label}: {launches_text(total)}, {sum(r[2] for r in rows):.3f} ms of "
+            f"kernels, {attn} of them attention kernels ({n_mhca} MHCA); "
             + "; ".join(f"{k[:48]} x{c} {ms:.3f} ms" for k, c, ms in rows[:8]))
+        if not label.startswith("tblock"):
+            require(total > 0, f"{label}: torch.profiler saw no kernel; launches not measured")
+            require(attn <= ATTN_BWD_BF16_LAUNCHES * n_mhca,
+                    f"{label}: {attn} attention launches, over {ATTN_BWD_BF16_LAUNCHES} a MHCA")
+        if label.startswith("csp"):
+            require(total <= CSP_BWD_BF16_LAUNCHES,
+                    f"{label}: {total} launches, over {CSP_BWD_BF16_LAUNCHES}")
+        if stages:
+            stages()                                              # warm-up
+            stage_line(label, stages, smi)
+        if label.startswith("csp_bwd_bf16@T7/"):
+            host_split_line(label, *host_args, smi)
 
 
 def require(cond, msg: str) -> None:
@@ -1965,8 +2052,19 @@ def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
     tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
     tmodel = build_model(tcfg, device=dev, seed=seed)
     bf16_backward_checks(tmodel, dev, smi, gen, results, B, T)
-    bf16_backward_profile(tmodel, B, T, gen, dev)
     del tmodel
+    # torch.profiler can come back without device events once a process has
+    # traced a while (phase 15's bench, phases 4b and 13; in one full run the
+    # CSP backward's profile at T=224 did so even after a warm-up profile):
+    # the launch budget is measured in a process of its own, which builds
+    # only the train model
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--bf16-profile-only",
+                           "--seed", str(seed)], capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("profile ", "stages ", "host ")):
+            log(line)
+    require(proc.returncode == 0, "phase 16's profile of the bf16 backward kernels failed:\n"
+            + "\n".join((proc.stdout + proc.stderr).splitlines()[-20:]))
 
     # ---- the train step at bf16, both stems ------------------------------------
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_bf16.yaml"))
@@ -2140,6 +2238,10 @@ def main(argv=None) -> int:
                          "backward's per-launch breakdowns and launch counts")
     ap.add_argument("--bf16-train-only", action="store_true",
                     help="only build, then run phase 16 (the bf16 train step)")
+    ap.add_argument("--bf16-profile-only", action="store_true",
+                    help="only build, then profile the bf16 backward kernels (phase 16's "
+                         "profile, launch and stage lines; phase 16 runs it so, in a process "
+                         "of its own)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "unav_yolyolva_tpu_torch")):
@@ -2210,6 +2312,17 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions at the real shapes ---------
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
+    tm = tcfg["model"]
+    B, T = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+    if args.bf16_profile_only:
+        bf16_backward_profile(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev,
+                              smi)
+        return 0
+    if args.bf16_train_only:
+        bf16_train_phase(args.seed, dev, smi, gen, {}, B, T)
+        return 0
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
     model = build_model(cfg, device=dev, seed=args.seed)
     eval_model = model
@@ -2217,10 +2330,6 @@ def main(argv=None) -> int:
     log(f"model: LocPointTransformer width {cfg['model']['embd_dim']}, "
         f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
         f"{n_params / 1e6:.2f} M parameters, fp32")
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    tcfg = load_config(os.path.join(ROOT, "configs", "avel_unav100.yaml"))
-    tm = tcfg["model"]
-    B, T = tcfg["loader"]["batch_size"], tm["max_seq_len"]
     if args.stages_only:
         with torch.inference_mode():
             forward_stage_lines(model, gen, dev, smi)
@@ -2229,9 +2338,6 @@ def main(argv=None) -> int:
         backward_launch_lines(tmodel, B, T, gen, dev)
         return 0
     results = {}
-    if args.bf16_train_only:
-        bf16_train_phase(args.seed, dev, smi, gen, results, B, T)
-        return 0
     with torch.inference_mode():
         for label, key, r, c in (("mhca@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
                                  ("mhca@128x224x256", "backbone.fusion_module.top_down_layers.4.blocks.0", 128, 256)):
@@ -2792,10 +2898,16 @@ def main(argv=None) -> int:
                    "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
         bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
                    "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
-        bf16_bwd_entry("mhca_bwd_bf16", f"mhca_bwd_bf16@{B}x{T}x512",
-                       pkg + "mhca_bwd_bf16.cu", "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
-        bf16_bwd_entry("csp_bwd_bf16", f"csp_bwd_bf16@T{T}/8h", pkg + "csp_bwd_bf16.cu",
-                       "unav_yolyolva_tpu/ops/pallas_csp.py:373"),
+        dict(bf16_bwd_entry("mhca_bwd_bf16", f"mhca_bwd_bf16@{B}x{T}x512",
+                            pkg + "mhca_bwd_bf16.cu",
+                            "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
+             design="redesigned: the product on a cp.async ring, the attention backward "
+                    "fused into two launches"),
+        dict(bf16_bwd_entry("csp_bwd_bf16", f"csp_bwd_bf16@T{T}/8h", pkg + "csp_bwd_bf16.cu",
+                            "unav_yolyolva_tpu/ops/pallas_csp.py:373"),
+             design="redesigned: the product on a cp.async ring, the fused attention "
+                    "backward, the masks, taps and transposes read by the loaders, one "
+                    "launch of sums"),
         bf16_bwd_entry("tblock_bwd_bf16", f"tblock_bwd_bf16@{B}x{T}x512",
                        pkg + "tblock_bwd_bf16.cu", "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
     ]}))

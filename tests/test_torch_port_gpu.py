@@ -1468,3 +1468,61 @@ def test_bf16_stage_times(cuda):
     assert list(csp) == list(CSP_STAGES) and len(CSP_STAGES) == 18
     assert list(tb) == list(TB_STAGES) and len(TB_STAGES) == 9
     assert all(math.isfinite(v) and v > 0 for v in [*csp.values(), *tb.values()])
+
+
+@pytest.mark.parametrize("vjp", [False, True])
+@pytest.mark.parametrize("t,c,heads,lengths", [(100, 256, 4, [100, 57, 0]),
+                                               (512, 256, 2, [512, 300, 1])])
+def test_bf16_attention_backward_kernel(cuda, t, c, heads, lengths, vjp):
+    """The fused bf16 attention backward (the MHCA backward's two attention
+    launches) against its plain version under the bf16 backward kernels'
+    rule, in the hand and the vjp form: several key tiles with masked keys,
+    T not a multiple of the 32-row tile, a sequence without a valid key
+    (exact zeros in dq, dk and dv), T = MAX_T = 512, head widths 64 and 128."""
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (MAX_T, attention_backward,
+                                                        attention_backward_reference)
+
+    gen = torch.Generator().manual_seed(51)
+    bf, r = torch.bfloat16, len(lengths)
+    q = (torch.randn(r, t, c, generator=gen) * (c // heads) ** -0.5).to(cuda, bf)
+    k, v, go = (torch.randn(r, t, c, generator=gen).to(cuda, bf) for _ in range(3))
+    mask = _mask(r, t, lengths, cuda)
+    bump = _bump(q, mask, gen)
+    kw = dict(heads=heads, vjp=vjp)
+    before = attention_backward.launches
+    got = _bf16_grads_vs_plain(
+        f"attention_backward T{t} d{c // heads} {'vjp' if vjp else 'hand'}",
+        lambda: attention_backward(q, k, v, go, mask, **kw),
+        lambda: attention_backward_reference(q, k, v, go, mask, **kw),
+        lambda: attention_backward_reference(q, k, v, go, mask, rounded=False, **kw),
+        lambda sign: attention_backward(bump(sign), k, v, go, mask, **kw))
+    assert attention_backward.launches == before + 4 and t <= MAX_T
+    for i, n in enumerate(lengths):
+        assert (got[2][i, n:] == 0).all()                   # dv of the masked keys
+        if n == 0:
+            assert all((x[i] == 0).all() for x in got)
+
+
+def test_bf16_csp_backward_launch_budget(cuda):
+    """One bf16 CSP backward at T=7 launches at most 70 kernels, of which at
+    most 3 a MHCA are attention kernels (the recompute's forward and the two
+    of the fused backward), counted by torch.profiler after a warm-up
+    profile; a profile without kernels fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
+
+    gen = torch.Generator().manual_seed(52)
+    args = _bf16_csp_args(gen, cuda, 3, 7, 8)
+    g = torch.randn(3, 7, 128, generator=gen).to(cuda, torch.bfloat16)
+    csp_backward(*args, g=g, attn_heads=8)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            csp_backward(*args, g=g, attn_heads=8)
+            torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    n, attn = sum(c for _, c in rows), sum(c for key, c in rows if "attn" in key)
+    assert 0 < n <= 70, rows
+    assert attn <= 3 * 3, rows

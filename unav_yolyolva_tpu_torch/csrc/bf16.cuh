@@ -66,29 +66,49 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // ---- fp32 weights -> bf16 scratch, once per call -----------------------------
 
 constexpr int CAST_MAX = 24;
+// a segment's layout: as stored, or a (d0, d1, d2) source written with its
+// last two dims swapped, or with its last dim first
+constexpr int CAST_AS_IS = 0, CAST_SWAP12 = 1, CAST_LAST_FIRST = 2;
 struct CastList {
   const float* src[CAST_MAX];
   bf16* dst[CAST_MAX];
   long n[CAST_MAX];
+  int perm[CAST_MAX], d1[CAST_MAX], d2[CAST_MAX];
   int count;
 };
 
 // grid (x, count): segment blockIdx.y, grid-strided
 __global__ void __launch_bounds__(256) cast_bf16_kernel(const CastList l) {
-  const int s = blockIdx.y;
+  const int s = blockIdx.y, pm = l.perm[s];
+  const long d1 = l.d1[s], d2 = l.d2[s];
   const float* src = l.src[s];
   bf16* dst = l.dst[s];
-  for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < l.n[s]; i += (long)gridDim.x * 256)
-    dst[i] = rb(src[i]);
+  for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < l.n[s]; i += (long)gridDim.x * 256) {
+    long j = i;
+    if (pm == CAST_SWAP12) {          // dst (d0, d2, d1)
+      const long a = i / (d2 * d1), r = i - a * d2 * d1, b = r / d1, c = r - b * d1;
+      j = (a * d1 + c) * d2 + b;
+    } else if (pm == CAST_LAST_FIRST) {   // dst (d2, d0, d1)
+      const long d0 = l.n[s] / (d1 * d2), a = i / (d0 * d1), r = i - a * d0 * d1;
+      const long b = r / d1, c = r - b * d1;
+      j = (b * d1 + c) * d2 + a;
+    }
+    dst[i] = rb(src[j]);
+  }
 }
 
 // Queues the cast of n floats at src into the bump allocation `next`
-// (segments start on 16 bytes) and returns where they will be.
-static bf16* cast_push(CastList& l, bf16*& next, const float* src, long n) {
+// (segments start on 16 bytes) and returns where they will be; perm
+// (with the source's last two dims d1, d2) rearranges a 3-d source.
+static bf16* cast_push(CastList& l, bf16*& next, const float* src, long n,
+                       int perm = CAST_AS_IS, int d1 = 1, int d2 = 1) {
   bf16* d = next;
   l.src[l.count] = src;
   l.dst[l.count] = d;
   l.n[l.count] = n;
+  l.perm[l.count] = perm;
+  l.d1[l.count] = d1;
+  l.d2[l.count] = d2;
   ++l.count;
   next += (n + 7) / 8 * 8;
   return d;
@@ -622,13 +642,16 @@ static long mhca_bf16_scratch_elems(int R, int T, int C) { return 6L * R * T * C
 // One MaskedMHCA forward in bf16. x1 (k/v source), x2 (q source) (R*T, C)
 // bf16 with row strides ld1 / ld2; out bf16 with row stride ldo. Weights:
 // dw (3, C, 3), lnw / lnb (3, C) fp32; wb (4, C, C), bb (4, C) bf16 (cast).
-// marks, if given, gets an event after each of the four launches.
+// marks, if given, gets an event after each of the four launches. The
+// attention's output goes to att (P x C) if given, else over the start of
+// the scratch; a backward that keeps the scratch and att reads its
+// recompute from them.
 static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long ld2,
                                   const unsigned char* mask, int R, int T, int C, int H,
                                   const float* dw, const float* lnw, const float* lnb,
                                   const bf16* wb, const bf16* bb, float eps, bf16* out,
                                   long ldo, bf16* scratch, cudaStream_t stream,
-                                  StageMarks* marks = nullptr) {
+                                  StageMarks* marks = nullptr, bf16* att = nullptr) {
   const long P = (long)R * T, PC = P * C;
   const int d = C / H;
   bf16* nrm = scratch;            // normalized q/k/v, later the attention output
@@ -648,11 +671,12 @@ static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long
   if ((rc = launch_gemm_bf16(b, 3, stream))) return rc;
   mark_stage(marks, stream);
 
-  rc = launch_attn_bf16(qkv, qkv + PC, qkv + 2 * PC, mask, R, T, C, H, nrm, stream);
+  bf16* o = att ? att : nrm;
+  rc = launch_attn_bf16(qkv, qkv + PC, qkv + 2 * PC, mask, R, T, C, H, o, stream);
   if (rc) return rc;
   mark_stage(marks, stream);
 
-  rc = launch_gemm_bf16_one(bf16_gemm(nrm, C, wb + 3L * C * C, C, out, ldo, bb + 3L * C, mask,
+  rc = launch_gemm_bf16_one(bf16_gemm(o, C, wb + 3L * C * C, C, out, ldo, bb + 3L * C, mask,
                                       (int)P, C, C),
                             stream);
   mark_stage(marks, stream);

@@ -17,20 +17,33 @@
 //     used several times gets its cotangents added in bf16 in the order of
 //     JAX's backward pass (form MHCA_VJP).
 // Bound: operations. Every product runs on the bf16 tensor cores (mma.sync
-// m16n8k16, fp32 sums) through one strided product, xgemm_kernel, that
-// takes the A.B^T, A.B and A^T.B layouts and batches (sequence, head) pairs;
-// an fp32 operand (the attention's ds, the gate's sparse grads) is split into
-// three bf16 terms whose products are exact in the fp32 sums. The attention
-// backward materializes each head's (T, T) logits, probabilities and grads
-// in device memory, and the reductions, LayerNorms and elementwise glue run
-// on the FP32 pipes. This is the first, simple design: its tiles are loaded
-// without a copy pipeline; `wgmma`, TMA and a fused attention backward are
-// later work.
+// m16n8k16, fp32 sums); an fp32 operand (the attention's ds, the gate's
+// sparse grads) is split into three bf16 terms whose products are exact in
+// the fp32 sums. The design, for this card:
+//   - one strided product, xgemm_kernel, for the A.B^T, A.B and A^T.B
+//     layouts: 16-byte cp.async copies into a four-stage ring, each operand
+//     kept in shared memory as it lies in device memory and read with
+//     ldmatrix (.trans where its contiguous dimension is M or N); 128 x 128
+//     tiles on 8 warps where the products fill the card, 128 x 64 on 8
+//     otherwise, 64 x 64 on 4 for an fp32 A; up to four products a launch;
+//     a weight grad's row blocks on blocks of their own, added in order by a
+//     second pass (bf16_xgemm.cuh);
+//   - a fused attention backward in two launches, attn_bwd_q_bf16_kernel
+//     (a 32-query tile keeps its whole fp32 S and datt rows in shared memory:
+//     the softmax statistics summed as the forward sums them, D = sum(P datt)
+//     over every key, dS, dq) and attn_bwd_kv_bf16_kernel (a 32-key tile
+//     recomputes S, P and datt from those statistics: dk, dv), with no (T, T)
+//     array in device memory;
+//   - the masks, the projection conv's shifted rows and the weights'
+//     transposes read by the loaders instead of copied; the CSP layer's
+//     three MHCAs reuse its recompute and add their sums to its own launch.
+// Every sum has one fixed order (32-deep slices from zero, added in order;
+// the JAX row blocks; a softmax row lane by lane, then across the warp):
+// two builds that keep it give the same bits. The reductions, LayerNorms and
+// elementwise glue run on the FP32 pipes; `wgmma` and TMA are later work.
 #pragma once
 
-#include <cstring>
-
-#include "bf16.cuh"
+#include "bf16_xgemm.cuh"
 
 // ---- scratch ------------------------------------------------------------------
 
@@ -46,239 +59,6 @@ struct Bump {
     return p;
   }
 };
-
-// ---- the product in every layout ----------------------------------------------
-
-// One strided product per launch, batched over z = (z1, z2) = (z / zdiv,
-// z % zdiv):
-//   C[z](m, n) = sum_k A[z](m, k) B[z](k, n),
-// each operand element at base + z1 * s_z1 + z2 * s_z2 + row * s_row +
-// col * s_col (element strides), so one kernel reads A.B^T, A.B and A^T.B.
-// A is bf16 or fp32 (split into three bf16 terms), B bf16. K is summed in
-// blocks of kblock (default K): each block from zero in 32-deep slices, then
-// added to the total in order, rounded to bf16 first with round_blocks (the
-// JAX kernels' per-block bf16 weight grads). Epilogue: fp32 out (rounded to
-// bf16 values with round_f32), or bf16 out: y = bf16(sum); scale != 1: y =
-// bf16(y * scale); rowmask[z1 * rm_z1 + m] zeroes a row.
-struct XGemm {
-  const void* A; long a_z1, a_z2, a_m, a_k; int a_f32;
-  const bf16* B; long b_z1, b_z2, b_k, b_n;
-  void* C; long c_z1, c_z2, c_m, c_n; int c_f32, round_f32;
-  const unsigned char* rowmask; long rm_z1;
-  float scale;
-  int M, N, K, Z, zdiv, kblock, round_blocks;
-  int klimit;                  // > 0: batch z1's K is min(K, klimit - z1 * K) (split chunks)
-  float* split; long split_cap;  // scratch floats for a weight grad's split K, or nullptr
-};
-
-static XGemm xgemm(int M, int N, int K) {
-  XGemm g;
-  memset(&g, 0, sizeof(g));
-  g.M = M; g.N = N; g.K = K; g.Z = 1; g.zdiv = 1; g.kblock = K; g.scale = 1.f;
-  return g;
-}
-// operands by layout: row-major A (M, K) with row stride lda, A stored (K, M)
-// (A^T.B), B stored (N, K) (A.B^T), B stored (K, N) (A.B)
-static void xg_a(XGemm& g, const void* A, long lda, int f32 = 0) {
-  g.A = A; g.a_m = lda; g.a_k = 1; g.a_f32 = f32;
-}
-static void xg_at(XGemm& g, const void* A, long lda, int f32 = 0) {
-  g.A = A; g.a_m = 1; g.a_k = lda; g.a_f32 = f32;
-}
-static void xg_bt(XGemm& g, const bf16* B, long ldb) { g.B = B; g.b_k = 1; g.b_n = ldb; }
-static void xg_b(XGemm& g, const bf16* B, long ldb) { g.B = B; g.b_k = ldb; g.b_n = 1; }
-static void xg_c(XGemm& g, void* C, long ldc, int f32) {
-  g.C = C; g.c_m = ldc; g.c_n = 1; g.c_f32 = f32;
-}
-static void xg_batch(XGemm& g, int Z, int zdiv, long a1, long a2, long b1, long b2, long c1,
-                     long c2) {
-  g.Z = Z; g.zdiv = zdiv; g.a_z1 = a1; g.a_z2 = a2; g.b_z1 = b1; g.b_z2 = b2;
-  g.c_z1 = c1; g.c_z2 = c2;
-}
-
-constexpr int XG_BM = 64, XG_BN = 64, XG_BK = 32, XG_LDS = XG_BK + 8;
-
-// grid (ceil(N / 64), ceil(M / 64), Z), 128 threads: 2 x 2 warps of 32 x 32
-__global__ void __launch_bounds__(128) xgemm_kernel(const XGemm p) {
-  __shared__ __align__(16) bf16 As[3][XG_BM * XG_LDS];
-  __shared__ __align__(16) bf16 Bs[XG_BN * XG_LDS];
-  const int z = blockIdx.z, z1 = z / p.zdiv, z2 = z - z1 * p.zdiv;
-  const int m0 = blockIdx.y * XG_BM, n0 = blockIdx.x * XG_BN;
-  const int K = p.klimit ? min(p.K, p.klimit - z1 * p.K) : p.K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, t4 = lane & 3;
-  const long aoff = z1 * p.a_z1 + z2 * p.a_z2, boff = z1 * p.b_z1 + z2 * p.b_z2;
-  const float* Af = static_cast<const float*>(p.A) + aoff;
-  const bf16* Ab = static_cast<const bf16*>(p.A) + aoff;
-  const bf16* B = p.B + boff;
-  const bool akf = p.a_k == 1, bkf = p.b_k == 1;
-  const int planes = p.a_f32 ? 3 : 1;
-
-  float acc[2][4][4], blk[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = blk[i][j][r] = 0.f;
-
-  for (int kb0 = 0; kb0 < K; kb0 += p.kblock) {
-    const int kend = min(K, kb0 + p.kblock);
-    for (int k0 = kb0; k0 < kend; k0 += XG_BK) {
-      __syncthreads();   // the last slice's readers are done
-      for (int e = tid; e < XG_BM * XG_BK; e += 128) {
-        const int m = akf ? e >> 5 : e & 63, k = akf ? e & 31 : e >> 6;
-        const int gm = m0 + m, gk = k0 + k;
-        const bool ok = gm < p.M && gk < kend;
-        const long off = (long)gm * p.a_m + (long)gk * p.a_k;
-        if (p.a_f32) {
-          const float v = ok ? Af[off] : 0.f;
-          const bf16 hi = rb(v);
-          const float r1 = v - bf(hi);
-          const bf16 mi = rb(r1);
-          As[0][m * XG_LDS + k] = hi;
-          As[1][m * XG_LDS + k] = mi;
-          As[2][m * XG_LDS + k] = rb(r1 - bf(mi));
-        } else {
-          As[0][m * XG_LDS + k] = ok ? Ab[off] : rb(0.f);
-        }
-      }
-      for (int e = tid; e < XG_BN * XG_BK; e += 128) {
-        const int n = bkf ? e >> 5 : e & 63, k = bkf ? e & 31 : e >> 6;
-        const int gn = n0 + n, gk = k0 + k;
-        Bs[n * XG_LDS + k] =
-            gn < p.N && gk < kend ? B[(long)gk * p.b_k + (long)gn * p.b_n] : rb(0.f);
-      }
-      __syncthreads();
-      float part[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < XG_BK; kk += 16) {
-        uint32_t b[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bf16* q = Bs + (wn * 32 + j * 8 + g) * XG_LDS + kk + 2 * t4;
-          b[j][0] = ld32(q);
-          b[j][1] = ld32(q + 8);
-        }
-        for (int pl = planes - 1; pl >= 0; --pl) {   // smallest term first
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const bf16* q = As[pl] + (wm * 32 + i * 16 + g) * XG_LDS + kk + 2 * t4;
-            const uint32_t a[4] = {ld32(q), ld32(q + 8 * XG_LDS), ld32(q + 8),
-                                   ld32(q + 8 * XG_LDS + 8)};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_bf16(part[i][j], a, b[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) blk[i][j][r] += part[i][j][r];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[i][j][r] += p.round_blocks ? rbf(blk[i][j][r]) : blk[i][j][r];
-          blk[i][j][r] = 0.f;
-        }
-  }
-
-  const long coff = z1 * p.c_z1 + z2 * p.c_z2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
-      if (m >= p.M) continue;
-      const float mk = p.rowmask ? (p.rowmask[z1 * p.rm_z1 + m] ? 1.f : 0.f) : 1.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * 32 + j * 8 + 2 * t4 + e;
-          if (n >= p.N) continue;
-          const long off = coff + (long)m * p.c_m + (long)n * p.c_n;
-          const float v = acc[i][j][2 * h + e];
-          if (p.c_f32) {
-            static_cast<float*>(p.C)[off] = p.round_f32 ? rbf(v) : v;
-          } else {
-            float y = rbf(v);
-            if (p.scale != 1.f) y = rbf(y * p.scale);
-            static_cast<bf16*>(p.C)[off] = rb(y * mk);
-          }
-        }
-    }
-}
-
-// C = sum over the nsplit partial planes, in order (a split weight grad's
-// chunks), written with C's strides
-__global__ void xgemm_reduce_kernel(const float* __restrict__ part, int nsplit, int M, int N,
-                                    float* __restrict__ C, long c_m, long c_n) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)M * N) return;
-  const long m = i / N, n = i - m * N, plane = (long)M * N;
-  float s = 0.f;
-  for (int z = 0; z < nsplit; ++z) s += part[z * plane + i];
-  C[m * c_m + n * c_n] = s;
-}
-
-// Launches one product. A single fp32 product with fewer tiles than two a
-// SM (a weight grad: few M x N tiles over a long K) and which has
-// `split` scratch runs its K in chunks on separate blocks into the scratch,
-// then adds the chunks in order (xgemm_reduce_kernel): the chunks are the
-// row blocks when they are rounded (the same bits as one pass), else even
-// slices of K.
-static int launch_xgemm(const XGemm& p, cudaStream_t stream) {
-  if (p.M <= 0 || p.N <= 0 || p.Z <= 0) return 0;
-  if (p.K < 0 || p.kblock <= 0 || p.zdiv <= 0 || p.Z > 65535) return (int)cudaErrorInvalidValue;
-  const long tiles = (long)ceil_div(p.N, XG_BN) * ceil_div(p.M, XG_BM);
-  if (p.split && p.Z == 1 && p.c_f32 && !p.round_f32 && !p.rowmask && tiles < 2 * 132) {
-    int chunk = p.kblock;
-    if (!p.round_blocks) {
-      const int want = (int)std::min<long>(ceil_div(2 * 132, tiles), ceil_div(p.K, 256));
-      chunk = ceil_div(ceil_div(p.K, std::max(want, 1)), XG_BK) * XG_BK;
-    }
-    const int nsplit = ceil_div(p.K, chunk);
-    if (nsplit > 1 && (long)nsplit * p.M * p.N <= p.split_cap && nsplit <= 65535) {
-      XGemm q = p;
-      q.K = chunk;
-      q.klimit = p.K;
-      q.kblock = chunk;
-      q.Z = nsplit;
-      q.zdiv = 1;
-      q.a_z1 = (long)chunk * p.a_k;
-      q.b_z1 = (long)chunk * p.b_k;
-      q.C = p.split;
-      q.c_m = p.N;
-      q.c_n = 1;
-      q.c_z1 = (long)p.M * p.N;
-      q.split = nullptr;
-      xgemm_kernel<<<dim3(ceil_div(p.N, XG_BN), ceil_div(p.M, XG_BM), nsplit), 128, 0,
-                     stream>>>(q);
-      UNAV_RETURN_IF_ERROR();
-      xgemm_reduce_kernel<<<ceil_div((long)p.M * p.N, 256), 256, 0, stream>>>(
-          p.split, nsplit, p.M, p.N, static_cast<float*>(p.C), p.c_m, p.c_n);
-      UNAV_RETURN_IF_ERROR();
-      return 0;
-    }
-  }
-  const dim3 grid(ceil_div(p.N, XG_BN), ceil_div(p.M, XG_BM), p.Z);
-  xgemm_kernel<<<grid, 128, 0, stream>>>(p);
-  UNAV_RETURN_IF_ERROR();
-  return 0;
-}
 
 // ---- bf16 sums in XLA:CPU's order -------------------------------------------------
 
@@ -355,20 +135,26 @@ __device__ float xla_sum2(int D0, int D1, F& leaf) {
 // holds them: padded to tpad rows (zeros). twod: the sum runs over (Rj,
 // tpad), the depthwise taps' broadcast; else over Rj * tpad rows, the
 // bias of a product's 2-d (rows, N) result.
+// mask, if given, zeroes a's rows (a masked upstream grad) before b.
 struct XJob {
-  const bf16* a; long lda; int shift;
-  const bf16* b; long ldb;
-  float* out; long ostride;
-  int C, T, tpad, twod, accumulate;
+  const bf16* a;
+  const bf16* b;
+  const unsigned char* mask;
+  float* out;
   long woff;                   // launch_xla_sums: where its window sums go in the work
+  int lda, ldb, ostride, shift, C, T, tpad, twod, accumulate;
 };
-constexpr int XJ_MAX = 16;
+// a CSP backward's own 4 jobs and its three MHCAs' 13 each, in one launch
+// (the jobs' table stays under 4 KB of kernel parameters)
+constexpr int XJ_MAX = 48;
 struct XJobs { XJob j[XJ_MAX]; };
 
-static XJob xjob(const bf16* a, long lda, float* out, int C, int T, int tpad) {
+static XJob xjob(const bf16* a, long lda, float* out, int C, int T, int tpad,
+                 const unsigned char* mask = nullptr) {
   XJob j;
-  j.a = a; j.lda = lda; j.shift = 0; j.b = nullptr; j.ldb = 0; j.out = out; j.ostride = 1;
-  j.C = C; j.T = T; j.tpad = tpad; j.twod = 0; j.accumulate = 0; j.woff = 0;
+  j.a = a; j.b = nullptr; j.mask = mask; j.out = out; j.woff = 0;
+  j.lda = (int)lda; j.ldb = 0; j.ostride = 1; j.shift = 0;
+  j.C = C; j.T = T; j.tpad = tpad; j.twod = 0; j.accumulate = 0;
   return j;
 }
 
@@ -397,6 +183,7 @@ struct XlaLeaf {
     const int ts = t + jb.shift;
     if (ts < 0 || ts >= jb.T) return 0.f;
     const long row = row0 + (long)r * jb.T + t;
+    if (jb.mask && !jb.mask[row]) return 0.f;
     float v = bf(jb.a[(row + jb.shift) * jb.lda + c]);
     if (jb.b) v = rbf(v * bf(jb.b[row * jb.ldb + c]));
     return v;
@@ -406,7 +193,8 @@ struct XlaLeaf {
 // The first level of every job's tree in parallel, one window of one block
 // and one column a thread: grid (ceil(Cmax / 64), nblocks * wmax, jobs), the
 // window's bf16 sum, in XLA's order, into win[job][block][window][c].
-__global__ void __launch_bounds__(64) xla_windows_kernel(const XJobs jobs, int Rj, int wmax,
+__global__ void __launch_bounds__(64) xla_windows_kernel(const __grid_constant__ XJobs jobs,
+                                                         int Rj, int wmax,
                                                          float* __restrict__ win) {
   const XJob& jb = jobs.j[blockIdx.z];
   const int c = blockIdx.x * 64 + threadIdx.x;
@@ -434,7 +222,8 @@ __global__ void __launch_bounds__(64) xla_windows_kernel(const XJobs jobs, int R
 // The rest of each tree from the window sums (XLA reduces them by the same
 // rule), and the blocks added in fp32 in order: one column of one job a
 // thread, grid (ceil(Cmax / 64), jobs).
-__global__ void __launch_bounds__(64) xla_sums_kernel(const XJobs jobs, int nblocks, int Rj,
+__global__ void __launch_bounds__(64) xla_sums_kernel(const __grid_constant__ XJobs jobs,
+                                                      int nblocks, int Rj,
                                                       const float* __restrict__ win) {
   const XJob& jb = jobs.j[blockIdx.y];
   const int c = blockIdx.x * 64 + threadIdx.x;
@@ -489,21 +278,25 @@ static int launch_xla_sums(const XJobs& jobs, int count, int nblocks, int Rj, fl
 
 // colsum.cuh's deterministic two-pass sums, for operands of either dtype:
 //   out[c * ostride] (+)= sum_m A(m + shift, c) * B(m, c)
-// (A read within the row's sequence of seq rows, zero outside; B optional).
+// (A read within the row's sequence of seq rows, zero outside, and in the
+// rows mask keeps, if given; B optional).
 struct FJob {
-  const void* a; long lda; int a_bf;
-  const void* b; long ldb; int b_bf;
-  float* out; long ostride;
-  int shift, M, C, seq, accumulate;
+  const void* a;
+  const void* b;
+  const unsigned char* mask;
+  float* out;
+  int lda, ldb, ostride, a_bf, b_bf, shift, M, C, seq, accumulate;
 };
 constexpr int FJ_MAX = 24;
 constexpr int FS_CHUNK = 256;   // rows per partial
 struct FJobs { FJob j[FJ_MAX]; };
 
-static FJob fjob(const void* a, long lda, int a_bf, int M, int C, float* out) {
+static FJob fjob(const void* a, long lda, int a_bf, int M, int C, float* out,
+                 const unsigned char* mask = nullptr) {
   FJob j;
-  j.a = a; j.lda = lda; j.a_bf = a_bf; j.b = nullptr; j.ldb = 0; j.b_bf = 0;
-  j.out = out; j.ostride = 1; j.shift = 0; j.M = M; j.C = C; j.seq = 1; j.accumulate = 0;
+  j.a = a; j.b = nullptr; j.mask = mask; j.out = out;
+  j.lda = (int)lda; j.ldb = 0; j.ostride = 1; j.a_bf = a_bf; j.b_bf = 0;
+  j.shift = 0; j.M = M; j.C = C; j.seq = 1; j.accumulate = 0;
   return j;
 }
 
@@ -512,7 +305,7 @@ __device__ __forceinline__ float ld_any(const void* p, long i, int is_bf) {
 }
 
 // grid (ceil(Cmax / 32), chunks, jobs), block (32, 8)
-__global__ void __launch_bounds__(256) fsum_partial_kernel(const FJobs jobs,
+__global__ void __launch_bounds__(256) fsum_partial_kernel(const __grid_constant__ FJobs jobs,
                                                            float* __restrict__ partial,
                                                            int chunks, int cmax) {
   const FJob& jb = jobs.j[blockIdx.z];
@@ -524,7 +317,7 @@ __global__ void __launch_bounds__(256) fsum_partial_kernel(const FJobs jobs,
     const int m1 = min(m0 + FS_CHUNK, jb.M);
     for (int m = m0 + threadIdx.y; m < m1; m += 8) {
       const int t = m % jb.seq + jb.shift;
-      if (t < 0 || t >= jb.seq) continue;
+      if (t < 0 || t >= jb.seq || (jb.mask && !jb.mask[m])) continue;
       float v = ld_any(jb.a, (long)(m + jb.shift) * jb.lda + c, jb.a_bf);
       if (jb.b) v *= ld_any(jb.b, (long)m * jb.ldb + c, jb.b_bf);
       s += v;
@@ -541,7 +334,7 @@ __global__ void __launch_bounds__(256) fsum_partial_kernel(const FJobs jobs,
 }
 
 // grid (ceil(Cmax / 256), jobs), 256 threads
-__global__ void __launch_bounds__(256) fsum_final_kernel(const FJobs jobs,
+__global__ void __launch_bounds__(256) fsum_final_kernel(const __grid_constant__ FJobs jobs,
                                                          const float* __restrict__ partial,
                                                          int chunks, int cmax) {
   const FJob& jb = jobs.j[blockIdx.y];
@@ -575,78 +368,498 @@ static int launch_fsums(const FJobs& jobs, int count, float* partial, cudaStream
   return 0;
 }
 
-// ---- elementwise glue ------------------------------------------------------------------
+// ---- the attention backward, fused -----------------------------------------------------
 
-// y[m][c] = x[m][c] * mask[m] (bf16, exact), for the first C columns
-__global__ void mask_rows_bf16_kernel(const bf16* __restrict__ x, long ldx, long P, int C,
-                                      const unsigned char* __restrict__ mask,
-                                      bf16* __restrict__ y, long ldy) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P * C) return;
-  const long m = i / C;
-  const int c = (int)(i - m * C);
-  y[m * ldy + c] = mask[m] ? x[m * ldx + c] : rb(0.f);
+constexpr int AT_T = 32;   // queries, or keys, a tile of the attention backward
+
+// grid (ceil(T / 32), H, R), 256 threads: one 32-query tile of one head.
+// DP: the head width d rounded up to 16, 32, 64 or 128 (dims past d zero).
+// q (scaled), k, v, go (R*T, C) bf16 with the head's d columns at h * d.
+// Pass 1 streams key tiles through a two-slot cp.async ring and keeps the
+// tile's whole fp32 rows of S = q k^T and datt = go v^T (rounded to bf16 in
+// the vjp form) in shared memory, each summed as the strided product sums
+// (32-deep slices of d from zero, the query as A). Then
+// a warp takes 4 rows: P = exp(s - max) / sum over the valid keys with the
+// max, the sum and D = sum(P datt) each taken by every lane over keys lane,
+// lane + 32, ... in order and then across the warp (the forward attention's
+// order: P and bf16(P) are the forward's), dS =
+// P (datt - D) written over the row as bf16 terms: rounded (hand form) or
+// split into three (vjp form: the fp32 dS multiplies k unrounded). Pass 2
+// streams the key tiles again: dq = bf16(bf16(dS k) * scale), 32 keys a
+// slice. Each row's (max, sum, D) goes to stat for the key-tile kernel. A
+// sequence without a valid key writes exact zeros. Shared memory: the query
+// and go tiles and the ring (6 x 32 x DP+8 bf16), the rows (32 x 2 T32 + 4
+// fp32, T32 = T rounded up to 32).
+template <int DP>
+__global__ void __launch_bounds__(256) attn_bwd_q_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ go, const unsigned char* __restrict__ mask, int T, int C, int H,
+    int vjp, float scale, bf16* __restrict__ dq, float* __restrict__ stat) {
+  constexpr int RS = DP + 8, CH = DP / 8, TILE = AT_T * RS, NJ = (DP / 8 + 3) / 4;
+  extern __shared__ __align__(16) unsigned char aq_smem[];
+  const int d = C / H, T32 = (T + AT_T - 1) / AT_T * AT_T, RW = 2 * T32 + 4, nkt = T32 / AT_T;
+  bf16* Qs = reinterpret_cast<bf16*>(aq_smem);
+  bf16* Gs = Qs + TILE;
+  bf16* ring = Gs + TILE;                                    // 2 slots of (key, value) tiles
+  float* rows = reinterpret_cast<float*>(ring + 4 * TILE);   // AT_T x RW
+  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AT_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const unsigned char* mrow = mask + (long)r * T;
+  const long base = (long)r * T * C + (long)h * d;
+  const long sbase = ((long)r * H + h) * T;
+
+  int any = 0;
+  for (int i = tid; i < T; i += 256) any |= mrow[i];
+  if (!__syncthreads_or(any)) {
+    for (int e = tid; e < AT_T * d; e += 256) {
+      const int i = e / d, dd = e - i * d;
+      if (q0 + i < T) dq[base + (long)(q0 + i) * C + dd] = rb(0.f);
+    }
+    return;
+  }
+  auto load_rows = [&](bf16* dst, const bf16* src, int row0) {
+    for (int e = tid; e < AT_T * CH; e += 256) {
+      const int row = e / CH, c = (e - row * CH) * 8;
+      const bool ok = row0 + row < T && c < d;
+      cp_async16b(dst + row * RS + c, ok ? src + base + (long)(row0 + row) * C + c : src, ok);
+    }
+  };
+  load_rows(Qs, q, q0);
+  load_rows(Gs, go, q0);
+  load_rows(ring, k, 0);
+  load_rows(ring + TILE, v, 0);
+  cp_async_commit();
+
+  // pass 1: warp (rg, kq) owns rows 16 rg .. and keys 8 kq .. of each tile
+  const int rg = warp & 1, kq = warp >> 1;
+  uint32_t qf[DP / 16][4], gf[DP / 16][4];
+  for (int i = 0; i < nkt; ++i) {
+    if (i + 1 < nkt) {
+      bf16* slot = ring + ((i + 1) & 1) * 2 * TILE;
+      load_rows(slot, k, (i + 1) * AT_T);
+      load_rows(slot + TILE, v, (i + 1) * AT_T);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile i (and the query tiles) landed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        const bf16* p = Qs + (rg * 16 + g) * RS + kk + 2 * t4;
+        const bf16* pg = Gs + (rg * 16 + g) * RS + kk + 2 * t4;
+        qf[kk / 16][0] = ld32(p);
+        qf[kk / 16][1] = ld32(p + 8 * RS);
+        qf[kk / 16][2] = ld32(p + 8);
+        qf[kk / 16][3] = ld32(p + 8 * RS + 8);
+        gf[kk / 16][0] = ld32(pg);
+        gf[kk / 16][1] = ld32(pg + 8 * RS);
+        gf[kk / 16][2] = ld32(pg + 8);
+        gf[kk / 16][3] = ld32(pg + 8 * RS + 8);
+      }
+    }
+    const bf16* ks = ring + (i & 1) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c0 = 0; c0 < DP; c0 += 32) {
+      float ps[4] = {0.f, 0.f, 0.f, 0.f}, pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = c0; kk < c0 + 32 && kk < DP; kk += 16) {
+        const bf16* pk = ks + (kq * 8 + g) * RS + kk + 2 * t4;
+        const bf16* pv = vs + (kq * 8 + g) * RS + kk + 2 * t4;
+        const uint32_t bk[2] = {ld32(pk), ld32(pk + 8)}, bv[2] = {ld32(pv), ld32(pv + 8)};
+        mma_bf16(ps, qf[kk / 16], bk);
+        mma_bf16(pd, gf[kk / 16], bv);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] += ps[e];
+        dp[e] += pd[e];
+      }
+    }
+    const int key = i * AT_T + kq * 8 + 2 * t4;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* sr = rows + (rg * 16 + g + 8 * hh) * RW;
+      *reinterpret_cast<float2*>(sr + key) = make_float2(s[2 * hh], s[2 * hh + 1]);
+      *reinterpret_cast<float2*>(sr + T32 + key) =
+          vjp ? make_float2(rbf(dp[2 * hh]), rbf(dp[2 * hh + 1]))
+              : make_float2(dp[2 * hh], dp[2 * hh + 1]);
+    }
+    __syncthreads();   // every warp is done with tile i: its slot may be refilled
+  }
+  load_rows(ring, k, 0);   // pass 2's first key tile, under the row statistics
+  cp_async_commit();
+
+  // each warp's 4 rows: statistics, P, D, dS over the row (T32 <= 512: 16 a lane)
+  for (int i4 = 0; i4 < AT_T / 8; ++i4) {
+    const int row = warp * (AT_T / 8) + i4;
+    float* sr = rows + row * RW;
+    bf16* terms = reinterpret_cast<bf16*>(sr);   // dS's bf16 terms, over the row
+    float sv[16], gv[16], pf[16];
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      sv[jj] = j < T ? sr[j] : 0.f;
+      gv[jj] = j < T ? sr[T32 + j] : 0.f;
+    }
+    float mx = -FLT_MAX;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      if (j < T) mx = fmaxf(mx, mrow[j] ? sv[jj] : -FLT_MAX);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      if (j < T) sum += mrow[j] ? expf(sv[jj] - mx) : 0.f;
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      pf[jj] = j < T && mrow[j] ? expf(sv[jj] - mx) / sum : 0.f;
+    }
+    float dsum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      if (j < T) dsum += pf[jj] * gv[jj];
+    }
+    dsum = warp_sum(dsum);
+    __syncwarp();   // the row is read: its bf16 terms go over it
+    const bool live = q0 + row < T;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = lane + 32 * jj;
+      if (j >= T32) continue;
+      const float x = live && j < T ? pf[jj] * (gv[jj] - dsum) : 0.f;
+      if (vjp) {
+        const bf16 hi = rb(x);
+        const float r1 = x - bf(hi);
+        const bf16 mi = rb(r1);
+        terms[j] = hi;
+        terms[T32 + j] = mi;
+        terms[2 * T32 + j] = rb(r1 - bf(mi));
+      } else {
+        terms[j] = rb(x);
+      }
+    }
+    if (lane == 0 && live) {
+      float* st = stat + (sbase + q0 + row) * 3;
+      st[0] = mx;
+      st[1] = sum;
+      st[2] = dsum;
+    }
+  }
+
+  // pass 2: dq = dS k, warp (rg, kq) owns rows 16 rg .. and n8 tiles kq + 4 jj
+  float acc[NJ][4];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+  const bf16* arow = reinterpret_cast<const bf16*>(rows + (rg * 16 + (lane & 15)) * RW) +
+                     (lane >> 4) * 8;
+  for (int i = 0; i < nkt; ++i) {
+    if (i + 1 < nkt) load_rows(ring + ((i + 1) & 1) * 2 * TILE, k, (i + 1) * AT_T);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // key tile i landed; every row's terms are written
+    const bf16* ks = ring + (i & 1) * 2 * TILE;
+    float part[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[jj][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < AT_T; kk += 16) {
+      uint32_t b[NJ][2];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int j = kq + 4 * jj;
+        if (j < DP / 8) ldsm2t(b[jj], ks + (kk + (lane & 15)) * RS + j * 8);
+      }
+      for (int pl = vjp ? 2 : 0; pl >= 0; --pl) {   // smallest term first
+        uint32_t a[4];
+        ldsm4(a, arow + pl * T32 + i * AT_T + kk);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (kq + 4 * jj < DP / 8) mma_bf16(part[jj], a, b[jj]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][e] += part[jj][e];
+    __syncthreads();   // every warp is done with this slot
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qrow = q0 + rg * 16 + g + 8 * hh;
+    if (qrow >= T) continue;
+    bf16* out = dq + base + (long)qrow * C;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int dd = (kq + 4 * jj) * 8 + 2 * t4;   // d is a multiple of 8
+      if (dd >= d) continue;
+      float y0 = rbf(acc[jj][2 * hh]), y1 = rbf(acc[jj][2 * hh + 1]);
+      if (scale != 1.f) {
+        y0 = rbf(y0 * scale);
+        y1 = rbf(y1 * scale);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + dd) = __floats2bfloat162_rn(y0, y1);
+    }
+  }
 }
 
-static int launch_mask_rows(const bf16* x, long ldx, long P, int C, const unsigned char* mask,
-                            bf16* y, long ldy, cudaStream_t stream) {
-  mask_rows_bf16_kernel<<<ceil_div(P * C, 256), 256, 0, stream>>>(x, ldx, P, C, mask, y, ldy);
+// grid (ceil(T / 32), H, R), 256 threads: one 32-key tile of one head.
+// Query and go tiles stream through a two-slot cp.async ring; per query tile
+// warp (rg, kq) recomputes S and datt of query rows 16 rg .. and keys 8 kq
+// .. as the query-tile kernel does (the same bits), P and dS from that
+// kernel's (max, sum, D), and keeps bf16(P) and dS's terms [query][key] in
+// shared memory; then warp (rk, jq) adds dv += bf16(P)^T go and dk +=
+// dS^T q for keys 16 rk .. and n8 tiles jq + 4 jj, the 32 queries one
+// slice. dk = bf16(sum), dv = bf16(sum) * mask.
+template <int DP>
+__global__ void __launch_bounds__(256) attn_bwd_kv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ go, const unsigned char* __restrict__ mask,
+    const float* __restrict__ stat, int T, int C, int H, int vjp, bf16* __restrict__ dk,
+    bf16* __restrict__ dv) {
+  constexpr int RS = DP + 8, CH = DP / 8, TILE = AT_T * RS, NJ = (DP / 8 + 3) / 4;
+  constexpr int PS = AT_T + 8;   // a [query][key] row: 80 bytes
+  extern __shared__ __align__(16) unsigned char akv_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(akv_smem);
+  bf16* Vs = Ks + TILE;
+  bf16* ring = Vs + TILE;            // 2 slots of (query, go) tiles
+  bf16* Pt = ring + 4 * TILE;        // bf16(P), AT_T x PS
+  bf16* St = Pt + AT_T * PS;         // dS's terms, 3 x AT_T x PS
+  const int d = C / H, r = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * AT_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int i8 = lane >> 3, r8 = lane & 7;
+  const unsigned char* mrow = mask + (long)r * T;
+  const long base = (long)r * T * C + (long)h * d;
+  const long sbase = ((long)r * H + h) * T;
+
+  int any = 0;
+  for (int i = tid; i < T; i += 256) any |= mrow[i];
+  if (!__syncthreads_or(any)) {
+    for (int e = tid; e < AT_T * d; e += 256) {
+      const int i = e / d, dd = e - i * d;
+      if (k0 + i < T) {
+        dk[base + (long)(k0 + i) * C + dd] = rb(0.f);
+        dv[base + (long)(k0 + i) * C + dd] = rb(0.f);
+      }
+    }
+    return;
+  }
+  auto load_rows = [&](bf16* dst, const bf16* src, int row0) {
+    for (int e = tid; e < AT_T * CH; e += 256) {
+      const int row = e / CH, c = (e - row * CH) * 8;
+      const bool ok = row0 + row < T && c < d;
+      cp_async16b(dst + row * RS + c, ok ? src + base + (long)(row0 + row) * C + c : src, ok);
+    }
+  };
+  load_rows(Ks, k, k0);
+  load_rows(Vs, v, k0);
+  load_rows(ring, q, 0);
+  load_rows(ring + TILE, go, 0);
+  cp_async_commit();
+
+  const int rg = warp & 1, kq = warp >> 1;   // S and datt
+  const int rk = warp & 1, jq = warp >> 1;   // dk and dv
+  const int nqt = (T + AT_T - 1) / AT_T;
+  uint32_t kf[DP / 16][2], vf[DP / 16][2];
+  float adk[NJ][4], adv[NJ][4];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[jj][e] = adv[jj][e] = 0.f;
+  for (int i = 0; i < nqt; ++i) {
+    const int q0 = i * AT_T;
+    if (i + 1 < nqt) {
+      bf16* slot = ring + ((i + 1) & 1) * 2 * TILE;
+      load_rows(slot, q, q0 + AT_T);
+      load_rows(slot + TILE, go, q0 + AT_T);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // query tile i (and the key tiles) landed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        const bf16* pk = Ks + (kq * 8 + g) * RS + kk + 2 * t4;
+        const bf16* pv = Vs + (kq * 8 + g) * RS + kk + 2 * t4;
+        kf[kk / 16][0] = ld32(pk);
+        kf[kk / 16][1] = ld32(pk + 8);
+        vf[kk / 16][0] = ld32(pv);
+        vf[kk / 16][1] = ld32(pv + 8);
+      }
+    }
+    const bf16* qs = ring + (i & 1) * 2 * TILE;
+    const bf16* gs = qs + TILE;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c0 = 0; c0 < DP; c0 += 32) {
+      float ps[4] = {0.f, 0.f, 0.f, 0.f}, pd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = c0; kk < c0 + 32 && kk < DP; kk += 16) {
+        const bf16* pa = qs + (rg * 16 + g) * RS + kk + 2 * t4;
+        const bf16* pg = gs + (rg * 16 + g) * RS + kk + 2 * t4;
+        const uint32_t aq[4] = {ld32(pa), ld32(pa + 8 * RS), ld32(pa + 8), ld32(pa + 8 * RS + 8)};
+        const uint32_t ag[4] = {ld32(pg), ld32(pg + 8 * RS), ld32(pg + 8), ld32(pg + 8 * RS + 8)};
+        mma_bf16(ps, aq, kf[kk / 16]);
+        mma_bf16(pd, ag, vf[kk / 16]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] += ps[e];
+        dp[e] += pd[e];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = rg * 16 + g + 8 * hh, qrow = q0 + row, kl = kq * 8 + 2 * t4;
+      float mx = 0.f, sum = 1.f, D = 0.f;
+      if (qrow < T) {
+        const float* st = stat + (sbase + qrow) * 3;
+        mx = st[0];
+        sum = st[1];
+        D = st[2];
+      }
+      float pf[2], x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + kl + e;
+        const bool live = qrow < T && key < T;
+        pf[e] = live && mrow[key] ? expf(s[2 * hh + e] - mx) / sum : 0.f;
+        const float dpv = vjp ? rbf(dp[2 * hh + e]) : dp[2 * hh + e];
+        x[e] = live ? pf[e] * (dpv - D) : 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(Pt + row * PS + kl) = __floats2bfloat162_rn(pf[0], pf[1]);
+      if (vjp) {
+        bf16 t[3][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          t[0][e] = rb(x[e]);
+          const float r1 = x[e] - bf(t[0][e]);
+          t[1][e] = rb(r1);
+          t[2][e] = rb(r1 - bf(t[1][e]));
+        }
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl) {
+          __nv_bfloat162 w;
+          w.x = t[pl][0];
+          w.y = t[pl][1];
+          *reinterpret_cast<__nv_bfloat162*>(St + (pl * AT_T + row) * PS + kl) = w;
+        }
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(St + row * PS + kl) =
+            __floats2bfloat162_rn(x[0], x[1]);
+      }
+    }
+    __syncthreads();   // bf16(P) and dS of the tile are in
+    float pv[NJ][4], pk[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[jj][e] = pk[jj][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < AT_T; kk += 16) {
+      uint32_t bg[NJ][2], bq[NJ][2];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int j = jq + 4 * jj;
+        if (j < DP / 8) {
+          ldsm2t(bg[jj], gs + (kk + (lane & 15)) * RS + j * 8);
+          ldsm2t(bq[jj], qs + (kk + (lane & 15)) * RS + j * 8);
+        }
+      }
+      const int ao = (kk + r8 + (i8 >> 1) * 8) * PS + rk * 16 + (i8 & 1) * 8;
+      uint32_t a[4];
+      ldsm4t(a, Pt + ao);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+        if (jq + 4 * jj < DP / 8) mma_bf16(pv[jj], a, bg[jj]);
+      for (int pl = vjp ? 2 : 0; pl >= 0; --pl) {   // smallest term first
+        ldsm4t(a, St + pl * AT_T * PS + ao);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (jq + 4 * jj < DP / 8) mma_bf16(pk[jj], a, bq[jj]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adv[jj][e] += pv[jj][e];
+        adk[jj][e] += pk[jj][e];
+      }
+    __syncthreads();   // the slot, bf16(P) and dS may be refilled
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + rk * 16 + g + 8 * hh;
+    if (key >= T) continue;
+    const float mk = mrow[key] ? 1.f : 0.f;
+    const long row = base + (long)key * C;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int dd = (jq + 4 * jj) * 8 + 2 * t4;
+      if (dd >= d) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + dd) =
+          __floats2bfloat162_rn(rbf(adk[jj][2 * hh]), rbf(adk[jj][2 * hh + 1]));
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + dd) = __floats2bfloat162_rn(
+          rbf(adv[jj][2 * hh]) * mk, rbf(adv[jj][2 * hh + 1]) * mk);
+    }
+  }
+}
+
+template <int DP>
+static int launch_attn_bwd_bf16_dp(const bf16* q, const bf16* k, const bf16* v, const bf16* go,
+                                   const unsigned char* mask, int R, int T, int C, int H,
+                                   int vjp, float scale, bf16* dq, bf16* dk, bf16* dv,
+                                   float* stat, cudaStream_t stream) {
+  constexpr int TILE = AT_T * (DP + 8);
+  const int T32 = ceil_div(T, AT_T) * AT_T;
+  const size_t qsmem = sizeof(bf16) * 6 * TILE + sizeof(float) * (size_t)AT_T * (2 * T32 + 4);
+  const size_t kvsmem = sizeof(bf16) * (6 * TILE + 4 * AT_T * (AT_T + 8));
+  static int qlimit = 0, kvlimit = 0;
+  raise_smem_limit((const void*)attn_bwd_q_bf16_kernel<DP>, (int)qsmem, qlimit);
+  raise_smem_limit((const void*)attn_bwd_kv_bf16_kernel<DP>, (int)kvsmem, kvlimit);
+  const dim3 grid(ceil_div(T, AT_T), H, R);
+  attn_bwd_q_bf16_kernel<DP><<<grid, 256, qsmem, stream>>>(q, k, v, go, mask, T, C, H, vjp,
+                                                           scale, dq, stat);
+  UNAV_RETURN_IF_ERROR();
+  attn_bwd_kv_bf16_kernel<DP><<<grid, 256, kvsmem, stream>>>(q, k, v, go, mask, stat, T, C, H,
+                                                             vjp, dk, dv);
   UNAV_RETURN_IF_ERROR();
   return 0;
 }
 
-// ---- the attention, materialized ---------------------------------------------------------
-
-// One warp per (sequence, head, query) row of the (R*H*T, T) fp32 logits S:
-// masked keys at finfo.min, a row without a valid key all 0, softmax, times
-// any_kv: P (fp32) and bf16(P).
-__global__ void __launch_bounds__(256) softmax_rows_kernel(
-    const float* __restrict__ S, const unsigned char* __restrict__ mask, int T, int H,
-    long rows, float* __restrict__ Pf, bf16* __restrict__ Pc) {
-  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int r = (int)(row / ((long)H * T));
-  const unsigned char* mk = mask + (long)r * T;
-  const float* s = S + row * T;
-  int any = 0;
-  float mx = -FLT_MAX;
-  for (int j = lane; j < T; j += 32) {
-    any |= mk[j];
-    mx = fmaxf(mx, mk[j] ? s[j] : -FLT_MAX);
-  }
-  any = __any_sync(0xffffffffu, any);
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < T; j += 32) sum += mk[j] ? expf(s[j] - mx) : 0.f;
-  sum = warp_sum(sum);
-  for (int j = lane; j < T; j += 32) {
-    const float pv = any && mk[j] ? expf(s[j] - mx) / sum : 0.f;
-    Pf[row * T + j] = pv;
-    Pc[row * T + j] = rb(pv);
-  }
-}
-
-// One warp per row: dS = P (dP - sum(P dP)) from fp32 P and dP (each row's
-// any_kv is in P); fp32 out, or (dSc) rounded to bf16.
-__global__ void __launch_bounds__(256) softmax_bwd_rows_kernel(
-    const float* __restrict__ Pf, const float* __restrict__ dP, int T, long rows,
-    float* __restrict__ dS, bf16* __restrict__ dSc) {
-  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* pr = Pf + row * T;
-  const float* gr = dP + row * T;
-  float d = 0.f;
-  for (int j = lane; j < T; j += 32) d += pr[j] * gr[j];
-  d = warp_sum(d);
-  for (int j = lane; j < T; j += 32) {
-    const float v = pr[j] * (gr[j] - d);
-    if (dSc)
-      dSc[row * T + j] = rb(v);
-    else
-      dS[row * T + j] = v;
-  }
+// The attention backward of R sequences of H heads: q (scaled), k, v, go
+// and dq, dk, dv (R*T, C) bf16, stat R*H*T*3 floats; T <= 512, the head width
+// a multiple of 8 up to 128. Two launches.
+static int launch_attn_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* go,
+                                const unsigned char* mask, int R, int T, int C, int H, int vjp,
+                                float scale, bf16* dq, bf16* dk, bf16* dv, float* stat,
+                                cudaStream_t stream) {
+  const int d = C / H;
+  if (d % 8 || C % 8) return (int)cudaErrorMisalignedAddress;
+  if (T > 16 * 32) return (int)cudaErrorInvalidValue;
+#define UNAV_ATT_BWD(DP) \
+  launch_attn_bwd_bf16_dp<DP>(q, k, v, go, mask, R, T, C, H, vjp, scale, dq, dk, dv, stat, stream)
+  if (d <= 16) return UNAV_ATT_BWD(16);
+  if (d <= 32) return UNAV_ATT_BWD(32);
+  if (d <= 64) return UNAV_ATT_BWD(64);
+  if (d <= 128) return UNAV_ATT_BWD(128);
+#undef UNAV_ATT_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- the MHCA's conv + LayerNorm backward ------------------------------------------------
@@ -784,35 +997,39 @@ __global__ void __launch_bounds__(256) mhca_dx_bf16_kernel(
 
 constexpr int MHCA_HAND = 0, MHCA_VJP = 1;
 
-// One MHCA backward's device buffers (mhca_bwd_bf16_buffers carves them).
+// stages of mhca_bf16_backward, each marked at its end: the recompute (conv
+// + LN, q/k/v, the attention's output; none where the caller kept them),
+// proj (go), the attention backward (dq, dk, dv), the dense layers' input
+// grads, their weight grads, the LN and conv backward, the sums (none where
+// the caller takes them) (ops/fused_mhca.py:BWD_BF16_STAGES)
+constexpr int MHCA_BF16_BWD_STAGES = 7;
+
+// One MHCA backward's device buffers (mhca_bwd_bf16_buffers carves them):
+// the forward's recompute (y3 the normalized q/k/v inputs and qkv the
+// projections, one 6 x P x C piece as mhca_bf16_forward_impl's scratch, o
+// the attention's output), go, the grads, the attention's row statistics,
+// and (sums) the scratch of the sums.
 struct MhcaBwdBufs {
-  bf16 *y3, *qkv, *Pc, *o, *gp, *go, *dSc, *dqkv, *dyl, *dzm;
-  float *S, *Pf, *dP, *yhat, *partial, *xwork, *split;
-  long xwork_floats, split_cap;
+  bf16 *y3, *qkv, *o, *go, *dqkv, *dyl, *dzm;
+  float *stat, *yhat, *partial, *xwork;
+  long xwork_floats;
 };
 
-static MhcaBwdBufs mhca_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H) {
-  const long P = (long)R * T, PC = P * C, HTT = (long)R * H * T * T;
+static MhcaBwdBufs mhca_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H, bool sums = true) {
+  const long P = (long)R * T, PC = P * C;
   MhcaBwdBufs b;
-  b.y3 = s.take<bf16>(3 * PC);
-  b.qkv = s.take<bf16>(3 * PC);
-  b.S = s.take<float>(HTT);
-  b.Pf = s.take<float>(HTT);
-  b.Pc = s.take<bf16>(HTT);
+  b.y3 = s.take<bf16>(6 * PC);
+  b.qkv = b.y3 ? b.y3 + 3 * PC : nullptr;
   b.o = s.take<bf16>(PC);
-  b.gp = s.take<bf16>(PC);
   b.go = s.take<bf16>(PC);
-  b.dP = s.take<float>(HTT);
-  b.dSc = s.take<bf16>(HTT);
   b.dqkv = s.take<bf16>(3 * PC);
   b.dyl = s.take<bf16>(3 * PC);
-  b.yhat = s.take<float>(3 * PC);
   b.dzm = s.take<bf16>(3 * PC);
-  b.partial = s.take<float>(fsum_scratch_floats(P, C));
-  b.xwork_floats = xla_sums_work_floats(R, T + 8, C, 13);
-  b.xwork = s.take<float>(b.xwork_floats);
-  b.split_cap = (long)(R + 17) * C * C;   // a weight grad's chunks (launch_xgemm)
-  b.split = s.take<float>(b.split_cap);
+  b.stat = s.take<float>((long)R * H * T * 3);
+  b.yhat = s.take<float>(3 * PC);
+  b.xwork_floats = sums ? xla_sums_work_floats(R, T + 8, C, 13) : 0;
+  b.partial = sums ? s.take<float>(fsum_scratch_floats(P, C)) : nullptr;
+  b.xwork = sums ? s.take<float>(b.xwork_floats) : nullptr;
   return b;
 }
 
@@ -822,124 +1039,103 @@ struct MhcaGrads {
   float *gdw, *glnw, *glnb, *gw, *gb;
 };
 
+// Where an MHCA backward's sums go: launched by it (nullptr) or added to the
+// caller's lists (the CSP layer launches its three MHCAs' with its own).
+struct SumLists {
+  FJobs* f;
+  int nf;
+  XJobs* x;
+  int nx;
+};
+
 // The backward of one MaskedMHCA in bf16, in `form` MHCA_HAND or MHCA_VJP
 // (file comment). x1 (k/v source), x2 (q source) (R*T, C) bf16 with row
-// strides (vjp form, x1 == x2 and ld1 == ld2: one input); g the output's grad (row
-// stride ldg); fp32 dw / lnw / lnb, bf16 wb (4, C, C) and bb (4, C) (cast
-// once by the caller). Writes dx1 (and dx2 unless one input; vjp form: after
-// prev, the caller's first cotangent of x1, which may alias dx1) and the
-// weight grads. VJP form: weight grads per block of Rj sequences (JAX's
-// grid), bf16 sums in XLA's order over blocks of tpad rows.
+// strides (vjp form, x1 == x2 and ld1 == ld2: one input); g the output's grad
+// (row stride ldg); fp32 dw / lnw / lnb, bf16 wb (4, C, C) and bb (4, C)
+// (cast once by the caller). Writes dx1 (and dx2 unless one input; vjp
+// form: after prev, the caller's first cotangent of x1, which may alias
+// dx1) and the weight grads. VJP form: weight grads per block of Rj
+// sequences (JAX's grid), bf16 sums in XLA's order over blocks of tpad rows.
+// With `recompute` false the caller has run mhca_bf16_forward_impl into
+// bu.y3 / bu.qkv / bu.o already. sums: the caller's lists, or nullptr.
 static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2, long ld2,
                               const unsigned char* mask, int R, int T, int C, int H,
                               const float* dw, const float* lnw, const float* lnb,
                               const bf16* wb, const bf16* bb, float eps, const bf16* g,
                               long ldg, const bf16* prev, long ldprev, bf16* dx1, long lddx1,
                               bf16* dx2, long lddx2, const MhcaGrads& gr, int Rj, int tpad,
-                              const MhcaBwdBufs& bu, cudaStream_t s) {
-  const long P = (long)R * T, PC = P * C, CC = (long)C * C, TT = (long)T * T;
-  const int d = C / H, Z = R * H, vjp = form == MHCA_VJP;
+                              const MhcaBwdBufs& bu, bool recompute, SumLists* sums,
+                              XSplit split, cudaStream_t s, StageMarks* marks = nullptr) {
+  const long P = (long)R * T, PC = P * C, CC = (long)C * C;
+  const int d = C / H, vjp = form == MHCA_VJP;
   const bool one = vjp && x1 == x2 && ld1 == ld2;
   if (C % 8 || d % 8 || R % Rj) return (int)cudaErrorInvalidValue;
   const float scale = __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt((double)d))));
   int rc;
 
-  // the forward, recomputed: conv + LN, q/k/v (as mhca_bf16_forward_impl)
-  rc = with_cpl(C, [&](auto cpl) {
-    dwconv_ln_bf16_kernel<decltype(cpl)::value><<<ceil_div(P, 8), 256, 0, s>>>(
-        x1, ld1, x2, ld2, mask, P, T, C, dw, lnw, lnb, eps, bu.y3);
-  });
-  if (rc) return rc;
-  Bf16Batch qb;
-  for (int i = 0; i < 3; ++i)
-    qb.g[i] = bf16_gemm(bu.y3 + i * PC, C, wb + i * CC, C, bu.qkv + i * PC, C, bb + (long)i * C,
-                        i == 2 ? mask : nullptr, (int)P, C, C);
-  qb.g[0].scale = scale;
-  if ((rc = launch_gemm_bf16(qb, 3, s))) return rc;
+  // the forward, recomputed: conv + LN, q/k/v, the attention's output o
+  // (as mhca_bf16_forward_impl)
+  if (recompute) {
+    rc = with_cpl(C, [&](auto cpl) {
+      dwconv_ln_bf16_kernel<decltype(cpl)::value><<<ceil_div(P, 8), 256, 0, s>>>(
+          x1, ld1, x2, ld2, mask, P, T, C, dw, lnw, lnb, eps, bu.y3);
+    });
+    if (rc) return rc;
+    Bf16Batch qb;
+    for (int i = 0; i < 3; ++i)
+      qb.g[i] = bf16_gemm(bu.y3 + i * PC, C, wb + i * CC, C, bu.qkv + i * PC, C,
+                          bb + (long)i * C, i == 2 ? mask : nullptr, (int)P, C, C);
+    qb.g[0].scale = scale;
+    if ((rc = launch_gemm_bf16(qb, 3, s))) return rc;
+    if ((rc = launch_attn_bf16(bu.qkv, bu.qkv + PC, bu.qkv + 2 * PC, mask, R, T, C, H, bu.o, s)))
+      return rc;
+  }
+  mark_stage(marks, s);
   const bf16 *q = bu.qkv, *k = bu.qkv + PC, *v = bu.qkv + 2 * PC;
 
-  // attention per (sequence, head): S = q k^T, P = softmax, o = bf16(P) v
-  XGemm sg = xgemm(T, T, d);
-  xg_a(sg, q, C);
-  xg_bt(sg, k, C);
-  xg_c(sg, bu.S, T, 1);
-  xg_batch(sg, Z, H, (long)T * C, d, (long)T * C, d, H * TT, TT);
-  if ((rc = launch_xgemm(sg, s))) return rc;
-  softmax_rows_kernel<<<ceil_div((long)Z * T, 8), 256, 0, s>>>(bu.S, mask, T, H, (long)Z * T,
-                                                                bu.Pf, bu.Pc);
-  UNAV_RETURN_IF_ERROR();
-  XGemm og = xgemm(T, d, T);
-  xg_a(og, bu.Pc, T);
-  xg_b(og, v, C);
-  xg_c(og, bu.o, C, 0);
-  xg_batch(og, Z, H, H * TT, TT, (long)T * C, d, (long)T * C, d);
-  if ((rc = launch_xgemm(og, s))) return rc;
-
-  // proj: gp = g . m, go = bf16(gp Wp)
-  if ((rc = launch_mask_rows(g, ldg, P, C, mask, bu.gp, C, s))) return rc;
+  // proj: go = bf16((g . m) Wp), the mask read with g
   XGemm pg = xgemm((int)P, C, C);
-  xg_a(pg, bu.gp, C);
+  xg_a(pg, g, ldg);
+  pg.amask = mask;
   xg_b(pg, wb + 3 * CC, C);
   xg_c(pg, bu.go, C, 0);
   if ((rc = launch_xgemm(pg, s))) return rc;
+  mark_stage(marks, s);
 
-  // attention backward: dP = go v^T (vjp: rounded to bf16), dS, then dq =
-  // bf16(dS k) * scale, dk = bf16(dS^T q), dv = bf16(bf16(P)^T go) * mask
-  XGemm dg = xgemm(T, T, d);
-  xg_a(dg, bu.go, C);
-  xg_bt(dg, v, C);
-  xg_c(dg, bu.dP, T, 1);
-  dg.round_f32 = vjp;
-  xg_batch(dg, Z, H, (long)T * C, d, (long)T * C, d, H * TT, TT);
-  if ((rc = launch_xgemm(dg, s))) return rc;
-  softmax_bwd_rows_kernel<<<ceil_div((long)Z * T, 8), 256, 0, s>>>(
-      bu.Pf, bu.dP, T, (long)Z * T, bu.S, vjp ? nullptr : bu.dSc);
-  UNAV_RETURN_IF_ERROR();
-  const void* dS = vjp ? (const void*)bu.S : (const void*)bu.dSc;
-  XGemm qg = xgemm(T, d, T);
-  xg_a(qg, dS, T, vjp);
-  xg_b(qg, k, C);
-  xg_c(qg, bu.dqkv, C, 0);
-  qg.scale = scale;
-  xg_batch(qg, Z, H, H * TT, TT, (long)T * C, d, (long)T * C, d);
-  if ((rc = launch_xgemm(qg, s))) return rc;
-  XGemm kg = xgemm(T, d, T);
-  xg_at(kg, dS, T, vjp);
-  xg_b(kg, q, C);
-  xg_c(kg, bu.dqkv + PC, C, 0);
-  xg_batch(kg, Z, H, H * TT, TT, (long)T * C, d, (long)T * C, d);
-  if ((rc = launch_xgemm(kg, s))) return rc;
-  XGemm vg = xgemm(T, d, T);
-  xg_at(vg, bu.Pc, T);
-  xg_b(vg, bu.go, C);
-  xg_c(vg, bu.dqkv + 2 * PC, C, 0);
-  vg.rowmask = mask;
-  vg.rm_z1 = T;
-  xg_batch(vg, Z, H, H * TT, TT, (long)T * C, d, (long)T * C, d);
-  if ((rc = launch_xgemm(vg, s))) return rc;
+  // attention backward: dq = bf16(dS k) * scale, dk = bf16(dS^T q), dv =
+  // bf16(bf16(P)^T go) * mask
+  if ((rc = launch_attn_bwd_bf16(q, k, v, bu.go, mask, R, T, C, H, vjp, scale, bu.dqkv,
+                                 bu.dqkv + PC, bu.dqkv + 2 * PC, bu.stat, s)))
+    return rc;
+  mark_stage(marks, s);
 
-  // dense layers: the LN outputs' grads dyl_i = bf16(dy_i W_i), the weight
-  // grads dy_i^T y_i (proj: gp^T o), per block rounded (vjp) or fp32 (hand)
+  // dense layers: the LN outputs' grads dyl_i = bf16(dy_i W_i), one launch;
+  // the weight grads dy_i^T y_i and (g . m)^T o, per block rounded (vjp) or
+  // fp32 (hand), one launch
+  XGemm xg[4];
   for (int i = 0; i < 3; ++i) {
-    XGemm xg = xgemm((int)P, C, C);
-    xg_a(xg, bu.dqkv + i * PC, C);
-    xg_b(xg, wb + i * CC, C);
-    xg_c(xg, bu.dyl + i * PC, C, 0);
-    if ((rc = launch_xgemm(xg, s))) return rc;
+    xg[i] = xgemm((int)P, C, C);
+    xg_a(xg[i], bu.dqkv + i * PC, C);
+    xg_b(xg[i], wb + i * CC, C);
+    xg_c(xg[i], bu.dyl + i * PC, C, 0);
   }
+  if ((rc = launch_xgemms(xg, 3, s))) return rc;
+  mark_stage(marks, s);
   for (int i = 0; i < 4; ++i) {
-    XGemm wg = xgemm(C, C, (int)P);
-    xg_at(wg, i < 3 ? bu.dqkv + i * PC : bu.gp, C);
-    xg_b(wg, i < 3 ? bu.y3 + i * PC : bu.o, C);
-    xg_c(wg, gr.gw + i * CC, C, 1);
-    wg.split = bu.split;
-    wg.split_cap = bu.split_cap;
-    if (vjp) {
-      wg.kblock = Rj * T;
-      wg.round_blocks = 1;
+    xg[i] = xgemm(C, C, (int)P);
+    if (i < 3) {
+      xg_at(xg[i], bu.dqkv + i * PC, C);
+      xg_b(xg[i], bu.y3 + i * PC, C);
+    } else {
+      xg_at(xg[i], g, ldg);
+      xg[i].amask = mask;
+      xg_b(xg[i], bu.o, C);
     }
-    if ((rc = launch_xgemm(wg, s))) return rc;
+    xg_c(xg[i], gr.gw + i * CC, C, 1);
+    if (vjp) xg_blocks(xg[i], Rj * T);
   }
+  if ((rc = launch_xgemms(xg, 4, s, split))) return rc;
+  mark_stage(marks, s);
 
   // LayerNorm backward, the conv's input grads
   rc = with_cpl(C, [&](auto cpl) {
@@ -950,44 +1146,53 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
   mhca_dx_bf16_kernel<<<ceil_div(PC, 256), 256, 0, s>>>(bu.dzm, P, T, C, dw, vjp, one, prev,
                                                         ldprev, dx1, lddx1, dx2, lddx2);
   UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, s);
 
   // the sums: LN affine (fp32 in both forms); biases and taps fp32 (hand) or
   // bf16 in XLA's order per block (vjp)
-  FJobs fj;
-  int nf = 0;
+  FJobs fown;
+  XJobs xown;
+  SumLists own{&fown, 0, &xown, 0};
+  SumLists& L = sums ? *sums : own;
+  if (L.nf + 6 + (vjp ? 0 : 13) > FJ_MAX || L.nx + (vjp ? 13 : 0) > XJ_MAX)
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 3; ++i) {
-    fj.j[nf] = fjob(bu.dyl + i * PC, C, 1, (int)P, C, gr.glnw + (long)i * C);
-    fj.j[nf].b = bu.yhat + i * PC;
-    fj.j[nf++].ldb = C;
-    fj.j[nf++] = fjob(bu.dyl + i * PC, C, 1, (int)P, C, gr.glnb + (long)i * C);
+    FJob& j = L.f->j[L.nf++];
+    j = fjob(bu.dyl + i * PC, C, 1, (int)P, C, gr.glnw + (long)i * C);
+    j.b = bu.yhat + i * PC;
+    j.ldb = C;
+    L.f->j[L.nf++] = fjob(bu.dyl + i * PC, C, 1, (int)P, C, gr.glnb + (long)i * C);
   }
   if (!vjp) {
     for (int i = 0; i < 4; ++i)
-      fj.j[nf++] = fjob(i < 3 ? bu.dqkv + i * PC : bu.gp, C, 1, (int)P, C, gr.gb + (long)i * C);
+      L.f->j[L.nf++] = i < 3 ? fjob(bu.dqkv + i * PC, C, 1, (int)P, C, gr.gb + (long)i * C)
+                             : fjob(g, ldg, 1, (int)P, C, gr.gb + 3L * C, mask);
     for (int i = 0; i < 3; ++i)
       for (int tap = 0; tap < 3; ++tap) {
-        FJob& j = fj.j[nf++];
+        FJob& j = L.f->j[L.nf++];
         j = fjob(i == 0 ? x2 : x1, i == 0 ? ld2 : ld1, 1, (int)P, C,
                  gr.gdw + (long)i * C * 3 + tap);
         j.ostride = 3; j.shift = tap - 1; j.seq = T;
         j.b = bu.dzm + i * PC; j.ldb = C; j.b_bf = 1;
       }
-  }
-  if ((rc = launch_fsums(fj, nf, bu.partial, s))) return rc;
-  if (vjp) {
-    XJobs xj;
-    int nx = 0;
+  } else {
     for (int i = 0; i < 4; ++i)
-      xj.j[nx++] = xjob(i < 3 ? bu.dqkv + i * PC : bu.gp, C, gr.gb + (long)i * C, C, T, tpad);
+      L.x->j[L.nx++] = i < 3 ? xjob(bu.dqkv + i * PC, C, gr.gb + (long)i * C, C, T, tpad)
+                             : xjob(g, ldg, gr.gb + 3L * C, C, T, tpad, mask);
     for (int i = 0; i < 3; ++i)
       for (int tap = 0; tap < 3; ++tap) {
-        XJob& j = xj.j[nx++];
+        XJob& j = L.x->j[L.nx++];
         j = xjob(i == 0 ? x2 : x1, i == 0 ? ld2 : ld1, gr.gdw + (long)i * C * 3 + tap, C, T,
                  tpad);
         j.ostride = 3; j.shift = tap - 1; j.twod = 1;
         j.b = bu.dzm + i * PC; j.ldb = C;
       }
-    if ((rc = launch_xla_sums(xj, nx, R / Rj, Rj, bu.xwork, bu.xwork_floats, s))) return rc;
   }
+  if (!sums) {
+    if ((rc = launch_fsums(fown, own.nf, bu.partial, s))) return rc;
+    if (own.nx && (rc = launch_xla_sums(xown, own.nx, R / Rj, Rj, bu.xwork, bu.xwork_floats, s)))
+      return rc;
+  }
+  mark_stage(marks, s);
   return 0;
 }

@@ -3,22 +3,31 @@
 // (unav_yolyolva_tpu/ops/pallas_csp.py), `jax.vjp` of the bf16 `_csp_compute`
 // once per block of Rj sequences (bf16_bwd.cuh's form MHCA_VJP for the three
 // inner MHCAs). Like the TPU kernel it saves nothing but its inputs:
-//   recompute: main conv, the three MHCAs (bf16.cuh), guide_fc, the
-//     projection conv, and gate_scores_bf16_kernel, which scores the gate
-//     with the forward's own tiles and fmaf chain on bf16 loads (the
-//     forward's scores to the bit, so ties route as the forward saw them) and
-//     keeps each (frame, head)'s scores, max, tie count and sigmoid;
-//   final conv: dcat = bf16((g . m) Wfinal), Wfinal's grad per block;
+//   recompute: main conv, the three MHCAs (bf16.cuh; each keeps its normalized
+//     inputs, q/k/v and attention output for its backward), guide_fc and the
+//     projection conv in one launch, and gate_scores_bf16_kernel, which
+//     scores the gate with the forward's own tiles and fmaf chain on bf16
+//     loads (the forward's scores to the bit, so ties route as the forward
+//     saw them) and keeps each (frame, head)'s scores, max, tie count and
+//     sigmoid;
+//   final conv: dcat = bf16((g . m) Wfinal), Wfinal's grad per block (the
+//     mask read with g);
 //   gate_bwd_bf16_kernel: d(pc) = bf16(dgated * gate) . m, the gate's grad
 //     as the bf16 sum over the head's channels in XLA's order, sigmoid',
 //     the max's grad split over the tied tokens into a dense fp32 (T, Ng)
 //     grad of the scores, which two products turn into d(p) and d(gp);
-//   projection conv: three products for d(p) (centre, right and left taps)
-//     and three weight grads over shifted rows;
+//   projection conv: three products for d(p) (centre, right and left taps),
+//     in the launch of d(p) from the scores, and three weight grads over
+//     shifted rows (read shifted by the product's loader), in the launch of
+//     d(gp);
 //   p's grads added in JAX's order (concat, gate, centre, right, left), then
 //     the MHCAs in reverse, each adding its input's grads after the concat's;
-//   guide_fc and the main conv: input grads, weight grads per block, biases
-//     in XLA's order.
+//   guide_fc and the main conv: input grads, weight grads per block; every
+//     bias and tap, the three MHCAs' too, in one launch of XLA-order sums,
+//     the LayerNorms' affine grads and battn's in one of fp32 sums.
+// Wproj arrives as the layer keeps it, (mid, mid, 3) [out, in, tap]: the
+// weights' cast writes the forward's (mid, 3, mid) and the transposed conv's
+// (3, mid, mid) copies, and its grad is written in place in that layout.
 // Bound: operations (bf16_bwd.cuh).
 #include "bf16_bwd.cuh"
 
@@ -134,16 +143,6 @@ __global__ void __launch_bounds__(256) gate_bwd_bf16_kernel(
   for (int n = lane; n < Ng; n += 32) dsc[row * Ng + n] = sc[row * Ng + n] == mx ? coef : 0.f;
 }
 
-// dst[t] = src[t + dir] within each sequence (zero outside), bf16 rows
-__global__ void shift_rows_bf16_kernel(const bf16* __restrict__ src, long lds, long P, int T,
-                                       int C, int dir, bf16* __restrict__ dst) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P * C) return;
-  const long m = i / C;
-  const int c = (int)(i - m * C), t = (int)(m % T) + dir;
-  dst[m * C + c] = t >= 0 && t < T ? src[(m + dir) * lds + c] : rb(0.f);
-}
-
 // p's grad in JAX's order, in place over the concat's grad dp (row stride
 // ldp): ((((dp + de) + dC) + dR[t-1]) + dL[t+1]), each sum rounded to bf16
 __global__ void p_grad_bf16_kernel(bf16* dp, long ldp, const bf16* __restrict__ de,
@@ -163,53 +162,50 @@ __global__ void p_grad_bf16_kernel(bf16* dp, long ldp, const bf16* __restrict__ 
 // the call's buffers; with a counting Bump, its scratch size
 struct CspBwdBufs {
   bf16 *wmain, *bmain, *w, *b, *wg, *bg, *wproj, *wproj_t, *bproj, *wfinal, *bfinal;
-  bf16 *cat, *gp, *mhca, *pc, *gout, *dcat, *dpc, *de, *dgp, *pl, *pr, *dC, *dR, *dL;
+  bf16 *cat, *gp, *pc, *dcat, *dpc, *de, *dgp, *dC, *dR, *dL;
   float *sc, *stat, *dsc, *dbias, *partial, *xwork, *split;
-  long xwork_floats, split_cap;
-  MhcaBwdBufs mb;
+  long xwork_floats, split_floats;
+  MhcaBwdBufs mb[3];
 };
 
 static CspBwdBufs csp_bwd_bf16_buffers(Bump& s, int R, int T, int Cin, int mid, int Ng,
                                        int Fg, int Cout, int H, int mh) {
-  const long P = (long)R * T, Z = (long)R * H;
+  const long P = (long)R * T, Z = (long)R * H, MM = (long)mid * mid;
   CspBwdBufs b;
   b.wmain = s.take<bf16>(2L * mid * Cin);
   b.bmain = s.take<bf16>(2L * mid);
-  b.w = s.take<bf16>(12L * mid * mid);
+  b.w = s.take<bf16>(12L * MM);
   b.b = s.take<bf16>(12L * mid);
   b.wg = s.take<bf16>((long)mid * Fg);
   b.bg = s.take<bf16>(mid);
-  b.wproj = s.take<bf16>(3L * mid * mid);
-  b.wproj_t = s.take<bf16>(3L * mid * mid);
+  b.wproj = s.take<bf16>(3L * MM);
+  b.wproj_t = s.take<bf16>(3L * MM);
   b.bproj = s.take<bf16>(mid);
   b.wfinal = s.take<bf16>(6L * mid * Cout);
   b.bfinal = s.take<bf16>(Cout);
   b.cat = s.take<bf16>(P * 6 * mid);
   b.gp = s.take<bf16>((long)R * Ng * mid);
-  b.mhca = s.take<bf16>(mhca_bf16_scratch_elems(R, T, mid));
   b.pc = s.take<bf16>(P * mid);
-  b.gout = s.take<bf16>(P * Cout);
   b.dcat = s.take<bf16>(P * 6 * mid);
   b.dpc = s.take<bf16>(P * mid);
   b.de = s.take<bf16>(P * mid);
   b.dgp = s.take<bf16>((long)R * Ng * mid);
-  b.pl = s.take<bf16>(P * mid);
-  b.pr = s.take<bf16>(P * mid);
-  b.dC = s.take<bf16>(P * mid);
-  b.dR = s.take<bf16>(P * mid);
-  b.dL = s.take<bf16>(P * mid);
+  b.dL = s.take<bf16>(3 * P * mid);   // the taps' d(p): left, centre, right
+  b.dC = b.dL ? b.dL + P * mid : nullptr;
+  b.dR = b.dL ? b.dL + 2 * P * mid : nullptr;
   b.sc = s.take<float>(Z * T * Ng);
   b.stat = s.take<float>(Z * T * 4);
   b.dsc = s.take<float>(Z * T * Ng);
   b.dbias = s.take<float>(P * H);
-  b.partial = s.take<float>(fsum_scratch_floats(P, std::max(H, 1)));
+  b.partial = s.take<float>(fsum_scratch_floats(P, std::max(mid, H)));
   b.xwork_floats = xla_sums_work_floats(R, std::max(T + 8, Ng),
-                                        std::max(std::max(Cout, 2 * mid), Fg), 4);
+                                        std::max(std::max(Cout, 2 * mid), Fg), 4 + 3 * 13);
   b.xwork = s.take<float>(b.xwork_floats);
-  b.split_cap = (long)R * std::max(std::max(2L * mid * Cin, 6L * mid * Cout),
-                                   std::max((long)mid * mid, (long)mid * Fg));
-  b.split = s.take<float>(b.split_cap);
-  b.mb = mhca_bwd_bf16_buffers(s, R, T, mid, mh);
+  // the weight grads' row blocks (at most R of them) of the largest launch
+  b.split_floats = (long)R * std::max(std::max(2L * mid * Cin, 6L * mid * Cout),
+                                      std::max(4 * MM, (long)mid * Fg));
+  b.split = s.take<float>(b.split_floats);
+  for (auto& m : b.mb) m = mhca_bwd_bf16_buffers(s, R, T, mid, mh, false);
   return b;
 }
 
@@ -223,42 +219,55 @@ extern "C" long unav_csp_bf16_backward_scratch(int R, int T, int Cin, int mid, i
 
 // x (R*T, Cin), guide (R*Ng, Fg), g (R*T, Cout) bf16; mask (R*T). The JAX
 // kernel's block of Rj sequences (a divisor of R) and its padded length tpad
-// (T rounded up to 8). fp32 weights as csp_bf16.cu takes them, wproj (mid, 3,
-// mid) [out, tap, in] and wproj_t (3, mid, mid) [tap, out, in]. Writes dx
-// (R*T, Cin) and dguide (R*Ng, Fg) bf16, and the fp32 weight grads in the
-// weights' layouts, gwproj as (3, mid, mid) [tap, out, in].
-extern "C" int unav_csp_bf16_backward(
-    const bf16* x, const bf16* guide, const unsigned char* mask, int R, int T, int Cin, int mid,
-    int Ng, int Fg, int Cout, int attn_heads, int mhca_heads, int Rj, int tpad,
-    const float* wmain, const float* bmain, const float* dw, const float* lnw, const float* lnb,
-    const float* w, const float* b, const float* wg, const float* bg, const float* battn,
-    const float* wproj, const float* wproj_t, const float* bproj, const float* wfinal,
-    const float* bfinal, float eps, const bf16* g, bf16* dx, bf16* dguide, float* gwmain,
-    float* gbmain, float* gdw, float* glnw, float* glnb, float* gw, float* gb, float* gwg,
-    float* gbg, float* gbattn, float* gwproj, float* gbproj, float* gwfinal, float* gbfinal,
-    float* scratch, void* stream) {
+// (T rounded up to 8). fp32 weights as the layer keeps them: wmain (2mid,
+// Cin); per MHCA block (3, stacked) dw (3, mid, 3), lnw / lnb (3, mid), w
+// (4, mid, mid), b (4, mid); wg (emb, Fg); battn (H); wproj (mid, mid, 3)
+// [out, in, tap]; wfinal (Cout, 6mid). Writes dx (R*T, Cin) and dguide
+// (R*Ng, Fg) bf16, and the fp32 weight grads in the weights' layouts.
+#define UNAV_CSP_BF16_BWD_PARAMS                                                            \
+  const bf16 *x, const bf16 *guide, const unsigned char *mask, int R, int T, int Cin,       \
+      int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads, int Rj, int tpad,   \
+      const float *wmain, const float *bmain, const float *dw, const float *lnw,             \
+      const float *lnb, const float *w, const float *b, const float *wg, const float *bg,    \
+      const float *battn, const float *wproj, const float *bproj, const float *wfinal,       \
+      const float *bfinal, float eps, const bf16 *g, bf16 *dx, bf16 *dguide, float *gwmain,  \
+      float *gbmain, float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gwg,  \
+      float *gbg, float *gbattn, float *gwproj, float *gbproj, float *gwfinal,               \
+      float *gbfinal, float *scratch, void *stream
+#define UNAV_CSP_BF16_BWD_ARGS                                                              \
+  x, guide, mask, R, T, Cin, mid, Ng, Fg, Cout, attn_heads, mhca_heads, Rj, tpad, wmain,     \
+      bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj, wfinal, bfinal, eps, g, dx,     \
+      dguide, gwmain, gbmain, gdw, glnw, glnb, gw, gb, gwg, gbg, gbattn, gwproj, gbproj,     \
+      gwfinal, gbfinal, scratch, stream
+
+// The backward; marks, if given, gets an event at the end of each stage
+// (CSP_BF16_BWD_STAGES of them).
+static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int H = attn_heads, emb = mid, hc = emb / H, och = mid / H, C6 = 6 * mid;
-  const long P = (long)R * T, Z = (long)R * H;
+  const long P = (long)R * T, Z = (long)R * H, MM = (long)mid * mid;
   if (R % Rj || tpad < T || emb % H || mid % H) return (int)cudaErrorInvalidValue;
   Bump bump{reinterpret_cast<char*>(scratch), 0};
   const CspBwdBufs u = csp_bwd_bf16_buffers(bump, R, T, Cin, mid, Ng, Fg, Cout, H, mhca_heads);
+  const XSplit split{u.split, u.split_floats, xgemm_max_chunks(R)};
   CastList l;
   l.count = 0;
-  bf16* next;
-  const struct { bf16* dst; const float* src; long n; } casts[] = {
-      {u.wmain, wmain, 2L * mid * Cin}, {u.bmain, bmain, 2L * mid},
-      {u.w, w, 12L * mid * mid}, {u.b, b, 12L * mid}, {u.wg, wg, (long)mid * Fg},
-      {u.bg, bg, mid}, {u.wproj, wproj, 3L * mid * mid}, {u.wproj_t, wproj_t, 3L * mid * mid},
-      {u.bproj, bproj, mid}, {u.wfinal, wfinal, 6L * mid * Cout}, {u.bfinal, bfinal, Cout}};
+  const struct { bf16* dst; const float* src; long n; int perm; } casts[] = {
+      {u.wmain, wmain, 2L * mid * Cin, CAST_AS_IS}, {u.bmain, bmain, 2L * mid, CAST_AS_IS},
+      {u.w, w, 12L * MM, CAST_AS_IS}, {u.b, b, 12L * mid, CAST_AS_IS},
+      {u.wg, wg, (long)mid * Fg, CAST_AS_IS}, {u.bg, bg, mid, CAST_AS_IS},
+      {u.wproj, wproj, 3L * MM, CAST_SWAP12}, {u.wproj_t, wproj, 3L * MM, CAST_LAST_FIRST},
+      {u.bproj, bproj, mid, CAST_AS_IS}, {u.wfinal, wfinal, 6L * mid * Cout, CAST_AS_IS},
+      {u.bfinal, bfinal, Cout, CAST_AS_IS}};
   for (const auto& c : casts) {
-    next = c.dst;
-    cast_push(l, next, c.src, c.n);
+    bf16* next = c.dst;
+    cast_push(l, next, c.src, c.n, c.perm, mid, 3);
   }
   int rc = launch_cast(l, s);
   if (rc) return rc;
+  mark_stage(marks, s);
 
-  // ---- the forward, recomputed
+  // ---- the forward, recomputed; each MHCA keeps its recompute
   if ((rc = launch_gemm_bf16_one(
            bf16_gemm(x, Cin, u.wmain, Cin, u.cat, C6, u.bmain, mask, (int)P, 2 * mid, Cin), s)))
     return rc;
@@ -266,18 +275,17 @@ extern "C" int unav_csp_bf16_backward(
     const bf16* src = u.cat + (1 + bi) * mid;
     rc = mhca_bf16_forward_impl(src, C6, src, C6, mask, R, T, mid, mhca_heads,
                                 dw + (long)bi * 3 * mid * 3, lnw + (long)bi * 3 * mid,
-                                lnb + (long)bi * 3 * mid, u.w + (long)bi * 4 * mid * mid,
-                                u.b + (long)bi * 4 * mid, eps, u.cat + (2 + bi) * mid, C6, u.mhca,
-                                s);
+                                lnb + (long)bi * 3 * mid, u.w + (long)bi * 4 * MM,
+                                u.b + (long)bi * 4 * mid, eps, u.cat + (2 + bi) * mid, C6,
+                                u.mb[bi].y3, s, nullptr, u.mb[bi].o);
     if (rc) return rc;
   }
-  if ((rc = launch_gemm_bf16_one(
-           bf16_gemm(guide, Fg, u.wg, Fg, u.gp, emb, u.bg, nullptr, R * Ng, emb, Fg), s)))
-    return rc;
-  Bf16Gemm pj = bf16_gemm(u.cat + 4 * mid, C6, u.wproj, 3 * mid, u.pc, mid, u.bproj, mask,
-                          (int)P, mid, 3 * mid);
-  pj.taps = 3; pj.Kc = mid; pj.seq = T;
-  if ((rc = launch_gemm_bf16_one(pj, s))) return rc;
+  Bf16Batch gb2;
+  gb2.g[0] = bf16_gemm(guide, Fg, u.wg, Fg, u.gp, emb, u.bg, nullptr, R * Ng, emb, Fg);
+  gb2.g[1] = bf16_gemm(u.cat + 4 * mid, C6, u.wproj, 3 * mid, u.pc, mid, u.bproj, mask, (int)P,
+                       mid, 3 * mid);
+  gb2.g[1].taps = 3; gb2.g[1].Kc = mid; gb2.g[1].seq = T;
+  if ((rc = launch_gemm_bf16(gb2, 2, s))) return rc;
   const float sqrt_hc = (float)sqrt((double)hc);
   const size_t gsmem = gate_smem_bytes(hc);
   static int glimit = 0;
@@ -286,89 +294,87 @@ extern "C" int unav_csp_bf16_backward(
       u.cat + 4 * mid, C6, u.gp, battn, u.pc, T, Ng, emb, H, sqrt_hc, och, u.sc, u.stat,
       u.cat + 5 * mid, C6);
   UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, s);
 
-  // ---- final conv
-  if ((rc = launch_mask_rows(g, Cout, P, Cout, mask, u.gout, Cout, s))) return rc;
+  // ---- final conv: its output's grad g . m, the mask read with g
   XGemm fw = xgemm(Cout, C6, (int)P);
-  xg_at(fw, u.gout, Cout);
+  xg_at(fw, g, Cout);
+  fw.amask = mask;
   xg_b(fw, u.cat, C6);
   xg_c(fw, gwfinal, C6, 1);
-  fw.split = u.split;
-  fw.split_cap = u.split_cap;
-  fw.kblock = Rj * T;
-  fw.round_blocks = 1;
-  if ((rc = launch_xgemm(fw, s))) return rc;
+  xg_blocks(fw, Rj * T);
+  if ((rc = launch_xgemm(fw, s, split))) return rc;
   XGemm fx = xgemm((int)P, C6, Cout);
-  xg_a(fx, u.gout, Cout);
+  xg_a(fx, g, Cout);
+  fx.amask = mask;
   xg_b(fx, u.wfinal, C6);
   xg_c(fx, u.dcat, C6, 0);
   if ((rc = launch_xgemm(fx, s))) return rc;
+  mark_stage(marks, s);
 
-  // ---- the gate
+  // ---- the gate; with it the projection conv's products (the taps (left,
+  // centre, right) read p[t-1], p[t], p[t+1])
   gate_bwd_bf16_kernel<<<ceil_div(Z * T, 8), 256, 0, s>>>(
       u.dcat + 5 * mid, C6, u.pc, mask, u.sc, u.stat, R, T, Ng, H, sqrt_hc, och, u.dpc, u.dbias,
       u.dsc);
   UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, s);
   const long TN = (long)T * Ng;
-  XGemm eg = xgemm(T, hc, Ng);   // d(p) of the scores: dsc . gp_h
-  xg_a(eg, u.dsc, Ng, 1);
-  xg_b(eg, u.gp, emb);
-  xg_c(eg, u.de, mid, 0);
-  xg_batch(eg, (int)Z, H, H * TN, TN, (long)Ng * emb, hc, (long)T * mid, hc);
-  if ((rc = launch_xgemm(eg, s))) return rc;
-  XGemm gg = xgemm(Ng, hc, T);   // d(gp): dsc^T . p_h
-  xg_at(gg, u.dsc, Ng, 1);
-  xg_b(gg, u.cat + 4 * mid, C6);
-  xg_c(gg, u.dgp, emb, 0);
-  xg_batch(gg, (int)Z, H, H * TN, TN, (long)T * C6, hc, (long)Ng * emb, hc);
-  if ((rc = launch_xgemm(gg, s))) return rc;
-
-  // ---- the projection conv: taps (left, centre, right) = p[t-1], p[t], p[t+1]
-  shift_rows_bf16_kernel<<<ceil_div(P * mid, 256), 256, 0, s>>>(u.cat + 4 * mid, C6, P, T, mid,
-                                                                -1, u.pl);
-  UNAV_RETURN_IF_ERROR();
-  shift_rows_bf16_kernel<<<ceil_div(P * mid, 256), 256, 0, s>>>(u.cat + 4 * mid, C6, P, T, mid,
-                                                                1, u.pr);
-  UNAV_RETURN_IF_ERROR();
-  const long MM = (long)mid * mid;
-  for (int tap = 0; tap < 3; ++tap) {
-    XGemm pw = xgemm(mid, mid, (int)P);
-    xg_at(pw, u.dpc, mid);
-    xg_b(pw, tap == 0 ? u.pl : tap == 1 ? u.cat + 4 * mid : u.pr, tap == 1 ? C6 : mid);
-    xg_c(pw, gwproj + tap * MM, mid, 1);
-    pw.split = u.split;
-    pw.split_cap = u.split_cap;
-    pw.kblock = Rj * T;
-    pw.round_blocks = 1;
-    if ((rc = launch_xgemm(pw, s))) return rc;
-    XGemm px = xgemm((int)P, mid, mid);
-    xg_a(px, u.dpc, mid);
-    xg_b(px, u.wproj_t + tap * MM, mid);
-    xg_c(px, tap == 0 ? u.dL : tap == 1 ? u.dC : u.dR, mid, 0);
-    if ((rc = launch_xgemm(px, s))) return rc;
+  XGemm xa[4];
+  xa[0] = xgemm(T, hc, Ng);   // d(p) of the scores: dsc . gp_h
+  xg_a(xa[0], u.dsc, Ng, 1);
+  xg_b(xa[0], u.gp, emb);
+  xg_c(xa[0], u.de, mid, 0);
+  xg_batch(xa[0], (int)Z, H, H * TN, TN, (long)Ng * emb, hc, (long)T * mid, hc);
+  for (int tap = 0; tap < 3; ++tap) {   // d(p) of the taps: dL, dC, dR
+    xa[1 + tap] = xgemm((int)P, mid, mid);
+    xg_a(xa[1 + tap], u.dpc, mid);
+    xg_b(xa[1 + tap], u.wproj_t + tap * MM, mid);
+    xg_c(xa[1 + tap], u.dL + tap * P * mid, mid, 0);
   }
+  if ((rc = launch_xgemms(xa, 4, s))) return rc;
+  xa[0] = xgemm(Ng, hc, T);   // d(gp): dsc^T . p_h
+  xg_at(xa[0], u.dsc, Ng, 1);
+  xg_b(xa[0], u.cat + 4 * mid, C6);
+  xg_c(xa[0], u.dgp, emb, 0);
+  xg_batch(xa[0], (int)Z, H, H * TN, TN, (long)T * C6, hc, (long)Ng * emb, hc);
+  for (int tap = 0; tap < 3; ++tap) {   // Wproj's grad, written as (mid, mid, 3)
+    XGemm& pw = xa[1 + tap];
+    pw = xgemm(mid, mid, (int)P);
+    xg_at(pw, u.dpc, mid);
+    xg_b(pw, u.cat + 4 * mid, C6);
+    pw.b_seq = T;
+    pw.b_shift = tap - 1;
+    xg_c(pw, gwproj + tap, 3L * mid, 1);
+    pw.c_n = 3;
+    xg_blocks(pw, Rj * T);
+  }
+  if ((rc = launch_xgemms(xa, 4, s, split))) return rc;
   p_grad_bf16_kernel<<<ceil_div(P * mid, 256), 256, 0, s>>>(u.dcat + 4 * mid, C6, u.de, u.dC,
                                                             u.dR, u.dL, P, T, mid);
   UNAV_RETURN_IF_ERROR();
+  mark_stage(marks, s);
 
   // ---- guide_fc
   XGemm gw_ = xgemm(emb, Fg, R * Ng);
   xg_at(gw_, u.dgp, emb);
   xg_b(gw_, guide, Fg);
   xg_c(gw_, gwg, Fg, 1);
-  gw_.split = u.split;
-  gw_.split_cap = u.split_cap;
-  gw_.kblock = Rj * Ng;
-  gw_.round_blocks = 1;
-  if ((rc = launch_xgemm(gw_, s))) return rc;
+  xg_blocks(gw_, Rj * Ng);
+  if ((rc = launch_xgemm(gw_, s, split))) return rc;
   XGemm gx = xgemm(R * Ng, Fg, emb);
   xg_a(gx, u.dgp, emb);
   xg_b(gx, u.wg, Fg);
   xg_c(gx, dguide, Fg, 0);
   if ((rc = launch_xgemm(gx, s))) return rc;
+  mark_stage(marks, s);
 
   // ---- the three MHCAs in reverse: block bi reads slice bi+1, its output's
-  // grad is slice bi+2, its input's grads go after the concat's, in place
+  // grad is slice bi+2, its input's grads go after the concat's, in place;
+  // their sums join the layer's
+  FJobs fj;
+  XJobs xj;
+  SumLists lists{&fj, 0, &xj, 0};
   for (int bi = 2; bi >= 0; --bi) {
     const bf16* src = u.cat + (1 + bi) * mid;
     bf16* dsrc = u.dcat + (1 + bi) * mid;
@@ -379,35 +385,53 @@ extern "C" int unav_csp_bf16_backward(
         C6, dsrc, C6, dsrc, C6, nullptr, 0,
         MhcaGrads{gdw + o3 * 3, glnw + o3, glnb + o3, gw + (long)bi * 4 * MM,
                   gb + (long)bi * 4 * mid},
-        Rj, tpad, u.mb, s);
+        Rj, tpad, u.mb[bi], false, &lists, split, s, marks);
     if (rc) return rc;
   }
 
   // ---- main conv: its output's grad is slices 0, 1 times the mask
-  if ((rc = launch_mask_rows(u.dcat, C6, P, 2 * mid, mask, u.dcat, C6, s))) return rc;
   XGemm mw = xgemm(2 * mid, Cin, (int)P);
   xg_at(mw, u.dcat, C6);
+  mw.amask = mask;
   xg_b(mw, x, Cin);
   xg_c(mw, gwmain, Cin, 1);
-  mw.split = u.split;
-  mw.split_cap = u.split_cap;
-  mw.kblock = Rj * T;
-  mw.round_blocks = 1;
-  if ((rc = launch_xgemm(mw, s))) return rc;
+  xg_blocks(mw, Rj * T);
+  if ((rc = launch_xgemm(mw, s, split))) return rc;
   XGemm mx = xgemm((int)P, Cin, 2 * mid);
   xg_a(mx, u.dcat, C6);
+  mx.amask = mask;
   xg_b(mx, u.wmain, Cin);
   xg_c(mx, dx, Cin, 0);
   if ((rc = launch_xgemm(mx, s))) return rc;
+  mark_stage(marks, s);
 
-  // ---- the biases in XLA's order per block; battn's in fp32
-  XJobs xj;
-  xj.j[0] = xjob(u.gout, Cout, gbfinal, Cout, T, tpad);
-  xj.j[1] = xjob(u.dpc, mid, gbproj, mid, T, tpad);
-  xj.j[2] = xjob(u.dcat, C6, gbmain, 2 * mid, T, tpad);
-  xj.j[3] = xjob(u.dgp, emb, gbg, emb, Ng, Ng);
-  if ((rc = launch_xla_sums(xj, 4, R / Rj, Rj, u.xwork, u.xwork_floats, s))) return rc;
-  FJobs fj;
-  fj.j[0] = fjob(u.dbias, H, 0, (int)P, H, gbattn);
-  return launch_fsums(fj, 1, u.partial, s);
+  // ---- the sums: the biases and taps in XLA's order per block, the three
+  // MHCAs' with them; the LayerNorms' affine and battn's in fp32
+  if (lists.nx + 4 > XJ_MAX || lists.nf + 1 > FJ_MAX) return (int)cudaErrorInvalidValue;
+  xj.j[lists.nx++] = xjob(g, Cout, gbfinal, Cout, T, tpad, mask);
+  xj.j[lists.nx++] = xjob(u.dpc, mid, gbproj, mid, T, tpad);
+  xj.j[lists.nx++] = xjob(u.dcat, C6, gbmain, 2 * mid, T, tpad, mask);
+  xj.j[lists.nx++] = xjob(u.dgp, emb, gbg, emb, Ng, Ng);
+  if ((rc = launch_xla_sums(xj, lists.nx, R / Rj, Rj, u.xwork, u.xwork_floats, s))) return rc;
+  fj.j[lists.nf++] = fjob(u.dbias, H, 0, (int)P, H, gbattn);
+  rc = launch_fsums(fj, lists.nf, u.partial, s);
+  mark_stage(marks, s);
+  return rc;
+}
+
+extern "C" int unav_csp_bf16_backward(UNAV_CSP_BF16_BWD_PARAMS) {
+  return csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_ARGS, nullptr);
+}
+
+// stages of one backward (ops/fused_csp.py:BWD_BF16_STAGES): the weights'
+// cast; the recompute; final conv; the gate; the projection conv; guide_fc;
+// per MHCA block (2, 1, 0) its MHCA_BF16_BWD_STAGES; main conv; the sums
+constexpr int CSP_BF16_BWD_STAGES = 6 + 3 * MHCA_BF16_BWD_STAGES + 2;
+
+// The same backward, synchronised, with the device time of each stage in
+// stage_ms (CSP_BF16_BWD_STAGES floats, CUDA events between them).
+extern "C" int unav_csp_bf16_backward_stages(UNAV_CSP_BF16_BWD_PARAMS, float* stage_ms) {
+  return time_stages<CSP_BF16_BWD_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
+    return csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_ARGS, marks);
+  });
 }

@@ -2,7 +2,7 @@
 // themselves: bf16.cuh's (ops/gemm_tc.py:bf16_products, `count` products in
 // one launch) and the backward's strided product of bf16_bwd.cuh
 // (bf16_layout_product).
-#include "bf16_bwd.cuh"
+#include "bf16_xgemm.cuh"
 
 constexpr int BG_PTRS = 6, BG_INTS = 10;
 

@@ -13,7 +13,8 @@
 //   ln2_bwd_kernel: ln2's backward in fp32 plus the residual's grad;
 //   attn_mult_bwd_kernel: d(mult_a) = sum_t attn * dout, the MHCA output's
 //     grad bf16(dout * mult_a);
-//   the MHCA (form MHCA_VJP, k/v from ln11, q from ln12);
+//   the MHCA (form MHCA_VJP, k/v from ln11, q from ln12), from the
+//     recompute's own normalized inputs, q/k/v and attention output;
 //   ln_pair_bwd_kernel: ln11's and ln12's backward and x's grad, fp32 (the
 //     residual stream), and the LayerNorm affine grads' fp32 sums.
 // Bound: operations (bf16_bwd.cuh; the MLP's products ~2/3 of the FLOPs).
@@ -146,9 +147,9 @@ __global__ void __launch_bounds__(256) ln_pair_bwd_kernel(
 
 struct TblockBwdBufs {
   bf16 *wb, *bb, *w1b, *b1b, *w2b, *b2b;
-  bf16 *h1, *h2, *attn, *mhca, *h, *u, *a, *y2, *dy2, *da, *du, *dh, *dattn, *dh1, *dh2;
+  bf16 *h1, *h2, *attn, *h, *u, *a, *y2, *dy2, *da, *du, *dh, *dattn, *dh1, *dh2;
   float *res, *yhat2, *dout, *yhat, *partial, *xwork, *split;
-  long xwork_floats, split_cap;
+  long xwork_floats, split_floats;
   MhcaBwdBufs mb;
 };
 
@@ -164,7 +165,6 @@ static TblockBwdBufs tblock_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H
   b.h1 = s.take<bf16>(PC);
   b.h2 = s.take<bf16>(PC);
   b.attn = s.take<bf16>(PC);
-  b.mhca = s.take<bf16>(mhca_bf16_scratch_elems(R, T, C));
   b.h = s.take<bf16>(PC);
   b.u = s.take<bf16>(PH);
   b.a = s.take<bf16>(PH);
@@ -183,8 +183,9 @@ static TblockBwdBufs tblock_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H
   b.partial = s.take<float>(fsum_scratch_floats(P, C));
   b.xwork_floats = xla_sums_work_floats(R, T, std::max(C, Hd), 2);
   b.xwork = s.take<float>(b.xwork_floats);
-  b.split_cap = (long)R * C * Hd;   // the MLP's weight grads' chunks (launch_xgemm)
-  b.split = s.take<float>(b.split_cap);
+  // the weight grads' row blocks (at most R): the MLP's, the MHCA's four
+  b.split_floats = (long)R * std::max((long)C * Hd, 4L * C * C);
+  b.split = s.take<float>(b.split_floats);
   b.mb = mhca_bwd_bf16_buffers(s, R, T, C, H);
   return b;
 }
@@ -213,6 +214,7 @@ extern "C" int unav_tblock_bf16_backward(
   if (R % Rj) return (int)cudaErrorInvalidValue;
   Bump bump{reinterpret_cast<char*>(scratch), 0};
   const TblockBwdBufs u = tblock_bwd_bf16_buffers(bump, R, T, C, Hd, heads);
+  const XSplit split{u.split, u.split_floats, xgemm_max_chunks(R)};
   CastList l;
   l.count = 0;
   bf16* next;
@@ -233,7 +235,7 @@ extern "C" int unav_tblock_bf16_backward(
   });
   if (rc) return rc;
   rc = mhca_bf16_forward_impl(u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb, u.bb,
-                              eps, u.attn, C, u.mhca, s);
+                              eps, u.attn, C, u.mb.y3, s, nullptr, u.mb.o);
   if (rc) return rc;
   rc = with_cpl(C, [&](auto cpl) {
     residual_ln2_bf16_kernel<decltype(cpl)::value><<<ceil_div(P, 8), 256, 0, s>>>(
@@ -257,11 +259,8 @@ extern "C" int unav_tblock_bf16_backward(
   xg_at(w2g, u.dy2, C);
   xg_b(w2g, u.a, Hd);
   xg_c(w2g, gw2, Hd, 1);
-  w2g.split = u.split;
-  w2g.split_cap = u.split_cap;
-  w2g.kblock = Rj * T;
-  w2g.round_blocks = 1;
-  if ((rc = launch_xgemm(w2g, s))) return rc;
+  xg_blocks(w2g, Rj * T);
+  if ((rc = launch_xgemm(w2g, s, split))) return rc;
   XGemm dag = xgemm((int)P, Hd, C);
   xg_a(dag, u.dy2, C);
   xg_b(dag, u.w2b, Hd);
@@ -273,11 +272,8 @@ extern "C" int unav_tblock_bf16_backward(
   xg_at(w1g, u.du, Hd);
   xg_b(w1g, u.h, C);
   xg_c(w1g, gw1, C, 1);
-  w1g.split = u.split;
-  w1g.split_cap = u.split_cap;
-  w1g.kblock = Rj * T;
-  w1g.round_blocks = 1;
-  if ((rc = launch_xgemm(w1g, s))) return rc;
+  xg_blocks(w1g, Rj * T);
+  if ((rc = launch_xgemm(w1g, s, split))) return rc;
   XGemm dhg = xgemm((int)P, C, Hd);
   xg_a(dhg, u.du, Hd);
   xg_b(dhg, u.w1b, C);
@@ -299,7 +295,8 @@ extern "C" int unav_tblock_bf16_backward(
   // ---- the MHCA
   rc = mhca_bf16_backward(MHCA_VJP, u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb,
                           u.bb, eps, u.dattn, C, nullptr, 0, u.dh1, C, u.dh2, C,
-                          MhcaGrads{gdw, glnw, glnb, gw, gb}, Rj, T, u.mb, s);
+                          MhcaGrads{gdw, glnw, glnb, gw, gb}, Rj, T, u.mb, false, nullptr,
+                          split, s);
   if (rc) return rc;
 
   // ---- ln11, ln12 and x

@@ -89,8 +89,14 @@ BWD_STAGES = (("recompute", "final.dx", "final.dw", "gate", "gate_guide", "proj_
               + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_STAGES)
               + ("main.dx", "main.dw", "colsum"))
 _BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
-_BWD_BF16_ARGTYPES = {"unav_csp_bf16_backward": [PTR] * 3 + [INT] * 11 + [PTR] * 15 + [FLOAT]
-                      + [PTR] * 19}
+_BWD_BF16_TYPES = [PTR] * 3 + [INT] * 11 + [PTR] * 14 + [FLOAT] + [PTR] * 19
+_BWD_BF16_ARGTYPES = {"unav_csp_bf16_backward": _BWD_BF16_TYPES,
+                      "unav_csp_bf16_backward_stages": _BWD_BF16_TYPES + [PTR]}
+# the stages of one bf16 backward, in order (csp_bwd_bf16.cu: CSP_BF16_BWD_STAGES)
+MHCA_BWD_BF16_STAGES = ("recompute", "proj", "attention", "dense", "wgrad", "ln_conv", "sums")
+BWD_BF16_STAGES = (("cast", "recompute", "final", "gate", "proj_conv", "guide_fc")
+                   + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_BF16_STAGES)
+                   + ("main", "sums"))
 _BWD_BF16_RESTYPES = {"unav_csp_bf16_backward_scratch": ([INT] * 9, LONG)}
 
 
@@ -312,29 +318,34 @@ def _launch_backward(entry, x, guide, mask, *weights, g, attn_heads, mhca_heads,
     return tuple(grads)
 
 
-def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps):
+def _prepare_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps):
+    """The bf16 backward's host work before its C entry: the checks, the row
+    block, the grads (each in its input's layout: the kernel reads and writes
+    Wproj as the layer keeps it) and the scratch. Returns (lib, the entry's
+    arguments, grads, scratch)."""
     r, t, cin, mid, ng, fg, cout = _check_args(x, guide, mask, *weights, attn_heads,
                                                mhca_heads)
     _check(g, "g", (r, t, cout), torch.bfloat16)
     rows = csp_backward_rows(x, guide, mask, *weights, attn_heads=attn_heads,
                              mhca_heads=mhca_heads)
-    wproj = weights[10]
-    ws = (list(weights[:10]) + [wproj.permute(0, 2, 1).contiguous(),
-                                wproj.permute(2, 0, 1).contiguous()] + list(weights[11:]))
-    grads = [torch.empty_like(a) for a in (x, guide, *weights[:10])]
-    grads += [torch.empty((3, mid, mid), device=x.device)] + [torch.empty_like(a)
-                                                               for a in weights[11:]]
+    grads = [torch.empty_like(a) for a in (x, guide, *weights)]
     lib = cuda_build.library("csp_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
     scratch = torch.empty(lib.unav_csp_bf16_backward_scratch(r, t, cin, mid, ng, fg, cout,
                                                              attn_heads, mhca_heads),
                           device=x.device, dtype=torch.float32)
-    rc = lib.unav_csp_bf16_backward(
-        x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
-        attn_heads, mhca_heads, rows, -(-t // 8) * 8, *[a.data_ptr() for a in ws], eps,
-        g.data_ptr(), *[a.data_ptr() for a in grads], scratch.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, rc, "csp_backward (bf16)")
-    grads[12] = grads[12].permute(1, 2, 0).contiguous()          # -> (mid, mid, 3)
+    args = (x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
+            attn_heads, mhca_heads, rows, -(-t // 8) * 8, *[a.data_ptr() for a in weights],
+            eps, g.data_ptr(), *[a.data_ptr() for a in grads], scratch.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    return lib, args, grads, scratch
+
+
+def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps,
+                          entry="unav_csp_bf16_backward", extra=()):
+    lib, args, grads, _ = _prepare_backward_bf16(x, guide, mask, *weights, g=g,
+                                                 attn_heads=attn_heads,
+                                                 mhca_heads=mhca_heads, eps=eps)
+    cuda_build.check(lib, getattr(lib, entry)(*args, *extra), "csp_backward (bf16)")
     return tuple(grads)
 
 
@@ -362,7 +373,14 @@ def csp_backward_stage_times(x, guide, mask, *weights, g, attn_heads: int,
                              mhca_heads: int = 4, eps: float = 1e-5):
     """One CUDA backward, synchronised, and the device ms of each of its
     stages (CUDA events between them): {stage: ms} in launch order, the
-    names of BWD_STAGES. Not counted in csp_backward.launches."""
+    names of BWD_STAGES (of BWD_BF16_STAGES for bf16 x). Not counted in
+    csp_backward.launches."""
+    if x.dtype == torch.bfloat16:
+        ms = (ctypes.c_float * len(BWD_BF16_STAGES))()
+        _launch_backward_bf16(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
+                              mhca_heads=mhca_heads, eps=eps,
+                              entry="unav_csp_bf16_backward_stages", extra=(ms,))
+        return dict(zip(BWD_BF16_STAGES, ms))
     ms = (ctypes.c_float * len(BWD_STAGES))()
     _launch_backward("unav_csp_backward_stages", x, guide, mask, *weights, g=g,
                      attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps, extra=(ms,))

@@ -42,9 +42,10 @@ the recomputed forward in bf16, datt and ds fp32 with ds rounded to bf16
 before dq and dk, each input grad rounded to bf16, the weight grads fp32
 sums): `_mhca_backward_bf16_reference`, and on the card csrc/bf16_bwd.cuh's
 form MHCA_HAND (csrc/mhca_bwd_bf16.cu: every product on the bf16 tensor
-cores through one strided product, the attention backward on each head's
-materialized (T, T)). It runs for bf16 inputs on either device: a bf16 call
-that needs a grad goes through MHCAFunction on the CPU too.
+cores through one strided product on a cp.async ring, the attention
+backward fused into two launches, `attention_backward` alone). It runs for
+bf16 inputs on either device: a bf16 call that needs a grad goes through
+MHCAFunction on the CPU too.
 
 Weight layout (torch, stacked): dw (3, C, 3) [q/k/v, channel, tap],
 lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
@@ -52,6 +53,7 @@ lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in], b (4, C).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -77,10 +79,14 @@ _BWD_ARGTYPES = {
                            PTR, PTR, FLOAT] + [PTR] * 10,
 }
 _BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
-_BWD_BF16_ARGTYPES = {
-    "unav_mhca_bf16_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
-                                PTR, PTR, FLOAT] + [PTR] * 10,
-}
+_BWD_BF16_TYPES = [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR, PTR, FLOAT] + [PTR] * 10
+_BWD_BF16_ARGTYPES = {"unav_mhca_bf16_backward": _BWD_BF16_TYPES,
+                      "unav_mhca_bf16_backward_stages": _BWD_BF16_TYPES + [PTR],
+                      "unav_attn_bwd_bf16": [PTR] * 5 + [INT] * 5 + [FLOAT] + [PTR] * 5}
+# the stages of one bf16 backward, in order (mhca_bwd_bf16.cu, bf16_bwd.cuh:
+# MHCA_BF16_BWD_STAGES after the weights' cast)
+BWD_BF16_STAGES = ("cast", "recompute", "proj", "attention", "dense", "wgrad", "ln_conv",
+                   "sums")
 _BWD_BF16_RESTYPES = {"unav_mhca_bf16_backward_scratch": ([INT] * 4, LONG)}
 
 # longest sequence whose 64-query logits tile, beside the query tile and the
@@ -266,6 +272,75 @@ def _mhca_backward_bf16_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads:
             torch.stack(gw), torch.stack(gb))
 
 
+def attention_backward_reference(q, k, v, go, mask, *, heads: int, vjp: bool = False,
+                                 rounded: bool = True):
+    """The attention part of the bf16 MHCA backward (csrc/bf16_bwd.cuh's fused
+    attention backward) in plain PyTorch, for q (scaled by bf16(1/sqrt(d))),
+    k, v and the attention output's grad go (R, T, C) bf16 with a (R, T) key
+    mask: the fp32 logits and softmax (a sequence without a valid key gets
+    P = 0), datt = go v^T in fp32 (rounded to bf16 in the vjp form), ds = P
+    (datt - sum(P datt)) in fp32 (rounded to bf16 in the hand form), dq =
+    bf16(bf16(ds k) * scale), dk = bf16(ds^T q), dv = bf16(bf16(P)^T go) *
+    mask. rounded=False takes the same steps in fp32 with no bf16 rounding.
+    Returns (dq, dk, dv), bf16 (fp32 unrounded)."""
+    f32 = torch.float32
+    r, t, c = q.shape
+    d = c // heads
+    scale = float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.bfloat16))
+
+    def rnd(x):
+        return x.to(torch.bfloat16).float() if rounded else x
+
+    def heads_of(x):            # (R, T, C) -> (R, H, T, d) fp32
+        return x.float().reshape(r, t, heads, d).transpose(1, 2)
+
+    def cat(x):                 # (R, H, T, d) -> (R, T, C)
+        return x.transpose(1, 2).reshape(r, t, c)
+
+    qh, kh, vh, gh = (heads_of(x) for x in (q, k, v, go))
+    logits = (qh @ kh.transpose(-1, -2)).masked_fill(~mask[:, None, None, :],
+                                                     torch.finfo(f32).min)
+    any_kv = mask.any(-1)[:, None, None, None]
+    att = torch.where(any_kv, logits, torch.zeros((), dtype=f32)).softmax(-1) * any_kv.to(f32)
+    datt = gh @ vh.transpose(-1, -2)
+    if vjp:
+        datt = rnd(datt)
+    ds = att * (datt - (att * datt).sum(-1, keepdim=True))
+    if not vjp:
+        ds = rnd(ds)
+    out = (cat(rnd(rnd(ds @ kh) * scale)), cat(rnd(ds.transpose(-1, -2) @ qh)),
+           cat(rnd(rnd(att).transpose(-1, -2) @ gh)) * mask[..., None].to(f32))
+    return tuple(x.to(torch.bfloat16) for x in out) if rounded else out
+
+
+def attention_backward(q, k, v, go, mask, *, heads: int, vjp: bool = False):
+    """The fused bf16 attention backward alone (two launches), as
+    `attention_backward_reference` describes it: (dq, dk, dv) bf16. CPU
+    tensors take that plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, go, mask, heads=heads, vjp=vjp)
+    r, t, c = q.shape
+    if c % heads or (c // heads) % 8 or c // heads > 128 or t > MAX_T:
+        raise ValueError(f"attention_backward: unsupported shape (T={t}, C={c}, heads={heads})")
+    for name, x in (("q", q), ("k", k), ("v", v), ("go", go)):
+        _check(x, name, q.shape, torch.bfloat16)
+    _check(mask, "mask", (r, t), torch.bool)
+    out = [torch.empty_like(q) for _ in range(3)]
+    stat = torch.empty(r * heads * t * 3, device=q.device, dtype=torch.float32)
+    lib = cuda_build.library("mhca_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
+    rc = lib.unav_attn_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(), mask.data_ptr(), r, t, c,
+        heads, int(vjp), float(torch.tensor(1.0 / math.sqrt(c // heads), dtype=torch.bfloat16)),
+        *[x.data_ptr() for x in out], stat.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "attention_backward (bf16)")
+    attention_backward.launches += 1
+    return tuple(out)
+
+
+attention_backward.launches = 0
+
+
 def _check(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
     # operands 16-byte aligned: the tensor-core products and the attention
     # copy rows in 16-byte chunks
@@ -335,19 +410,19 @@ def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
     return out
 
 
-def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps):
+def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps,
+                          entry="unav_mhca_bf16_backward", extra=()):
     r, t, c = x1.shape
     lib = cuda_build.library("mhca_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_bf16_backward_scratch(r, t, c, heads),
                           device=x1.device, dtype=torch.float32)
-    rc = lib.unav_mhca_bf16_backward(
+    rc = getattr(lib, entry)(
         x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
         dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
         eps, g.data_ptr(), *[x.data_ptr() for x in grads], scratch.data_ptr(),
-        torch.cuda.current_stream(x1.device).cuda_stream,
+        torch.cuda.current_stream(x1.device).cuda_stream, *extra,
     )
     cuda_build.check(lib, rc, "mhca_backward (bf16)")
-    mhca_backward.bf16_launches += 1
     return tuple(grads)
 
 
@@ -364,7 +439,9 @@ def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
     r, t, c = x1.shape
     grads = [torch.empty_like(x) for x in (x1, x2, dw, lnw, lnb, w, b)]
     if x1.dtype == torch.bfloat16:
-        return _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps)
+        out = _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps)
+        mhca_backward.bf16_launches += 1
+        return out
     lib = cuda_build.library("mhca_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_backward_scratch(r, t, c, heads),
                           device=x1.device, dtype=torch.float32)
@@ -377,6 +454,20 @@ def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
     cuda_build.check(lib, rc, "mhca_backward")
     mhca_backward.launches += 1
     return tuple(grads)
+
+
+def mhca_backward_stage_times(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
+                              eps: float = 1e-5):
+    """One bf16 CUDA backward, synchronised, and the device ms of each of its
+    stages (CUDA events between them): {stage: ms} in launch order, the
+    names of BWD_BF16_STAGES. Not counted in mhca_backward.bf16_launches."""
+    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
+    _check(g, "g", x1.shape, torch.bfloat16)
+    grads = [torch.empty_like(x) for x in (x1, x2, dw, lnw, lnb, w, b)]
+    ms = (ctypes.c_float * len(BWD_BF16_STAGES))()
+    _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps,
+                          entry="unav_mhca_bf16_backward_stages", extra=(ms,))
+    return dict(zip(BWD_BF16_STAGES, ms))
 
 
 class MHCAFunction(torch.autograd.Function):

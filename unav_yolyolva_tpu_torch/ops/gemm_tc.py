@@ -418,8 +418,9 @@ def bf16_layout_reference(a, b, layout: str, *, kblock: int = None, round_blocks
 def bf16_layout_product(a, b, layout: str, *, kblock: int = None, round_blocks: bool = False,
                         out_bf16: bool = True, scale: float = 1.0) -> torch.Tensor:
     """One product of the backward's strided bf16 kernel (xgemm) in `layout`
-    on contiguous operands, as `bf16_layout_reference` describes it. CPU
-    tensors take that plain version; CUDA tensors launch the kernel."""
+    on contiguous operands, as `bf16_layout_reference` describes it (an fp32
+    a in the "nn" and "tn" layouts). CPU tensors take that plain version;
+    CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return bf16_layout_reference(a, b, layout, kblock=kblock, round_blocks=round_blocks,
                                      out_bf16=out_bf16, scale=scale)
