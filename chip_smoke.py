@@ -130,10 +130,15 @@ Phases (any failure exits non-zero):
      versions (norm-wise <= 8e-3, each one's error against the fp32 plain
      version within 1.25x of the other's, the same bits on repeat), timed
      beside the fp32 kernel on the same inputs, with per-launch breakdowns
-     (`stages csp_bf16@...`, `stages tblock_bf16@...`); the bf16 product
-     alone at the CSP final conv's shape (its fp32 sums against fp64 within
-     2x fp32 torch.matmul's error, its bf16 output's error beside cuBLAS's
-     bf16 torch.matmul, both times); three batches of 64 served at bf16
+     (`stages mhca_bf16@...`, `stages csp_bf16@...`, `stages
+     tblock_bf16@...`); the attention alone at the CSP's and the stem's
+     shapes, held the same way, timed beside PyTorch's
+     scaled_dot_product_attention with its resident blocks a SM (`check/time
+     attn_bf16@...`); the bf16 product alone at the CSP final conv's shape
+     (its fp32 sums against fp64 within 2x fp32 torch.matmul's error, its
+     bf16 output's error beside cuBLAS's bf16 torch.matmul, both times) and
+     at each of the forward's product shapes beside the backward's strided
+     product and cuBLAS (`time product_bf16@...`); three batches of 64 served at bf16
      with the default stem (15 bf16 MHCA, 30 bf16 CSP launches, no fp32
      MHCA / CSP / TBlock launch) and the whole-block stem (12 bf16 TBlock
      launches), the first two videos' heads against the CPU's bf16 path
@@ -175,8 +180,8 @@ Phases (any failure exits non-zero):
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel, the
-eight fp32 kernels and the six bf16 ones (the redesigned bf16 backward ones with
-their `design`; with each fp32 kernel's
+eight fp32 kernels and the six bf16 ones (the redesigned bf16 MHCA and CSP
+forward and backward with their `design`; with each fp32 kernel's
 launches on the train CLI's path and on the dependency block's, and the
 dependency shapes' checks and times; a bf16 forward kernel's launches are
 on the bf16 served path, a bf16 backward kernel's on phase 16's train
@@ -185,7 +190,8 @@ last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
 result. With --stages-only it builds, prints the CSP and whole-block TBlock
 forward's and backward's breakdowns (`stages ...` lines) and launch counts,
-and stops; with --bf16-train-only it builds and runs phase 16 alone; with
+and stops; with --bf16-fwd-only it builds and runs phase 15's kernel checks
+and lines alone; with --bf16-train-only it builds and runs phase 16 alone; with
 --bf16-profile-only, phase 16's profile of the bf16 backward kernels alone
 (phase 16 runs it so, in a process of its own).
 """
@@ -1412,44 +1418,99 @@ def heads_gap(model, batch, dev):
             for k in ("cls_logits", "offsets")]
 
 
-def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
-    """Phase 15: the bf16 compute policy on the serving path. The three bf16
-    forward kernels against their plain versions at the protocol shapes,
-    beside the fp32 kernels' times; the bf16 product alone against fp64 and
-    cuBLAS; three batches of 64 served at bf16 with the default and the
-    whole-block stem (the bf16 kernels launched, no fp32 kernel), the first
-    two videos against the CPU's bf16 path; the eval CLI on
-    configs/avel_unav100_bf16.yaml over 64 synthetic videos, bit-identical to
-    the in-memory step; the bench at fp32 and bf16 in turns. Returns the bf16
-    kernels' launches on the served path."""
-    import contextlib
-    import io
-    import pickle
-    import tempfile
-
-    import numpy as np
+def bf16_attention_lines(dev, smi, gen) -> None:
+    """The bf16 MHCA's attention alone (ops/fused_mhca.py:attention_forward)
+    at the CSP's (128, 224, 256) and the stem's (64, 224, 512), 4 heads,
+    with the eval protocol's ragged lengths and one empty sequence: held as
+    the bf16 kernels are (check_bf16: its plain version, and the same steps
+    in fp32), the empty sequence exact zeros; timed beside its plain version
+    and, as a yardstick, PyTorch's scaled_dot_product_attention on the same
+    values; its bound and resident blocks a SM."""
     import torch
-    import yaml
+    import torch.nn.functional as F
 
-    from unav_yolyolva_tpu_torch.core import load_config
-    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
-    from unav_yolyolva_tpu_torch.data.synthetic import (make_synthetic_dataset,
-                                                        synthetic_eval_batch)
-    from unav_yolyolva_tpu_torch.eval import cli, make_eval_step
-    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (attend, attention_blocks_per_sm,
+                                                        attention_forward)
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    bf = torch.bfloat16
+    for r, c, heads in ((128, 256, 4), (64, 512, 4)):
+        t, d = 224, c // heads
+        label = f"attn_bf16@{r}x{t}x{c}/{heads}h"
+        q = (torch.randn(r, t, c, generator=gen) * d ** -0.5).to(dev, bf)
+        k, v = (torch.randn(r, t, c, generator=gen).to(dev, bf) for _ in range(2))
+        lengths = torch.randint(16, t + 1, (r,), generator=gen)
+        lengths[-1] = 0
+        mask = (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+        _, out = check_bf16(label, lambda: attention_forward(q, k, v, mask, heads=heads),
+                            lambda: attend(q, k, v, mask, heads),
+                            lambda: attend(q.float(), k.float(), v.float(), mask, heads))
+        require(bool((out[-1] == 0).all()), f"{label}: the empty sequence is not exact zeros")
+        ms = cuda_ms(lambda: attention_forward(q, k, v, mask, heads=heads), 20)
+        pms = cuda_ms(lambda: attend(q, k, v, mask, heads), 5)
+        qh, kh, vh = (x.reshape(r, t, heads, d).transpose(1, 2).contiguous() for x in (q, k, v))
+        amask = mask[:, None, None, :]
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask,
+                                                             scale=1.0), 20)
+        flops = 4 * r * heads * t * t * d
+        bms, by = bound_bf16_ms(flops, 2 * 4 * r * t * c + r * t, flops)
+        blocks = attention_blocks_per_sm(t, c, heads)
+        log(f"time {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{pms:.3f} ms, library scaled_dot_product_attention {lms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), resident blocks a SM {blocks} [{smi}]")
+
+
+def bf16_product_lines(dev, smi, gen) -> None:
+    """The bf16 forward's products alone at the CSP layer's T=224, 2B=128
+    shapes (A.B^T): the final conv (28672 x 512 x 1536), one of q/k/v
+    (28672 x 256 x 256) and the three in one launch, the k=3 projection conv
+    (28672 x 256 x 3 x 256, its taps read by the loader): the forward's
+    product (bf16_products) beside the backward's strided product
+    (bf16_layout_product, no conv loader) and cuBLAS's bf16 torch.matmul
+    (fp32 sums) on the same values."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_layout_product, bf16_products
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    bf, m = torch.bfloat16, 128 * 224
+    for name, n, kc, taps, count in (("final", 512, 1536, 1, 1), ("qkv", 256, 256, 1, 1),
+                                     ("qkv3", 256, 256, 1, 3), ("proj_conv", 256, 256, 3, 1)):
+        x = torch.randn(m, kc, generator=gen).to(dev, bf)
+        w = (torch.randn(n, taps * kc, generator=gen) / math.sqrt(taps * kc)).to(dev, bf)
+        calls = [dict(x=x, w=w, taps=taps, seq=224)] * count
+        ms = cuda_ms(lambda: bf16_products(calls), 20)
+        flops = 2 * m * n * taps * kc * count
+        line = (f"time product_bf16@{name} {count}x{m}x{n}x{taps * kc}: forward product "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+        if taps == 1:
+            xms = cuda_ms(lambda: [bf16_layout_product(x, w, "nt") for _ in range(count)], 20)
+            lms = cuda_ms(lambda: [torch.matmul(x, w.T) for _ in range(count)], 20)
+            line += (f", strided product {xms:.4f} ms ({flops / xms / 1e9:.1f} TFLOP/s, "
+                     f"{count} launch{'es' if count > 1 else ''}), cuBLAS bf16 torch.matmul "
+                     f"{lms:.4f} ms")
+        bms, by = bound_bf16_ms(flops, 2 * count * (m * kc + n * taps * kc + m * n), flops)
+        log(f"{line}, bound {bms:.4f} ms ({by}) [{smi}]")
+
+
+def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
+    """Phase 15's kernels: the three bf16 forward kernels against their
+    plain versions at the protocol shapes, beside the fp32 kernels' times,
+    with per-launch breakdowns (`stages ...`); the attention alone at the
+    CSP's and the stem's shapes (`check/time attn_bf16@...`, its resident
+    blocks a SM); the bf16 product alone against fp64 and cuBLAS, and at
+    each of the forward's product shapes (`time product_bf16@...`)."""
+    import torch
+
     from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, csp_stage_times, fused_csp
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
-    from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_reference,
+                                                        mhca_stage_times)
     from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_reference,
                                                           tblock_stage_times)
     from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_products
-    from unav_yolyolva_tpu_torch.tools import bench
     from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
-    from unav_yolyolva_tpu_torch.train import valid_one_epoch
 
-    t_phase = time.perf_counter()
     bf = torch.bfloat16
-
     # ---- the three bf16 kernels at the protocol shapes ----------------------
     with torch.inference_mode():
         for label, key, r, c in (("mhca_bf16@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
@@ -1471,6 +1532,8 @@ def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
                 f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
                 f"({results[label][4]}) [{smi}]")
+            if r == 64:
+                stage_line(label, lambda: mhca_stage_times(*ab, heads=heads), smi)
 
         for label, key, t in (("csp_bf16@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
                               ("csp_bf16@T224/8h", "backbone.fusion_module.bottom_up_layers.0", 224),
@@ -1487,12 +1550,14 @@ def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
             cin, fg = a[0].shape[-1], a[1].shape[-1]
             nbytes = (2 * (ab[0].numel() + ab[1].numel() + 128 * t * 512)
                       + 4 * sum(x.numel() for x in a[3:]) + 128 * t)
+            flops = csp_flops(128, t, cin, 256, 512, fg, 512)
+            # every FLOP but the MHCAs' conv + LayerNorm on the bf16 tensor
+            # cores: the products and the gate's scores
             results[label] = (err, ms, pms, *bound_bf16_ms(
-                csp_flops(128, t, cin, 256, 512, fg, 512), nbytes,
-                csp_products(128, t, cin, 256, 512, fg, 512)), None)
+                flops, nbytes, flops - 3 * 18 * 128 * t * 256), None)
             log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
                 f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
-                f"({results[label][4]}; gate FFMA) [{smi}]")
+                f"({results[label][4]}; gate on the tensor cores) [{smi}]")
             if label != "csp_bf16@T224/8h":
                 stage_line(label, lambda: csp_stage_times(*ab, attn_heads=heads), smi)
 
@@ -1542,6 +1607,45 @@ def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
         log(f"time gemm_bf16@{m}x{n}x{k}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
             f"library cuBLAS bf16 torch.matmul {lms:.4f} ms, bound {bms:.4f} ms ({by}) [{smi}]")
         del xa, wa, y
+        bf16_attention_lines(dev, smi, gen)
+        bf16_product_lines(dev, smi, gen)
+
+
+def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
+    """Phase 15: the bf16 compute policy on the serving path. The three bf16
+    forward kernels against their plain versions at the protocol shapes,
+    beside the fp32 kernels' times; the bf16 product alone against fp64 and
+    cuBLAS; three batches of 64 served at bf16 with the default and the
+    whole-block stem (the bf16 kernels launched, no fp32 kernel), the first
+    two videos against the CPU's bf16 path; the eval CLI on
+    configs/avel_unav100_bf16.yaml over 64 synthetic videos, bit-identical to
+    the in-memory step; the bench at fp32 and bf16 in turns. Returns the bf16
+    kernels' launches on the served path."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
+    from unav_yolyolva_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                                        synthetic_eval_batch)
+    from unav_yolyolva_tpu_torch.eval import cli, make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+    from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock
+    from unav_yolyolva_tpu_torch.tools import bench
+    from unav_yolyolva_tpu_torch.train import valid_one_epoch
+
+    t_phase = time.perf_counter()
+
+    bf16_forward_checks(model32, dev, smi, gen, results)
 
     # ---- serve three batches of 64 at bf16 ---------------------------------
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
@@ -2238,6 +2342,9 @@ def main(argv=None) -> int:
                          "backward's per-launch breakdowns and launch counts")
     ap.add_argument("--bf16-train-only", action="store_true",
                     help="only build, then run phase 16 (the bf16 train step)")
+    ap.add_argument("--bf16-fwd-only", action="store_true",
+                    help="only build, then run phase 15's kernel checks and lines (the bf16 "
+                         "forward kernels, the attention and the products alone)")
     ap.add_argument("--bf16-profile-only", action="store_true",
                     help="only build, then profile the bf16 backward kernels (phase 16's "
                          "profile, launch and stage lines; phase 16 runs it so, in a process "
@@ -2326,6 +2433,9 @@ def main(argv=None) -> int:
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
     model = build_model(cfg, device=dev, seed=args.seed)
     eval_model = model
+    if args.bf16_fwd_only:
+        bf16_forward_checks(model, dev, smi, gen, {})
+        return 0
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: LocPointTransformer width {cfg['model']['embd_dim']}, "
         f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
@@ -2892,10 +3002,16 @@ def main(argv=None) -> int:
                    "unav_yolyolva_tpu/ops/pallas_nms.py:290"),
              design="redesigned: live lanes compacted, the argmax inside the decay pass",
              cases={k: v for k, v in nms_cases.items() if k.startswith("soft_nms@")}),
-        bf16_entry("mhca_bf16", "mhca_bf16@64x224x512", pkg + "mhca_bf16.cu",
-                   "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
-        bf16_entry("csp_bf16", "csp_bf16@T224/4h", pkg + "csp_bf16.cu",
-                   "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
+        dict(bf16_entry("mhca_bf16", "mhca_bf16@64x224x512", pkg + "mhca_bf16.cu",
+                        "unav_yolyolva_tpu/ops/pallas_fusion.py:169"),
+             design="redesigned: the attention's softmax passes in registers (no logits row "
+                    "stored), the product on 128 x 128 tiles with ldmatrix and a four-stage "
+                    "ring"),
+        dict(bf16_entry("csp_bf16", "csp_bf16@T224/4h", pkg + "csp_bf16.cu",
+                        "unav_yolyolva_tpu/ops/pallas_csp.py:205"),
+             design="redesigned: the gate's scores on the tensor cores (one scoring function "
+                    "with the backward), the redesigned attention and product, guide_fc in "
+                    "the main conv's launch (17 launches)"),
         bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
                    "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
         dict(bf16_bwd_entry("mhca_bwd_bf16", f"mhca_bwd_bf16@{B}x{T}x512",

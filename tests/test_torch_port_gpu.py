@@ -1447,13 +1447,15 @@ def test_bf16_wrappers_refuse_unaligned_widths(cuda):
 
 
 def test_bf16_stage_times(cuda):
-    """The staged bf16 CSP and TBlock forwards time each of their launches
-    (the weights' cast first) with finite, positive ms and are not counted
-    as launches."""
+    """The staged bf16 CSP, MHCA and TBlock forwards time each of their
+    launches (the weights' cast first; the CSP's main conv and guide_fc
+    share one) with finite, positive ms and are not counted as launches."""
     import math
 
     from unav_yolyolva_tpu_torch.ops.fused_csp import BF16_STAGES as CSP_STAGES
     from unav_yolyolva_tpu_torch.ops.fused_csp import csp_stage_times, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import BF16_STAGES as MHCA_STAGES
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_stage_times
     from unav_yolyolva_tpu_torch.ops.fused_tblock import BF16_STAGES as TB_STAGES
     from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_stage_times
 
@@ -1461,13 +1463,19 @@ def test_bf16_stage_times(cuda):
     cargs = _csp_args(gen, cuda, 3, 7, 128, 64, 40, 24, 4)
     cargs = [cargs[0].bfloat16(), cargs[1].bfloat16(), *cargs[2:]]
     targs = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 0, 17])
-    before = (fused_csp.bf16_launches, fused_tblock.bf16_launches)
+    x = torch.randn(3, 40, 64, generator=gen).to(cuda, torch.bfloat16)
+    margs = (x, x, _mask(3, 40, [40, 0, 17], cuda), *[w.to(cuda) for w in
+                                                      _mhca_weights(64, gen, cuda)])
+    before = (fused_csp.bf16_launches, fused_tblock.bf16_launches, fused_mhca.bf16_launches)
     csp = csp_stage_times(*cargs, attn_heads=4)
     tb = tblock_stage_times(*targs, heads=4, cdtype=torch.bfloat16)
-    assert (fused_csp.bf16_launches, fused_tblock.bf16_launches) == before
-    assert list(csp) == list(CSP_STAGES) and len(CSP_STAGES) == 18
+    mh = mhca_stage_times(*margs, heads=4)
+    assert (fused_csp.bf16_launches, fused_tblock.bf16_launches,
+            fused_mhca.bf16_launches) == before
+    assert list(csp) == list(CSP_STAGES) and len(CSP_STAGES) == 17
     assert list(tb) == list(TB_STAGES) and len(TB_STAGES) == 9
-    assert all(math.isfinite(v) and v > 0 for v in [*csp.values(), *tb.values()])
+    assert list(mh) == list(MHCA_STAGES) and len(MHCA_STAGES) == 5
+    assert all(math.isfinite(v) and v > 0 for v in [*csp.values(), *tb.values(), *mh.values()])
 
 
 @pytest.mark.parametrize("vjp", [False, True])
@@ -1526,3 +1534,113 @@ def test_bf16_csp_backward_launch_budget(cuda):
     n, attn = sum(c for _, c in rows), sum(c for key, c in rows if "attn" in key)
     assert 0 < n <= 70, rows
     assert attn <= 3 * 3, rows
+
+
+@pytest.mark.parametrize("t", [7, 100, 224, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_attention_forward_kernel(cuda, d, t):
+    """The bf16 forward's attention alone (one launch) against its plain
+    version as the bf16 kernels are held (norm-wise <= BF16_TOL, each one's
+    gap to the same steps in fp32 within 1.25x of the other's, the same
+    bits on repeat): head widths 16 to 128, T from one ragged key tile to
+    MAX_T = 512, a ragged sequence and one without a valid key (exact
+    zeros)."""
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import MAX_T, attend, attention_forward
+
+    gen = torch.Generator().manual_seed(53 + d + t)
+    heads, bf = 2, torch.bfloat16
+    c, lengths = 2 * d, [t, t // 2 + 1, 0]
+    q = (torch.randn(3, t, c, generator=gen) * d ** -0.5).to(cuda, bf)
+    k, v = (torch.randn(3, t, c, generator=gen).to(cuda, bf) for _ in range(2))
+    mask = _mask(3, t, lengths, cuda)
+    before = attention_forward.launches
+    out = _bf16_vs_plain(
+        f"attention T{t} d{d}", lambda: attention_forward(q, k, v, mask, heads=heads),
+        lambda: attend(q, k, v, mask, heads),
+        lambda: attend(q.float(), k.float(), v.float(), mask, heads))
+    assert attention_forward.launches == before + 2 and t <= MAX_T
+    assert (out[2] == 0).all()
+
+
+def test_bf16_csp_backward_routes_a_tie_across_tiles(cuda):
+    """The bf16 twin of test_csp_backward_routes_a_tie_across_tiles: three
+    guide tokens of each row tie at the max (_csp_args ties tokens 3 and 5;
+    token 150 copies them, two 64-token tiles of the gate's scoring and a
+    128-token tile of the first design's away). The forward's gate and the
+    backward's rescoring score through one function on the tensor cores, so
+    the backward sees the tie the forward saw and splits the max's grad over
+    the three tokens: their guide grads are equal and non-zero; the forward
+    and every grad are held against their plain versions as the bf16
+    kernels are; two runs give the same bits."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import (csp_backward, csp_backward_reference,
+                                                       csp_reference, fused_csp)
+
+    gen = torch.Generator().manual_seed(22)   # the fp32 test's inputs, in bf16
+    args = _csp_args(gen, cuda, 3, 20, 128, 64, 200, 24, 4)
+    args[1][:, 150] = args[1][:, 3]
+    args[0], args[1] = args[0].bfloat16(), args[1].bfloat16()
+    f32 = [args[0].float(), args[1].float(), *args[2:]]
+    g = torch.randn(3, 20, 128, generator=gen).to(cuda, torch.bfloat16)
+    _bf16_vs_plain("csp_bf16 tie", lambda: fused_csp(*args, attn_heads=4),
+                   lambda: csp_reference(*args, attn_heads=4),
+                   lambda: csp_reference(*f32, attn_heads=4))
+    bump = _bump(args[0], args[2], gen)
+    got = _bf16_grads_vs_plain(
+        "csp_bwd_bf16 tie", lambda: csp_backward(*args, g=g, attn_heads=4),
+        lambda: csp_backward_reference(*args, g=g, attn_heads=4),
+        lambda: csp_backward_reference(*f32, g=g.float(), attn_heads=4),
+        lambda sign: csp_backward(bump(sign), *args[1:], g=g, attn_heads=4))
+    dguide = got[1]
+    assert (dguide[:, 3].float().abs().sum(1) > 0).all()
+    assert torch.equal(dguide[:, 3], dguide[:, 5]), "the tie was broken"
+    assert torch.equal(dguide[:, 3], dguide[:, 150]), "the tie was broken across tiles"
+
+
+@pytest.mark.parametrize("t,heads", [(7, 8), (20, 4)])
+def test_bf16_csp_forward_launch_budget(cuda, t, heads):
+    """One bf16 CSP forward launches at most 17 kernels (the weights' cast,
+    the main conv with guide_fc, four a MHCA, the projection conv, the gate,
+    the final conv), counted by torch.profiler after a warm-up profile. A
+    process that has profiled before may get a profile back without device
+    events; the count is taken from the first of up to four profiles that
+    has kernels, and a test whose profiles all come back empty fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
+
+    args = _bf16_csp_args(torch.Generator().manual_seed(55), cuda, 3, t, heads)
+    fused_csp(*args, attn_heads=heads)
+    rows = []
+    for attempt in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fused_csp(*args, attn_heads=heads)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
+                and not e.key.startswith(("Memcpy", "Memset"))]
+        if attempt and rows:   # the first profile is the warm-up
+            break
+    assert 0 < sum(c for _, c in rows) <= 17, rows
+
+
+@pytest.mark.parametrize("mid,heads", [(64, 16), (96, 8)])
+def test_bf16_csp_gate_head_widths_off_the_chunk(cuda, mid, heads):
+    """The bf16 gate at head widths 4 and 12 (not whole 16-byte chunks: the
+    scoring loads them value by value): the forward and every grad of the
+    backward against their plain versions as the bf16 kernels are held."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import (csp_backward, csp_backward_reference,
+                                                       csp_reference, fused_csp)
+
+    gen = torch.Generator().manual_seed(56)
+    args = _bf16_csp_args(gen, cuda, 3, 20, heads, mid=mid)
+    f32 = [args[0].float(), args[1].float(), *args[2:]]
+    g = torch.randn(3, 20, 128, generator=gen).to(cuda, torch.bfloat16)
+    _bf16_vs_plain(f"csp_bf16 hc{mid // heads}", lambda: fused_csp(*args, attn_heads=heads),
+                   lambda: csp_reference(*args, attn_heads=heads),
+                   lambda: csp_reference(*f32, attn_heads=heads))
+    bump = _bump(args[0], args[2], gen)
+    _bf16_grads_vs_plain(
+        f"csp_bwd_bf16 hc{mid // heads}", lambda: csp_backward(*args, g=g, attn_heads=heads),
+        lambda: csp_backward_reference(*args, g=g, attn_heads=heads),
+        lambda: csp_backward_reference(*f32, g=g.float(), attn_heads=heads),
+        lambda sign: csp_backward(bump(sign), *args[1:], g=g, attn_heads=heads))

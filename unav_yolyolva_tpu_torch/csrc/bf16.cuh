@@ -17,14 +17,26 @@
 //     cast to bf16 before it multiplies the bf16 projection;
 //   - the TransformerBlock's residual stream and branch multipliers are fp32;
 //     its LayerNorms store bf16, fc1's GELU takes and gives bf16.
-// Bound: operations. The product (gemm_bf16_kernel) runs
-// mma.sync.m16n8k16 bf16 with fp32 accumulation on the tensor cores: one mma
-// per 16-deep step, no hi/lo split, half the bytes of fp32 operands. It keeps
-// the 3xTF32 product's cp.async ring and its slice-from-zero sums (each
-// 32-deep slice of k summed from zero, then added to the fp32 total). The
-// attention (attn_bf16_kernel) runs both of its products on the same mma;
-// the dwconv + LayerNorm, the gate's scores and the TBlock's glue stay on the
-// FP32 pipes, as in the fp32 kernels. `wgmma` and TMA are later work.
+// Bound: operations (the products, the attention's two products and the
+// gate's scores run mma.sync.m16n8k16 bf16 with fp32 sums on the tensor
+// cores). The design, for this card:
+//   - the product (gemm_bf16_kernel): 128 x 128 tiles on 8 warps of 64 x 32
+//     (two blocks a SM) where the products fill the card, a four-stage
+//     cp.async ring read with ldmatrix, each 32-deep slice of k summed from
+//     zero in four registers a 16 x 8 tile and added to the fp32 total (so a
+//     warp holds one slice's fragments, not a second set of sums), the k=3
+//     conv taps read by the loader, up to four products a launch;
+//   - the attention (attn_bf16_kernel): no logits row in shared memory; a
+//     warp's 16 query rows stay as fragments in registers and the logits are
+//     recomputed on three passes over a cp.async ring of key and value tiles
+//     (max; the sums, in the order the backward takes them; P and P.V), 128
+//     queries a block up to d = 64 (each key tile read once for 8 warps);
+//   - the CSP gate's scores (gate_bf16_scores): a (64 frames x Ng) tile on
+//     the tensor cores, the projected guide streamed in 64-token tiles, the
+//     max and tie count in registers; the backward rescores through the same
+//     function.
+// The dwconv + LayerNorm and the TBlock's glue stay on the FP32 pipes.
+// `wgmma` and TMA are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +63,24 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8), as stored or transposed
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
 // d += a.b, m16n8k16, bf16 operands, fp32 sums. Fragments (g = lane / 4,
 // t = lane % 4): A a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3
 // (g+8, 2t+8..); B b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); C c0/c1 (g,
@@ -61,6 +91,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a.b + 0: the first 16-deep step of a slice summed from zero (the zero
+// accumulator a register of zeros, not four moves)
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
 // ---- fp32 weights -> bf16 scratch, once per call -----------------------------
@@ -165,16 +205,21 @@ static Bf16Gemm bf16_gemm(const bf16* A, long lda, const bf16* B, long ldb, void
 }
 
 constexpr int BG_BK = 32;            // k per ring stage (one summed slice)
-constexpr int BG_LDS = BG_BK + 8;    // bf16 a smem row: 80 bytes, conflict-free fragments
+constexpr int BG_LDS = BG_BK + 8;    // bf16 a smem row: 80 bytes, conflict-free ldmatrix
 
 // grid (ceil(N / BN), ceil(M / BM), count), WM x WN warps of (BM / WM) x
-// (BN / WN) outputs each. Rows of A and B sit n-major in the ring (32 k per
-// row, 16-byte chunks, neighbouring threads on neighbouring chunks).
-template <int BM, int BN, int WM, int WN, int STAGES>
-__global__ void __launch_bounds__(WM * WN * 32) gemm_bf16_kernel(const Bf16Batch batch) {
+// (BN / WN) outputs each. Rows of A and B sit n-major in a STAGES-deep
+// cp.async ring (32 k per row, 16-byte chunks, neighbouring threads on
+// neighbouring chunks) and are read with ldmatrix. A warp loads B's
+// fragments of a whole 32-deep slice, then, row tile by row tile, A's, and
+// sums each of its 16 x 8 tiles' slice from zero in four registers (two
+// mma) and adds it to the total: the first design's order, so every
+// product keeps its bits.
+template <int BM, int BN, int WM, int WN, int STAGES, int MINB>
+__global__ void __launch_bounds__(WM * WN * 32, MINB) gemm_bf16_kernel(const Bf16Batch batch) {
   constexpr int NT = WM * WN * 32, TM = BM / WM, TN = BN / WN, MI = TM / 16, NI = TN / 8;
   constexpr int ASZ = BM * BG_LDS, BSZ = BN * BG_LDS;
-  static_assert(TM % 16 == 0 && TN % 8 == 0 && (BM * 4) % NT == 0 && (BN * 4) % NT == 0,
+  static_assert(TM % 16 == 0 && TN % 16 == 0 && (BM * 4) % NT == 0 && (BN * 4) % NT == 0,
                 "tile shape");
   const Bf16Gemm p = batch.g[blockIdx.z];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -183,7 +228,7 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_bf16_kernel(const Bf16Batch
   bf16* As = reinterpret_cast<bf16*>(bg_smem);   // STAGES x ASZ
   bf16* Bs = As + STAGES * ASZ;                   // STAGES x BSZ
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WN, wn = warp % WN, i8 = lane >> 3, r8 = lane & 7;
   const int KT = (p.K + BG_BK - 1) / BG_BK;
 
   auto load = [&](int stage, int kt) {
@@ -230,41 +275,40 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_bf16_kernel(const Bf16Batch
     __syncthreads();   // stage kt landed for every thread; stage kt-1 is free
     if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
     cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * ASZ + (wm * TM + g) * BG_LDS + 2 * t4;
-    const bf16* bs = Bs + (kt % STAGES) * BSZ + (wn * TN + g) * BG_LDS + 2 * t4;
-    float part[MI][NI][4];
+    const bf16* as =
+        As + (kt % STAGES) * ASZ + (wm * TM + (lane & 15)) * BG_LDS + (lane >> 4) * 8;
+    const bf16* bs = Bs + (kt % STAGES) * BSZ + (wn * TN + r8 + (i8 >> 1) * 8) * BG_LDS +
+                     (i8 & 1) * 8;
+    uint32_t b[2][NI][2];   // B of the slice's two 16-deep steps
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+    for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
+      for (int jp = 0; jp < NI / 2; ++jp) {
+        uint32_t r[4];
+        ldsm4(r, bs + jp * 16 * BG_LDS + ks * 16);
+        b[ks][2 * jp][0] = r[0];
+        b[ks][2 * jp][1] = r[1];
+        b[ks][2 * jp + 1][0] = r[2];
+        b[ks][2 * jp + 1][1] = r[3];
+      }
 #pragma unroll
-        for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BG_BK; kk += 16) {
-      uint32_t b[NI][2];
+    for (int i = 0; i < MI; ++i) {
+      uint32_t a[2][4];     // A of row tile i, both steps
+      ldsm4(a[0], as + i * 16 * BG_LDS);
+      ldsm4(a[1], as + i * 16 * BG_LDS + 16);
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
-        const bf16* q = bs + j * 8 * BG_LDS + kk;
-        b[j][0] = ld32(q);
-        b[j][1] = ld32(q + 8);
-      }
+        float part[4];
+        mma_bf16_zero(part, a[0], b[0][j]);
+        mma_bf16(part, a[1], b[1][j]);
 #pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const bf16* q = as + i * 16 * BG_LDS + kk;
-        const uint32_t a[4] = {ld32(q), ld32(q + 8 * BG_LDS), ld32(q + 8), ld32(q + 8 * BG_LDS + 8)};
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_bf16(part[i][j], a, b[j]);
+        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[r];
       }
     }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
   }
   cp_async_wait<0>();
 
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -304,11 +348,11 @@ __global__ void __launch_bounds__(WM * WN * 32) gemm_bf16_kernel(const Bf16Batch
     }
 }
 
-template <int BM, int BN, int WM, int WN, int STAGES>
+template <int BM, int BN, int WM, int WN, int STAGES, int MINB>
 static int launch_gemm_bf16_tile(const Bf16Batch& batch, int count, int maxM, int maxN,
                                  cudaStream_t stream) {
   const int smem = STAGES * (BM + BN) * BG_LDS * (int)sizeof(bf16);
-  auto kernel = gemm_bf16_kernel<BM, BN, WM, WN, STAGES>;
+  auto kernel = gemm_bf16_kernel<BM, BN, WM, WN, STAGES, MINB>;
   static int limit = 0;
   raise_smem_limit((const void*)kernel, smem, limit);
   const dim3 grid(ceil_div(maxN, BN), ceil_div(maxM, BM), count);
@@ -332,9 +376,11 @@ static int gemm_bf16_refuses(const Bf16Gemm& p) {
   return 0;
 }
 
-// Launch `count` (<= BG_MAX_BATCH) products in one grid, with the block tile
-// chosen, as the fp32 product's, from the blocks it makes (2 x 132 or more
-// where it can).
+// Launch `count` (<= BG_MAX_BATCH) products in one grid: 128 x 128 tiles on
+// 8 warps of 64 x 32 (two blocks a SM, 128 registers a thread) where the
+// products make a wave of them, else 64 x 64 on 4 where they make two waves
+// of those, else 32 x 32 on 4; a four-stage ring each. The tile does not
+// change a sum's order.
 static int launch_gemm_bf16(const Bf16Batch& batch, int count, cudaStream_t stream) {
   if (count < 1 || count > BG_MAX_BATCH) return (int)cudaErrorInvalidValue;
   int maxM = 0, maxN = 0;
@@ -344,13 +390,15 @@ static int launch_gemm_bf16(const Bf16Batch& batch, int count, cudaStream_t stre
     if (const int rc = gemm_bf16_refuses(p)) return rc;
     maxM = std::max(maxM, p.M);
     maxN = std::max(maxN, p.N);
-    b128 += (long)ceil_div(p.M, 128) * ceil_div(p.N, 64);
+    b128 += (long)ceil_div(p.M, 128) * ceil_div(p.N, 128);
     b64 += (long)ceil_div(p.M, 64) * ceil_div(p.N, 64);
   }
   if (!maxM || !maxN) return 0;
-  if (b128 >= 2 * 132) return launch_gemm_bf16_tile<128, 64, 4, 2, 3>(batch, count, maxM, maxN, stream);
-  if (b64 >= 2 * 132) return launch_gemm_bf16_tile<64, 64, 2, 2, 4>(batch, count, maxM, maxN, stream);
-  return launch_gemm_bf16_tile<32, 32, 2, 2, 4>(batch, count, maxM, maxN, stream);
+  if (b128 >= 132)
+    return launch_gemm_bf16_tile<128, 128, 2, 4, 4, 2>(batch, count, maxM, maxN, stream);
+  if (b64 >= 2 * 132)
+    return launch_gemm_bf16_tile<64, 64, 2, 2, 4, 4>(batch, count, maxM, maxN, stream);
+  return launch_gemm_bf16_tile<32, 32, 2, 2, 4, 4>(batch, count, maxM, maxN, stream);
 }
 
 static int launch_gemm_bf16_one(const Bf16Gemm& g, cudaStream_t stream) {
@@ -406,191 +454,271 @@ __global__ void __launch_bounds__(256) dwconv_ln_bf16_kernel(
 
 // ---- the attention -------------------------------------------------------------
 
-constexpr int AB_QT = 64;   // queries a block (4 warps of 16 rows)
-constexpr int AB_KT = 64;   // keys of a key or value tile
+constexpr int AB_KT = 64;       // keys of a key or value tile
+constexpr int AB_STAGES = 3;    // slots of the key / value ring
+constexpr int AB_EW = AB_KT + 8;  // a staged row of a tile's e values (floats)
+// warps a block at head width dp and sequence length T, each with 16 query
+// rows: one for T <= 16; else 8 (128 queries, each key tile read once for
+// twice the rows) up to d=64 where T > 64, and 4 otherwise (d=128 needs
+// twice the registers a thread)
+static int ab_warps(int dp, int T) { return T <= 16 ? 1 : dp <= 64 && T > 64 ? 8 : 4; }
+// blocks a SM the registers must allow (128 registers a thread at 8 warps,
+// and at 4 up to d=64)
+__host__ __device__ constexpr int ab_min_blocks(int dp, int nw) {
+  return nw == 8 ? 2 : nw == 4 ? (dp <= 64 ? 4 : 2) : 8;
+}
 
-// grid (ceil(T / 64), H, R), 128 threads; DP the head width d rounded up to
-// 16 (dims past d zero-filled). Warp w owns query rows 16w .. 16w+15 of the
-// block's tile; its logits against all T keys (fp32, masked keys -FLT_MAX)
-// stay in shared memory, its softmax runs on its own rows and writes P =
-// bf16(exp(s - max) / sum) over the start of each logits row, and P.V sums
-// in fp32 over the value tiles, each 32 keys from zero. Keys, then values,
-// stream through a two-slot cp.async ring of 64-key tiles. A row (sequence)
-// without a valid key writes exactly 0. Shared memory: the query tile (64 x
-// DP+8 bf16), the ring (2 x 64 x DP+8 bf16), the logits (64 x T64+4 fp32,
-// T64 = T rounded up to 64) and the 64 row maxima.
+// A warp's 16 x 8 tile of A.B^T on the tensor cores: A's 16 rows in
+// registers (fragments af, DP wide), B's 8 rows j*8 .. j*8+7 of a shared
+// tile bt (rows of DP + 8 bf16, dims past the operands' width zero), each
+// 32-deep slice of the sum from zero and the slices added in order. s: rows
+// g (0, 1) and g + 8 (2, 3), columns 2 t4, 2 t4 + 1. The attention's logits
+// (as the backward, bf16_bwd.cuh, recomputes them) and the gate's scores.
 template <int DP>
-__global__ void __launch_bounds__(128) attn_bf16_kernel(
+__device__ __forceinline__ void scores_16x8(float (&s)[4], const uint32_t (&af)[DP / 16][4],
+                                            const bf16* bt, int j, int lane) {
+  constexpr int RS = DP + 8;
+  s[0] = s[1] = s[2] = s[3] = 0.f;
+#pragma unroll
+  for (int c0 = 0; c0 < DP; c0 += 32) {
+    float part[4];
+    uint32_t b[4] = {0u, 0u, 0u, 0u};
+    if (DP >= 32) {   // (lo, hi) of the 16-deep steps at c0 and c0 + 16
+      ldsm4(b, bt + (j * 8 + (lane & 7)) * RS + c0 + (lane >> 3) * 8);
+    } else {
+      const bf16* p = bt + (j * 8 + (lane >> 2)) * RS + 2 * (lane & 3);
+      b[0] = ld32(p);
+      b[1] = ld32(p + 8);
+    }
+    const uint32_t b01[2] = {b[0], b[1]}, b23[2] = {b[2], b[3]};
+    mma_bf16_zero(part, af[c0 / 16], b01);
+    if (c0 + 16 < DP) mma_bf16(part, af[c0 + 16 < DP ? c0 / 16 + 1 : c0 / 16], b23);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] += part[e];
+  }
+}
+
+// A warp's A fragments of 16 shared rows (row stride RS), DP wide
+template <int DP>
+__device__ __forceinline__ void load_afrags(uint32_t (&af)[DP / 16][4], const bf16* rows, int rs,
+                                            int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DP; kk += 16)
+    ldsm4(af[kk / 16], rows + (lane & 15) * rs + kk + (lane >> 4) * 8);
+}
+
+// grid (ceil(T / QT), H, R), QT = 16 NW queries a block of NW warps
+// (ab_warps); DP the head width d rounded up to 16 (dims past d
+// zero-filled). Warp w owns query rows 16w .. 16w+15 of the
+// block's tile and keeps their Q fragments in registers; no logits row is
+// stored. Key tiles, then key and value tiles, stream through a three-slot
+// cp.async ring of 64-key tiles, read with ldmatrix (.trans for V); the
+// logits are recomputed from the fragments on each of three passes:
+//   (a) the row max (masked keys -FLT_MAX), then across the quad;
+//   (b) e = exp(s - max) (0 for a masked or padded key), each tile's e
+//       staged in the warp's 16 x 64 fp32 buffer, lane l adding keys l and
+//       l + 32 of the tile to its partial sum of each row: over the tiles
+//       keys l + 32 jj in jj order, then warp_sum, as the backward sums;
+//   (c) P = bf16(e / sum) packed from the C fragments into P.V's A
+//       fragments, P.V summed in fp32 over each 32 keys from zero.
+// So P, its sum and P.V are the one-row-a-warp design's to the bit. Eight
+// keys that are all masked or padded skip their logits (their e and P are
+// exact zeros: max and sums do not move). A row (sequence) without a valid
+// key writes exactly 0. Shared memory: the ring (3 x 64 x DP+8 bf16), the
+// warps' e buffers (16 x 72 fp32 each, a warp's query rows staged there
+// first) and the key flags: 63.3 KiB at d=64 and 8 warps, 69.3 KiB at d=128
+// and 4 (T=224; two blocks a SM).
+template <int DP, int NW>
+__global__ void __launch_bounds__(32 * NW, ab_min_blocks(DP, NW)) attn_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const unsigned char* __restrict__ mask, int T, int C, int H, bf16* __restrict__ out) {
-  constexpr int RS = DP + 8, TILE = AB_KT * RS, CH = DP / 8;
+  constexpr int RS = DP + 8, TILE = AB_KT * RS, CH = DP / 8, EB = 16 * AB_EW;
+  constexpr int NT = 32 * NW, QT = 16 * NW;
+  static_assert(16 * RS * 2 <= EB * 4, "a warp's query rows fit its e buffer");
   extern __shared__ __align__(16) unsigned char ab_smem[];
-  const int d = C / H, T64 = (T + AB_KT - 1) / AB_KT * AB_KT, SP = T64 + 4, nkt = T64 / AB_KT;
-  bf16* Qs = reinterpret_cast<bf16*>(ab_smem);             // AB_QT x RS
-  bf16* ring = Qs + AB_QT * RS;                            // 2 x TILE
-  float* S = reinterpret_cast<float*>(ring + 2 * TILE);    // AB_QT x SP
-  float* rowmax = S + AB_QT * SP;                          // AB_QT
-  const bf16* Pb = reinterpret_cast<const bf16*>(S);       // P row r at Pb + r * 2 * SP
-  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AB_QT;
+  bf16* ring = reinterpret_cast<bf16*>(ab_smem);                        // AB_STAGES x TILE
+  float* ebuf = reinterpret_cast<float*>(ring + AB_STAGES * TILE);      // NW x EB
+  const int d = C / H, nkt = (T + AB_KT - 1) / AB_KT, T64 = nkt * AB_KT, nu = 4 * nkt;
+  unsigned char* km = reinterpret_cast<unsigned char*>(ebuf + NW * EB);  // T64 key flags
+  unsigned char* k8 = km + T64;   // T64 / 8 flags: an n8 tile of keys has a valid key
+  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const unsigned char* mrow = mask + (long)r * T;
   const long base = (long)r * T * C + (long)h * d;
+  float* eb = ebuf + warp * EB;
+  const bool live = q0 + warp * 16 < T;   // the warp has a query row
 
   int any = 0;
-  for (int i = tid; i < T; i += 128) any |= mrow[i];
+  for (int i = tid; i < T64; i += NT) {
+    const unsigned char f = i < T && mrow[i];
+    km[i] = f;
+    any |= f;
+  }
+  for (int j = tid; j < T64 / 8; j += NT) {
+    unsigned char f = 0;
+    for (int i = 8 * j; i < 8 * j + 8; ++i) f |= i < T && mrow[i];
+    k8[j] = f;
+  }
   if (!__syncthreads_or(any)) {
     // no valid key in this row: the reference's output is exactly 0
-    for (int e = tid; e < AB_QT * d; e += 128) {
+    for (int e = tid; e < QT * d; e += NT) {
       const int i = e / d, dd = e - i * d;
       if (q0 + i < T) out[base + (long)(q0 + i) * C + dd] = rb(0.f);
     }
     return;
   }
 
-  // ring tile i: the keys of key tile i (i < nkt), else the values of tile i - nkt
-  auto load_tile = [&](int i) {
-    const bool isv = i >= nkt;
-    const int key0 = (isv ? i - nkt : i) * AB_KT;
+  // ring item u: key tile u (pass a), key tile u - nkt (pass b), then key
+  // and value tiles in turn (pass c)
+  auto load_item = [&](int u) {
+    const int w = u - 2 * nkt;
+    const bool isv = w >= 0 && (w & 1);
+    const int key0 = (u < nkt ? u : w < 0 ? u - nkt : w >> 1) * AB_KT;
     const bf16* src = isv ? v : k;
-    bf16* dst = ring + (i & 1) * TILE;
-    for (int e = tid; e < AB_KT * CH; e += 128) {
+    bf16* dst = ring + (u % AB_STAGES) * TILE;
+    for (int e = tid; e < AB_KT * CH; e += NT) {
       const int row = e / CH, c = (e - row * CH) * 8, key = key0 + row;
       const bool ok = key < T && c < d;
       cp_async16b(dst + row * RS + c, ok ? src + base + (long)key * C + c : src, ok);
     }
   };
-  for (int e = tid; e < AB_QT * CH; e += 128) {
+  // warp w's query rows go to the start of its e buffer (read before pass b)
+  for (int e = tid; e < QT * CH; e += NT) {
     const int row = e / CH, c = (e - row * CH) * 8;
     const bool ok = q0 + row < T && c < d;
-    cp_async16b(Qs + row * RS + c, ok ? q + base + (long)(q0 + row) * C + c : q, ok);
+    bf16* dst = reinterpret_cast<bf16*>(ebuf + (row >> 4) * EB) + (row & 15) * RS + c;
+    cp_async16b(dst, ok ? q + base + (long)(q0 + row) * C + c : q, ok);
   }
-  load_tile(0);
-  cp_async_commit();
-
-  const int wr = warp * 16;
-  float rmax[2] = {-FLT_MAX, -FLT_MAX};   // rows g and g+8, over this lane's keys
-  uint32_t qf[DP / 16][4];
-  for (int i = 0; i < nkt; ++i) {
-    if (i + 1 < 2 * nkt) load_tile(i + 1);
+#pragma unroll
+  for (int s = 0; s < AB_STAGES - 1; ++s) {
+    if (s < nu) load_item(s);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // tile i (and the queries) landed
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        const bf16* p = Qs + (wr + g) * RS + kk + 2 * t4;
-        qf[kk / 16][0] = ld32(p);
-        qf[kk / 16][1] = ld32(p + 8 * RS);
-        qf[kk / 16][2] = ld32(p + 8);
-        qf[kk / 16][3] = ld32(p + 8 * RS + 8);
-      }
-    }
-    const bf16* ks = ring + (i & 1) * TILE;
-#pragma unroll
-    for (int j = 0; j < AB_KT / 8; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int c0 = 0; c0 < DP; c0 += 32) {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = c0; kk < c0 + 32 && kk < DP; kk += 16) {
-          const bf16* p = ks + (j * 8 + g) * RS + kk + 2 * t4;
-          const uint32_t b[2] = {ld32(p), ld32(p + 8)};
-          mma_bf16(part, qf[kk / 16], b);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[e] += part[e];
-      }
-      const int key = i * AB_KT + j * 8 + 2 * t4;
-      const bool ok0 = key < T && mrow[key], ok1 = key + 1 < T && mrow[key + 1];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float v0 = ok0 ? s[2 * hh] : -FLT_MAX, v1 = ok1 ? s[2 * hh + 1] : -FLT_MAX;
-        *reinterpret_cast<float2*>(S + (wr + g + 8 * hh) * SP + key) = make_float2(v0, v1);
-        rmax[hh] = fmaxf(rmax[hh], fmaxf(v0, v1));
-      }
-    }
-    __syncthreads();   // every warp is done with tile i: its slot may be refilled
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    rmax[hh] = fmaxf(rmax[hh], __shfl_xor_sync(0xffffffffu, rmax[hh], 1));
-    rmax[hh] = fmaxf(rmax[hh], __shfl_xor_sync(0xffffffffu, rmax[hh], 2));
-    if (t4 == 0) rowmax[wr + g + 8 * hh] = rmax[hh];
-  }
-  __syncwarp();
-
-  // the warp's 16 rows: P = bf16(exp(s - max) / sum), written over the start
-  // of the row once the whole row is in registers (T64 <= 512: 16 a lane)
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = wr + rr;
-    const float* srow = S + row * SP;
-    const float mx = rowmax[row];
-    float e[16];
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const int j = lane + 32 * jj;
-      e[jj] = j < T64 ? expf(srow[j] - mx) : 0.f;
-      sum += e[jj];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(S + row * SP);
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j < T64) prow[j] = rb(e[jj] / sum);
-    }
-    __syncwarp();
   }
 
+  uint32_t qf[DP / 16][4];
+  float rmax[2] = {-FLT_MAX, -FLT_MAX};   // rows g and g + 8
+  float psum[16];                          // this lane's partial sum of each row
+#pragma unroll
+  for (int i = 0; i < 16; ++i) psum[i] = 0.f;
+  float sum[2] = {1.f, 1.f};
+  uint32_t pf[AB_KT / 16][4];               // bf16(P) of a key tile: P.V's A fragments
   float o[DP / 8][4];
 #pragma unroll
   for (int jn = 0; jn < DP / 8; ++jn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[jn][e] = 0.f;
-  for (int i = nkt; i < 2 * nkt; ++i) {
-    if (i + 1 < 2 * nkt) load_tile(i + 1);
+
+  for (int u = 0; u < nu; ++u) {
+    cp_async_wait<AB_STAGES - 2>();
+    __syncthreads();   // item u (and the queries) landed; slot u - 1 is free
+    if (u + AB_STAGES - 1 < nu) load_item(u + AB_STAGES - 1);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // value tile i - nkt landed
-    const bf16* vs = ring + (i & 1) * TILE;
-    const int key0 = (i - nkt) * AB_KT;
+    if (!live) continue;
+    const bf16* tile = ring + (u % AB_STAGES) * TILE;
+    if (u == 0) load_afrags<DP>(qf, reinterpret_cast<const bf16*>(eb), RS, lane);
+    if (u < nkt) {                        // (a) the row max
 #pragma unroll
-    for (int c0 = 0; c0 < AB_KT; c0 += 32) {
-      float part[DP / 8][4];
+      for (int j = 0; j < AB_KT / 8; ++j) {
+        if (!k8[u * (AB_KT / 8) + j]) continue;   // eight masked keys: -FLT_MAX
+        float s[4];
+        scores_16x8<DP>(s, qf, tile, j, lane);
+        const int key = u * AB_KT + j * 8 + 2 * t4;
+        const bool f0 = km[key], f1 = km[key + 1];
 #pragma unroll
-      for (int jn = 0; jn < DP / 8; ++jn)
+        for (int hh = 0; hh < 2; ++hh)
+          rmax[hh] = fmaxf(rmax[hh],
+                           fmaxf(f0 ? s[2 * hh] : -FLT_MAX, f1 ? s[2 * hh + 1] : -FLT_MAX));
+      }
+      if (u == nkt - 1) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[jn][e] = 0.f;
-#pragma unroll
-      for (int kk = c0; kk < c0 + 32; kk += 16) {
-        const bf16* p = Pb + (long)(wr + g) * 2 * SP + key0 + kk + 2 * t4;
-        const uint32_t a[4] = {ld32(p), ld32(p + 16 * SP), ld32(p + 8), ld32(p + 16 * SP + 8)};
-        const bf16* vrow = vs + (kk + (lane & 15)) * RS;
-#pragma unroll
-        for (int jn = 0; jn < DP / 8; ++jn) {
-          uint32_t b[2];
-          const unsigned addr = (unsigned)__cvta_generic_to_shared(vrow + jn * 8);
-          asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                       : "=r"(b[0]), "=r"(b[1])
-                       : "r"(addr));
-          mma_bf16(part[jn], a, b);
+        for (int hh = 0; hh < 2; ++hh) {
+          rmax[hh] = fmaxf(rmax[hh], __shfl_xor_sync(0xffffffffu, rmax[hh], 1));
+          rmax[hh] = fmaxf(rmax[hh], __shfl_xor_sync(0xffffffffu, rmax[hh], 2));
         }
       }
+    } else if (u < 2 * nkt) {             // (b) the sums, in the backward's order
+      const int key0 = (u - nkt) * AB_KT;
 #pragma unroll
-      for (int jn = 0; jn < DP / 8; ++jn)
+      for (int j = 0; j < AB_KT / 8; ++j) {
+        const int kl = j * 8 + 2 * t4;
+        if (!k8[key0 / 8 + j]) {             // eight masked keys: e = 0
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[jn][e] += part[jn][e];
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(eb + (g + 8 * hh) * AB_EW + kl) = make_float2(0.f, 0.f);
+          continue;
+        }
+        float s[4];
+        scores_16x8<DP>(s, qf, tile, j, lane);
+        const bool f0 = km[key0 + kl], f1 = km[key0 + kl + 1];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(eb + (g + 8 * hh) * AB_EW + kl) =
+              make_float2(f0 ? expf(s[2 * hh] - rmax[hh]) : 0.f,
+                          f1 ? expf(s[2 * hh + 1] - rmax[hh]) : 0.f);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        psum[i] += eb[i * AB_EW + lane];
+        psum[i] += eb[i * AB_EW + lane + 32];
+      }
+      __syncwarp();   // the buffer is read before the next tile's e
+      if (u == 2 * nkt - 1) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float tot = warp_sum(psum[i]);
+          if (i == g) sum[0] = tot;
+          if (i == g + 8) sum[1] = tot;
+        }
+      }
+    } else if (!((u - 2 * nkt) & 1)) {    // (c) P of key tile (u - 2 nkt) / 2
+      const int key0 = ((u - 2 * nkt) >> 1) * AB_KT;
+#pragma unroll
+      for (int j = 0; j < AB_KT / 8; ++j) {
+        if (!k8[key0 / 8 + j]) {             // eight masked keys: P = 0
+          pf[j >> 1][(j & 1) * 2] = pf[j >> 1][(j & 1) * 2 + 1] = 0u;
+          continue;
+        }
+        float s[4];
+        scores_16x8<DP>(s, qf, tile, j, lane);
+        const int key = key0 + j * 8 + 2 * t4;
+        const bool f0 = km[key], f1 = km[key + 1];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(
+              f0 ? expf(s[2 * hh] - rmax[hh]) / sum[hh] : 0.f,
+              f1 ? expf(s[2 * hh + 1] - rmax[hh]) / sum[hh] : 0.f);
+          pf[j >> 1][(j & 1) * 2 + hh] = *reinterpret_cast<const uint32_t*>(&p2);
+        }
+      }
+    } else {                              // (c) P.V over the value tile
+      const int i8 = lane >> 3, r8 = lane & 7;
+#pragma unroll
+      for (int c0 = 0; c0 < AB_KT; c0 += 32) {
+#pragma unroll
+        for (int jn = 0; jn < DP / 8; jn += 2) {
+          uint32_t b0[4], b1[4];   // (jn lo, jn hi, jn+1 lo, jn+1 hi) at keys c0, c0 + 16
+          ldsm4t(b0, tile + (c0 + r8 + (i8 & 1) * 8) * RS + jn * 8 + (i8 >> 1) * 8);
+          ldsm4t(b1, tile + (c0 + 16 + r8 + (i8 & 1) * 8) * RS + jn * 8 + (i8 >> 1) * 8);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            float part[4];
+            const uint32_t lo[2] = {b0[2 * x], b0[2 * x + 1]}, hi[2] = {b1[2 * x], b1[2 * x + 1]};
+            mma_bf16_zero(part, pf[c0 / 16], lo);
+            mma_bf16(part, pf[c0 / 16 + 1], hi);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[jn + x][e] += part[e];
+          }
+        }
+      }
     }
-    __syncthreads();   // every warp is done with this slot
   }
   cp_async_wait<0>();
+  if (!live) return;
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int qrow = q0 + wr + g + 8 * hh;
+    const int qrow = q0 + warp * 16 + g + 8 * hh;
     if (qrow >= T) continue;
     bf16* orow = out + base + (long)qrow * C;
 #pragma unroll
@@ -603,33 +731,54 @@ __global__ void __launch_bounds__(128) attn_bf16_kernel(
   }
 }
 
+static size_t attn_bf16_smem(int dp, int nw, int T) {
+  return sizeof(bf16) * (size_t)AB_STAGES * AB_KT * (dp + 8) +
+         sizeof(float) * (size_t)nw * 16 * AB_EW + (size_t)ceil_div(T, AB_KT) * AB_KT * 9 / 8;
+}
+
+// blocks, where given: no launch; *blocks gets the instantiation's resident
+// blocks a SM at this shape
+template <int DP, int NW>
+static int launch_attn_bf16_nw(const bf16* q, const bf16* k, const bf16* v,
+                               const unsigned char* mask, int R, int T, int C, int H, bf16* out,
+                               cudaStream_t stream, int* blocks) {
+  const size_t smem = attn_bf16_smem(DP, NW, T);
+  auto kernel = attn_bf16_kernel<DP, NW>;
+  static int limit = 0;
+  raise_smem_limit((const void*)kernel, (int)smem, limit);
+  if (blocks)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 32 * NW, smem);
+  kernel<<<dim3(ceil_div(T, 16 * NW), H, R), 32 * NW, smem, stream>>>(q, k, v, mask, T, C, H,
+                                                                      out);
+  UNAV_RETURN_IF_ERROR();
+  return 0;
+}
+
 template <int DP>
 static int launch_attn_bf16_dp(const bf16* q, const bf16* k, const bf16* v,
                                const unsigned char* mask, int R, int T, int C, int H, bf16* out,
-                               cudaStream_t stream) {
-  const int T64 = ceil_div(T, AB_KT) * AB_KT;
-  const size_t smem = sizeof(bf16) * (size_t)3 * AB_QT * (DP + 8) +
-                      sizeof(float) * ((size_t)AB_QT * (T64 + 4) + AB_QT);
-  static int limit = 0;
-  raise_smem_limit((const void*)attn_bf16_kernel<DP>, (int)smem, limit);
-  const dim3 grid(ceil_div(T, AB_QT), H, R);
-  attn_bf16_kernel<DP><<<grid, 128, smem, stream>>>(q, k, v, mask, T, C, H, out);
-  UNAV_RETURN_IF_ERROR();
-  return 0;
+                               cudaStream_t stream, int* blocks) {
+  switch (ab_warps(DP, T)) {
+    case 1: return launch_attn_bf16_nw<DP, 1>(q, k, v, mask, R, T, C, H, out, stream, blocks);
+    case 4: return launch_attn_bf16_nw<DP, 4>(q, k, v, mask, R, T, C, H, out, stream, blocks);
+    default:
+      return launch_attn_bf16_nw<DP, DP <= 64 ? 8 : 4>(q, k, v, mask, R, T, C, H, out, stream,
+                                                       blocks);
+  }
 }
 
 // q (scaled), k, v, out: (R*T, C) bf16; T <= 512, head width d a multiple of
 // 8 up to 128
 static int launch_attn_bf16(const bf16* q, const bf16* k, const bf16* v,
                             const unsigned char* mask, int R, int T, int C, int H, bf16* out,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, int* blocks = nullptr) {
   const int d = C / H;
   if (d % 8 || C % 8) return (int)cudaErrorMisalignedAddress;
   if (T > 8 * AB_KT) return (int)cudaErrorInvalidValue;
-  if (d <= 16) return launch_attn_bf16_dp<16>(q, k, v, mask, R, T, C, H, out, stream);
-  if (d <= 32) return launch_attn_bf16_dp<32>(q, k, v, mask, R, T, C, H, out, stream);
-  if (d <= 64) return launch_attn_bf16_dp<64>(q, k, v, mask, R, T, C, H, out, stream);
-  if (d <= 128) return launch_attn_bf16_dp<128>(q, k, v, mask, R, T, C, H, out, stream);
+  if (d <= 16) return launch_attn_bf16_dp<16>(q, k, v, mask, R, T, C, H, out, stream, blocks);
+  if (d <= 32) return launch_attn_bf16_dp<32>(q, k, v, mask, R, T, C, H, out, stream, blocks);
+  if (d <= 64) return launch_attn_bf16_dp<64>(q, k, v, mask, R, T, C, H, out, stream, blocks);
+  if (d <= 128) return launch_attn_bf16_dp<128>(q, k, v, mask, R, T, C, H, out, stream, blocks);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -685,59 +834,180 @@ static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long
 
 // ---- the CSP gate -------------------------------------------------------------------
 
-// gate_kernel<false> (csp.cuh) on bf16 operands: scores summed in fp32 FFMA
-// over bf16 values, max and sigmoid fp32, the gate rounded to bf16 and
-// multiplied into the bf16 projection (slice 5) in place, rounded.
-__global__ void __launch_bounds__(256) gate_bf16_kernel(
-    const bf16* __restrict__ p, long ldp, const bf16* __restrict__ gp,
-    const float* __restrict__ battn, int T, int Ng, int emb, int H, float sqrt_hc,
-    bf16* __restrict__ dst, long ldd, int och) {
-  extern __shared__ float gsm[];
-  const int hc = emb / H, hp = hc + 1;
-  float* Ps = gsm;                 // GATE_T x hp
-  float* Gs = gsm + GATE_T * hp;   // GATE_N x hp
-  const int r = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * GATE_T;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+constexpr int GB_T = 64;       // frames a gate block (4 warps of 16)
+constexpr int GB_N = 64;       // guide tokens a ring tile
+constexpr int GB_STAGES = 3;   // slots of the token ring
 
-  for (int e = tid; e < GATE_T * hc; e += 256) {
-    const int i = e / hc, c = e - i * hc, t = t0 + i;
-    Ps[i * hp + c] = t < T ? bf(p[((long)r * T + t) * ldp + h * hc + c]) : 0.f;
-  }
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int n0 = 0; n0 < Ng; n0 += GATE_N) {
-    __syncthreads();
-    for (int e = tid; e < GATE_N * hc; e += 256) {
-      const int i = e / hc, c = e - i * hc, n = n0 + i;
-      Gs[i * hp + c] = n < Ng ? bf(gp[((long)r * Ng + n) * emb + h * hc + c]) : 0.f;
+// shared bytes of a gate block: its frames' rows and the token ring, HP + 8
+// bf16 a row
+static size_t gate_bf16_smem(int hp) {
+  return sizeof(bf16) * (size_t)(GB_T + GB_STAGES * GB_N) * (hp + 8);
+}
+
+// The max-sigmoid gate's scores of the 64 frames t0 .. t0+63 (t0 = 64
+// blockIdx.x) of sequence r = blockIdx.z under head h = blockIdx.y, on the
+// bf16 tensor cores: s(t, n) = sum over the head's hc channels of p(t, c)
+// gp(n, c), p slice 4 of the concat (row stride ldp), gp the projected
+// guide (R, Ng, emb); the fp32 sums in 32-deep slices from zero, added in
+// order (scores_16x8; HP = hc rounded up to 16, zero-filled; a head width
+// that is not a multiple of 8 is loaded value by value). The products
+// of bf16 values are exact in fp32, as in the JAX body's einsum with
+// preferred_element_type f32. Warp w's frames stay as A fragments in
+// registers; 64-token tiles of gp stream through a cp.async ring. Every
+// score of a frame t < T goes to visit(t, n, s); the frames t0 + 16w + g
+// and + 8 get their max over the Ng tokens and how many tokens reach it (mx,
+// cnt [0] and [1], on every lane of the frame's quad). The forward
+// (gate_bf16_kernel) and the backward's rescoring
+// (csp_bwd_bf16.cu:gate_scores_bf16_kernel) both score through it, so the
+// backward's scores, max and ties are the forward's to the bit. 128 threads,
+// gate_bf16_smem(HP) bytes of shared memory at smem.
+template <int HP, class Visit>
+__device__ __forceinline__ void gate_bf16_scores(bf16* smem, const bf16* __restrict__ p, long ldp,
+                                                 const bf16* __restrict__ gp, int T, int Ng,
+                                                 int emb, int H, Visit visit, float (&mx)[2],
+                                                 int (&cnt)[2]) {
+  constexpr int RS = HP + 8, TILE = GB_N * RS, CH = HP / 8;
+  const int hc = emb / H, r = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * GB_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int nt = (Ng + GB_N - 1) / GB_N;
+  const bool live = t0 + warp * 16 < T;
+  bf16* Ps = smem;                 // GB_T x RS
+  bf16* ring = smem + GB_T * RS;   // GB_STAGES x TILE
+  const bf16* gh = gp + (long)r * Ng * emb + h * hc;
+  // 8 channels of a row (zeros past hc and past the rows): one cp.async where
+  // the head's rows start on 16 bytes, else value by value
+  auto chunk = [&](bf16* dst, const bf16* src, bool ok, int c) {
+    if (hc % 8 == 0) {
+      cp_async16b(dst, ok ? src : p, ok);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) dst[q] = ok && c + q < hc ? src[q] : rb(0.f);
     }
-    __syncthreads();
-    float acc[4][4] = {};
-    for (int c = 0; c < hc; ++c) {
-      float pv[4], gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(warp * 4 + i) * hp + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = Gs[(lane + 32 * j) * hp + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], gv[j], acc[i][j]);
+  };
+  auto load_tile = [&](int i) {
+    bf16* dst = ring + (i % GB_STAGES) * TILE;
+    for (int e = tid; e < GB_N * CH; e += 128) {
+      const int row = e / CH, c = (e - row * CH) * 8, n = i * GB_N + row;
+      chunk(dst + row * RS + c, gh + (long)n * emb + c, n < Ng && c < hc, c);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (n0 + lane + 32 * j < Ng)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i] = fmaxf(mx[i], acc[i][j]);
+  };
+  for (int e = tid; e < GB_T * CH; e += 128) {
+    const int row = e / CH, c = (e - row * CH) * 8, t = t0 + row;
+    chunk(Ps + row * RS + c, p + ((long)r * T + t) * ldp + h * hc + c, t < T && c < hc, c);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float m = warp_max(mx[i]);
-    const int t = t0 + warp * 4 + i;
+  for (int s = 0; s < GB_STAGES - 1; ++s) {
+    if (s < nt) load_tile(s);
+    cp_async_commit();
+  }
+  mx[0] = mx[1] = -INFINITY;
+  cnt[0] = cnt[1] = 0;
+  uint32_t pf[HP / 16][4];
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();   // tile i (and the frames) landed; slot i - 1 is free
+    if (i + GB_STAGES - 1 < nt) load_tile(i + GB_STAGES - 1);
+    cp_async_commit();
+    if (!live) continue;
+    if (i == 0) load_afrags<HP>(pf, Ps + warp * 16 * RS, RS, lane);
+    const bf16* tile = ring + (i % GB_STAGES) * TILE;
+#pragma unroll
+    for (int j = 0; j < GB_N / 8; ++j) {
+      float s[4];
+      scores_16x8<HP>(s, pf, tile, j, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = i * GB_N + j * 8 + 2 * t4 + (e & 1), hh = e >> 1;
+        const int t = t0 + warp * 16 + g + 8 * hh;
+        if (n >= Ng) continue;
+        if (t < T) visit(t, n, s[e]);
+        if (s[e] > mx[hh]) {
+          mx[hh] = s[e];
+          cnt[hh] = 1;
+        } else if (s[e] == mx[hh]) {
+          ++cnt[hh];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {   // the frame's quad
+      const float om = __shfl_xor_sync(0xffffffffu, mx[hh], off);
+      const int oc = __shfl_xor_sync(0xffffffffu, cnt[hh], off);
+      if (om > mx[hh]) {
+        mx[hh] = om;
+        cnt[hh] = oc;
+      } else if (om == mx[hh]) {
+        cnt[hh] += oc;
+      }
+    }
+}
+
+// frame t of this thread's quad (hh: row g or g + 8 of its warp) in a gate
+// block
+__device__ __forceinline__ int gate_frame(int hh) {
+  return blockIdx.x * GB_T + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2) + 8 * hh;
+}
+
+// dst[j] = bf16(src[j] * gate) over a head's och channels, the four lanes
+// of a quad in turn: in pairs where och is even (the callers' rows then
+// start on 4 bytes), else value by value
+__device__ __forceinline__ void gate_bf16_rows(const bf16* src, bf16* dst, int och, float gate) {
+  const int q = threadIdx.x & 3;
+  if (och % 2) {
+    for (int j = q; j < och; j += 4) dst[j] = rb(bf(src[j]) * gate);
+    return;
+  }
+  for (int j = 2 * q; j < och; j += 8) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(src + j);
+    *reinterpret_cast<__nv_bfloat162*>(dst + j) =
+        __floats2bfloat162_rn(bf(x.x) * gate, bf(x.y) * gate);
+  }
+}
+
+// The forward's gate: scores (gate_bf16_scores), max, then gate = bf16(
+// sigmoid(max / sqrt(hc) + battn[h])) in fp32, multiplied into the bf16
+// projection (slice 5, row stride ldd, och channels a head) in place,
+// rounded. grid (ceil(T / 64), H, R), 128 threads.
+template <int HP>
+__global__ void __launch_bounds__(128) gate_bf16_kernel(
+    const bf16* __restrict__ p, long ldp, const bf16* __restrict__ gp,
+    const float* __restrict__ battn, int T, int Ng, int emb, int H, float sqrt_hc, bf16* dst,
+    long ldd, int och) {
+  extern __shared__ __align__(16) unsigned char gb_smem[];
+  float mx[2];
+  int cnt[2];
+  gate_bf16_scores<HP>(reinterpret_cast<bf16*>(gb_smem), p, ldp, gp, T, Ng, emb, H,
+                       [](int, int, float) {}, mx, cnt);
+  const int r = blockIdx.z, h = blockIdx.y;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = gate_frame(hh);
     if (t >= T) continue;
-    const float gate = rbf(1.f / (1.f + expf(-(m / sqrt_hc + battn[h]))));
+    const float gate = rbf(1.f / (1.f + expf(-(mx[hh] / sqrt_hc + battn[h]))));
     bf16* row = dst + ((long)r * T + t) * ldd + h * och;
-    for (int j = lane; j < och; j += 32) row[j] = rb(bf(row[j]) * gate);
+    gate_bf16_rows(row, row, och, gate);
   }
+}
+
+// Calls f(std::integral_constant<int, HP>{}) with the gate's head width hc
+// (up to 128) rounded up to 16.
+template <class F>
+static int with_gate_hp(int hc, F f) {
+  if (hc < 1 || hc > 128) return (int)cudaErrorInvalidValue;
+  if (hc <= 16)
+    f(std::integral_constant<int, 16>{});
+  else if (hc <= 32)
+    f(std::integral_constant<int, 32>{});
+  else if (hc <= 64)
+    f(std::integral_constant<int, 64>{});
+  else
+    f(std::integral_constant<int, 128>{});
+  UNAV_RETURN_IF_ERROR();
+  return 0;
 }
 
 // ---- the TransformerBlock's glue ----------------------------------------------

@@ -117,24 +117,6 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int n, bool vec
   }
 }
 
-// four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
-// row l % 8 of matrix l / 8), as stored or transposed
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"((unsigned)__cvta_generic_to_shared(p)));
-}
-
 // grid (max N tiles, max M tiles x chunks, the products' z summed), WM x WN
 // warps of (BM / WM) x (BN / WN) outputs. AK: A is k-contiguous (kept
 // [m][k]), else m-contiguous (kept [k][m], read with ldmatrix.trans); BK

@@ -4,15 +4,16 @@
 // kernels of bf16.cuh over one (R*T, 6*mid) bf16 concat buffer:
 //   0. the layer's fp32 weights cast to bf16 into scratch (one launch);
 //   1. main 1x1 conv, bias, row mask                    -> slices 0, 1
+//      and guide_fc over the whole batch's guide tokens (the same launch)
 //   2. three MaskedMHCA blocks (bf16.cuh)                -> slices 2, 3, 4
-//   3. guide_fc, one product over the whole batch's guide tokens
-//   4. k=3 projection conv of slice 4, one product of depth 3*mid, bias,
+//   3. k=3 projection conv of slice 4, one product of depth 3*mid, bias,
 //      row mask                                          -> slice 5
-//   5. gate_bf16_kernel: fp32 scores (FFMA on bf16 loads), max, sigmoid,
-//      the gate rounded to bf16 and multiplied into slice 5
-//   6. final 1x1 conv, bias, row mask                    -> out
-// Bound: operations; every product and the MHCAs' attention on the bf16
-// tensor cores, the gate's scores and the MHCAs' conv + LayerNorm on FFMA.
+//   4. gate_bf16_kernel: the scores on the bf16 tensor cores (fp32 sums),
+//      max, sigmoid, the gate rounded to bf16 and multiplied into slice 5
+//   5. final 1x1 conv, bias, row mask                    -> out
+// 17 launches. Bound: operations; every product, the MHCAs' attention and
+// the gate's scores on the bf16 tensor cores, the MHCAs' conv + LayerNorm
+// on the FP32 pipes.
 #include "bf16.cuh"
 
 static long csp_bf16_weight_elems(int Cin, int mid, int Fg, int Cout) {
@@ -32,10 +33,11 @@ extern "C" long unav_csp_bf16_scratch(int R, int T, int Cin, int mid, int Ng, in
 }
 
 // x (R*T, Cin), guide (R*Ng, Fg), out (R*T, Cout) bf16; mask (R*T). fp32
-// weights in torch layout, as csp.cu takes them: wmain (2mid, Cin); per MHCA
-// block (3, stacked) dw (3, mid, 3), lnw / lnb (3, mid), w (4, mid, mid), b
-// (4, mid); wg (emb, Fg); battn (H); wproj (mid, 3, mid) [out, tap, in];
-// wfinal (Cout, 6mid).
+// weights in torch layout: wmain (2mid, Cin); per MHCA block (3, stacked) dw
+// (3, mid, 3), lnw / lnb (3, mid), w (4, mid, mid), b (4, mid); wg (emb,
+// Fg); battn (H); wproj (mid, mid, 3) [out, in, tap] as the layer keeps it
+// (the weights' cast writes the product's (mid, 3, mid)); wfinal (Cout,
+// 6mid).
 #define UNAV_CSP_BF16_PARAMS                                                             \
   const bf16 *x, const bf16 *guide, const unsigned char *mask, int R, int T, int Cin,    \
       int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads,                  \
@@ -64,7 +66,7 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
   const bf16* b_b = cast_push(l, next, b, 12L * mid);
   const bf16* wg_b = cast_push(l, next, wg, (long)mid * Fg);
   const bf16* bg_b = cast_push(l, next, bg, mid);
-  const bf16* wproj_b = cast_push(l, next, wproj, 3L * mid * mid);
+  const bf16* wproj_b = cast_push(l, next, wproj, 3L * mid * mid, CAST_SWAP12, mid, 3);
   const bf16* bproj_b = cast_push(l, next, bproj, mid);
   const bf16* wfinal_b = cast_push(l, next, wfinal, 6L * mid * Cout);
   const bf16* bfinal_b = cast_push(l, next, bfinal, Cout);
@@ -72,9 +74,10 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
   if (rc) return rc;
   mark_stage(marks, s);
 
-  if ((rc = launch_gemm_bf16_one(
-           bf16_gemm(x, Cin, wmain_b, Cin, cat, C6, bmain_b, mask, P, 2 * mid, Cin), s)))
-    return rc;
+  Bf16Batch mg;   // the main conv and guide_fc: independent products, one launch
+  mg.g[0] = bf16_gemm(x, Cin, wmain_b, Cin, cat, C6, bmain_b, mask, P, 2 * mid, Cin);
+  mg.g[1] = bf16_gemm(guide, Fg, wg_b, Fg, gp, emb, bg_b, nullptr, R * Ng, emb, Fg);
+  if ((rc = launch_gemm_bf16(mg, 2, s))) return rc;
   mark_stage(marks, s);
   for (int bi = 0; bi < 3; ++bi) {
     const bf16* src = cat + (1 + bi) * mid;
@@ -85,10 +88,6 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
                                 s, marks);
     if (rc) return rc;
   }
-  if ((rc = launch_gemm_bf16_one(
-           bf16_gemm(guide, Fg, wg_b, Fg, gp, emb, bg_b, nullptr, R * Ng, emb, Fg), s)))
-    return rc;
-  mark_stage(marks, s);
   Bf16Gemm pj = bf16_gemm(cat + 4 * mid, C6, wproj_b, 3 * mid, cat + 5 * mid, C6, bproj_b, mask,
                           P, mid, 3 * mid);
   pj.taps = 3; pj.Kc = mid; pj.seq = T;
@@ -96,13 +95,16 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
   mark_stage(marks, s);
 
   const int hc = emb / attn_heads;
-  const size_t smem = gate_smem_bytes(hc);
-  static int limit = 0;
-  raise_smem_limit((const void*)gate_bf16_kernel, (int)smem, limit);
-  gate_bf16_kernel<<<dim3(ceil_div(T, GATE_T), attn_heads, R), 256, smem, s>>>(
-      cat + 4 * mid, C6, gp, battn, T, Ng, emb, attn_heads, (float)sqrt((double)hc),
-      cat + 5 * mid, C6, mid / attn_heads);
-  UNAV_RETURN_IF_ERROR();
+  rc = with_gate_hp(hc, [&](auto hp) {
+    constexpr int HP = decltype(hp)::value;
+    const size_t smem = gate_bf16_smem(HP);
+    static int limit = 0;
+    raise_smem_limit((const void*)gate_bf16_kernel<HP>, (int)smem, limit);
+    gate_bf16_kernel<HP><<<dim3(ceil_div(T, GB_T), attn_heads, R), 128, smem, s>>>(
+        cat + 4 * mid, C6, gp, battn, T, Ng, emb, attn_heads, (float)sqrt((double)hc),
+        cat + 5 * mid, C6, mid / attn_heads);
+  });
+  if (rc) return rc;
   mark_stage(marks, s);
 
   rc = launch_gemm_bf16_one(
@@ -115,10 +117,10 @@ extern "C" int unav_csp_bf16_forward(UNAV_CSP_BF16_PARAMS) {
   return csp_bf16_forward_impl(UNAV_CSP_BF16_ARGS, nullptr);
 }
 
-// stages of one forward, in launch order: the weights' cast; main conv; per
-// MHCA block its conv + LayerNorm, q/k/v, attention and proj; guide_fc;
+// stages of one forward, in launch order: the weights' cast; main conv and
+// guide_fc; per MHCA block its conv + LayerNorm, q/k/v, attention and proj;
 // projection conv; gate; final conv
-constexpr int CSP_BF16_STAGES = 2 + 3 * 4 + 4;
+constexpr int CSP_BF16_STAGES = 2 + 3 * 4 + 3;
 
 // The same forward, synchronised, with the device time of each stage in
 // stage_ms (CSP_BF16_STAGES floats, CUDA events between the launches).

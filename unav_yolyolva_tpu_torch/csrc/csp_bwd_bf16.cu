@@ -6,10 +6,10 @@
 //   recompute: main conv, the three MHCAs (bf16.cuh; each keeps its normalized
 //     inputs, q/k/v and attention output for its backward), guide_fc and the
 //     projection conv in one launch, and gate_scores_bf16_kernel, which
-//     scores the gate with the forward's own tiles and fmaf chain on bf16
-//     loads (the forward's scores to the bit, so ties route as the forward
-//     saw them) and keeps each (frame, head)'s scores, max, tie count and
-//     sigmoid;
+//     scores the gate through the forward's own scoring function on the
+//     tensor cores (the forward's scores to the bit, so ties route as the
+//     forward saw them) and keeps each (frame, head)'s scores, max, tie
+//     count and sigmoid;
 //   final conv: dcat = bf16((g . m) Wfinal), Wfinal's grad per block (the
 //     mask read with g);
 //   gate_bwd_bf16_kernel: d(pc) = bf16(dgated * gate) . m, the gate's grad
@@ -31,82 +31,39 @@
 // Bound: operations (bf16_bwd.cuh).
 #include "bf16_bwd.cuh"
 
-// gate_bf16_kernel's tiling (csp_bf16's forward: grid (ceil(T / 32), H, R),
-// 256 threads, each warp 4 frames, each lane 4 tokens of a 128-token tile)
-// and its fmaf chain over the head's hc channels on bf16 loads, so the scores
-// are the forward's to the bit; each score is kept (sc), then each frame's
-// max, tie count, sigmoid s and s (1 - s) (stat), and the gated projection
-// bf16(pc * bf16(s)) into dst (cat slice 5).
-__global__ void __launch_bounds__(256) gate_scores_bf16_kernel(
+// The gate rescored as the forward scores it (bf16.cuh:gate_bf16_scores,
+// the one scoring function of both, so the scores, max and ties are the
+// forward's to the bit): each score is kept (sc), then each frame's max,
+// tie count, sigmoid s and s (1 - s) (stat), and the gated projection
+// bf16(pc * bf16(s)) into dst (cat slice 5). grid (ceil(T / 64), H, R), 128
+// threads, gate_bf16_smem(HP) bytes of shared memory.
+template <int HP>
+__global__ void __launch_bounds__(128) gate_scores_bf16_kernel(
     const bf16* __restrict__ p, long ldp, const bf16* __restrict__ gp,
     const float* __restrict__ battn, const bf16* __restrict__ pc, int T, int Ng, int emb,
     int H, float sqrt_hc, int och, float* __restrict__ sc, float* __restrict__ stat,
     bf16* __restrict__ dst, long ldd) {
-  extern __shared__ float gsm[];
-  const int hc = emb / H, hp = hc + 1;
-  float* Ps = gsm;                 // GATE_T x hp
-  float* Gs = gsm + GATE_T * hp;   // GATE_N x hp
-  const int r = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * GATE_T;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  for (int e = tid; e < GATE_T * hc; e += 256) {
-    const int i = e / hc, c = e - i * hc, t = t0 + i;
-    Ps[i * hp + c] = t < T ? bf(p[((long)r * T + t) * ldp + h * hc + c]) : 0.f;
-  }
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int n0 = 0; n0 < Ng; n0 += GATE_N) {
-    __syncthreads();
-    for (int e = tid; e < GATE_N * hc; e += 256) {
-      const int i = e / hc, c = e - i * hc, n = n0 + i;
-      Gs[i * hp + c] = n < Ng ? bf(gp[((long)r * Ng + n) * emb + h * hc + c]) : 0.f;
-    }
-    __syncthreads();
-    float acc[4][4] = {};
-    for (int c = 0; c < hc; ++c) {
-      float pv[4], gv[4];
+  extern __shared__ __align__(16) unsigned char gs_smem[];
+  const int r = blockIdx.z, h = blockIdx.y;
+  float* scr = sc + ((long)r * H + h) * T * Ng;
+  float mx[2];
+  int cnt[2];
+  gate_bf16_scores<HP>(reinterpret_cast<bf16*>(gs_smem), p, ldp, gp, T, Ng, emb, H,
+                       [&](int t, int n, float v) { scr[(long)t * Ng + n] = v; }, mx, cnt);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(warp * 4 + i) * hp + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = Gs[(lane + 32 * j) * hp + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], gv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + warp * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + lane + 32 * j;
-        if (n < Ng && t < T) {
-          sc[(((long)r * H + h) * T + t) * Ng + n] = acc[i][j];
-          mx[i] = fmaxf(mx[i], acc[i][j]);
-        }
-      }
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float m = warp_max(mx[i]);
-    const int t = t0 + warp * 4 + i;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = gate_frame(hh);
     if (t >= T) continue;
-    const long row = ((long)r * H + h) * T + t;
-    int cnt = 0;
-    for (int n = lane; n < Ng; n += 32) cnt += sc[row * Ng + n] == m;
-    cnt = (int)warp_sum((float)cnt);
-    const float sg = 1.f / (1.f + expf(-(m / sqrt_hc + battn[h])));
+    const long row = ((long)r * H + h) * T + t, prow = (long)r * T + t;
+    const float sg = 1.f / (1.f + expf(-(mx[hh] / sqrt_hc + battn[h])));
     const float gate = rbf(sg);
-    if (lane == 0) {
-      stat[row * 4 + 0] = m;
-      stat[row * 4 + 1] = (float)cnt;
+    if ((threadIdx.x & 3) == 0) {
+      stat[row * 4 + 0] = mx[hh];
+      stat[row * 4 + 1] = (float)cnt[hh];
       stat[row * 4 + 2] = sg * (1.f - sg);
       stat[row * 4 + 3] = gate;
     }
-    const long prow = (long)r * T + t;
-    for (int j = lane; j < och; j += 32)
-      dst[prow * ldd + h * och + j] = rb(bf(pc[prow * (long)och * H + h * och + j]) * gate);
+    gate_bf16_rows(pc + prow * (long)och * H + h * och, dst + prow * ldd + h * och, och, gate);
   }
 }
 
@@ -287,13 +244,16 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   gb2.g[1].taps = 3; gb2.g[1].Kc = mid; gb2.g[1].seq = T;
   if ((rc = launch_gemm_bf16(gb2, 2, s))) return rc;
   const float sqrt_hc = (float)sqrt((double)hc);
-  const size_t gsmem = gate_smem_bytes(hc);
-  static int glimit = 0;
-  raise_smem_limit((const void*)gate_scores_bf16_kernel, (int)gsmem, glimit);
-  gate_scores_bf16_kernel<<<dim3(ceil_div(T, GATE_T), H, R), 256, gsmem, s>>>(
-      u.cat + 4 * mid, C6, u.gp, battn, u.pc, T, Ng, emb, H, sqrt_hc, och, u.sc, u.stat,
-      u.cat + 5 * mid, C6);
-  UNAV_RETURN_IF_ERROR();
+  rc = with_gate_hp(hc, [&](auto hp) {
+    constexpr int HP = decltype(hp)::value;
+    const size_t smem = gate_bf16_smem(HP);
+    static int limit = 0;
+    raise_smem_limit((const void*)gate_scores_bf16_kernel<HP>, (int)smem, limit);
+    gate_scores_bf16_kernel<HP><<<dim3(ceil_div(T, GB_T), H, R), 128, smem, s>>>(
+        u.cat + 4 * mid, C6, u.gp, battn, u.pc, T, Ng, emb, H, sqrt_hc, och, u.sc, u.stat,
+        u.cat + 5 * mid, C6);
+  });
+  if (rc) return rc;
   mark_stage(marks, s);
 
   // ---- final conv: its output's grad g . m, the mask read with g

@@ -1,4 +1,5 @@
-// C entry point of the bf16 MaskedMHCA forward (see bf16.cuh).
+// C entry points of the bf16 MaskedMHCA forward (see bf16.cuh) and of its
+// attention alone.
 #include "bf16.cuh"
 
 // bf16 elements of scratch unav_mhca_bf16_forward needs: the forward's
@@ -7,13 +8,17 @@ extern "C" long unav_mhca_bf16_scratch(int R, int T, int C) {
   return mhca_bf16_scratch_elems(R, T, C) + cast_elems(4L * C * C) + cast_elems(4L * C);
 }
 
+#define UNAV_MHCA_BF16_PARAMS                                                            \
+  const bf16 *x1, const bf16 *x2, const unsigned char *mask, int R, int T, int C,        \
+      int heads, const float *dw, const float *lnw, const float *lnb, const float *w,     \
+      const float *b, float eps, bf16 *out, bf16 *scratch, void *stream
+#define UNAV_MHCA_BF16_ARGS \
+  x1, x2, mask, R, T, C, heads, dw, lnw, lnb, w, b, eps, out, scratch, stream
+
 // x1 (k/v source), x2 (q source), out (R*T, C) bf16; mask (R*T) bool;
-// fp32 weights dw (3, C, 3), lnw / lnb (3, C), w (4, C, C), b (4, C)
-extern "C" int unav_mhca_bf16_forward(const bf16* x1, const bf16* x2,
-                                      const unsigned char* mask, int R, int T, int C,
-                                      int heads, const float* dw, const float* lnw,
-                                      const float* lnb, const float* w, const float* b,
-                                      float eps, bf16* out, bf16* scratch, void* stream) {
+// fp32 weights dw (3, C, 3), lnw / lnb (3, C), w (4, C, C), b (4, C).
+// marks, if given, gets an event after each launch (MHCA_BF16_STAGES).
+static int mhca_bf16_forward_entry(UNAV_MHCA_BF16_PARAMS, StageMarks* marks) {
   const cudaStream_t s = (cudaStream_t)stream;
   CastList l;
   l.count = 0;
@@ -21,6 +26,38 @@ extern "C" int unav_mhca_bf16_forward(const bf16* x1, const bf16* x2,
   const bf16* wb = cast_push(l, next, w, 4L * C * C);
   const bf16* bb = cast_push(l, next, b, 4L * C);
   if (const int rc = launch_cast(l, s)) return rc;
+  mark_stage(marks, s);
   return mhca_bf16_forward_impl(x1, C, x2, C, mask, R, T, C, heads, dw, lnw, lnb, wb, bb, eps,
-                                out, C, scratch, s);
+                                out, C, scratch, s, marks);
+}
+
+extern "C" int unav_mhca_bf16_forward(UNAV_MHCA_BF16_PARAMS) {
+  return mhca_bf16_forward_entry(UNAV_MHCA_BF16_ARGS, nullptr);
+}
+
+// stages of one forward: the weights' cast, the conv + LayerNorm, q/k/v,
+// the attention, proj
+constexpr int MHCA_BF16_STAGES = 5;
+
+// The same forward, synchronised, with the device ms of each launch in
+// stage_ms (MHCA_BF16_STAGES floats, CUDA events between the launches).
+extern "C" int unav_mhca_bf16_forward_stages(UNAV_MHCA_BF16_PARAMS, float* stage_ms) {
+  return time_stages<MHCA_BF16_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
+    return mhca_bf16_forward_entry(UNAV_MHCA_BF16_ARGS, marks);
+  });
+}
+
+// The attention alone (ops/fused_mhca.py:attention_forward): q (scaled by
+// bf16(1/sqrt(d))), k, v, out (R*T, C) bf16, mask (R*T) bool.
+extern "C" int unav_attn_bf16(const bf16* q, const bf16* k, const bf16* v,
+                              const unsigned char* mask, int R, int T, int C, int heads,
+                              bf16* out, void* stream) {
+  return launch_attn_bf16(q, k, v, mask, R, T, C, heads, out, (cudaStream_t)stream);
+}
+
+// The attention's resident blocks a SM at this shape (occupancy calculator)
+// into *blocks.
+extern "C" int unav_attn_bf16_blocks_per_sm(int T, int C, int heads, int* blocks) {
+  return launch_attn_bf16(nullptr, nullptr, nullptr, nullptr, 1, T, C, heads, nullptr, nullptr,
+                          blocks);
 }

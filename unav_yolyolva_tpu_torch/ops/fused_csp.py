@@ -35,15 +35,15 @@ package's bf16 program: every product's fp32 sum rounded to bf16 before
 its bias is added in bf16, the three MHCAs in bf16 (`fused_mhca`), the
 gate's scores summed in fp32 with its max and sigmoid in fp32, the gate
 rounded to bf16 before it multiplies the bf16 projection. On the card it
-is a launch sequence of its own (csrc/csp_bf16.cu on csrc/bf16.cuh): the
-products on the bf16 tensor cores, the weights cast to bf16 once per call,
-the gate's scores FFMA on bf16 loads. Its backward is the JAX package's
+is a launch sequence of its own (csrc/csp_bf16.cu on csrc/bf16.cuh, 17
+launches): the products and the gate's scores on the bf16 tensor cores,
+the weights cast to bf16 once per call. Its backward is the JAX package's
 bf16 `_csp_bwd_kernel`, `jax.vjp` of the bf16 body once per block of the
 TPU kernel's rows (T padded to 8): the plain version is autograd of the bf16
 forward per block, with JAX's bf16 reduction and cotangent orders
 (ops/bf16_grad.py); on the card csrc/csp_bwd_bf16.cu (the three MHCAs in
-csrc/bf16_bwd.cuh's form MHCA_VJP, the gate rescored with the forward's own
-fmaf chain, weight grads rounded to bf16 per row block).
+csrc/bf16_bwd.cuh's form MHCA_VJP, the gate rescored through the forward's
+own scoring function, weight grads rounded to bf16 per row block).
 
 Weight layout (torch): wmain (2mid, Cin), bmain (2mid); per MHCA block,
 stacked over the 3 blocks: dw (3, 3, mid, 3), lnw/lnb (3, 3, mid),
@@ -76,8 +76,9 @@ STAGES = (("main",) + tuple(f"mhca{i}.{part}" for i in range(3)
 _BF16_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 3
 _BF16_ARGTYPES = {"unav_csp_bf16_forward": _BF16_TYPES,
                   "unav_csp_bf16_forward_stages": _BF16_TYPES + [PTR]}
-# the launches of one bf16 forward, in order (csp_bf16.cu: CSP_BF16_STAGES)
-BF16_STAGES = ("cast",) + STAGES
+# the launches of one bf16 forward, in order (csp_bf16.cu: CSP_BF16_STAGES): the
+# main conv and guide_fc share a launch
+BF16_STAGES = ("cast", "main+guide_fc") + STAGES[1:13] + STAGES[14:]
 _BF16_RESTYPES = {"unav_csp_bf16_scratch": ([INT] * 7, LONG)}
 _BWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19
 _BWD_ARGTYPES = {"unav_csp_backward": _BWD_TYPES,
@@ -128,18 +129,29 @@ def csp_reference(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
     # scores', then the projection conv's centre, right and left taps
     parts[-1], p_sc, p_c, p_r, p_l = fan_out(parts[-1], 5)
     gp = linear(guide, wg, bg)                                    # (R, Ng, emb)
-    hc = gp.shape[-1] // attn_heads
     taps = torch.cat([F.pad(p_l[:, :-1], (0, 0, 1, 0)), p_c, F.pad(p_r[:, 1:], (0, 0, 0, 1))],
                      -1).reshape(r * t, 3 * mid)                  # conv3_taps: (R*T, 3 mid)
     wtaps = wproj.permute(0, 2, 1).reshape(mid, 3 * mid)          # [out, tap, in]
     pc = linear(taps, wtaps, bproj).reshape(r, t, mid) * mm
-    sc = torch.einsum("rthc,rnhc->rhtn", p_sc.float().reshape(r, t, attn_heads, hc),
+    parts.append(gate_reference(p_sc, gp, pc, battn, attn_heads=attn_heads))
+    return linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
+
+
+def gate_reference(p, gp, pc, battn, *, attn_heads: int) -> torch.Tensor:
+    """The CSP layer's max-sigmoid gate in plain PyTorch: per head h, the
+    scores p_h gp_h^T of p (R, T, emb) and the projected guide gp (R, Ng,
+    emb) summed in fp32 (the products of bf16 values are exact there), their
+    max over the Ng tokens / sqrt(hc), sigmoid(+ battn[h]) in fp32, cast to
+    pc's dtype, times the head's channels of pc (R, T, mid). Autograd splits
+    the max's grad over tied tokens evenly, as JAX's max does."""
+    r, t, mid = pc.shape
+    hc = gp.shape[-1] // attn_heads
+    sc = torch.einsum("rthc,rnhc->rhtn", p.float().reshape(r, t, attn_heads, hc),
                       gp.float().reshape(r, -1, attn_heads, hc))  # fp32 sums
     mx = sc.amax(dim=-1) / math.sqrt(hc)                          # (R, H, T)
     gate = torch.sigmoid(mx + battn[None, :, None]).transpose(1, 2).to(pc.dtype)
     gated = broadcast_mul(pc.reshape(r, t, attn_heads, -1), gate[..., None])
-    parts.append(gated.reshape(r, t, mid))
-    return linear(torch.cat(parts, dim=-1), wfinal, bfinal) * mm
+    return gated.reshape(r, t, mid)
 
 
 def _csp_grads(x, guide, mask, g, *weights, attn_heads, mhca_heads, eps):
@@ -244,11 +256,12 @@ def _launch_forward(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg,
 
 def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
                          battn, wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps,
-                         *extra):
+                         *extra, keep=None):
+    """The bf16 forward's C entry `entry`; `keep`, a list, gets the call's
+    scratch (the (R*T, 6 mid) bf16 concat at its start)."""
     r, t, cin, mid, ng, fg, cout = _check_args(
         x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
         wfinal, bfinal, attn_heads, mhca_heads)
-    wproj = wproj.permute(0, 2, 1).contiguous()                   # (mid, 3, mid)
     out = torch.empty((r, t, cout), device=x.device, dtype=torch.bfloat16)
     lib = cuda_build.library("csp_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
     scratch = torch.empty(lib.unav_csp_bf16_scratch(r, t, cin, mid, ng, fg, cout),
@@ -261,6 +274,8 @@ def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b
         eps, out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         *extra)
     cuda_build.check(lib, rc, entry)
+    if keep is not None:
+        keep.append(scratch)
     return out
 
 

@@ -36,7 +36,10 @@ is added in bf16, q scaled by bf16(1/sqrt(d)), fp32 logits and softmax, P
 rounded to bf16 before P.V, whose fp32 sum is stored bf16. On the card it
 is a kernel of its own (csrc/bf16.cuh, csrc/mhca_bf16.cu): the products
 and both attention products on the bf16 tensor cores (mma m16n8k16, fp32
-sums), the weights cast to bf16 once per call. Its backward is the bf16
+sums), the weights cast to bf16 once per call; the attention keeps a warp's
+query rows as tensor-core fragments and takes the softmax in three passes
+over its key tiles, with no logits row in shared memory
+(`attention_forward` alone). Its backward is the bf16
 instantiation of `_mhca_bwd_kernel` (JAX's hand-written backward, op by op:
 the recomputed forward in bf16, datt and ds fp32 with ds rounded to bf16
 before dq and dk, each input grad rounded to bf16, the weight grads fp32
@@ -69,10 +72,15 @@ _ARGTYPES = {
     "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                           PTR, PTR, FLOAT, PTR, PTR, PTR],
 }
+_BF16_TYPES = [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR, PTR, FLOAT, PTR, PTR, PTR]
 _BF16_ARGTYPES = {
-    "unav_mhca_bf16_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
-                               PTR, PTR, FLOAT, PTR, PTR, PTR],
+    "unav_mhca_bf16_forward": _BF16_TYPES,
+    "unav_mhca_bf16_forward_stages": _BF16_TYPES + [PTR],
+    "unav_attn_bf16": [PTR] * 4 + [INT] * 4 + [PTR, PTR],
+    "unav_attn_bf16_blocks_per_sm": [INT] * 3 + [PTR],
 }
+# the launches of one bf16 forward, in order (mhca_bf16.cu: MHCA_BF16_STAGES)
+BF16_STAGES = ("cast", "ln", "qkv", "attention", "proj")
 _BF16_RESTYPES = {"unav_mhca_bf16_scratch": ([INT] * 3, LONG)}
 _BWD_ARGTYPES = {
     "unav_mhca_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
@@ -89,8 +97,9 @@ BWD_BF16_STAGES = ("cast", "recompute", "proj", "attention", "dense", "wgrad", "
                    "sums")
 _BWD_BF16_RESTYPES = {"unav_mhca_bf16_backward_scratch": ([INT] * 4, LONG)}
 
-# longest sequence whose 64-query logits tile, beside the query tile and the
-# key / value ring, fits in a block's shared memory at head width 128
+# longest sequence whose logits rows the fp32 attention's 64-query tile and
+# the bf16 attention backward's query tile keep in a block's shared memory
+# (the bf16 forward stores none, and keeps the same limit)
 MAX_T = 512
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -272,6 +281,41 @@ def _mhca_backward_bf16_reference(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads:
             torch.stack(gw), torch.stack(gb))
 
 
+def attention_forward(q, k, v, mask, *, heads: int) -> torch.Tensor:
+    """The bf16 MHCA forward's attention kernel alone (one launch): q (scaled
+    by bf16(1/sqrt(d))), k and v (R, T, C) bf16 over the (R, T) key mask, as
+    `attend` computes it in bf16 (its plain version). CPU tensors take
+    `attend`; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return attend(q, k, v, mask, heads)
+    r, t, c = q.shape
+    if c % heads or (c // heads) % 8 or c // heads > 128 or t > MAX_T:
+        raise ValueError(f"attention_forward: unsupported shape (T={t}, C={c}, heads={heads})")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(x, name, q.shape, torch.bfloat16)
+    _check(mask, "mask", (r, t), torch.bool)
+    out = torch.empty_like(q)
+    lib = cuda_build.library("mhca_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
+    rc = lib.unav_attn_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), r, t, c,
+                            heads, out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, rc, "attention_forward (bf16)")
+    attention_forward.launches += 1
+    return out
+
+
+attention_forward.launches = 0
+
+
+def attention_blocks_per_sm(t: int, c: int, heads: int) -> int:
+    """Resident blocks a SM of the bf16 attention kernel at sequence length
+    t and width c over `heads` heads (CUDA's occupancy calculator)."""
+    lib = cuda_build.library("mhca_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
+    blocks = ctypes.c_int(0)
+    cuda_build.check(lib, lib.unav_attn_bf16_blocks_per_sm(t, c, heads, ctypes.byref(blocks)),
+                     "attention_blocks_per_sm")
+    return blocks.value
+
+
 def attention_backward_reference(q, k, v, go, mask, *, heads: int, vjp: bool = False,
                                  rounded: bool = True):
     """The attention part of the bf16 MHCA backward (csrc/bf16_bwd.cuh's fused
@@ -374,21 +418,40 @@ def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     _check(b, "b", (4, c))
 
 
-def _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+def _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps,
+                         entry="unav_mhca_bf16_forward", extra=()):
     r, t, c = x1.shape
     out = torch.empty_like(x1)
     lib = cuda_build.library("mhca_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_bf16_scratch(r, t, c), device=x1.device,
                           dtype=torch.bfloat16)
-    rc = lib.unav_mhca_bf16_forward(
+    rc = getattr(lib, entry)(
         x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
         dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
         eps, out.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(x1.device).cuda_stream,
+        torch.cuda.current_stream(x1.device).cuda_stream, *extra,
     )
     cuda_build.check(lib, rc, "fused_mhca (bf16)")
+    return out
+
+
+def _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
+    out = _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
     fused_mhca.bf16_launches += 1
     return out
+
+
+def mhca_stage_times(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int, eps: float = 1e-5):
+    """One bf16 CUDA forward, synchronised, and the device ms of each of its
+    launches (CUDA events between them): {stage: ms} in launch order, the
+    names of BF16_STAGES. Not counted in fused_mhca.bf16_launches."""
+    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
+    if x1.dtype != torch.bfloat16:
+        raise ValueError("mhca_stage_times: times the bf16 kernel (bf16 x1, x2)")
+    ms = (ctypes.c_float * len(BF16_STAGES))()
+    _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps,
+                         entry="unav_mhca_bf16_forward_stages", extra=(ms,))
+    return dict(zip(BF16_STAGES, ms))
 
 
 def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
