@@ -138,7 +138,11 @@ Phases (any failure exits non-zero):
      (its fp32 sums against fp64 within 2x fp32 torch.matmul's error, its
      bf16 output's error beside cuBLAS's bf16 torch.matmul, both times) and
      at each of the forward's product shapes beside the backward's strided
-     product and cuBLAS (`time product_bf16@...`); three batches of 64 served at bf16
+     product and cuBLAS (`time product_bf16@...`); the whole-block TBlock's
+     fc1 and fc2 alone on their wgmma product, held as the product is and
+     timed with their epilogues beside the fp32 sums alone, the mma.sync
+     product and cuBLAS (`check/time product_bf16@fc1|fc2 ...`); three
+     batches of 64 served at bf16
      with the default stem (15 bf16 MHCA, 30 bf16 CSP launches, no fp32
      MHCA / CSP / TBlock launch) and the whole-block stem (12 bf16 TBlock
      launches), the first two videos' heads against the CPU's bf16 path
@@ -164,8 +168,11 @@ Phases (any failure exits non-zero):
      (a warm-up profile first; an empty profile is said so and fails the
      phase): the CSP backward at T=224 and T=7 within 70 launches, the
      attention at most 3 a MHCA (the recompute's forward and the fused
-     backward's two), and the CSP and MHCA backward's stages by CUDA
-     events (`stages csp_bwd_bf16@...`, `stages mhca_bwd_bf16@...`);
+     backward's two), and the CSP, MHCA and whole-block TBlock backward's
+     stages by CUDA events (`stages csp_bwd_bf16@...`, `stages
+     mhca_bwd_bf16@...`, `stages tblock_bwd_bf16@...`), with the host work
+     of a T=7 CSP backward and of a TBlock backward, whose products encode
+     their tensor maps on the host each call (`host ...`);
      the backward's bf16 product alone (A.B, and A^T.B in row blocks) at the
      CSP final conv, beside cuBLAS; three train steps with each stem, each
      bf16 backward kernel launched as often as its forward and no fp32 MHCA
@@ -180,8 +187,8 @@ Phases (any failure exits non-zero):
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel, the
-eight fp32 kernels and the six bf16 ones (the redesigned bf16 MHCA and CSP
-forward and backward with their `design`; with each fp32 kernel's
+eight fp32 kernels and the six bf16 ones (each redesigned bf16 kernel with
+its `design`; with each fp32 kernel's
 launches on the train CLI's path and on the dependency block's, and the
 dependency shapes' checks and times; a bf16 forward kernel's launches are
 on the bf16 served path, a bf16 backward kernel's on phase 16's train
@@ -494,39 +501,39 @@ def backward_launch_lines(tmodel, b, t_max, gen, dev):
 CSP_BWD_BF16_LAUNCHES, ATTN_BWD_BF16_LAUNCHES = 70, 3
 
 
-def host_split_line(label, a, g, heads, smi, n=20):
-    """One bf16 CSP backward's host work, medians of n calls: the whole
-    wrapper (`_launch_backward_bf16`, the stream synchronised before and
-    after), its C entry's enqueue alone (the wrapper's Python work is the
-    first less the second); the kernels' device time (kernel_profile) and
-    the mean of n back-to-back calls (CUDA events)."""
+def host_split_line(label, wrapper, prepare, entry, call, smi, n=20):
+    """One bf16 backward's host work, medians of n calls: the whole wrapper
+    (`wrapper`, the stream synchronised before and after), its C entry's
+    enqueue alone (`entry` of the library that `prepare` returns with the
+    entry's arguments; the wrapper's Python work is the first less the
+    second); the kernels' device time (kernel_profile of `call`, the public
+    entry) and the mean of n back-to-back calls (CUDA events)."""
     import torch
 
-    from unav_yolyolva_tpu_torch.ops import cuda_build, fused_csp
+    from unav_yolyolva_tpu_torch.ops import cuda_build
     from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
 
-    def enqueue_ms(call):        # host ms until call returns
+    def enqueue_ms(fn):          # host ms until fn returns
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        call()
+        fn()
         ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         return ms
 
-    kw = dict(g=g, attn_heads=heads, mhca_heads=4, eps=1e-5)
     wrap, enq = [], []
     for _ in range(n):
-        wrap.append(enqueue_ms(lambda: fused_csp._launch_backward_bf16(*a, **kw)))
-        lib, args, grads, scratch = fused_csp._prepare_backward_bf16(*a, **kw)
-        enq.append(enqueue_ms(lambda: cuda_build.check(
-            lib, lib.unav_csp_bf16_backward(*args), "csp_backward (bf16)")))
-    prof = kernel_profile(lambda: fused_csp.csp_backward(*a, **kw))
+        wrap.append(enqueue_ms(wrapper))
+        lib, args, *_ = prepare()
+        enq.append(enqueue_ms(lambda: cuda_build.check(lib, getattr(lib, entry)(*args),
+                                                       entry)))
+    prof = kernel_profile(call)
     launches, dev_ms = sum(c for c, _ in prof.values()), sum(ms for _, ms in prof.values())
     wrap_ms, enq_ms = sorted(wrap)[n // 2], sorted(enq)[n // 2]
     log(f"host {label}: wrapper {wrap_ms:.4f} ms (its Python work {wrap_ms - enq_ms:.4f}, "
         f"the C entry's enqueue {enq_ms:.4f}), device {dev_ms:.4f} ms in "
         f"{launches_text(launches)}; back-to-back calls "
-        f"{cuda_ms(lambda: fused_csp.csp_backward(*a, **kw), n):.4f} ms a call "
+        f"{cuda_ms(call, n):.4f} ms a call "
         f"(host times medians of {n}, back-to-back the mean of {n}) [{smi}]")
 
 
@@ -538,12 +545,16 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
     ATTN_BWD_BF16_LAUNCHES a MHCA (a profile that stays empty is said so,
     and fails the phase); and each one's stages by CUDA events (`stages
     csp_bwd_bf16@...`, `stages mhca_bwd_bf16@...`); at T=7 the CSP layer's
-    host work (`host csp_bwd_bf16@T7/...`, host_split_line)."""
+    host work (`host csp_bwd_bf16@T7/...`, host_split_line), and the whole-block
+    TBlock's (`host tblock_bwd_bf16@...`: it encodes its products' tensor
+    maps on the host each call)."""
     import torch
 
     from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_stage_times
     from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_stage_times
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward
+    from unav_yolyolva_tpu_torch.ops import fused_csp, fused_tblock
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import (tblock_backward,
+                                                          tblock_backward_stage_times)
 
     bf = torch.bfloat16
     cases = []
@@ -569,7 +580,9 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
     blk, ta = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
     gt = torch.randn(b, t_max, 512, generator=gen).to(dev)
     cases.append((f"tblock_bwd_bf16@{b}x{t_max}x512", 1,
-                  lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf), None))
+                  lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf),
+                  lambda: tblock_backward_stage_times(*ta, g=gt, heads=blk.attn.n_head,
+                                                      cdtype=bf)))
     for label, n_mhca, fn, stages in cases:
         fn()
         torch.cuda.synchronize()
@@ -591,7 +604,17 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
             stages()                                              # warm-up
             stage_line(label, stages, smi)
         if label.startswith("csp_bwd_bf16@T7/"):
-            host_split_line(label, *host_args, smi)
+            hab, hg, hh = host_args
+            kw = dict(g=hg, attn_heads=hh, mhca_heads=4, eps=1e-5)
+            host_split_line(label, lambda: fused_csp._launch_backward_bf16(*hab, **kw),
+                            lambda: fused_csp._prepare_backward_bf16(*hab, **kw),
+                            "unav_csp_bf16_backward",
+                            lambda: fused_csp.csp_backward(*hab, **kw), smi)
+        if label.startswith("tblock_bwd_bf16@"):
+            targs = (*ta[:4], ta[4:], gt, blk.attn.n_head, 1e-5)
+            host_split_line(label, lambda: fused_tblock._launch_backward_bf16(*targs),
+                            lambda: fused_tblock._prepare_backward_bf16(*targs),
+                            "unav_tblock_bf16_backward", cases[-1][2], smi)
 
 
 def require(cond, msg: str) -> None:
@@ -1493,6 +1516,76 @@ def bf16_product_lines(dev, smi, gen) -> None:
         log(f"{line}, bound {bms:.4f} ms ({by}) [{smi}]")
 
 
+def bf16_mlp_product_lines(dev, smi, gen) -> None:
+    """The whole-block TBlock's two MLP products alone at the served stem's
+    (64, 224, 512), hidden 2048, on their wgmma product
+    (ops/gemm_tc.py:mlp_product): fc1 (14336 x 2048 x 512, bias + GELU) and
+    fc2 (14336 x 512 x 2048, bias, row mask and out += y * mult_m), each held
+    as `check gemm_bf16@...` holds the product (its fp32 sums' error against
+    fp64 within 2x that of fp32 torch.matmul of the same bf16 values, its
+    bf16 output within 1.25x cuBLAS bf16's, the same bits on repeat), then
+    timed with its epilogue, and storing its fp32 sums alone (what the
+    epilogue costs), beside the forward's mma.sync product (bf16_products,
+    the same epilogue) and cuBLAS's bf16 torch.matmul (fp32 sums), which the
+    port never calls."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_products, mlp_product
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    bf, r, t, c, hid = torch.bfloat16, 64, 224, 512, 2048
+    m = r * t
+    rowmask = torch.rand(m, generator=gen).to(dev) > 0.1
+    seqmul = (1 + 0.3 * torch.randn(r, c, generator=gen)).to(dev)
+    resid = torch.randn(m, c, generator=gen).to(dev)
+    out = torch.empty(m, c, device=dev)
+    for name, n, k in (("fc1", hid, c), ("fc2", c, hid)):
+        x = torch.randn(m, k, generator=gen).to(dev, bf)
+        w = (torch.randn(n, k, generator=gen) / math.sqrt(k)).to(dev, bf)
+        bias = (0.1 * torch.randn(n, generator=gen)).to(dev, bf)
+        ref = x.double() @ w.double().T
+        sums = mlp_product(x, w, epi="raw")
+        y = mlp_product(x, w)
+        err_sums, err_32 = rel_err(sums, ref), rel_err(torch.matmul(x.float(), w.float().T), ref)
+        err_y, err_lib = rel_err(y, ref), rel_err(torch.matmul(x, w.T), ref)
+        same = torch.equal(y, mlp_product(x, w))
+        label = f"product_bf16@{name} {m}x{n}x{k}"
+        log(f"check {label}: norm-wise err vs fp64 of its fp32 sums {err_sums:.3e} (fp32 "
+            f"torch.matmul of the same bf16 values {err_32:.3e}), of its bf16 output "
+            f"{err_y:.3e} (cuBLAS bf16 torch.matmul {err_lib:.3e}); bit-identical on repeat: "
+            f"{same}")
+        require(err_sums <= 2 * err_32 and err_y <= 1.25 * err_lib and same,
+                f"{label}: off its gate")
+        del ref, sums, y
+        if name == "fc1":
+            kw = dict(epi="gelu", bias=bias)
+            old = dict(x=x, w=w, bias=bias, act="gelu")
+        else:
+            kw = dict(epi="res", bias=bias, rowmask=rowmask, seq=t, seqmul=seqmul, out=out)
+            old = dict(kw, x=x, w=w, out=out)
+            del old["epi"]
+
+        def run(fn):
+            if name == "fc2":
+                out.copy_(resid)
+            return fn()
+
+        copy_ms = cuda_ms(lambda: out.copy_(resid), 20) if name == "fc2" else 0.0
+        ms = cuda_ms(lambda: run(lambda: mlp_product(x, w, **kw)), 20) - copy_ms
+        rms = cuda_ms(lambda: mlp_product(x, w, epi="raw"), 20)
+        oms = cuda_ms(lambda: run(lambda: bf16_products([old])), 20) - copy_ms
+        lms = cuda_ms(lambda: torch.matmul(x, w.T), 20)
+        flops = 2 * m * n * k
+        nbytes = 2 * (m * k + n * k + n) + (2 * m * n if name == "fc1" else 8 * m * n + m)
+        bms, by = bound_bf16_ms(flops, nbytes, flops)
+        log(f"time {label}: wgmma product with its epilogue {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s; storing its fp32 sums alone {rms:.4f} ms), the "
+            f"forward's mma.sync product with the same "
+            f"epilogue {oms:.4f} ms ({flops / oms / 1e9:.1f} TFLOP/s), cuBLAS bf16 "
+            f"torch.matmul {lms:.4f} ms ({flops / lms / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms "
+            f"({by}) [{smi}]")
+
+
 def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
     """Phase 15's kernels: the three bf16 forward kernels against their
     plain versions at the protocol shapes, beside the fp32 kernels' times,
@@ -1609,6 +1702,7 @@ def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
         del xa, wa, y
         bf16_attention_lines(dev, smi, gen)
         bf16_product_lines(dev, smi, gen)
+        bf16_mlp_product_lines(dev, smi, gen)
 
 
 def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
@@ -3012,8 +3106,12 @@ def main(argv=None) -> int:
              design="redesigned: the gate's scores on the tensor cores (one scoring function "
                     "with the backward), the redesigned attention and product, guide_fc in "
                     "the main conv's launch (17 launches)"),
-        bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
-                   "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
+        dict(bf16_entry("tblock_bf16", "tblock_bf16@64x224x512", pkg + "tblock_bf16.cu",
+                        "unav_yolyolva_tpu/ops/pallas_tblock.py:185"),
+             headers=[pkg + "bf16.cuh", pkg + "bf16_wgmma.cuh"],
+             design="redesigned: the MLP's products on wgmma fed by TMA (persistent blocks, "
+                    "two ping-pong consumer warpgroups, GELU and the residual tail in their "
+                    "epilogues), the redesigned MHCA"),
         dict(bf16_bwd_entry("mhca_bwd_bf16", f"mhca_bwd_bf16@{B}x{T}x512",
                             pkg + "mhca_bwd_bf16.cu",
                             "unav_yolyolva_tpu/ops/pallas_fusion.py:547"),
@@ -3024,8 +3122,14 @@ def main(argv=None) -> int:
              design="redesigned: the product on a cp.async ring, the fused attention "
                     "backward, the masks, taps and transposes read by the loaders, one "
                     "launch of sums"),
-        bf16_bwd_entry("tblock_bwd_bf16", f"tblock_bwd_bf16@{B}x{T}x512",
-                       pkg + "tblock_bwd_bf16.cu", "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
+        dict(bf16_bwd_entry("tblock_bwd_bf16", f"tblock_bwd_bf16@{B}x{T}x512",
+                            pkg + "tblock_bwd_bf16.cu",
+                            "unav_yolyolva_tpu/ops/pallas_tblock.py:299"),
+             headers=[pkg + "bf16_bwd.cuh", pkg + "bf16.cuh", pkg + "bf16_wgmma.cuh"],
+             design="redesigned: fc1, fc2, dy2 W2 and du W1 on the wgmma product fed by TMA "
+                    "(u and GELU(u) from fc1's epilogue, du from dy2 W2's: no GELU pass), the "
+                    "multiplier sums a block per (sequence, 32 channels) over T, the "
+                    "redesigned MHCA backward"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1644,3 +1644,128 @@ def test_bf16_csp_gate_head_widths_off_the_chunk(cuda, mid, heads):
         lambda: csp_backward_reference(*args, g=g, attn_heads=heads),
         lambda: csp_backward_reference(*f32, g=g.float(), attn_heads=heads),
         lambda sign: csp_backward(bump(sign), *args[1:], g=g, attn_heads=heads))
+
+
+# (layout, epilogue, M, N, K): ragged M (not a multiple of the 64-row tile),
+# N = 8, K = 40 (one stage, the second slice partly zeros) and K = 2048;
+# the 1000 x 2176 cases take the 64 x 128 tiles, the others 64 x 64
+_MLP_CASES = [("nt", "raw", 100, 8, 40), ("nt", "store", 100, 72, 2048),
+              ("nt", "gelu", 130, 136, 40), ("nt", "ua", 100, 72, 2048),
+              ("nt", "res", 100, 72, 40), ("nt", "gelu", 1000, 2176, 72),
+              ("nt", "res", 1000, 2176, 2048), ("nn", "raw", 100, 8, 2048),
+              ("nn", "store", 130, 136, 40), ("nn", "du", 100, 72, 2048),
+              ("nn", "du", 1000, 2176, 40), ("nn", "raw", 1000, 2176, 136),
+              ("tn", "raw", 72, 136, 448), ("tn", "raw", 2048, 512, 42)]
+# the weight grads' row blocks: 448 in blocks of 224 (two stages of 64 and
+# one of 32 each), 42 in blocks of 7 (a partial slice each)
+_MLP_KBLOCK = {448: 224, 42: 7}
+
+
+@pytest.mark.parametrize("layout,epi,m,n,k", _MLP_CASES)
+def test_mlp_product_against_plain_and_fp64(cuda, layout, epi, m, n, k):
+    """The TBlock MLP's wgmma product alone (ops/gemm_tc.py:mlp_product) in
+    its three layouts and each epilogue: the fp32 sums against a bf16-valued
+    fp64 product within 2x the error of fp32 torch.matmul of the same
+    values; every bf16 output, and the weight grads' sums of rounded row
+    blocks, against the plain version within BF16_TOL norm-wise, apart from
+    rounding flips on at most 1% of the values; the same bits on repeat."""
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import mlp_product, mlp_product_reference
+
+    gen = torch.Generator().manual_seed(57)
+    bf = torch.bfloat16
+    x = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=gen).to(cuda, bf)
+    w = (torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=gen) / k ** 0.5
+         ).to(cuda, bf)
+    kw = {"kblock": _MLP_KBLOCK[k]} if layout == "tn" else {}
+    if epi in ("store", "gelu", "ua", "res"):
+        kw["bias"] = (0.1 * torch.randn(n, generator=gen)).to(cuda, bf)
+    if epi in ("store", "res"):
+        kw["rowmask"] = torch.rand(m, generator=gen).to(cuda) > 0.2
+    if epi == "res":
+        kw.update(seq=10, seqmul=(1 + 0.3 * torch.randn(m // 10, n, generator=gen)).to(cuda))
+        start = torch.randn(m, n, generator=gen).to(cuda)
+    if epi == "du":
+        kw["u"] = torch.randn(m, n, generator=gen).to(cuda, bf)
+
+    def run():
+        if epi == "res":
+            kw["out"] = start.clone()
+        out = mlp_product(x, w, layout, epi, **kw)
+        return list(out) if epi == "ua" else [out]
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two runs differ"
+    if layout == "tn":
+        # each row block's fp32 sum rounded to bf16: a flip apart from the plain
+        # version's on at most 1% of the values
+        ref = mlp_product_reference(x, w, layout, epi, **kw)
+        assert _rel(got[0], ref) <= BF16_TOL and (got[0] != ref).float().mean() <= 0.01
+        return
+    if epi == "raw":
+        ref64 = x.double() @ (w.double().T if layout == "nt" else w.double())
+        err_k = _rel(got[0], ref64)
+        err_32 = _rel(x.float() @ (w.float().T if layout == "nt" else w.float()), ref64)
+        assert err_k <= 2 * err_32, f"wgmma sums {err_k:.3e} vs fp32 matmul {err_32:.3e}"
+        return
+    if epi == "res":
+        kw["out"] = start.clone()
+    ref = mlp_product_reference(x, w, layout, epi, **kw)
+    refs = list(ref) if epi == "ua" else [ref]
+    for out, r in zip(got, refs):
+        assert out.dtype == r.dtype and torch.isfinite(out).all()
+        assert _rel(out, r) <= BF16_TOL, f"{epi}: vs plain {_rel(out, r):.3e}"
+        assert (out != r).float().mean() <= 0.01   # only rounding flips
+
+
+def _kernel_rows(fn):
+    """(name, calls) of the CUDA kernels one call of fn launches, by
+    torch.profiler after a warm-up profile (a process that has profiled
+    before may get a profile back without device events: the first of up
+    to four with kernels counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    rows = []
+    for attempt in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
+                and not e.key.startswith(("Memcpy", "Memset"))]
+        if attempt and rows:   # the first profile is the warm-up
+            break
+    return rows
+
+
+def test_bf16_tblock_launch_budgets(cuda):
+    """One bf16 whole-block TBlock forward launches at most 9 kernels (the
+    weights' cast, ln11 + ln12, four of the MHCA, residual + ln2, fc1, fc2)
+    and one backward at most 32: the first design's 34 at this shape
+    (tools/bf16_tblock_ab.py's `launches` line) less the two GELU passes
+    that the products' epilogues took over; none of them a GELU pass.
+    Counted by torch.profiler."""
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
+
+    gen = torch.Generator().manual_seed(58)
+    a = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 20, 0])
+    g = torch.randn(3, 40, 64, generator=gen).to(cuda)
+    rows = _kernel_rows(lambda: fused_tblock(*a, heads=4, cdtype=torch.bfloat16))
+    assert 0 < sum(c for _, c in rows) <= 9, rows
+    rows = _kernel_rows(lambda: tblock_backward(*a, g=g, heads=4, cdtype=torch.bfloat16))
+    assert 0 < sum(c for _, c in rows) <= 32, rows
+    assert not any("gelu" in k for k, _ in rows), rows
+
+
+def test_bf16_tblock_backward_stage_times(cuda):
+    """The bf16 backward's stage breakdown: one entry a stage of
+    BF16_BWD_STAGES, in order, each a time >= 0."""
+    from unav_yolyolva_tpu_torch.ops import fused_tblock
+
+    gen = torch.Generator().manual_seed(59)
+    a = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 20, 0])
+    g = torch.randn(3, 40, 64, generator=gen).to(cuda)
+    st = fused_tblock.tblock_backward_stage_times(*a, g=g, heads=4, cdtype=torch.bfloat16)
+    assert list(st) == list(fused_tblock.BF16_BWD_STAGES)
+    assert all(v >= 0 for v in st.values())

@@ -1,7 +1,9 @@
 // The bf16 policy's products alone, for testing and timing them by
 // themselves: bf16.cuh's (ops/gemm_tc.py:bf16_products, `count` products in
-// one launch) and the backward's strided product of bf16_bwd.cuh
-// (bf16_layout_product).
+// one launch), the backward's strided product of bf16_bwd.cuh
+// (bf16_layout_product) and the TBlock MLP's wgmma product of
+// bf16_wgmma.cuh (mlp_product).
+#include "bf16_wgmma.cuh"
 #include "bf16_xgemm.cuh"
 
 constexpr int BG_PTRS = 6, BG_INTS = 10;
@@ -54,4 +56,43 @@ extern "C" int unav_xgemm_bf16(int layout, int M, int N, int K, int kblock, int 
   g.round_blocks = round_blocks;
   g.scale = scale;
   return launch_xgemm(g, (cudaStream_t)stream);
+}
+
+// One product of bf16_wgmma.cuh on row-major operands: layout 0 A (M, K) .
+// B (N, K)^T, 1 A (M, K) . B (K, N), 2 A (K, M)^T . B (K, N) (K in blocks of
+// kb rows, each rounded to bf16; 0: one block); epilogue epi (WG_*): C (ldc)
+// bf16, or fp32 for WG_RAW and WG_RES; C2 a (WG_UA), aux u (WG_DU), both
+// with C's row stride; bias, rowmask, seqmul (M / mseq, N) optional as the
+// epilogue reads them.
+extern "C" int unav_wgmma_bf16(int layout, int epi, int M, int N, int K, int kb, const bf16* A,
+                               long lda, const bf16* B, long ldb, void* C, long ldc, bf16* C2,
+                               const bf16* aux, const bf16* bias, const unsigned char* rowmask,
+                               const float* seqmul, int mseq, void* stream) {
+  WgProduct p = wg_product(A, lda, B, ldb, C, ldc, M, N, K);
+  p.C2 = C2;
+  p.aux = aux;
+  p.bias = bias;
+  p.rowmask = rowmask;
+  p.seqmul = seqmul;
+  p.mseq = mseq;
+  p.kb = kb;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (layout == 0) {
+    switch (epi) {
+      case WG_RAW: return launch_wgmma_bf16<0, 0, WG_RAW>(p, s);
+      case WG_STORE: return launch_wgmma_bf16<0, 0, WG_STORE>(p, s);
+      case WG_GELU: return launch_wgmma_bf16<0, 0, WG_GELU>(p, s);
+      case WG_UA: return launch_wgmma_bf16<0, 0, WG_UA>(p, s);
+      case WG_RES: return launch_wgmma_bf16<0, 0, WG_RES>(p, s);
+    }
+  } else if (layout == 1) {
+    switch (epi) {
+      case WG_RAW: return launch_wgmma_bf16<0, 1, WG_RAW>(p, s);
+      case WG_STORE: return launch_wgmma_bf16<0, 1, WG_STORE>(p, s);
+      case WG_DU: return launch_wgmma_bf16<0, 1, WG_DU>(p, s);
+    }
+  } else if (layout == 2 && epi == WG_RAW) {
+    return launch_wgmma_bf16<1, 1, WG_RAW>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,8 +9,11 @@
 //   6. residual_ln2_bf16_kernel: out = x * m + attn * mult_a (fp32), ln2;
 //   7. fc1 with bias and exact erf GELU, bf16 in and out;
 //   8. fc2 with bias and row mask, out += y * mult_m in fp32.
-// Bound: operations (the MLP's products ~2/3 of the FLOPs at the stem).
-#include "bf16.cuh"
+// Bound: operations (the MLP's products ~2/3 of the FLOPs at the stem). The
+// MLP's two products run on bf16_wgmma.cuh (wgmma fed by TMA, persistent
+// blocks, GELU and the residual tail in their epilogues); the MHCA and the
+// glue as bf16.cuh has them.
+#include "bf16_wgmma.cuh"
 
 static long tblock_bf16_act_elems(int R, int T, int C, int Hd) {
   const long P = (long)R * T, PC = P * C;
@@ -75,14 +78,16 @@ static int tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_PARAMS, StageMarks* marks) 
   });
   if (rc) return rc;
   mark_stage(marks, s);
-  Bf16Gemm fc1 = bf16_gemm(h, C, w1b, C, hid, Hd, b1b, nullptr, (int)P, Hd, C);
-  fc1.act = BF16_ACT_GELU;
-  if ((rc = launch_gemm_bf16_one(fc1, s))) return rc;
+  WgProduct fc1 = wg_product(h, C, w1b, C, hid, Hd, (int)P, Hd, C);
+  fc1.bias = b1b;
+  if ((rc = launch_wgmma_bf16<0, 0, WG_GELU>(fc1, s))) return rc;
   mark_stage(marks, s);
-  Bf16Gemm fc2 = bf16_gemm(hid, Hd, w2b, Hd, out, C, b2b, mask, (int)P, C, Hd);
+  WgProduct fc2 = wg_product(hid, Hd, w2b, Hd, out, C, (int)P, C, Hd);
+  fc2.bias = b2b;
+  fc2.rowmask = mask;
   fc2.seqmul = mult_m;
   fc2.mseq = T;
-  rc = launch_gemm_bf16_one(fc2, s);
+  rc = launch_wgmma_bf16<0, 0, WG_RES>(fc2, s);
   mark_stage(marks, s);
   return rc;
 }

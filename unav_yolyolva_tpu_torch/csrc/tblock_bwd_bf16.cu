@@ -3,52 +3,67 @@
 // `_tblock_diff_bwd` (unav_yolyolva_tpu/ops/pallas_tblock.py), `jax.vjp` of
 // the bf16 `_tblock_compute` once per block of Rj sequences. It saves nothing
 // but its inputs: the forward is recomputed with tblock_bf16.cu's launches
-// (fc1 without its GELU, so that u is kept; GELU rounded to bf16 apart),
+// (fc1's epilogue keeping u = bf16(h W1 + b1) beside a = bf16(GELU(u))),
 // then, in reverse:
-//   tail_bf16_kernel: d(mult_m) = sum_t y * g (fp32), y's grad bf16(g *
+//   mult_bwd_kernel: d(mult_m) = sum_t y * g (fp32), y's grad bf16(g *
 //     mult_m) * m;
-//   fc2, GELU' of the fp32 GELU on u's bf16 value (rounded to bf16), fc1:
-//     input grads rounded to bf16, weight grads per block rounded, biases in
-//     XLA's order (bf16_bwd.cuh);
+//   fc2, GELU' of the fp32 GELU on u's bf16 value (rounded to bf16, in the
+//     epilogue of the product dy2 W2), fc1: input grads rounded to bf16,
+//     weight grads per block rounded, biases in XLA's order (bf16_bwd.cuh);
 //   ln2_bwd_kernel: ln2's backward in fp32 plus the residual's grad;
-//   attn_mult_bwd_kernel: d(mult_a) = sum_t attn * dout, the MHCA output's
-//     grad bf16(dout * mult_a);
+//   mult_bwd_kernel: d(mult_a) = sum_t attn * dout, the MHCA output's grad
+//     bf16(dout * mult_a);
 //   the MHCA (form MHCA_VJP, k/v from ln11, q from ln12), from the
 //     recompute's own normalized inputs, q/k/v and attention output;
 //   ln_pair_bwd_kernel: ln11's and ln12's backward and x's grad, fp32 (the
 //     residual stream), and the LayerNorm affine grads' fp32 sums.
 // Bound: operations (bf16_bwd.cuh; the MLP's products ~2/3 of the FLOPs).
+// The MLP's six products (fc1, fc2, dy2 W2, du W1 and the weight grads
+// dy2^T a, du^T h) run on bf16_wgmma.cuh.
 #include "bf16_bwd.cuh"
+#include "bf16_wgmma.cuh"
 
-// a = bf16(GELU(u)) (the forward's fc1 epilogue) and, with da, du =
-// bf16(GELU'(u) * da)
-__global__ void gelu_bf16_kernel(const bf16* __restrict__ u, const bf16* __restrict__ da,
-                                 long n, bf16* __restrict__ out) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float x = bf(u[i]);
-  out[i] = da ? rb(gelu_erf_grad(x) * bf(da[i])) : rb(gelu_erf(x));
+// d(mult)[r][c] = sum_t f(y[r,t,c]) g[r,t,c] in fp32 (y bf16 or fp32), and
+// dy[r,t,c] = bf16(g * mult[r][c]) * m[r,t] (no mask: m = 1). A block per
+// (sequence, 32 channels), lane = channel: its MB_WARPS warps each sum every
+// MB_WARPS-th frame, and the warps' partial sums are added in warp order
+// (no atomics: repeats give the same bits).
+constexpr int MB_WARPS = 8;
+__global__ void __launch_bounds__(MB_WARPS * 32) mult_bwd_kernel(
+    const void* __restrict__ y, int y_bf, const float* __restrict__ g,
+    const float* __restrict__ mult, const unsigned char* __restrict__ mask, int T, int C,
+    float* __restrict__ dmult, bf16* __restrict__ dy) {
+  __shared__ float part[MB_WARPS][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.y, c = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (c < C) {
+    const float mu = mult[(long)r * C + c];
+#pragma unroll 4
+    for (int t = w; t < T; t += MB_WARPS) {
+      const long row = (long)r * T + t, off = row * C + c;
+      const float gv = g[off];
+      s += ld_any(y, off, y_bf) * gv;
+      dy[off] = rb(!mask || mask[row] ? rbf(gv * mu) : 0.f);
+    }
+  }
+  part[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && c < C) {
+    float tot = part[0][lane];
+#pragma unroll
+    for (int i = 1; i < MB_WARPS; ++i) tot += part[i][lane];
+    dmult[(long)r * C + c] = tot;
+  }
 }
 
-// One thread per (sequence, channel): dmult[r][c] = sum_t f(y[r,t,c]) g[r,t,c]
-// in fp32 (y bf16 or fp32), and dy[r,t,c] = bf16(g * mult[r][c]) * m[r,t]
-// (no mask: m = 1)
-__global__ void mult_bwd_kernel(const void* __restrict__ y, int y_bf, const float* __restrict__ g,
-                                const float* __restrict__ mult,
-                                const unsigned char* __restrict__ mask, int R, int T, int C,
-                                float* __restrict__ dmult, bf16* __restrict__ dy) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)R * C) return;
-  const int r = (int)(i / C), c = (int)(i - (long)r * C);
-  const float mu = mult[i];
-  float s = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const long off = ((long)r * T + t) * C + c;
-    const float gv = g[off];
-    s += ld_any(y, off, y_bf) * gv;
-    dy[off] = rb(!mask || mask[(long)r * T + t] ? rbf(gv * mu) : 0.f);
-  }
-  dmult[i] = s;
+static int launch_mult_bwd(const void* y, int y_bf, const float* g, const float* mult,
+                           const unsigned char* mask, int R, int T, int C, float* dmult,
+                           bf16* dy, cudaStream_t s) {
+  mult_bwd_kernel<<<dim3(ceil_div(C, 32), R), MB_WARPS * 32, 0, s>>>(y, y_bf, g, mult, mask, T,
+                                                                      C, dmult, dy);
+  UNAV_RETURN_IF_ERROR();
+  return 0;
 }
 
 // ln2's backward, one warp per frame: recomputes res = x * m + attn *
@@ -147,7 +162,7 @@ __global__ void __launch_bounds__(256) ln_pair_bwd_kernel(
 
 struct TblockBwdBufs {
   bf16 *wb, *bb, *w1b, *b1b, *w2b, *b2b;
-  bf16 *h1, *h2, *attn, *h, *u, *a, *y2, *dy2, *da, *du, *dh, *dattn, *dh1, *dh2;
+  bf16 *h1, *h2, *attn, *h, *u, *a, *y2, *dy2, *du, *dh, *dattn, *dh1, *dh2;
   float *res, *yhat2, *dout, *yhat, *partial, *xwork, *split;
   long xwork_floats, split_floats;
   MhcaBwdBufs mb;
@@ -170,7 +185,6 @@ static TblockBwdBufs tblock_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H
   b.a = s.take<bf16>(PH);
   b.y2 = s.take<bf16>(PC);
   b.dy2 = s.take<bf16>(PC);
-  b.da = s.take<bf16>(PH);
   b.du = s.take<bf16>(PH);
   b.dh = s.take<bf16>(PC);
   b.dattn = s.take<bf16>(PC);
@@ -183,8 +197,8 @@ static TblockBwdBufs tblock_bwd_bf16_buffers(Bump& s, int R, int T, int C, int H
   b.partial = s.take<float>(fsum_scratch_floats(P, C));
   b.xwork_floats = xla_sums_work_floats(R, T, std::max(C, Hd), 2);
   b.xwork = s.take<float>(b.xwork_floats);
-  // the weight grads' row blocks (at most R): the MLP's, the MHCA's four
-  b.split_floats = (long)R * std::max((long)C * Hd, 4L * C * C);
+  // the MHCA's four weight grads' row blocks (at most R)
+  b.split_floats = (long)R * 4L * C * C;
   b.split = s.take<float>(b.split_floats);
   b.mb = mhca_bwd_bf16_buffers(s, R, T, C, H);
   return b;
@@ -201,16 +215,24 @@ extern "C" long unav_tblock_bf16_backward_scratch(int R, int T, int C, int Hd, i
 // fp32 weights (tblock.cuh's order); Rj the JAX kernel's block of sequences
 // (a divisor of R). Writes dx (R*T, C), d(mult_a), d(mult_m) (R, C) and the
 // weight grads, fp32, in the weights' layouts.
-extern "C" int unav_tblock_bf16_backward(
-    const float* x, const unsigned char* mask, int R, int T, int C, int Hd, int heads, int Rj,
-    const float* mult_a, const float* mult_m, const float* lnw3, const float* lnb3,
-    const float* dw, const float* lnw, const float* lnb, const float* w, const float* b,
-    const float* w1, const float* b1, const float* w2, const float* b2, float eps,
-    const float* g, float* dx, float* dma, float* dmm, float* glnw3, float* glnb3, float* gdw,
-    float* glnw, float* glnb, float* gw, float* gb, float* gw1, float* gb1, float* gw2,
-    float* gb2, float* scratch, void* stream) {
+#define UNAV_TBLOCK_BWD_BF16_PARAMS                                                          \
+  const float *x, const unsigned char *mask, int R, int T, int C, int Hd, int heads, int Rj, \
+      const float *mult_a, const float *mult_m, const float *lnw3, const float *lnb3,        \
+      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,   \
+      const float *w1, const float *b1, const float *w2, const float *b2, float eps,         \
+      const float *g, float *dx, float *dma, float *dmm, float *glnw3, float *glnb3,         \
+      float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gw1, float *gb1,    \
+      float *gw2, float *gb2, float *scratch, void *stream
+#define UNAV_TBLOCK_BWD_BF16_ARGS                                                            \
+  x, mask, R, T, C, Hd, heads, Rj, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1,  \
+      w2, b2, eps, g, dx, dma, dmm, glnw3, glnb3, gdw, glnw, glnb, gw, gb, gw1, gb1, gw2,    \
+      gb2, scratch, stream
+
+// The backward; marks, if given, gets an event after each stage
+// (TBLOCK_BF16_BWD_STAGES of them).
+static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* marks) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const long P = (long)R * T, PC = P * C, PH = P * Hd;
+  const long P = (long)R * T;
   if (R % Rj) return (int)cudaErrorInvalidValue;
   Bump bump{reinterpret_cast<char*>(scratch), 0};
   const TblockBwdBufs u = tblock_bwd_bf16_buffers(bump, R, T, C, Hd, heads);
@@ -227,6 +249,7 @@ extern "C" int unav_tblock_bf16_backward(
   }
   int rc = launch_cast(l, s);
   if (rc) return rc;
+  mark_stage(marks, s);
 
   // ---- the forward, recomputed
   rc = with_cpl(C, [&](auto cpl) {
@@ -234,51 +257,49 @@ extern "C" int unav_tblock_bf16_backward(
         x, P, C, lnw3, lnb3, eps, u.h1, u.h2);
   });
   if (rc) return rc;
+  mark_stage(marks, s);
   rc = mhca_bf16_forward_impl(u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb, u.bb,
                               eps, u.attn, C, u.mb.y3, s, nullptr, u.mb.o);
   if (rc) return rc;
+  mark_stage(marks, s);
   rc = with_cpl(C, [&](auto cpl) {
     residual_ln2_bf16_kernel<decltype(cpl)::value><<<ceil_div(P, 8), 256, 0, s>>>(
         x, mask, mult_a, u.attn, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps, u.res, u.h);
   });
   if (rc) return rc;
-  if ((rc = launch_gemm_bf16_one(
-           bf16_gemm(u.h, C, u.w1b, C, u.u, Hd, u.b1b, nullptr, (int)P, Hd, C), s)))
-    return rc;
-  gelu_bf16_kernel<<<ceil_div(PH, 256), 256, 0, s>>>(u.u, nullptr, PH, u.a);
-  UNAV_RETURN_IF_ERROR();
-  if ((rc = launch_gemm_bf16_one(
-           bf16_gemm(u.a, Hd, u.w2b, Hd, u.y2, C, u.b2b, mask, (int)P, C, Hd), s)))
-    return rc;
+  mark_stage(marks, s);
+  WgProduct fc1 = wg_product(u.h, C, u.w1b, C, u.u, Hd, (int)P, Hd, C);
+  fc1.bias = u.b1b;
+  fc1.C2 = u.a;
+  if ((rc = launch_wgmma_bf16<0, 0, WG_UA>(fc1, s))) return rc;
+  mark_stage(marks, s);
+  WgProduct fc2 = wg_product(u.a, Hd, u.w2b, Hd, u.y2, C, (int)P, C, Hd);
+  fc2.bias = u.b2b;
+  fc2.rowmask = mask;
+  if ((rc = launch_wgmma_bf16<0, 0, WG_STORE>(fc2, s))) return rc;
+  mark_stage(marks, s);
 
   // ---- mult_m, fc2, GELU, fc1
-  mult_bwd_kernel<<<ceil_div((long)R * C, 256), 256, 0, s>>>(u.y2, 1, g, mult_m, mask, R, T, C,
-                                                             dmm, u.dy2);
-  UNAV_RETURN_IF_ERROR();
-  XGemm w2g = xgemm(C, Hd, (int)P);
-  xg_at(w2g, u.dy2, C);
-  xg_b(w2g, u.a, Hd);
-  xg_c(w2g, gw2, Hd, 1);
-  xg_blocks(w2g, Rj * T);
-  if ((rc = launch_xgemm(w2g, s, split))) return rc;
-  XGemm dag = xgemm((int)P, Hd, C);
-  xg_a(dag, u.dy2, C);
-  xg_b(dag, u.w2b, Hd);
-  xg_c(dag, u.da, Hd, 0);
-  if ((rc = launch_xgemm(dag, s))) return rc;
-  gelu_bf16_kernel<<<ceil_div(PH, 256), 256, 0, s>>>(u.u, u.da, PH, u.du);
-  UNAV_RETURN_IF_ERROR();
-  XGemm w1g = xgemm(Hd, C, (int)P);
-  xg_at(w1g, u.du, Hd);
-  xg_b(w1g, u.h, C);
-  xg_c(w1g, gw1, C, 1);
-  xg_blocks(w1g, Rj * T);
-  if ((rc = launch_xgemm(w1g, s, split))) return rc;
-  XGemm dhg = xgemm((int)P, C, Hd);
-  xg_a(dhg, u.du, Hd);
-  xg_b(dhg, u.w1b, C);
-  xg_c(dhg, u.dh, C, 0);
-  if ((rc = launch_xgemm(dhg, s))) return rc;
+  if ((rc = launch_mult_bwd(u.y2, 1, g, mult_m, mask, R, T, C, dmm, u.dy2, s))) return rc;
+  mark_stage(marks, s);
+  // the weight grads: fp32 sums of JAX row blocks of Rj * T rows, each rounded
+  WgProduct w2g = wg_product(u.dy2, C, u.a, Hd, gw2, Hd, C, Hd, (int)P);
+  w2g.kb = Rj * T;
+  if ((rc = launch_wgmma_bf16<1, 1, WG_RAW>(w2g, s))) return rc;
+  mark_stage(marks, s);
+  // du = bf16(GELU'(u) * bf16(dy2 W2)), u read by the epilogue
+  WgProduct dag = wg_product(u.dy2, C, u.w2b, Hd, u.du, Hd, (int)P, Hd, C);
+  dag.aux = u.u;
+  if ((rc = launch_wgmma_bf16<0, 1, WG_DU>(dag, s))) return rc;
+  mark_stage(marks, s);
+  WgProduct w1g = wg_product(u.du, Hd, u.h, C, gw1, C, Hd, C, (int)P);
+  w1g.kb = Rj * T;
+  if ((rc = launch_wgmma_bf16<1, 1, WG_RAW>(w1g, s))) return rc;
+  mark_stage(marks, s);
+  if ((rc = launch_wgmma_bf16<0, 1, WG_STORE>(
+           wg_product(u.du, Hd, u.w1b, C, u.dh, C, (int)P, C, Hd), s)))
+    return rc;
+  mark_stage(marks, s);
 
   // ---- ln2 and the residual, mult_a
   rc = with_cpl(C, [&](auto cpl) {
@@ -286,17 +307,18 @@ extern "C" int unav_tblock_bf16_backward(
         x, mask, mult_a, u.attn, P, T, C, lnw3 + 2L * C, eps, u.dh, g, u.yhat2, u.dout);
   });
   if (rc) return rc;
+  mark_stage(marks, s);
   // d(mult_a) and the MHCA output's grad bf16(dout * mult_a) (no row mask:
   // JAX's residual add is not masked)
-  mult_bwd_kernel<<<ceil_div((long)R * C, 256), 256, 0, s>>>(u.attn, 1, u.dout, mult_a, nullptr,
-                                                             R, T, C, dma, u.dattn);
-  UNAV_RETURN_IF_ERROR();
+  if ((rc = launch_mult_bwd(u.attn, 1, u.dout, mult_a, nullptr, R, T, C, dma, u.dattn, s)))
+    return rc;
+  mark_stage(marks, s);
 
   // ---- the MHCA
   rc = mhca_bf16_backward(MHCA_VJP, u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb,
                           u.bb, eps, u.dattn, C, nullptr, 0, u.dh1, C, u.dh2, C,
                           MhcaGrads{gdw, glnw, glnb, gw, gb}, Rj, T, u.mb, false, nullptr,
-                          split, s);
+                          split, s, marks);
   if (rc) return rc;
 
   // ---- ln11, ln12 and x
@@ -305,6 +327,7 @@ extern "C" int unav_tblock_bf16_backward(
         x, mask, P, C, lnw3, eps, u.dh1, u.dh2, u.dout, u.yhat, dx);
   });
   if (rc) return rc;
+  mark_stage(marks, s);
 
   // ---- the sums: LayerNorm affine fp32, the MLP's biases in XLA's order
   FJobs fj;
@@ -316,8 +339,32 @@ extern "C" int unav_tblock_bf16_backward(
     fj.j[2 * i + 1] = fjob(dls[i], C, 1, (int)P, C, glnb3 + (long)i * C);
   }
   if ((rc = launch_fsums(fj, 6, u.partial, s))) return rc;
+  mark_stage(marks, s);
   XJobs xj;
   xj.j[0] = xjob(u.dy2, C, gb2, C, T, T);
   xj.j[1] = xjob(u.du, Hd, gb1, Hd, T, T);
-  return launch_xla_sums(xj, 2, R / Rj, Rj, u.xwork, u.xwork_floats, s);
+  rc = launch_xla_sums(xj, 2, R / Rj, Rj, u.xwork, u.xwork_floats, s);
+  mark_stage(marks, s);
+  return rc;
+}
+
+extern "C" int unav_tblock_bf16_backward(UNAV_TBLOCK_BWD_BF16_PARAMS) {
+  return tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_ARGS, nullptr);
+}
+
+// stages of one backward (ops/fused_tblock.py: BF16_BWD_STAGES): the
+// weights' cast, the recompute (ln11 + ln12, the MHCA's four launches,
+// residual + ln2, fc1 with u and GELU(u), fc2), d(mult_m), w2's grad, du,
+// w1's grad, dh, ln2, d(mult_a), the MHCA backward's seven
+// (MHCA_BF16_BWD_STAGES; its recompute was done above), ln11 + ln12, the
+// LayerNorm affine sums, the biases' sums
+constexpr int TBLOCK_BF16_BWD_STAGES = 16 + MHCA_BF16_BWD_STAGES;
+
+// The same backward, synchronised, with the device ms of each stage in
+// stage_ms (TBLOCK_BF16_BWD_STAGES floats).
+extern "C" int unav_tblock_bf16_backward_stages(UNAV_TBLOCK_BWD_BF16_PARAMS, float* stage_ms) {
+  return time_stages<TBLOCK_BF16_BWD_STAGES>((cudaStream_t)stream, stage_ms,
+                                             [&](StageMarks* marks) {
+    return tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_ARGS, marks);
+  });
 }

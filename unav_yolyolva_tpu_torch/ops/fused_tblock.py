@@ -29,12 +29,16 @@ branch multipliers stay fp32; ln11, ln12 and ln2 store bf16, the MHCA runs
 in bf16 (`fused_mhca`), fc1's fp32 sum is rounded to bf16, its bias added
 in bf16 and GELU taken of and stored in bf16, fc2 likewise before the row
 mask, and `out + y * mult_m` is fp32. On the card it is a launch sequence of
-its own (csrc/tblock_bf16.cu on csrc/bf16.cuh: the MHCA and both MLP
-products on the bf16 tensor cores). Its backward is the JAX package's bf16
+its own (csrc/tblock_bf16.cu: the MHCA of csrc/bf16.cuh, both MLP products
+on the `wgmma` product of csrc/bf16_wgmma.cuh with GELU and the residual
+tail in its epilogues). Its backward is the JAX package's bf16
 `_tblock_bwd_kernel`, `jax.vjp` of the bf16 body once per block of the TPU
 kernel's rows: dx and the multipliers' grads fp32, the weight grads rounded
 to bf16 per block; the plain version is autograd of the bf16 forward per
-block (ops/bf16_grad.py), the kernel csrc/tblock_bwd_bf16.cu.
+block (ops/bf16_grad.py), the kernel csrc/tblock_bwd_bf16.cu (the MLP's six
+products on csrc/bf16_wgmma.cuh, u and GELU(u) from fc1's epilogue and du
+from dy2 W2's). `tblock_stage_times` and `tblock_backward_stage_times` time
+both launch by launch.
 
 Weight layout (torch, packed by TransformerBlock.packed_weights()):
 lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
@@ -72,8 +76,9 @@ _BWD_TYPES = ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOA
 _BWD_ARGTYPES = {"unav_tblock_backward": _BWD_TYPES,
                  "unav_tblock_backward_stages": _BWD_TYPES + [PTR]}
 _BWD_RESTYPES = {"unav_tblock_backward_scratch": ([INT] * 5, LONG)}
-_BWD_BF16_ARGTYPES = {"unav_tblock_bf16_backward": [PTR, PTR] + [INT] * 6 + [PTR] * 13
-                      + [FLOAT] + [PTR] * 15 + [PTR, PTR]}
+_BWD_BF16_TYPES = [PTR, PTR] + [INT] * 6 + [PTR] * 13 + [FLOAT] + [PTR] * 15 + [PTR, PTR]
+_BWD_BF16_ARGTYPES = {"unav_tblock_bf16_backward": _BWD_BF16_TYPES,
+                      "unav_tblock_bf16_backward_stages": _BWD_BF16_TYPES + [PTR]}
 _BWD_BF16_RESTYPES = {"unav_tblock_bf16_backward_scratch": ([INT] * 5, LONG)}
 # the stages of one backward, in order (tblock_bwd.cu: TBLOCK_BWD_STAGES)
 BWD_STAGES = (("ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2", "dmult_m",
@@ -81,6 +86,14 @@ BWD_STAGES = (("ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2", "dmult
               + tuple(f"mhca.{part}" for part in ("proj", "dq", "dkdv", "qkv_dx", "wgrad", "ln",
                                                   "conv", "colsum"))
               + ("ln_pair_bwd", "colsum"))
+# the stages of one bf16 backward, in order (tblock_bwd_bf16.cu:
+# TBLOCK_BF16_BWD_STAGES; the MHCA's are fused_mhca.BWD_BF16_STAGES but its
+# cast and recompute, done above)
+BF16_BWD_STAGES = (("cast", "ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2",
+                    "dmult_m", "w2_grad", "du", "w1_grad", "dh", "ln2", "dmult_a")
+                   + tuple(f"mhca.{part}" for part in ("entry", "proj", "attention", "dense",
+                                                       "wgrad", "ln_conv", "sums"))
+                   + ("ln_pair_bwd", "ln_sums", "bias_sums"))
 
 N_WEIGHTS = 11
 
@@ -245,7 +258,10 @@ def _launch_backward(entry, x, mask, mult_a, mult_m, weights, g, heads, eps, *ex
     return tuple(grads)
 
 
-def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
+def _prepare_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
+    """The bf16 backward's host work before its C entry: the checks, the row
+    block, the grads and the scratch. Returns (lib, the entry's arguments,
+    grads, scratch)."""
     r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
     if (c // heads) % 8 or hid % 8:   # bf16 rows of 16 bytes
         raise ValueError(f"tblock_backward (bf16): head width {c // heads} and hidden "
@@ -256,11 +272,17 @@ def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
     lib = cuda_build.library("tblock_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
     scratch = torch.empty(lib.unav_tblock_bf16_backward_scratch(r, t, c, hid, heads),
                           device=x.device, dtype=torch.float32)
-    rc = lib.unav_tblock_bf16_backward(
-        x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, rows, mult_a.data_ptr(),
-        mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
-        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
-    cuda_build.check(lib, rc, "tblock_backward (bf16)")
+    args = (x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, rows, mult_a.data_ptr(),
+            mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
+            *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
+    return lib, args, grads, scratch
+
+
+def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps, *extra,
+                          entry="unav_tblock_bf16_backward"):
+    lib, args, grads, _ = _prepare_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads,
+                                                 eps)
+    cuda_build.check(lib, getattr(lib, entry)(*args, *extra), "tblock_backward (bf16)")
     return tuple(grads)
 
 
@@ -284,10 +306,16 @@ def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float
 
 
 def tblock_backward_stage_times(x, mask, mult_a, mult_m, *weights, g, heads: int,
-                                eps: float = 1e-5):
+                                eps: float = 1e-5, cdtype: torch.dtype = torch.float32):
     """One CUDA backward, synchronised, and the device ms of each of its
     stages (CUDA events between them): {stage: ms} in launch order, the
-    names of BWD_STAGES. Not counted in tblock_backward.launches."""
+    names of BWD_STAGES (of BF16_BWD_STAGES at cdtype bf16). Not counted in
+    the launch counts."""
+    if cdtype == torch.bfloat16:
+        ms = (ctypes.c_float * len(BF16_BWD_STAGES))()
+        _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps, ms,
+                              entry="unav_tblock_bf16_backward_stages")
+        return dict(zip(BF16_BWD_STAGES, ms))
     ms = (ctypes.c_float * len(BWD_STAGES))()
     _launch_backward("unav_tblock_backward_stages", x, mask, mult_a, mult_m, weights, g,
                      heads, eps, ms)

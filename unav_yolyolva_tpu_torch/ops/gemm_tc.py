@@ -39,6 +39,13 @@ run through it. The backward's bf16 product (`bf16_layout_product`, the
 kernel of csrc/bf16_bwd.cuh) adds the A.B and A^T.B layouts, an fp32 A taken
 exactly, and a weight grad's K summed in row blocks whose fp32 sums are
 rounded to bf16 and added in fp32 in order (`bf16_layout_reference`).
+The whole-block TBlock's MLP products run on a third bf16 product
+(`mlp_product`, the kernel of csrc/bf16_wgmma.cuh: wgmma fed by TMA, the
+same 32-deep slices and row blocks) in the A.B^T, A.B and A^T.B layouts,
+with the epilogues that block needs: + bias and GELU (fc1), u and GELU(u)
+both kept (fc1 in the backward's recompute), the residual tail (fc2),
+GELU'(u) times the product (the backward's du); its plain version is
+`mlp_product_reference`.
 """
 
 from __future__ import annotations
@@ -55,7 +62,9 @@ from .cuda_build import FLOAT, INT, LONG, PTR
 _ARGTYPES = {"unav_gemm_tc": [INT, PTR, PTR, PTR, PTR, LONG, PTR],
              "unav_gemm_split_chunk": [INT, INT, INT]}
 _BF16_ARGTYPES = {"unav_gemm_bf16": [INT, PTR, PTR, PTR, PTR],
-                  "unav_xgemm_bf16": [INT] * 6 + [PTR, INT, PTR, PTR, INT, FLOAT, PTR]}
+                  "unav_xgemm_bf16": [INT] * 6 + [PTR, INT, PTR, PTR, INT, FLOAT, PTR],
+                  "unav_wgmma_bf16": [INT] * 6 + [PTR, LONG, PTR, LONG, PTR, LONG] + [PTR] * 5
+                  + [INT, PTR]}
 SLICE = 32          # k summed from zero before it joins the total (TC_BK)
 MAX_BATCH = 4       # products of one launch (GEMM_MAX_BATCH)
 MAX_SPLITS = 8      # chunks of K of a weight grad (GEMM_MAX_SPLITS)
@@ -525,3 +534,116 @@ def bf16_products(calls):
 
 
 bf16_products.launches = 0
+
+
+# ---- the whole-block TBlock's MLP product (csrc/bf16_wgmma.cuh) --------------------
+
+MLP_EPIS = {"raw": 0, "store": 1, "gelu": 2, "ua": 3, "res": 4, "du": 5}   # WG_*
+MLP_LAYOUT_EPIS = {"nt": ("raw", "store", "gelu", "ua", "res"), "nn": ("raw", "store", "du"),
+                   "tn": ("raw",)}
+
+
+def mlp_product_reference(x, w, layout: str = "nt", epi: str = "store", *, bias=None,
+                          rowmask=None, u=None, out=None, seqmul=None, seq: int = 1,
+                          kblock: int = None):
+    """Plain version of one `mlp_product`: x (M, K) . w^T with w (N, K)
+    (layout "nt"), x . w with w (K, N) ("nn"), or x^T . w with x (K, M)
+    ("tn", a weight grad: K in blocks of kblock rows, each block's fp32 sum
+    rounded to bf16 and the blocks added in fp32 in order), the operands
+    rounded to bf16, their fp32 product; then the epilogue, each step
+    rounded to bf16: "raw" the fp32 sums; "store" bf16(sum) [+ bias] [*
+    rowmask]; "gelu" + bias, erf GELU; "ua" (u, a) with u = bf16(sum) +
+    bias and a = GELU(u); "res" out + (bf16(sum) + bias) * rowmask *
+    seqmul[m // seq] in fp32; "du" bf16(GELU'(u) * bf16(sum))."""
+    if layout not in MLP_LAYOUT_EPIS or epi not in MLP_LAYOUT_EPIS[layout]:
+        raise ValueError(f"mlp_product_reference: layout {layout!r}, epi {epi!r}")
+    if layout == "tn":
+        return bf16_layout_reference(x.to(torch.bfloat16), w, "tn", kblock=kblock,
+                                     round_blocks=True, out_bf16=False)
+    y = bf16_matmul_reference(x, w.transpose(0, 1) if layout == "nt" else w)
+    if epi == "raw":
+        return y
+    y = y.to(torch.bfloat16)
+    if epi == "du":
+        return (gelu_erf_grad(u.float()) * y.float()).to(torch.bfloat16)
+    if bias is not None:
+        y = bias_add(y, bias.to(torch.bfloat16))
+    if epi == "ua":
+        return y, gelu_erf(y.float()).to(torch.bfloat16)
+    if epi == "gelu":
+        y = gelu_erf(y.float()).to(torch.bfloat16)
+    if rowmask is not None:
+        y = y * rowmask[..., None].to(y.dtype)
+    if epi == "res":
+        return out + y.float() * seqmul.repeat_interleave(seq, 0).reshape(y.shape)
+    return y
+
+
+def mlp_product(x, w, layout: str = "nt", epi: str = "store", *, bias=None, rowmask=None,
+                u=None, out=None, seqmul=None, seq: int = 1, kblock: int = None):
+    """One product of the whole-block TBlock's MLP (csrc/bf16_wgmma.cuh), as
+    `mlp_product_reference` describes it: x (M, K) bf16, w bf16 (N, K) in
+    layout "nt" (fc1, fc2) or (K, N) in "nn" (the backward's dy2 W2 and du
+    W1); in "tn" x (K, M) and w (K, N) (the weight grads, "raw" only, K in
+    blocks of kblock rows); contiguous; "res" adds into out (M, N) fp32 in
+    place and returns it; "ua" returns (u, a). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (rows of 16 bytes: the row
+    widths, and K outside "tn", multiples of 8)."""
+    if x.device.type == "cpu":
+        return mlp_product_reference(x, w, layout, epi, bias=bias, rowmask=rowmask, u=u,
+                                     out=out, seqmul=seqmul, seq=seq, kblock=kblock)
+    bf = torch.bfloat16
+    if layout not in MLP_LAYOUT_EPIS or epi not in MLP_LAYOUT_EPIS[layout]:
+        raise ValueError(f"mlp_product: layout {layout!r}, epi {epi!r}")
+    _check("x", x, 2, bf)
+    _check("w", w, 2, bf)
+    m, k = x.shape[::-1] if layout == "tn" else x.shape
+    n = w.shape[0] if layout == "nt" else w.shape[1]
+    kb = kblock or k
+    if ((w.shape[1] if layout == "nt" else w.shape[0]) != k or not x.is_contiguous()
+            or not w.is_contiguous() or (layout != "tn" and k % 8) or n % 8
+            or (layout == "tn" and m % 8) or k % kb or (kblock and layout != "tn")):
+        raise ValueError(f"mlp_product: x {tuple(x.shape)}, w {tuple(w.shape)} in layout "
+                         f"{layout!r}, kblock {kblock} (contiguous, the rows' widths and "
+                         f"K outside 'tn' multiples of 8, K whole blocks)")
+    wide = epi in ("raw", "res")
+    if epi == "res":
+        if out is None or seqmul is None or m % seq:
+            raise ValueError("mlp_product: 'res' needs out and seqmul (M // seq, N)")
+        _check("seqmul", seqmul, 2)
+        if tuple(seqmul.shape) != (m // seq, n) or not seqmul.is_contiguous():
+            raise ValueError(f"seqmul: shape {tuple(seqmul.shape)}, needs {(m // seq, n)}")
+    else:
+        out = torch.empty((m, n), device=x.device, dtype=torch.float32 if wide else bf)
+    _check("out", out, 2, torch.float32 if wide else bf)
+    if tuple(out.shape) != (m, n) or not out.is_contiguous():
+        raise ValueError(f"out: shape {tuple(out.shape)}, needs {(m, n)} contiguous")
+    a = torch.empty_like(out) if epi == "ua" else None
+    if epi == "du":
+        _check("u", u, 2, bf)
+        if tuple(u.shape) != (m, n) or not u.is_contiguous():
+            raise ValueError(f"u: shape {tuple(u.shape)}, needs {(m, n)} contiguous")
+    if bias is not None:
+        _check("bias", bias, 1, bf)
+    if rowmask is not None:
+        _check("rowmask", rowmask, 1, torch.bool)
+    if (bias is not None and tuple(bias.shape) != (n,)) or (
+            rowmask is not None and tuple(rowmask.shape) != (m,)):
+        raise ValueError(f"mlp_product: bias needs ({n},), rowmask ({m},)")
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = cuda_build.library("gemm_bf16", _BF16_ARGTYPES)
+    rc = lib.unav_wgmma_bf16(
+        ("nt", "nn", "tn").index(layout), MLP_EPIS[epi], m, n, k,
+        kb if layout == "tn" else 0, x.data_ptr(), x.stride(0), w.data_ptr(),
+        w.stride(0), out.data_ptr(), n, ptr(a), ptr(u if epi == "du" else None), ptr(bias),
+        ptr(rowmask), ptr(seqmul if epi == "res" else None), seq,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "mlp_product")
+    mlp_product.launches += 1
+    return (out, a) if epi == "ua" else out
+
+
+mlp_product.launches = 0

@@ -44,14 +44,14 @@ _parent_libs = {}   # name: the parent's library, bound once
 
 
 @contextlib.contextmanager
-def bound_to(parent: Path):
-    """While open, the wrappers' libraries in LIBS come from `parent`'s
+def bound_to(parent: Path, libs=LIBS):
+    """While open, the wrappers' libraries in `libs` come from `parent`'s
     sources (entry points it lacks are left unbound)."""
     orig = cuda_build.library
     csrc = parent.resolve() / "unav_yolyolva_tpu_torch" / "csrc"
 
     def library(name, argtypes, restypes=None, source=None):
-        if source is not None or name not in LIBS:
+        if source is not None or name not in libs:
             return orig(name, argtypes, restypes, source)
         if name not in _parent_libs:
             src = csrc / f"{name}.cu"
