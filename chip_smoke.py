@@ -183,6 +183,16 @@ Phases (any failure exits non-zero):
      resume whose last epoch equals the straight run's bit for bit; the
      bench's train half at fp32 and bf16 in turns (clips/s, busy share,
      peak memory);
+ 17. data parallel, in a process of its own started by torchrun at one
+     rank (NCCL on the card; `--dp-only`): make_train_step with the group,
+     3 steps at B=8, T=224 in fp32 and bf16, bit-identical (losses,
+     parameters, EMA, normalizer) to the step without a group from the same
+     seed; make_eval_step with the group at B=64, fp32 and bf16, its
+     gathered detections bit-identical; the train CLI under the launch on
+     phase 13's files and config, its epoch_002 bit-identical to phase 13's
+     straight run and its mAPs equal, then the eval CLI under the launch on
+     that checkpoint; the steps' rates with and without the group in turns
+     and the gradient all-reduce at the flagship width (`time dp ...`);
  12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
@@ -200,7 +210,10 @@ forward's and backward's breakdowns (`stages ...` lines) and launch counts,
 and stops; with --bf16-fwd-only it builds and runs phase 15's kernel checks
 and lines alone; with --bf16-train-only it builds and runs phase 16 alone; with
 --bf16-profile-only, phase 16's profile of the bf16 backward kernels alone
-(phase 16 runs it so, in a process of its own).
+(phase 16 runs it so, in a process of its own); with --dp-only (under
+`python -m torch.distributed.run --standalone --nproc_per_node 1`) it builds
+and runs phase 17 alone, without phase 13's run to compare the train CLI
+with unless --phase13 names one.
 """
 
 from __future__ import annotations
@@ -210,8 +223,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -899,7 +914,33 @@ def finite_losses(losses) -> bool:
     return bool(losses) and all(math.isfinite(float(v)) for v in losses.values())
 
 
-def train_from_files(seed, dev, smi, reset_counts, counts) -> dict:
+def phase13_files(root: str, seed: int) -> str:
+    """Phase 13's feature files (64 train clips and 64 validation videos of
+    48-224 frames at the flagship width, 100 classes) written under root,
+    and its config over them (configs/avel_unav100.yaml with paths, 2 + 1
+    epochs and eval_freq 1); returns the config's path. Phase 17 writes the
+    same files from the same seed."""
+    import yaml
+
+    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    synth = make_synthetic_dataset(root, num_videos=128, num_classes=100, min_len=48,
+                                   max_len=224, visual_dim=2048, audio_dim=128,
+                                   val_fraction=0.5, seed=seed + 13)
+    with open(os.path.join(ROOT, "configs", "avel_unav100.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
+    raw.update(train_split=["train"], val_split=["validation"], test_split=["validation"],
+               output_folder=os.path.join(root, "ckpt"))
+    raw["opt"].update(epochs=2, warmup_epochs=1)
+    raw["train_cfg"]["eval_freq"] = 1
+    cfg_yaml = os.path.join(root, "train.yaml")
+    with open(cfg_yaml, "w") as f:
+        yaml.safe_dump(raw, f)
+    return cfg_yaml
+
+
+def train_from_files(seed, dev, smi, reset_counts, counts, keep=None) -> dict:
     """Phase 13: the train CLI on feature files written at the flagship
     width (64 train clips and 64 validation videos of 48-224 frames, 100
     classes): configs/avel_unav100.yaml with its paths, epochs (2 + 1 of
@@ -911,15 +952,15 @@ def train_from_files(seed, dev, smi, reset_counts, counts) -> dict:
     grads taken twice name any op that is not deterministic. Then, as
     information: clips/s from files beside the in-memory step's, one batch's
     copy pinned beside pageable, and the copies' share under a kernel.
-    Returns the launches of the CLI's run."""
+    With `keep` (a directory), the straight run's epoch_002/state.pt and its
+    mAPs (maps.json) are copied there for phase 17. Returns the launches of
+    the CLI's run."""
     import tempfile
 
     import torch
-    import yaml
 
     from unav_yolyolva_tpu_torch.core import load_config
     from unav_yolyolva_tpu_torch.data import UnAV100Dataset, make_batcher
-    from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
     from unav_yolyolva_tpu_torch.models import build_model
     from unav_yolyolva_tpu_torch.tools.grad_gaps import step_grads
     from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
@@ -930,19 +971,7 @@ def train_from_files(seed, dev, smi, reset_counts, counts) -> dict:
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        synth = make_synthetic_dataset(root, num_videos=128, num_classes=100, min_len=48,
-                                       max_len=224, visual_dim=2048, audio_dim=128,
-                                       val_fraction=0.5, seed=seed + 13)
-        with open(os.path.join(ROOT, "configs", "avel_unav100.yaml")) as f:
-            raw = yaml.safe_load(f)
-        raw["dataset"].update(json_file=synth["json_file"], feat_folder=synth["feat_folder"])
-        raw.update(train_split=["train"], val_split=["validation"],
-                   output_folder=os.path.join(root, "ckpt"))
-        raw["opt"].update(epochs=2, warmup_epochs=1)
-        raw["train_cfg"]["eval_freq"] = 1
-        cfg_yaml = os.path.join(root, "train.yaml")
-        with open(cfg_yaml, "w") as f:
-            yaml.safe_dump(raw, f)
+        cfg_yaml = phase13_files(root, seed)
         log(f"train from files: 64 train clips and 64 validation videos written in "
             f"{time.perf_counter() - t_phase:.1f} s")
 
@@ -973,6 +1002,11 @@ def train_from_files(seed, dev, smi, reset_counts, counts) -> dict:
         have = sorted(os.listdir(folder))
         require({"model_best", "epoch_001", "epoch_002"} <= set(have),
                 f"train from files: checkpoints {have}")
+        if keep is not None:
+            shutil.copy(os.path.join(folder, "epoch_002", "state.pt"), keep)
+            with open(os.path.join(keep, "maps.json"), "w") as f:
+                json.dump({"mAPs": [h["mAP"] for h in hist], "final_mAP": out["final_mAP"],
+                           "best_mAP": out["best_mAP"]}, f)
         # 24 steps: 5 MHCA and 10 CSP a step, forward and backward; 4
         # validations of 8 batches: 10 CSP and one merged NMS a batch
         require(got["mhca_bwd"] == 5 * 24 and got["csp_bwd"] == 10 * 24
@@ -2428,6 +2462,264 @@ def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
                                           "tblock_bwd_bf16")}}
 
 
+def dp_phase(seed: int, smi: str, phase13) -> None:
+    """Phase 17, run under torchrun at world size 1 (NCCL on the card), in
+    a process of its own: the data-parallel path against the plain one.
+    (a) make_train_step with the group, 3 steps at B=8, T=224 in fp32
+    (configs/avel_unav100.yaml) and bf16 (avel_unav100_bf16.yaml), against
+    make_train_step without a group from the same seed, in this process:
+    losses, parameters, EMA and normalizer bit-identical. (b) make_eval_step
+    with the group at B=64 (avel_unav100_eval.yaml, fp32 and bf16): the
+    gathered detections bit-identical to the plain step's. (c) the train
+    CLI on phase 13's files and config (written again from the same seed)
+    under this launch: its epoch_002 bit-identical to phase 13's straight
+    run (kept in the directory `phase13`) and its mAPs equal; then the eval
+    CLI under this launch on that checkpoint. (d) the steps' rates with and
+    without the group in turns (plain / dp / dp / plain), and the gradient
+    all-reduce at the flagship width by CUDA events. cuDNN runs its
+    deterministic algorithms, as the train CLI sets them (its default
+    weight grads sum in a varying order)."""
+    import torch
+    import torch.distributed as dist
+
+    from unav_yolyolva_tpu_torch.core import load_config
+    from unav_yolyolva_tpu_torch.data.synthetic import (synthetic_eval_batch,
+                                                        synthetic_train_batch)
+    from unav_yolyolva_tpu_torch.eval import cli as eval_cli
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_backward
+    from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms
+    from unav_yolyolva_tpu_torch.parallel import GradSum, make_mesh
+    from unav_yolyolva_tpu_torch.train import (cli, create_train_state, make_optimizer,
+                                               make_train_step)
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(-1)
+    dev = mesh.device
+    log(f"dp: torchrun rank {mesh.rank} of {mesh.world_size}, process group "
+        f"{dist.get_backend(mesh.group)} on {dev}")
+    require(mesh.group is not None and mesh.world_size == 1
+            and dist.get_backend(mesh.group) == "nccl" and dev.type == "cuda",
+            "phase 17: no NCCL group of one rank on the card")
+    torch.backends.cudnn.deterministic = True
+    fns = {"mhca": fused_mhca, "csp": fused_csp, "mhca_bwd": mhca_backward,
+           "csp_bwd": csp_backward}
+
+    def reset():
+        multiclass_soft_nms.launches = 0
+        for f in fns.values():
+            f.launches = f.bf16_launches = 0
+
+    def got():
+        out = {k: f.launches for k, f in fns.items()}
+        out.update({f"{k}_bf16": f.bf16_launches for k, f in fns.items()})
+        out["nms"] = multiclass_soft_nms.launches
+        return out
+
+    def rates(run, per_call, what):
+        """{plain, dp}: calls/s x per_call of run(kind) in turns P / DP / DP / P."""
+        out = {"plain": [], "dp": []}
+        for kind in ("plain", "dp", "dp", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = run(kind)
+            torch.cuda.synchronize()
+            out[kind].append(n * per_call / (time.perf_counter() - t0))
+        log(f"time dp {what}: plain {[round(r, 1) for r in out['plain']]}, with the group "
+            f"{[round(r, 1) for r in out['dp']]} (turns plain / dp / dp / plain) [{smi}]")
+
+    # ---- (a) the train step, fp32 and bf16 ----------------------------------------
+    for name in ("avel_unav100.yaml", "avel_unav100_bf16.yaml"):
+        cfg = load_config(os.path.join(ROOT, "configs", name))
+        dtype, m = cfg["tpu"]["compute_dtype"], cfg["model"]
+        b, t = cfg["loader"]["batch_size"], m["max_seq_len"]
+        g = torch.Generator().manual_seed(seed + 17)
+        batches = [{k: v.to(dev) for k, v in synthetic_train_batch(
+            g, b, t, m["raw_input_dim_V"], m["raw_input_dim_A"], m["num_classes"],
+            cfg["dataset"]["max_num_events"]).items()} for _ in range(3)]
+        runs = {}
+        for kind in ("plain", "dp"):
+            model = build_model(cfg, device=dev, seed=seed)
+            opt, _ = make_optimizer(model, cfg["opt"], 100, cfg["train_cfg"]["clip_grad_l2norm"])
+            state = create_train_state(model, opt, cfg["train_cfg"]["init_loss_norm"])
+            step = make_train_step(model, opt, cfg, device=dev,
+                                   mesh=mesh if kind == "dp" else None)
+            reset()
+            losses = [step(state, bt, seed) for bt in batches]
+            torch.cuda.synchronize()
+            runs[kind] = (state, step, losses, got())
+        (sp, plain_step, lp, _), (sd, dp_step, ld, n) = runs["plain"], runs["dp"]
+        same_losses = all(torch.equal(x[k], y[k]) for x, y in zip(lp, ld) for k in x)
+        same_p = [torch.equal(p, q) for p, q in zip(sp.model.parameters(), sd.model.parameters())]
+        same_e = [torch.equal(p, q) for p, q in zip(sp.ema.parameters(), sd.ema.parameters())]
+        same_norm = torch.equal(sp.loss_normalizer, sd.loss_normalizer)
+        log(f"check dp train {dtype}: 3 steps at B={b}, T={t} through the group against "
+            f"make_train_step without one: losses {'bit-identical' if same_losses else 'DIFFER'}"
+            f" ({[round(float(x['final_loss']), 5) for x in ld]}), {sum(same_p)} of "
+            f"{len(same_p)} parameter and {sum(same_e)} of {len(same_e)} EMA tensors "
+            f"bit-identical, normalizer {'bit-identical' if same_norm else 'DIFFERS'}; kernel "
+            f"launches through the group {n}")
+        require(same_losses and all(same_p) and all(same_e) and same_norm,
+                f"phase 17: the data-parallel train step at {dtype} left the plain one's bits")
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        require(all(n[k + sfx] > 0 for k in fns),
+                f"phase 17: the data-parallel train step at {dtype} missed a kernel: {n}")
+        state_of = {"plain": (sp, plain_step), "dp": (sd, dp_step)}
+
+        def train(kind, iters=10):
+            st, fn = state_of[kind]
+            for i in range(iters):
+                fn(st, batches[i % 3], seed)
+            return iters
+
+        train("plain", 2)
+        train("dp", 2)
+        rates(train, b, f"train {dtype} clips/s (10 steps at B={b} a turn)")
+        if dtype == "float32":
+            grad_sum = GradSum(sd.model.parameters(), mesh)
+            n_el = grad_sum.flat.numel()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+            def events_ms(fn, iters=20):
+                fn()
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(iters):
+                    fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / iters
+
+            whole = events_ms(grad_sum)
+            alone = events_ms(lambda: dist.all_reduce(grad_sum.flat, group=mesh.group))
+            host = host_ms(grad_sum)
+            log(f"time dp all-reduce: the gradient of {n_el / 1e6:.2f} M fp32 parameters "
+                f"({4 * n_el / 1e6:.0f} MB, {len(grad_sum.params)} tensors) over NCCL at world "
+                f"size 1, CUDA events over 20 calls: GradSum {whole:.3f} ms (the copy into "
+                f"the flat buffer, the all-reduce, the grads made its views; {host:.3f} ms on "
+                f"the host clock for one call), the all-reduce alone {alone:.3f} ms [{smi}]")
+            del grad_sum
+
+    # ---- (b) the eval step at B=64, fp32 and bf16 --------------------------------
+    for dtype in ("float32", "bfloat16"):
+        cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
+        cfg["tpu"]["compute_dtype"] = dtype
+        m = cfg["model"]
+        b, t = cfg["loader"]["batch_size"], m["max_seq_len"]
+        model = build_model(cfg, device=dev, seed=seed)
+        steps = {"plain": make_eval_step(model, cfg, device=dev),
+                 "dp": make_eval_step(model, cfg, mesh=mesh)}
+        g = torch.Generator().manual_seed(seed + 18)
+        batch = {k: v.to(dev) for k, v in synthetic_eval_batch(
+            g, b, t, m["raw_input_dim_V"], m["raw_input_dim_A"]).items()}
+        ref = steps["plain"](batch)
+        reset()
+        dets = steps["dp"](batch)
+        torch.cuda.synchronize()
+        n = got()
+        same = all(torch.equal(ref[k], dets[k]) for k in ref)
+        log(f"check dp eval {dtype}: B={b}, T={t}, the detections gathered through the group "
+            f"{'bit-identical' if same else 'DIFFER'} to make_eval_step's without one "
+            f"({int(dets['valid'].sum())} detections); kernel launches through the group {n}")
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        require(same, f"phase 17: the data-parallel eval step at {dtype} left the plain one's "
+                      f"bits")
+        require(n["nms"] == 1 and n["mhca" + sfx] > 0 and n["csp" + sfx] > 0,
+                f"phase 17: the data-parallel eval step at {dtype} missed a kernel: {n}")
+
+        def serve(kind, iters=5):
+            for _ in range(iters):
+                steps[kind](batch)
+            return iters
+
+        serve("plain", 1)
+        serve("dp", 1)
+        rates(serve, b, f"eval {dtype} videos/s (5 batches of {b} a turn)")
+        del model, steps
+        torch.cuda.empty_cache()
+
+    # ---- (c) the train CLI and the eval CLI under this launch ------------------------
+    with tempfile.TemporaryDirectory() as root:
+        cfg_yaml = phase13_files(root, seed)
+        reset()
+        t0 = time.perf_counter()
+        out = cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "dp"]))
+        torch.cuda.synchronize()
+        n = got()
+        maps = [h["mAP"] for h in out["history"]]
+        log(f"dp train CLI: 3 epochs of 8 steps at B=8 under torchrun (world size "
+            f"{out['world_size']}) in {time.perf_counter() - t0:.1f} s, mAPs {maps}, final "
+            f"{out['final_mAP']!r}; kernel launches {n}")
+        require(out["world_size"] == 1 and n["mhca_bwd"] == 5 * 24 and n["csp_bwd"] == 10 * 24
+                and n["nms"] == 32, f"phase 17: the train CLI under torchrun ran {n}")
+        state = torch.load(os.path.join(out["ckpt_folder"], "epoch_002", "state.pt"),
+                           map_location="cpu")
+        if phase13 is None:
+            log("dp train CLI: no phase 13 run to compare with (--phase13 not given)")
+        else:
+            ref = torch.load(os.path.join(phase13, "state.pt"), map_location="cpu")
+            with open(os.path.join(phase13, "maps.json")) as f:
+                ref_maps = json.load(f)
+            diff = {part: [k for k in ref[part] if not torch.equal(ref[part][k], state[part][k])]
+                    for part in ("model", "ema")}
+            leaves = [_leaves(ref["optimizer"]), _leaves(state["optimizer"])]
+            same_opt = len(leaves[0]) == len(leaves[1]) and all(
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for x, y in zip(*leaves))
+            log(f"check dp train CLI: epoch_002 against phase 13's straight run: "
+                f"{len(ref['model']) - len(diff['model'])} of {len(ref['model'])} model and "
+                f"{len(ref['ema']) - len(diff['ema'])} of {len(ref['ema'])} EMA tensors "
+                f"bit-identical, optimizer state {'bit-identical' if same_opt else 'DIFFERS'}; "
+                f"mAPs {maps} + final {out['final_mAP']!r} against {ref_maps['mAPs']} + "
+                f"{ref_maps['final_mAP']!r}")
+            require(not diff["model"] and not diff["ema"] and same_opt,
+                    f"phase 17: the train CLI under torchrun left phase 13's bits: {diff}")
+            require(maps == ref_maps["mAPs"] and out["final_mAP"] == ref_maps["final_mAP"],
+                    "phase 17: the train CLI under torchrun got other mAPs than phase 13")
+        reset()
+        mAP = eval_cli.main(eval_cli.parse_args(
+            [cfg_yaml, os.path.join(out["ckpt_folder"], "epoch_002"), "--print-freq", "1000"]))
+        n = got()
+        batches = -(-64 // load_config(cfg_yaml)["loader"]["batch_size"])
+        log(f"dp eval CLI: epoch_002's EMA on the 64 validation videos under torchrun: mAP "
+            f"{mAP!r} (the train CLI's validation of epoch 2: {maps[-1]!r}); kernel launches {n}")
+        require(math.isfinite(mAP) and 0.0 <= mAP <= 1.0 and n["nms"] == batches,
+                f"phase 17: the eval CLI under torchrun gave mAP {mAP}, launches {n}")
+    torch.backends.cudnn.deterministic = False
+    mesh.close()
+    log(f"dp phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _leaves(tree):
+    """The leaves of a nested state dict (its keys with them), in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in [k] + _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def data_parallel_phase(seed: int, smi: str, phase13) -> None:
+    """Phase 17 from the main run: dp_phase in a process of its own, started
+    by torchrun at one rank (`python -m torch.distributed.run --standalone
+    --nproc_per_node 1 chip_smoke.py --dp-only`); its lines are logged and
+    its failure fails the run."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", os.path.abspath(__file__), "--dp-only", "--seed", str(seed)]
+    if phase13 is not None:
+        cmd += ["--phase13", phase13]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("dp", "check dp", "time dp")):
+            log(line)
+    require(proc.returncode == 0, "phase 17 (data parallel under torchrun) failed:\n"
+            + "\n".join((proc.stdout + proc.stderr).splitlines()[-30:]))
+    log(f"data-parallel phase (torchrun, one process): {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2439,6 +2731,13 @@ def main(argv=None) -> int:
     ap.add_argument("--bf16-fwd-only", action="store_true",
                     help="only build, then run phase 15's kernel checks and lines (the bf16 "
                          "forward kernels, the attention and the products alone)")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="only build, then run phase 17 (the data-parallel path; run it under "
+                         "python -m torch.distributed.run --standalone --nproc_per_node 1, as "
+                         "the full run does)")
+    ap.add_argument("--phase13", default=None,
+                    help="with --dp-only: a directory holding phase 13's epoch_002/state.pt "
+                         "and maps.json, which the train CLI under torchrun must repeat")
     ap.add_argument("--bf16-profile-only", action="store_true",
                     help="only build, then profile the bf16 backward kernels (phase 16's "
                          "profile, launch and stage lines; phase 16 runs it so, in a process "
@@ -2511,6 +2810,10 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 log(f"  ptxas {name}: {line.strip()}")
+
+    if args.dp_only:
+        dp_phase(args.seed, smi, args.phase13)
+        return 0
 
     # ---- 3. kernels against their plain versions at the real shapes ---------
     gen = torch.Generator().manual_seed(args.seed + 1)
@@ -3016,7 +3319,8 @@ def main(argv=None) -> int:
                  "capped gpu-vs-cpu", probe=lambda: [capped(pb) for pb in perturbed(two, gen)])
 
     # ---- 13. train from files: the train CLI over the pinned Batcher --------
-    cli_launches = train_from_files(args.seed, dev, smi, reset_counts, counts)
+    phase13 = tempfile.mkdtemp(prefix="unav_phase13_")     # its run, for phase 17
+    cli_launches = train_from_files(args.seed, dev, smi, reset_counts, counts, keep=phase13)
 
     # ---- 14. the dependency block --------------------------------------------
     dep = dependency_phase(args.seed, dev, smi, gen, reset_counts, counts, results)
@@ -3026,6 +3330,12 @@ def main(argv=None) -> int:
 
     # ---- 16. the bf16 train step --------------------------------------------------
     bf16_train = bf16_train_phase(args.seed, dev, smi, gen, results, B, T)
+
+    # ---- 17. data parallel: the steps and both CLIs under torchrun, NCCL ----------
+    try:
+        data_parallel_phase(args.seed, smi, phase13)
+    finally:
+        shutil.rmtree(phase13, ignore_errors=True)
 
     # ---- last: the kernels one CSP and one MHCA backward launch --------------
     backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)

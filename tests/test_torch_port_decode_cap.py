@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: the candidate cap before NMS
-(`tpu.nms_max_candidates`) and the refused `tpu.approx_topk`, on CPU.
+(`tpu.nms_max_candidates`) and `tpu.approx_topk` (the exact top-k, as the
+JAX decode's lax.approx_max_k computes it off the TPU), on CPU.
 
 `decode_batch(max_candidates=k)` against the JAX `decode_single_video(
 max_candidates=k)` (vmapped over the batch) on the same numpy inputs, with k
@@ -158,9 +159,62 @@ def test_eval_step_with_the_cap_matches_jax(tiny_models):
 
 
 def test_approx_topk_is_refused():
-    from unav_yolyolva_tpu_torch.core import load_config_dict
+    """tpu.approx_topk, once refused, is the exact top-k (the eval step with
+    the flag: test_eval_step_with_approx_topk_matches_jax). Off the TPU the
+    JAX decode's lax.approx_max_k IS the exact top-k: its candidates with
+    the flag on are bit-identical to those with it off, and the port's
+    decode equals them (classes and validity exact, segments and scores
+    rtol 1e-6, as test_decode_cap_matches_jax)."""
+    logits, offsets, masks = _head_outputs(11)
+    jpts = [jnp.asarray(p) for p in jgenerate_points(T, REG_RANGE, 2)]
+    args = ([jnp.asarray(a) for a in logits], [jnp.asarray(a) for a in offsets],
+            [jnp.asarray(a) for a in masks])
+    exact, approx = (
+        [np.asarray(a) for a in jax.vmap(functools.partial(
+            decode_single_video, points=jpts, approx_topk=flag, **DECODE))(*args)]
+        for flag in (False, True))
+    for a, b in zip(exact, approx):
+        assert a.tobytes() == b.tobytes()
+    got = decode_batch([t(a) for a in logits], [t(a) for a in offsets],
+                       [t(a) for a in masks], [t(p) for p in generate_points(T, REG_RANGE, 2)],
+                       **DECODE)
+    np.testing.assert_array_equal(got[2].numpy(), approx[2])
+    np.testing.assert_array_equal(got[3].numpy(), approx[3])
+    np.testing.assert_allclose(got[0].numpy(), approx[0], rtol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), approx[1], rtol=1e-6)
+
+
+def test_eval_step_with_approx_topk_matches_jax(tiny_models):
+    """make_eval_step with tpu.approx_topk True (and the cap) against the
+    JAX eval step with the flag on: validity and labels exact, segments
+    and scores at tests/test_torch_port_model.py's golden eval tolerances."""
+    import copy
+
+    from unav_yolyolva_tpu.train import make_eval_step as jmake_eval_step
     from unav_yolyolva_tpu_torch.eval import make_eval_step
 
-    cfg = load_config_dict({"tpu": {"approx_topk": True}})
-    with pytest.raises(NotImplementedError, match="approx_topk"):
-        make_eval_step(torch.nn.Identity(), cfg, device="cpu")
+    jmodel, state, jcfg, port, cfg = tiny_models
+    jcfg, cfg = copy.deepcopy(jcfg), copy.deepcopy(cfg)
+    jcfg["tpu"]["approx_topk"] = cfg["tpu"]["approx_topk"] = True
+    rng = np.random.default_rng(10)
+    mask = lengths_mask(2, T, [T, 50])
+    batch = {"visual": rng.normal(size=(2, T, 64)).astype(np.float32) * mask[..., None],
+             "audio": rng.normal(size=(2, T, 16)).astype(np.float32) * mask[..., None],
+             "mask": mask,
+             "fps": np.full(2, 25.0, np.float32),
+             "duration": np.array([T, 50], np.float32) * 8 / 25,
+             "feat_stride": np.full(2, 8.0, np.float32),
+             "feat_num_frames": np.full(2, 24.0, np.float32),
+             "gt_segments": np.zeros((2, 8, 2), np.float32),
+             "gt_labels": np.zeros((2, 8), np.int32),
+             "gt_valid": np.zeros((2, 8), bool)}
+    ref, _ = jmake_eval_step(jmodel, jcfg, use_ema=True, with_losses=False)(
+        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    got = {k: v.numpy() for k, v in make_eval_step(port, cfg, device="cpu")(batch).items()}
+    np.testing.assert_array_equal(got["valid"], ref["valid"])
+    ok = ref["valid"].astype(bool)
+    assert ok.sum() > 0
+    np.testing.assert_array_equal(got["labels"][ok], ref["labels"][ok])
+    np.testing.assert_allclose(got["segments"][ok], ref["segments"][ok], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got["scores"][ok], ref["scores"][ok], rtol=1e-4, atol=1e-5)

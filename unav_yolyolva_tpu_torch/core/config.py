@@ -3,8 +3,7 @@
 Same semantics as the JAX package's config system: a DEFAULTS tree provides
 every knob, the YAML file wins on conflicts and missing keys are filled in
 recursively, and `_update_config` fans shared fields out across sections.
-The port reads the `model`, `test_cfg` and `tpu.compute_dtype` keys; the
-rest is kept so that one YAML file configures both packages.
+One YAML file configures both packages.
 """
 
 from __future__ import annotations
@@ -109,9 +108,11 @@ DEFAULTS: Dict[str, Any] = {
         "eta_min": 1e-8,
     },
     # section name kept from the JAX package so one YAML serves both; the
-    # port reads compute_dtype (float32 or bfloat16), nms_max_candidates (the
-    # eval step's cap before NMS) and approx_topk (refused when True), not
-    # num_devices
+    # port reads num_devices (the data-parallel world size: -1 takes
+    # torchrun's, any other value must equal it; parallel/mesh.py),
+    # compute_dtype (float32 or bfloat16), nms_max_candidates (the eval
+    # step's cap before NMS) and approx_topk (the exact top-k either way, as
+    # XLA computes lax.approx_max_k off the TPU)
     "tpu": {
         "num_devices": -1,
         "compute_dtype": "float32",

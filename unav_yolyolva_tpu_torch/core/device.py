@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
@@ -16,6 +17,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     cuBLAS's bf16 products are kept from reducing partial sums in bf16
     (PyTorch allows it by default): under the bf16 policy the products
     outside the port's kernels accumulate in fp32, as XLA's do.
+
+    Under torchrun (LOCAL_RANK set) "cuda" is the rank's cuda:LOCAL_RANK,
+    which becomes the current device.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -24,6 +28,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "a CUDA device was requested but torch.cuda.is_available() is "
                 "False; pass device='cpu' to run on the CPU"
             )
+        if dev.index is None and os.environ.get("LOCAL_RANK"):
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -42,7 +42,7 @@ import threading
 import time
 import weakref
 from multiprocessing import shared_memory
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,14 +153,34 @@ class Batcher:
     of a CUDA run; each worker holds two more in shared memory.
     multiprocessing re-imports the main module in each worker: a main
     module that imports torch at its top delays their start by seconds.
+
+    `batch_size` is the GLOBAL batch. Data parallel (process_count ranks,
+    the JAX Batcher's rule): every rank forms the same global batch order
+    (shared seed and epoch) and loads ONLY its contiguous row block
+    [pid * b / n, (pid + 1) * b / n) of each train batch (drop_last: all
+    batches full; the global batch must divide over the ranks). Eval with
+    `pad_to` (the padded global batch, ceil(b / n) * n) is `rows_local`:
+    each rank loads the rows of its block of the padded batch, and a block
+    that is all padding (a short last batch) is one zeroed template row
+    (mask all False, never harvested); video_id lists every real row of
+    the global batch (the eval step gathers the detections of every rank).
     """
 
     def __init__(self, dataset: UnAV100Dataset, batch_size: int, *, max_num_events: int = 64,
                  shuffle: bool = True, drop_last: bool = True, seed: int = 0,
                  num_workers: int = 2, prefetch: int = 4, max_div_factor: int = 1,
-                 empty: Callable = np.empty):
+                 empty: Callable = np.empty, process_index: int = 0, process_count: int = 1,
+                 pad_to: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index, self.process_count, self.pad_to = process_index, process_count, pad_to
+        if process_count > 1 and drop_last and batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} must divide over {process_count} "
+                             f"processes")
+        self.rows_local = process_count > 1 and not drop_last and pad_to > 0
+        if self.rows_local and pad_to % process_count:
+            raise ValueError(f"padded eval batch {pad_to} must divide over {process_count} "
+                             f"processes")
         self.max_num_events = max_num_events
         self.max_div_factor = max_div_factor
         self.shuffle = shuffle
@@ -201,7 +221,21 @@ class Batcher:
         batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+            if self.process_count > 1:      # this process's row block of every batch
+                lb = self.batch_size // self.process_count
+                batches = [b[self.process_index * lb:(self.process_index + 1) * lb]
+                           for b in batches]
         return batches
+
+    def _work(self, idxs: List[int]) -> Tuple[List[int], bool, Optional[List[str]]]:
+        """(the items to load, whether the batch is a blank template row, the
+        video ids it reports or None for the loaded items') of one batch."""
+        if not self.rows_local:
+            return idxs, False, None
+        lb = self.pad_to // self.process_count
+        load = idxs[self.process_index * lb:(self.process_index + 1) * lb]
+        ids = [self.dataset.records[j].id for j in idxs]
+        return (load, False, ids) if load else (idxs[:1], True, ids)
 
     def __iter__(self) -> Iterator[Dict]:
         batches = self._index_batches()
@@ -217,7 +251,8 @@ class Batcher:
         gen = pool.active.value = pool.gen
         for w in range(nw):
             pool.tasks[w].put((gen, (self.seed + self.epoch) * 7919 + w,
-                               [(bi, batches[bi]) for bi in range(w, len(batches), nw)]))
+                               [(bi, *self._work(batches[bi]))
+                                for bi in range(w, len(batches), nw)]))
 
         ready: queue_mod.Queue = queue_mod.Queue()
         stop, finished = threading.Event(), threading.Event()
@@ -289,10 +324,19 @@ class Batcher:
 
 
 def make_batcher(dataset, cfg: Dict, is_training: bool, seed: int = 0,
-                 device=None) -> Batcher:
+                 device=None, mesh=None) -> Batcher:
     """The Batcher of a config. For a CUDA device (the default) batches are
-    page-locked tensors; for device='cpu' numpy arrays."""
-    device = resolve_device(device)
+    page-locked tensors; for device='cpu' numpy arrays. With a data-parallel
+    `mesh` (parallel/mesh.py, on its device) the train Batcher loads only
+    this rank's rows, and the eval Batcher, over more than one rank, only
+    the rows of its block of the batch padded to a multiple of the world
+    size (the JAX make_batcher's rule)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    process_index, process_count, pad_to = 0, 1, 0
+    if mesh is not None:
+        process_index, process_count = mesh.rank, mesh.world_size
+        if not is_training and process_count > 1:
+            pad_to = -(-cfg["loader"]["batch_size"] // process_count) * process_count
     # the largest pyramid stride: the eval round-up quantum of long inputs
     mdf = cfg["model"]["scale_factor"] ** cfg["model"]["backbone_arch"][-1]
     return Batcher(
@@ -302,4 +346,5 @@ def make_batcher(dataset, cfg: Dict, is_training: bool, seed: int = 0,
         num_workers=min(4, cfg["loader"].get("num_workers", 2) or 1),
         prefetch=cfg["loader"].get("prefetch", 4),
         empty=pinned_empty if device.type == "cuda" else np.empty,
+        process_index=process_index, process_count=process_count, pad_to=pad_to,
     )

@@ -143,12 +143,14 @@ def _alive(pid: int) -> bool:
 def worker(wid: int, dataset, collate_kw: Dict, tasks, results, free, active,
            parent: int) -> None:
     """A data worker process. For each task (generation, rng seed, [(batch
-    index, item indices)]) it loads and collates the batches in order, with
-    one random.Random(seed) across them, into its SLOTS shared-memory slots
-    in turn (a slot is reused once the main process has copied it out and
-    released `free`), sends each slot's name and layout to `results`, and
-    ends the task with a "done" message. It stops at a None task, or when
-    the process `parent` is gone."""
+    index, item indices, blank, video ids)]) it loads and collates the
+    batches in order, with one random.Random(seed) across them, into its
+    SLOTS shared-memory slots in turn (a slot is reused once the main
+    process has copied it out and released `free`), sends each slot's name
+    and layout to `results`, and ends the task with a "done" message. A
+    blank batch is zeroed after its collate (one template row: mask all
+    False); video ids, where given, replace the loaded items' ids. It stops
+    at a None task, or when the process `parent` is gone."""
     slots = [None] * SLOTS
     turn = 0
     try:
@@ -163,7 +165,7 @@ def worker(wid: int, dataset, collate_kw: Dict, tasks, results, free, active,
                 return
             gen, seed, work = task
             rng = random.Random(seed)
-            for bi, idxs in work:
+            for bi, idxs, blank, ids in work:
                 if not _acquire(free, active, gen):
                     break
                 try:
@@ -176,6 +178,10 @@ def worker(wid: int, dataset, collate_kw: Dict, tasks, results, free, active,
                     shm = slots[turn]
                     video_ids = collate(items, **collate_kw, empty=lambda shape, dtype:
                                         np.ndarray(shape, dtype, shm.buf))["video_id"]
+                    if blank:
+                        np.ndarray((size,), np.uint8, shm.buf)[:] = 0
+                    if ids is not None:
+                        video_ids = ids
                 except Exception as e:
                     free.release()
                     results.put((gen, "error", wid, _sendable(e, wid)))

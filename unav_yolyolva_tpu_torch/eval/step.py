@@ -10,6 +10,7 @@ import torch
 from ..core.device import make_batch_copier, resolve_device
 from ..geometry.points import generate_points
 from ..models.meta_arch import compute_losses
+from ..parallel.collectives import gather_rows, sharded, sum_losses
 from ..train.step import build_targets, loss_kwargs
 from .decode import decode_batch, postprocess_batch
 
@@ -19,7 +20,7 @@ GT_KEYS = ("gt_segments", "gt_labels", "gt_valid")
 
 
 def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool = False,
-                   use_ema: bool = True) -> Callable:
+                   use_ema: bool = True, mesh=None) -> Callable:
     """eval_step(batch) -> detections, the reference inference protocol; with
     with_losses=True, eval_step(batch) -> (detections, losses), the
     validation of a train state.
@@ -37,16 +38,21 @@ def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool 
     train step's device scalars, from dense targets built on the device as
     the train step builds them. All on the device: no host sync. Runs on
     CUDA unless device='cpu'. tpu.nms_max_candidates caps the candidates
-    before NMS as the JAX eval step does; tpu.approx_topk is refused.
+    before NMS as the JAX eval step does. tpu.approx_topk takes the exact
+    top-k: the JAX step's lax.approx_max_k approximates only on a TPU, and
+    computes the exact top-k on every other backend.
 
     A batch of pinned host tensors (data/pipeline.py on CUDA) is copied on a
-    copy stream of the step's own (core/device.py:make_batch_copier)."""
-    device = resolve_device(device)
+    copy stream of the step's own (core/device.py:make_batch_copier).
+
+    With a data-parallel `mesh` (on its device) `batch` is the rank's row
+    block of the global batch (train/loop.py:valid_one_epoch pads the last
+    one): each rank serves its rows, and the detections of every rank are
+    gathered (one collective a batch), so that every rank holds all rows of
+    the global batch in rank order; the losses are the global batch's (one
+    more)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     mcfg, test_cfg, tpu = cfg["model"], cfg["test_cfg"], cfg.get("tpu", {})
-    if tpu.get("approx_topk", False):
-        raise NotImplementedError("tpu.approx_topk: lax.approx_max_k is a TPU approximation "
-                                  "of the top-k that the port does not take; it runs the "
-                                  "exact top-k with approx_topk False")
     state = model_or_state if hasattr(model_or_state, "loss_normalizer") else None
     if with_losses and state is None:
         raise ValueError("make_eval_step: the losses need a TrainState (its loss normalizer)")
@@ -75,7 +81,7 @@ def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool 
                 b["gt_valid"] = b["gt_valid"].bool()
                 b["m_scores"], b["m_start_end"], b["m_labels"], gt_cls, gt_reg = build_targets(
                     b, torch.cat(points), seq_len, num_classes, class_aware)
-            out = model(b, with_losses=with_losses)
+            out = model(b, with_losses=with_losses, mesh=mesh)
             cands = decode_batch(
                 out["cls_logits"], out["offsets"], out["masks"], points,
                 pre_nms_thresh=test_cfg["pre_nms_thresh"],
@@ -92,14 +98,33 @@ def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool 
                 num_frames=b["feat_num_frames"].float(),
             )
             dets = {"segments": segs, "scores": scores, "labels": labels, "valid": valid}
+            dets = _gather_detections(dets, mesh)
             if not with_losses:
                 return dets
-            losses, _ = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer, **kw)
-        return dets, losses
+            losses, _ = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
+                                       mesh=mesh, **kw)
+            return dets, sum_losses(losses, mesh)
 
     eval_step.model = model
     eval_step.with_losses = with_losses
+    eval_step.mesh = mesh
     return eval_step
+
+
+def _gather_detections(dets: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's detections in rank order, in one gather: the four
+    fixed-shape tensors travel as one fp32 buffer, which carries each
+    exactly (fp32 and bf16 values, class indices, 0/1 validity)."""
+    if not sharded(mesh):
+        return dets
+    b = dets["valid"].shape[0]
+    flat = gather_rows(torch.cat([v.reshape(b, -1).float() for v in dets.values()], 1), mesh)
+    out, at = {}, 0
+    for k, v in dets.items():
+        n = v[0].numel()
+        out[k] = flat[:, at:at + n].reshape((-1,) + tuple(v.shape[1:])).to(v.dtype)
+        at += n
+    return out
 
 
 def fetch_detections(dets: Dict[str, torch.Tensor]):

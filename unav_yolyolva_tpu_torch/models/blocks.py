@@ -28,6 +28,7 @@ from torch import nn
 from ..ops.fused_mhca import attend, fused_mhca
 from ..ops.fused_tblock import fused_tblock
 from ..ops.masked import cast, channel_layer_norm, gelu, masked_conv1d_out_mask
+from ..parallel.mesh import uniform_rows
 
 # Whole-block TransformerBlock path selector (ops/fused_tblock.py), the JAX
 # package's by name and meaning: the UNAV_FUSED_TBLOCK environment variable
@@ -109,12 +110,13 @@ class ChannelLayerNorm(nn.Module):
                                   self.dtype)
 
 
-def drop_path(x: torch.Tensor, drop_prob: float, generator: torch.Generator) -> torch.Tensor:
+def drop_path(x: torch.Tensor, drop_prob: float, generator) -> torch.Tensor:
     """Stochastic depth per sample: x / keep * floor(keep + U[0, 1)), one
-    uniform draw per row of the batch from `generator`."""
+    uniform draw per row of the batch from `generator` (a torch.Generator,
+    or a parallel.mesh.RowShard: the rank's rows of the global batch's
+    draw)."""
     keep = 1.0 - drop_prob
-    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), generator=generator,
-                   device=x.device, dtype=x.dtype)
+    u = uniform_rows((x.shape[0],) + (1,) * (x.ndim - 1), generator, x.device, x.dtype)
     return x / keep * torch.floor(keep + u)
 
 
@@ -148,7 +150,7 @@ class AffineDropPath(nn.Module):
                 raise ValueError("AffineDropPath: training with drop_prob > 0 needs a "
                                  "torch.Generator")
             keep = 1.0 - self.drop_prob
-            u = torch.rand(f.shape, generator=generator, device=f.device, dtype=f.dtype)
+            u = uniform_rows(f.shape, generator, f.device, f.dtype)
             f = torch.floor(keep + u) / keep
         return self.scale.view(1, 1, -1) * f
 

@@ -21,6 +21,8 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.registry import DEPENDENCY_BLOCKS
 from ..ops.losses import ctr_diou_loss_1d, diou_pair_weights, sigmoid_focal_loss
+from ..parallel.collectives import all_reduce_sum, gather_rows
+from ..parallel.mesh import draws_for
 from .alignment import Alignment
 from .backbone import ConvTransformerBackbone
 from .blocks import AffineDropPath, ChannelLayerNorm, Conv1x1, LearnableScale
@@ -40,7 +42,15 @@ class _LogitScale(nn.Module):
 class ContrastiveLosses(nn.Module):
     """Inter-sample CLIP loss (times exp(logit_scale_inter)) and intra-sample
     NCE (times the RAW per-modality scale, a reference quirk). Zero-padded
-    eval rows (row_valid False) are left out of both."""
+    eval rows (row_valid False) are left out of both.
+
+    With a data-parallel `mesh` the rows are the rank's block of the global
+    batch and the losses are its shares of the global ones: the inter loss
+    takes every rank's CLS embeddings (gathered with their gradient) as
+    negatives and sums the v->t rows of its own videos and the t->v rows of
+    its own audio tracks at their global diagonal; the intra NCE divides by
+    the global count of real rows. The shares summed over the ranks are the
+    losses of the whole batch."""
 
     def __init__(self):
         super().__init__()
@@ -48,19 +58,21 @@ class ContrastiveLosses(nn.Module):
         self.NCE_video = _LogitScale()
         self.NCE_text = _LogitScale()
 
-    def forward(self, aux: Dict[str, torch.Tensor]):
-        cls_v = F.normalize(aux["cls_video"], dim=-1, eps=1e-12)
-        cls_t = F.normalize(aux["cls_text"], dim=-1, eps=1e-12)
-        b = cls_v.shape[0]
+    def forward(self, aux: Dict[str, torch.Tensor], mesh=None):
         rv = aux["row_valid"]
-        n_real = rv.float().sum().clamp(min=1.0)
+        b = rv.shape[0]
+        lo = b * mesh.rank if mesh is not None else 0
+        cls_v = gather_rows(F.normalize(aux["cls_video"], dim=-1, eps=1e-12), mesh)
+        cls_t = gather_rows(F.normalize(aux["cls_text"], dim=-1, eps=1e-12), mesh)
+        rv_all = gather_rows(rv, mesh)
+        n_real = all_reduce_sum(rv.float().sum(), mesh).clamp(min=1.0)
         neg = torch.finfo(torch.float32).min
         logits = self.logit_scale_inter.exp() * (cls_v @ cls_t.T)
-        logits = logits.masked_fill(~(rv[None, :] & rv[:, None]), neg)
-        eye = torch.eye(b, dtype=torch.bool, device=logits.device)
-        logits = logits.masked_fill(eye & ~rv[:, None], 0.0)
-        diag_v = logits.log_softmax(dim=1).diagonal()
-        diag_t = logits.T.log_softmax(dim=1).diagonal()
+        logits = logits.masked_fill(~(rv_all[None, :] & rv_all[:, None]), neg)
+        eye = torch.eye(rv_all.shape[0], dtype=torch.bool, device=logits.device)
+        logits = logits.masked_fill(eye & ~rv_all[:, None], 0.0)
+        diag_v = logits.log_softmax(dim=1).diagonal()[lo:lo + b]
+        diag_t = logits.T.log_softmax(dim=1).diagonal()[lo:lo + b]
         zero = torch.zeros((), device=logits.device)
         inter = (-torch.where(rv, diag_v, zero).sum()
                  - torch.where(rv, diag_t, zero).sum()) / 2.0
@@ -120,10 +132,14 @@ class LocPointTransformer(nn.Module):
             if use_dependency else None)
 
     def forward(self, batch: Dict[str, torch.Tensor], with_losses: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
         """batch: visual (B, T, Dv), audio (B, T, Da), mask (B, T) bool and,
         with losses, the frame targets m_start_end, m_scores, m_labels.
-        In training mode `generator` draws the stochastic depth."""
+        In training mode `generator` draws the stochastic depth. With a
+        data-parallel `mesh` (parallel/mesh.py) the batch is the rank's row
+        block of the global batch: the stochastic depth takes its rows of
+        the global draw, and the losses are its shares of the global ones."""
+        generator = draws_for(generator, mesh)
         mask = batch["mask"]
         targets = ((batch["m_start_end"], batch["m_scores"], batch["m_labels"])
                    if with_losses else None)
@@ -141,7 +157,7 @@ class LocPointTransformer(nn.Module):
         out = {"cls_logits": cls_logits, "offsets": offsets, "masks": masks}
         if with_losses:
             aux["row_valid"] = mask.any(dim=1)
-            inter, intra = self.contrastive_losses(aux)
+            inter, intra = self.contrastive_losses(aux, mesh)
             out.update(inter_loss=inter, intra_loss=intra,
                        score_loss_video=aux["score_loss_video"],
                        score_loss_text=aux["score_loss_text"])
@@ -153,7 +169,7 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
                    loss_weight: float = 1.0, inter_weight: float = 0.001,
                    intra_weight: float = 1.0, score_v_weight: float = 0.001,
                    score_a_weight: float = 0.001, label_smoothing: float = 0.0,
-                   normalizer_momentum: float = 0.9):
+                   normalizer_momentum: float = 0.9, mesh=None):
     """Loss assembly, sum-reduced, of the forward's outputs against dense
     targets gt_cls (B, P, C) and gt_offsets (B, P, C, 2) or (B, P, 2).
 
@@ -161,7 +177,14 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     PYRAMID LEVELS (the reference's `B = len(fpn_masks)`), not the batch;
     the normalizer is an EMA (momentum 0.9) of max(num_pos, 1); with
     loss_weight <= 0 the reg weight is cls/reg of the detached losses; the
-    reg loss is 0 without positives. Returns (losses, new_normalizer)."""
+    reg loss is 0 without positives. Returns (losses, new_normalizer).
+
+    With a data-parallel `mesh` the inputs are the rank's rows: num_pos is
+    summed over the ranks before the normalizer's EMA (every rank keeps the
+    same normalizer), the reg weight of loss_weight <= 0 is taken from the
+    global cls and reg losses, and every loss is the rank's share of the
+    global one (parallel/collectives.py:sum_losses adds them up); num_pos
+    is the global count."""
     num_classes = gt_cls.shape[-1]
     level_div = float(len(outputs["masks"]))
     valid_mask = torch.cat(outputs["masks"], dim=1)                  # (B, P)
@@ -169,7 +192,7 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     pred_offsets = torch.cat(outputs["offsets"], dim=1)
 
     pos_mask = (gt_cls.sum(dim=-1) > 0) & valid_mask
-    num_pos = pos_mask.sum()
+    num_pos = all_reduce_sum(pos_mask.sum(), mesh)
     new_normalizer = normalizer_momentum * loss_normalizer + (
         1.0 - normalizer_momentum) * num_pos.float().clamp(min=1.0)
 
@@ -186,7 +209,9 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     if loss_weight > 0:
         w = loss_weight
     else:
-        w = cls_loss.detach() / reg_loss.detach().clamp(min=0.01)
+        cls_all, reg_all = all_reduce_sum(torch.stack([cls_loss.detach(), reg_loss.detach()]),
+                                          mesh)
+        w = cls_all / reg_all.clamp(min=0.01)
 
     inter, intra = outputs["inter_loss"], outputs["intra_loss"]
     score_v, score_t = outputs["score_loss_video"], outputs["score_loss_text"]

@@ -34,6 +34,13 @@ limit (nvidia-smi) and the commit (`git rev-parse HEAD`, else --commit).
 The last line of standard output is one JSON object with the root
 bench.py's key names where they apply. `--device cpu --tiny` runs a tiny
 width on the CPU, for the tests only: its numbers are not the card's.
+
+Data parallel under torchrun (`python -m torch.distributed.run
+--nproc_per_node N -m unav_yolyolva_tpu_torch.tools.bench ...`): every rank
+makes the same global batches and serves or trains its row block of them
+(parallel/mesh.py:shard_batch); videos/s and clips/s count the global
+batch, the busy share and memory are rank 0's, and rank 0 alone prints the
+JSON line, with world_size.
 """
 
 from __future__ import annotations
@@ -143,16 +150,29 @@ def main(argv=None) -> int:
     if args.windows < 5 or args.iters < 1:
         ap.error("--windows must be at least 5 and --iters at least 1")
 
+    from ..parallel import make_mesh
+
+    mesh = make_mesh(-1, args.device)
+    try:
+        record = _bench(args, mesh)
+    finally:
+        mesh.close()
+    if mesh.is_main:
+        print(json.dumps(record), flush=True)
+    return 0
+
+
+def _bench(args, mesh) -> dict:
     import torch
 
-    from ..core import resolve_device
     from ..data.pipeline import pinned_empty
     from ..data.synthetic import synthetic_eval_batch, synthetic_train_batch
     from ..eval.step import fetch_detections, make_eval_step
     from ..models import build_model
+    from ..parallel import shard_batch
     from ..train import create_train_state, make_optimizer, make_train_step
 
-    dev = resolve_device(args.device)
+    dev = mesh.device
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     record = {"metric": "eval_videos_per_sec"}
@@ -163,9 +183,10 @@ def main(argv=None) -> int:
     mcfg = cfg["model"]
     b, t = cfg["loader"]["batch_size"], mcfg["max_seq_len"]
     model = build_model(cfg, device=dev, seed=args.seed)
-    eval_step = make_eval_step(model, cfg, device=dev)
+    eval_step = make_eval_step(model, cfg, mesh=mesh)
     gen = torch.Generator().manual_seed(args.seed + 1)
-    host = [synthetic_eval_batch(gen, b, t, mcfg["raw_input_dim_V"], mcfg["raw_input_dim_A"])
+    host = [shard_batch(synthetic_eval_batch(gen, b, t, mcfg["raw_input_dim_V"],
+                                             mcfg["raw_input_dim_A"]), mesh)
             for _ in range(2)]
     if args.h2d and cuda:
         batches = []
@@ -219,10 +240,10 @@ def main(argv=None) -> int:
         optimizer, _ = make_optimizer(model, tcfg["opt"], 100,
                                       tcfg["train_cfg"]["clip_grad_l2norm"])
         state = create_train_state(model, optimizer, tcfg["train_cfg"]["init_loss_norm"])
-        train_step = make_train_step(model, optimizer, tcfg, device=dev)
-        tbatches = [{k: v.to(dev) for k, v in synthetic_train_batch(
+        train_step = make_train_step(model, optimizer, tcfg, mesh=mesh)
+        tbatches = [{k: v.to(dev) for k, v in shard_batch(synthetic_train_batch(
             gen, tb_, tt, tm["raw_input_dim_V"], tm["raw_input_dim_A"], tm["num_classes"],
-            tcfg["dataset"]["max_num_events"]).items()} for _ in range(2)]
+            tcfg["dataset"]["max_num_events"]), mesh).items()} for _ in range(2)]
 
         def run_train(n):
             for i in range(n):
@@ -246,9 +267,9 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0) if cuda else "cpu",
         "nvidia_smi": nvidia_smi() if cuda else None,
         "commit": git_commit() or args.commit, "seed": args.seed, "tiny": args.tiny,
+        "world_size": mesh.world_size,
     })
-    print(json.dumps(record), flush=True)
-    return 0
+    return record
 
 
 if __name__ == "__main__":

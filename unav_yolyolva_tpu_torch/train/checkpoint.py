@@ -11,6 +11,11 @@ load_checkpoint also reads the JAX package's checkpoints (`params.msgpack`,
 `meta.json`) without flax: utils/msgpack.py reads the bytes, the port's key
 map carries params, EMA and the optimizer's moments across
 (utils/convert.py: params_from_jax, opt_state_from_jax).
+
+Data parallel: every rank calls save_checkpoint with its mesh; rank 0
+writes (the states of the ranks are the same) and every rank waits at a
+barrier until it has, so that a checkpoint read next (a resume, model_best
+before the final evaluation) is complete on every rank.
 """
 
 from __future__ import annotations
@@ -22,16 +27,26 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel.sync import barrier
 from ..utils import msgpack
 from ..utils.convert import opt_state_from_jax, params_from_jax
 from .state import TrainState
 
 
 def save_checkpoint(state: TrainState, epoch: int, folder: str, is_best: bool = False,
-                    file_name: str = "checkpoint", extra_meta: Optional[Dict] = None) -> str:
-    os.makedirs(folder, exist_ok=True)
+                    file_name: str = "checkpoint", extra_meta: Optional[Dict] = None,
+                    mesh=None) -> str:
     name = "model_best" if is_best else file_name
     ckpt_dir = os.path.join(folder, name)
+    if mesh is None or mesh.is_main:
+        _write(state, epoch, folder, ckpt_dir, is_best, extra_meta)
+    barrier(f"save {ckpt_dir}", mesh)
+    return ckpt_dir
+
+
+def _write(state: TrainState, epoch: int, folder: str, ckpt_dir: str, is_best: bool,
+           extra_meta: Optional[Dict]) -> None:
+    os.makedirs(folder, exist_ok=True)
     tmp_dir = ckpt_dir + ".tmp"
     shutil.rmtree(tmp_dir, ignore_errors=True)
     os.makedirs(tmp_dir)
@@ -57,7 +72,6 @@ def save_checkpoint(state: TrainState, epoch: int, folder: str, is_best: bool = 
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         os.rename(tmp_dir, ckpt_dir)
     shutil.rmtree(old_dir, ignore_errors=True)
-    return ckpt_dir
 
 
 def _recover_displaced(folder: str) -> None:

@@ -64,6 +64,29 @@ def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: 
     return state, ({k: m.avg for k, m in trackers.items()} or last)
 
 
+def _pad_rows(v, n: int):
+    """v zero-padded on its first axis to n rows (a numpy array or a tensor)."""
+    pad = n - v.shape[0]
+    if pad == 0:
+        return v
+    if isinstance(v, torch.Tensor):
+        return torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+    return np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+
+
+def rank_rows(batch: Dict, rows: int) -> Dict:
+    """The rows an eval step over several ranks serves (the JAX loop's
+    _device_batch): the rank's block of a rows_local batch (the Batcher's
+    block of the batch padded to pad_to) zero-padded to `rows`, pad_to /
+    world_size. Padded rows have an all-False mask and are never
+    harvested."""
+    arrays = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+    b = arrays["visual"].shape[0]
+    if b > rows:
+        raise ValueError(f"a rank's eval block of {b} rows exceeds its {rows}")
+    return dict(batch, **{k: _pad_rows(v, rows) for k, v in arrays.items()})
+
+
 def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable, epoch: int,
                     *, evaluator=None, output_file: Optional[str] = None,
                     ext_score_file: Optional[str] = None, print_freq: int = 20,
@@ -81,7 +104,15 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
 
     Batch i + 1 is dispatched before batch i's detections are read, so
     their copy to the host (started right after the step, waited on by an
-    event) overlaps the next batch's compute."""
+    event) overlaps the next batch's compute.
+
+    Data parallel (an eval step made with a mesh of more than one rank,
+    over a rows_local Batcher: make_batcher(..., mesh=)): each rank serves
+    its block of every batch, padded to the Batcher's pad_to / world
+    (rank_rows); the gathered detections hold every row, so every rank
+    harvests the whole batch and computes the same mAP, and only rank 0
+    writes output_file. At world size 1 a partial batch is served as it
+    is."""
     if evaluator is None and output_file is None:
         raise ValueError("valid_one_epoch: give an evaluator or an output_file")
     served = getattr(eval_step, "model", None)
@@ -108,13 +139,19 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
             results["label"].append(dets["labels"][vi, ok])
             results["score"].append(dets["scores"][vi, ok])
 
+    mesh = getattr(eval_step, "mesh", None)
+    world = mesh.world_size if mesh is not None else 1
+    if world > 1 and not (getattr(batcher, "rows_local", False)
+                          and batcher.process_count == world):
+        raise ValueError(f"valid_one_epoch: an eval step over {world} ranks needs a rows_local "
+                         f"Batcher of {world} processes (make_batcher(..., mesh=))")
     pending = None
     loss_samples = []          # device scalars, read once at the end
     with_losses = getattr(eval_step, "with_losses", False)
     num = len(batcher) if hasattr(batcher, "__len__") else -1
     for it, batch in enumerate(batcher):
         with annotate("eval_step"):
-            out = eval_step(batch)
+            out = eval_step(batch if world == 1 else rank_rows(batch, batcher.pad_to // world))
             if with_losses:
                 out, losses = out
                 loss_samples.append(losses)
@@ -136,10 +173,11 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
     if evaluator is not None:
         if ext_score_file:
             results = postprocess_results(results, ext_score_file)
-        _, mAP = evaluator.evaluate(results, verbose=True)
+        _, mAP = evaluator.evaluate(results, verbose=mesh is None or mesh.is_main)
     else:
-        with open(output_file, "wb") as f:
-            pickle.dump(results, f)
+        if mesh is None or mesh.is_main:
+            with open(output_file, "wb") as f:
+                pickle.dump(results, f)
         mAP = 0.0
     losses = {}
     if loss_samples:

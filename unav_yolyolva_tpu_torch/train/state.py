@@ -23,7 +23,11 @@ class TrainState:
 
 def create_train_state(model: nn.Module, optimizer: ClippedOptimizer,
                        init_loss_norm: float) -> TrainState:
-    """A state at step 0 whose EMA copy starts at the model's weights."""
+    """A state at step 0 whose EMA copy starts at the model's weights.
+
+    Data parallel: every rank builds its model from the same seed
+    (models/meta_arch.py:build_model draws on the CPU), so the states agree
+    with no communication, as every JAX process computes the same init."""
     ema = copy.deepcopy(model).eval().requires_grad_(False)
     dev = next(model.parameters()).device
     return TrainState(model, optimizer, ema,

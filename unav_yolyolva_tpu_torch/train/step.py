@@ -10,6 +10,16 @@ backward (through the MHCA and CSP backward kernels of the compute dtype
 on CUDA), the global-
 norm clip and AdamW update at the scheduled learning rate, the EMA update
 and the loss-normalizer EMA.
+
+Data parallel (a `mesh` from parallel/mesh.py:make_mesh under torchrun):
+the batch is the rank's row block of the global batch, the loss is the
+rank's share of the global loss (models/meta_arch.py), and after the
+backward every gradient is summed over the ranks in one all-reduce of one
+flat buffer before the clip (parallel/collectives.py:GradSum), as the JAX program reduces the whole gradient
+after its backward. Not DDP: DDP averages where the shares need a sum, and
+would need find_unused_parameters for the Alignment's argmax-only class
+heads, which get no grad. With a group the all-reduce runs at every world
+size, one rank included, where it keeps the bits.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from ..core.device import make_batch_copier, resolve_device
 from ..geometry.assign import assign_labels_batch, frame_targets_batch
 from ..geometry.points import concat_points, generate_points
 from ..models.meta_arch import compute_losses
+from ..parallel.collectives import GradSum, sharded, sum_losses
 from ..utils.seed import fold_in
 from .ema import ema_update
 from .state import TrainState
@@ -53,7 +64,7 @@ def loss_kwargs(cfg: Dict) -> Dict:
     )
 
 
-def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
+def make_train_step(model, optimizer, cfg: Dict, device=None, mesh=None) -> Callable:
     """train_step(state, batch, seed=0) -> losses, for a state made by
     create_train_state(model, optimizer, ...). `batch` holds visual
     (B, T, Dv), audio (B, T, Da), mask (B, T) and the events gt_segments
@@ -63,8 +74,12 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
     state is updated in place; the returned losses are device scalars (no
     host sync). Runs on CUDA unless device='cpu'. A model that computes in
     bf16 (tpu.compute_dtype) trains through the bf16 backward kernels; its
-    parameters, optimizer state, EMA and losses stay fp32, as in JAX."""
-    device = resolve_device(device)
+    parameters, optimizer state, EMA and losses stay fp32, as in JAX.
+
+    With a data-parallel `mesh` (on its device) `batch` is the rank's row
+    block, and the returned losses are the global batch's, on every rank;
+    every rank's state stays the same."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     model.to(device).train()
     mcfg = cfg["model"]
     seq_len, num_classes = mcfg["max_seq_len"], mcfg["num_classes"]
@@ -73,6 +88,7 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
         seq_len, mcfg["regression_range"], mcfg["scale_factor"]))).to(device)
     kw = loss_kwargs(cfg)
     copy = make_batch_copier(device)
+    grad_sum = GradSum(optimizer.params, mesh) if sharded(mesh) else (lambda: None)
 
     def train_step(state: TrainState, batch: Dict, seed: int = 0) -> Dict[str, torch.Tensor]:
         if not model.training:          # a validation of the raw weights set eval()
@@ -85,14 +101,16 @@ def make_train_step(model, optimizer, cfg: Dict, device=None) -> Callable:
                   "mask": b["mask"], "m_scores": m_scores, "m_start_end": m_start_end,
                   "m_labels": m_labels}
         gen = torch.Generator(device=device).manual_seed(fold_in(seed, state.step))
-        out = model(inputs, with_losses=True, generator=gen)
-        losses, new_norm = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer, **kw)
+        out = model(inputs, with_losses=True, generator=gen, mesh=mesh)
+        losses, new_norm = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
+                                          mesh=mesh, **kw)
         optimizer.zero_grad()
         losses["final_loss"].backward()
+        grad_sum()
         optimizer.step()
         ema_update(state.ema, model)
         state.loss_normalizer = new_norm.detach()
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return sum_losses(losses, mesh)
 
     return train_step
