@@ -193,6 +193,18 @@ Phases (any failure exits non-zero):
      straight run and its mAPs equal, then the eval CLI under the launch on
      that checkpoint; the steps' rates with and without the group in turns
      and the gradient all-reduce at the flagship width (`time dp ...`);
+ 18. the last modules ported (slice16_phase; `--slice16-only` builds and
+     runs it alone): the host Soft-NMS (ops/nms_host.py, the C scan of
+     native/nms1d.c built with gcc) against the single-class kernel on the
+     (6400, 1024) per-class rows for the hard, linear and Gaussian weights
+     (`check nms_host@...` lines: the rows compared and those that differ);
+     the bench (tools/bench.py) with eval at fp32 B=64 under the candidate
+     cap 2000 and train at the root bench's B=64 in bf16, its FLOP counts,
+     MFUs and vs_baseline positive, the train half's peak memory; the
+     accuracy-cost tool for 30 epochs on 32 synthetic videos, fp32_exact
+     served through the fp32 kernels and bf16_exact through the bf16 ones,
+     fp32_exact above 0 and bf16_exact within 0.01 of it; the kernels of
+     the bench's and the tool's paths counted from 0 around each;
  12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
      backward launch, with torch.profiler, after every timed phase so that
      the profiler cannot touch their times.
@@ -213,7 +225,8 @@ and lines alone; with --bf16-train-only it builds and runs phase 16 alone; with
 (phase 16 runs it so, in a process of its own); with --dp-only (under
 `python -m torch.distributed.run --standalone --nproc_per_node 1`) it builds
 and runs phase 17 alone, without phase 13's run to compare the train CLI
-with unless --phase13 names one.
+with unless --phase13 names one; with --slice16-only it builds and runs
+phase 18 alone.
 """
 
 from __future__ import annotations
@@ -2720,6 +2733,189 @@ def data_parallel_phase(seed: int, smi: str, phase13) -> None:
     log(f"data-parallel phase (torchrun, one process): {time.perf_counter() - t0:.1f} s")
 
 
+def host_nms_rows(got_idx, got_score, host, min_score):
+    """One row of the single-class kernel against the host scan: None if
+    they agree (the same emitted indices in order, scores within rtol 1e-4),
+    "near-tie" if each difference is a near-tie of the two programs' float32
+    arithmetic (the card's expf and glibc's differ by an ulp or two): an
+    index order flipped between emitted scores within 1e-5 of each other, or
+    a last slot that one side alone fills with a score at min_score's edge
+    (nms_bench.kill_edge); else "differs"."""
+    import numpy as np
+
+    from unav_yolyolva_tpu_torch.tools.nms_bench import EDGE_ULPS
+
+    hi, hs = host
+    k = int((got_idx >= 0).sum())
+    gi, gs = got_idx[:k].astype(np.int64), got_score[:k]
+    if k == len(hi) and np.array_equal(gi, hi) and np.allclose(gs, hs, rtol=1e-4, atol=0):
+        return None
+    lo = np.float32(min_score)
+    edge = lo
+    for _ in range(EDGE_ULPS):
+        edge = np.nextafter(edge, np.float32(np.inf))
+    n = min(k, len(hi))
+    if abs(k - len(hi)) > 1 or (k != len(hi) and not lo <= (gs if k > n else hs)[n] <= edge):
+        return "differs"
+    if not np.allclose(np.sort(gs[:n]), np.sort(hs[:n]), rtol=1e-4, atol=0):
+        return "differs"
+    for j in np.nonzero(gi[:n] != hi[:n])[0]:
+        near = [hs[i] for i in (j - 1, j + 1) if 0 <= i < n]
+        if not any(abs(float(hs[j]) - float(s)) <= 1e-5 * float(hs[j]) for s in near):
+            return "differs"
+    return "near-tie"
+
+
+# phase 18(c): the short accuracy-cost run's epochs on 32 videos, and the
+# most its bf16 avg mAP may differ from its fp32 one
+ACCURACY_EPOCHS, ACCURACY_DELTA = 30, 0.01
+
+
+def slice16_phase(seed: int, dev, smi: str, counted) -> None:
+    """Phase 18: the host Soft-NMS as a third reference of the single-class
+    scan, the bench at the root bench's train configuration with its FLOP
+    counts and MFUs, and a short accuracy-cost run through both protocols.
+
+    (a) The C scan (native/nms1d.c through ops/nms_host.py, built with gcc
+    under build/host/) against the single-class kernel on the (6400, 1024)
+    per-class rows of phase 3's candidates (nms_bench.cases, drawn here from
+    a generator of this phase), hard, linear and Gaussian. The two share the
+    scan's contract: the host scan takes every lane of a row and returns the
+    k slots it emitted, the kernel takes -inf for a dead lane and fills its
+    max_out slots with -1 after its last emission; both kill a lane whose
+    decayed score falls under min_score, and both emit a row's first winner
+    whatever its score. So a row's k kernel slots that hold an index are
+    compared with the host's k: the same indices, scores within rtol 1e-4
+    (tests/test_nms_host.py's rule); a row that differs only by near-ties
+    (host_nms_rows) is counted apart, any other fails.
+    (b) tools/bench.py with eval at fp32 B=64 under the candidate cap 2000
+    (--nms-candidates: the merged kernel at (64, 2000), as phase 11 serves
+    it) and train at B=64 in bf16 (the root bench's train configuration):
+    every knob honoured, its FLOP counts, MFUs and vs_baseline present and
+    positive, the train half's peak memory; the kernels of both halves
+    launched.
+    (c) tools/accuracy_cost.py for ACCURACY_EPOCHS epochs on 32 videos:
+    fp32_exact served through the fp32 MHCA, CSP and merged NMS kernels,
+    bf16_exact through the bf16 MHCA and CSP kernels and the NMS kernel with
+    no fp32 MHCA or CSP launch; the fp32 training through the fp32 backward
+    kernels; fp32_exact's avg mAP above 0 (the weights learned: at 2 epochs
+    it reads 0.0, and so would an evaluator that finds nothing) and
+    bf16_exact's within ACCURACY_DELTA of it (the bound PERF.md holds the
+    150-epoch run to)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.fused_nms import soft_nms
+    from unav_yolyolva_tpu_torch.ops.nms_host import library_path, soft_nms_host
+    from unav_yolyolva_tpu_torch.tools import accuracy_cost, bench, nms_bench
+
+    t_phase = time.perf_counter()
+
+    def reset():
+        for fn in counted:
+            fn.launches = 0
+            if hasattr(fn, "bf16_launches"):
+                fn.bf16_launches = 0
+
+    def read():
+        out = {fn.__name__: fn.launches for fn in counted}
+        out.update({fn.__name__ + "_bf16": fn.bf16_launches for fn in counted
+                    if hasattr(fn, "bf16_launches")})
+        return out
+
+    # ---- (a) the host scan against the single-class kernel ----------------------
+    gen = torch.Generator().manual_seed(seed + 18)
+    base = nms_bench.protocol_candidates(gen, dev)
+    for label, merged, nargs, kw in nms_bench.cases(base, gen):
+        if merged or not label.startswith("soft_nms@6400x1024"):
+            continue
+        segs, scores = nargs
+        ki, ks, _ = soft_nms(segs, scores, **kw)
+        torch.cuda.synchronize()
+        ki, ks = ki.cpu().numpy(), ks.cpu().numpy()
+        s_np, c_np = segs.cpu().numpy(), scores.cpu().numpy()
+        t0 = time.perf_counter()
+        host = [soft_nms_host(s_np[r], c_np[r], kw["iou_threshold"], kw["sigma"],
+                              kw["min_score"], method=kw["method"], max_out=kw["max_out"])
+                for r in range(len(c_np))]
+        host_s = time.perf_counter() - t0
+        verdicts = [host_nms_rows(ki[r], ks[r], host[r], kw["min_score"])
+                    for r in range(len(host))]
+        err = max((float(np.abs(ks[r, :len(h[1])] - h[1]).max()) for r, h in enumerate(host)
+                   if len(h[1]) and verdicts[r] is None), default=0.0)
+        differ, ties = verdicts.count("differs"), verdicts.count("near-tie")
+        log(f"check nms_host@{label.split('@')[1]}: rows {len(host)}, differing {differ + ties} "
+            f"(near-ties {ties}, outside the rule {differ}), emitted "
+            f"{sum(len(h[0]) for h in host)}, max_abs_err {err:.3e}; host scan {host_s:.2f} s "
+            f"({library_path().name}, gcc) [{smi}]")
+        require(differ == 0, f"nms_host: {differ} row(s) of {label} differ from the host scan")
+    del base
+
+    # ---- (b) the bench at the root bench's train configuration -------------------
+    torch.cuda.empty_cache()
+    reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(["--eval-batch", "64", "--compute-dtype", "float32", "--train-batch", "64",
+                    "--train-dtype", "bfloat16", "--nms-candidates", "2000", "--iters", "3",
+                    "--commit", "unknown", "--seed", str(seed)])
+    n = read()
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for key in ("flops_per_video", "train_flops_per_clip", "mfu_vs_bf16_peak",
+                "train_mfu_vs_bf16_peak", "vs_baseline"):
+        require(isinstance(rec.get(key), float) and rec[key] > 0,
+                f"bench: {key} is {rec.get(key)!r}, not a positive number")
+    require(rec["train_batch"] == 64 and rec["train_dtype"] == "bfloat16"
+            and rec["batch"] == 64 and rec["dtype"] == "float32"
+            and rec["nms_candidates"] == 2000, "bench: the knobs were not honoured")
+    log(f"launches bench (eval fp32 B=64 candidates 2000, train bf16 B=64): {n}")
+    for name in ("fused_mhca", "fused_csp", "multiclass_soft_nms", "fused_mhca_bf16",
+                 "fused_csp_bf16", "mhca_backward_bf16", "csp_backward_bf16"):
+        require(n[name] > 0, f"bench: {name} did not launch")
+    require(n["mhca_backward"] == n["csp_backward"] == 0,
+            "bench: the bf16 train half launched an fp32 backward kernel")
+    log(f"time bench eval float32 B=64 candidates 2000: {rec['value']:.1f} videos/s (spread "
+        f"{rec['spread_pct']:.1f}%), busy share {rec['busy_share']:.3f}, "
+        f"{rec['flops_per_video']:.3f} GFLOP a video, mfu_vs_bf16_peak "
+        f"{rec['mfu_vs_bf16_peak']:.4f}, vs_baseline {rec['vs_baseline']:.1f} [{smi}]")
+    log(f"time bench train bfloat16 B=64: {rec['train_clips_per_sec']:.1f} clips/s (spread "
+        f"{rec['train_spread_pct']:.1f}%), busy share {rec['train_busy_share']:.3f}, peak "
+        f"memory {rec['train_peak_memory_gib']:.2f} GiB, {rec['train_flops_per_clip']:.3f} "
+        f"GFLOP a clip, train_mfu_vs_bf16_peak {rec['train_mfu_vs_bf16_peak']:.4f} [{smi}]")
+
+    # ---- (c) a short accuracy-cost run ---------------------------------------------
+    torch.cuda.empty_cache()
+    reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = accuracy_cost.main(["--epochs", str(ACCURACY_EPOCHS), "--videos", "32",
+                                     "--seed", str(seed)])
+    n = read()
+    maps, launches = report["avg_mAP"], report["launches"]
+    log(f"accuracy cost ({ACCURACY_EPOCHS} epochs, 32 videos): avg mAP {maps}, delta "
+        f"{report['delta_vs_fp32_exact']}, launches by protocol {launches}, in all {n} "
+        f"[{smi}]")
+    require(n["mhca_backward"] > 0 and n["csp_backward"] > 0,
+            "accuracy cost: the fp32 training did not run the backward kernels")
+    require(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in maps.values()),
+            "accuracy cost: an mAP outside [0, 1]")
+    require(maps["fp32_exact"] > 0.0, "accuracy cost: fp32_exact read 0: nothing was learned "
+            "or nothing was detected")
+    require(abs(report["delta_vs_fp32_exact"]["bf16_exact"]) <= ACCURACY_DELTA,
+            f"accuracy cost: bf16_exact is more than {ACCURACY_DELTA} from fp32_exact")
+    fp32, bf16 = launches["fp32_exact"], launches["bf16_exact"]
+    require(fp32["mhca"] > 0 and fp32["csp"] > 0 and fp32["nms"] > 0
+            and fp32["mhca_bf16"] == fp32["csp_bf16"] == 0,
+            "accuracy cost: fp32_exact did not serve through the fp32 kernels alone")
+    require(bf16["mhca_bf16"] > 0 and bf16["csp_bf16"] > 0 and bf16["nms"] > 0
+            and bf16["mhca"] == bf16["csp"] == 0,
+            "accuracy cost: bf16_exact did not serve through the bf16 kernels alone")
+    log(f"slice 16 phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2738,6 +2934,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phase13", default=None,
                     help="with --dp-only: a directory holding phase 13's epoch_002/state.pt "
                          "and maps.json, which the train CLI under torchrun must repeat")
+    ap.add_argument("--slice16-only", action="store_true",
+                    help="only build, then run phase 18 (the host Soft-NMS cross-check, the "
+                         "bench at the root bench's train configuration, a short "
+                         "accuracy-cost run)")
     ap.add_argument("--bf16-profile-only", action="store_true",
                     help="only build, then profile the bf16 backward kernels (phase 16's "
                          "profile, launch and stage lines; phase 16 runs it so, in a process "
@@ -2813,6 +3013,9 @@ def main(argv=None) -> int:
 
     if args.dp_only:
         dp_phase(args.seed, smi, args.phase13)
+        return 0
+    if args.slice16_only:
+        slice16_phase(args.seed, dev, smi, counted)
         return 0
 
     # ---- 3. kernels against their plain versions at the real shapes ---------
@@ -3336,6 +3539,9 @@ def main(argv=None) -> int:
         data_parallel_phase(args.seed, smi, phase13)
     finally:
         shutil.rmtree(phase13, ignore_errors=True)
+
+    # ---- 18. the host Soft-NMS, the bench's knobs and MFUs, the accuracy tool -------
+    slice16_phase(args.seed, dev, smi, counted)
 
     # ---- last: the kernels one CSP and one MHCA backward launch --------------
     backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)

@@ -5,12 +5,27 @@ counterpart in the PyTorch port, with the flax weights carried across."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from unav_yolyolva_tpu_torch.utils.convert import state_dict_from_entries
 
 # fp32 module parity: the same math with another summation order
 RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for a test module that imports this
+    fixture, restored after it. The suite runs several test processes side
+    by side, and torch's default of a thread a core oversubscribes the
+    machine: small CPU ops then spend most of their time in the threads'
+    spin-waits. Results compared within one process are unaffected; those
+    compared with the JAX package keep their stated tolerances."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(params):

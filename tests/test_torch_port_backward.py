@@ -20,6 +20,7 @@ from unav_yolyolva_tpu.ops.pallas_fusion import mhca_fused_train, pack_mhca_para
 from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward_reference
 from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward_reference
 from tests._torch_port_common import close, lengths_mask, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mhca_packs(rng, c):

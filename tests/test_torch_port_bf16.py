@@ -56,6 +56,7 @@ from unav_yolyolva_tpu_torch.utils.convert import (build_key_map, csp_entries, m
                                                    params_from_jax)
 from tests._torch_port_common import lengths_mask, load_port, np_tree, t
 from tests.test_torch_port_tblock import _jax_packs, _to_port
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 BF = jnp.bfloat16
 EXACT = {"xla_allow_excess_precision": False}

@@ -18,6 +18,7 @@ import torch
 from unav_yolyolva_tpu_torch.ops.fused_mhca import (_mhca_backward_bf16_reference,
                                                     attention_backward,
                                                     attention_backward_reference)
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 

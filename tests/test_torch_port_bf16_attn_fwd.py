@@ -35,6 +35,7 @@ import torch
 
 from unav_yolyolva_tpu_torch.ops.fused_csp import gate_reference
 from unav_yolyolva_tpu_torch.ops.fused_mhca import attend, attention_forward
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 BF = jnp.bfloat16
 EXACT = {"xla_allow_excess_precision": False}

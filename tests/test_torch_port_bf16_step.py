@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import torch
 
 from tests._torch_port_common import close, lengths_mask, np_tree, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 EXACT = {"xla_allow_excess_precision": False}
 B, T, NCLS, NE, LR, ITERS = 2, 32, 4, 4, 1e-3, 2

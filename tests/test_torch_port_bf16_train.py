@@ -42,6 +42,7 @@ from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward_reference
 from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward_reference
 from tests._torch_port_common import lengths_mask, t
 from tests.test_torch_port_backward import _csp_packs, _csp_to_port, _mhca_packs, _mhca_to_port
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 BF = jnp.bfloat16
 EXACT = {"xla_allow_excess_precision": False}

@@ -16,6 +16,7 @@ from unav_yolyolva_tpu_torch.ops import masked as tm
 from unav_yolyolva_tpu_torch.utils.convert import mhca_entries, tblock_entries
 from tests._torch_port_common import (close, conv_entries, lengths_mask,
                                       load_port, np_tree, t)
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, C, H = 3, 32, 64, 4
 

@@ -20,6 +20,7 @@ from unav_yolyolva_tpu_torch.core import load_config_dict
 from unav_yolyolva_tpu_torch.data import Batcher, UnAV100Dataset, make_batcher
 from unav_yolyolva_tpu_torch.data.pipeline import collate
 from unav_yolyolva_tpu_torch.data.synthetic import make_synthetic_dataset
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 SYNTH = dict(num_videos=8, num_classes=5, min_len=40, max_len=120, visual_dim=64,
              audio_dim=16, seed=1)

@@ -23,6 +23,7 @@ from unav_yolyolva_tpu.geometry.points import generate_points as jgenerate_point
 from unav_yolyolva_tpu_torch.eval import decode_batch
 from unav_yolyolva_tpu_torch.geometry.points import generate_points
 from tests._torch_port_common import lengths_mask, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, NCLS = 3, 64, 5
 REG_RANGE = [(0, 4), (4, 8), (8, 16), (16, 32), (32, 64), (64, 10000)]

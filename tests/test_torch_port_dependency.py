@@ -25,6 +25,7 @@ from unav_yolyolva_tpu_torch.models import blocks as tb
 from unav_yolyolva_tpu_torch.models.dependency import DependencyBlock
 from unav_yolyolva_tpu_torch.utils.convert import dependency_entries, tblock_entries
 from tests._torch_port_common import close, lengths_mask, load_port, np_tree, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, CIN, H, NCLS = 2, 16, 16, 8, 5
 

@@ -17,6 +17,7 @@ from tests._golden_common import NCLS, SEED, T
 from unav_yolyolva_tpu.eval import metrics as jmetrics
 from unav_yolyolva_tpu.eval import postprocessing as jpost
 from unav_yolyolva_tpu_torch.eval import cli, metrics, postprocessing
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "eval_golden.npz")
 KEYS = ("t-start", "t-end", "label", "score")

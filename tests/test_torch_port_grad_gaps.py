@@ -15,6 +15,7 @@ from unav_yolyolva_tpu_torch.ops import fused_csp
 import pytest
 
 from unav_yolyolva_tpu_torch.tools.grad_gaps import gate_margins, step_grads, ulp_bump
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 T, NCLS = 64, 5
 

@@ -25,6 +25,7 @@ from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
 from unav_yolyolva_tpu_torch.ops.fused_nms import multiclass_soft_nms
 from unav_yolyolva_tpu_torch.utils.convert import csp_entries, mhca_entries
 from tests._torch_port_common import close, lengths_mask, load_port, np_tree, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _xla(module, params, *args, **kw):

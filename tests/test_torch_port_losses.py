@@ -24,6 +24,7 @@ from unav_yolyolva_tpu_torch.train import optim as toptim
 from unav_yolyolva_tpu_torch.train.ema import ema_update
 from unav_yolyolva_tpu_torch.train.loop import train_one_epoch
 from tests._torch_port_common import close, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 REG_RANGE = [(0, 4), (4, 8), (8, 16), (16, 32), (32, 64), (64, 10000)]
 

@@ -13,6 +13,7 @@ import torch
 from unav_yolyolva_tpu_torch.ops.gemm_tc import (bf16_layout_reference, bf16_product_reference,
                                                  gelu_erf, gelu_erf_grad, mlp_product,
                                                  mlp_product_reference)
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 

@@ -24,6 +24,7 @@ from unav_yolyolva_tpu_torch.models import fusion as tf
 from unav_yolyolva_tpu_torch.models import heads as th
 from unav_yolyolva_tpu_torch.utils.convert import build_key_map, params_from_jax
 from tests._torch_port_common import close, lengths_mask, load_port, np_tree, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 

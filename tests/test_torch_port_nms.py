@@ -27,6 +27,7 @@ from unav_yolyolva_tpu_torch.eval import decode as tdecode
 from unav_yolyolva_tpu_torch.ops import nms as tnms
 from unav_yolyolva_tpu_torch.ops.fused_nms import soft_nms, soft_nms_reference
 from tests._torch_port_common import t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _candidates(seed, g, n, ncls=4, dead=0.2):

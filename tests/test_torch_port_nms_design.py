@@ -29,6 +29,7 @@ from unav_yolyolva_tpu_torch.ops.fused_nms import (multiclass_soft_nms_reference
                                                    soft_nms_reference)
 from tests._torch_port_common import t
 from tests.test_torch_port_nms import _check_emissions
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = np.float32
 EPS = F32(1e-6)

@@ -1,7 +1,8 @@
 """The PyTorch port (the eval and train paths, the data pipeline, the eval
 harness, both CLIs, the msgpack reader, the dependency block, the bench,
 the bf16 compute policy's kernels and their plain versions, the
-data-parallel modules) and
+data-parallel modules, the host Soft-NMS, the FLOP count and the
+accuracy-cost tool) and
 chip_smoke.py import neither JAX nor the JAX package: every module imports
 with jax, flax, optax and msgpack blocked."""
 
@@ -38,7 +39,8 @@ required = {"train.step", "train.optim", "train.checkpoint", "train.loop", "core
             "utils.convert", "utils.profiling", "tools.bench", "train.cli", "utils.msgpack",
             "models.dependency", "ops.gemm_tc", "ops.fused_mhca", "ops.fused_csp",
             "ops.fused_tblock", "models.meta_arch", "parallel", "parallel.mesh",
-            "parallel.sync", "parallel.collectives"}
+            "parallel.sync", "parallel.collectives", "ops.nms_host", "tools.flops",
+            "tools.accuracy_cost"}
 missing = {"unav_yolyolva_tpu_torch." + n for n in required} - set(names)
 assert not missing, missing
 # the bf16 policy: its kernels' wrappers, plain versions and sources

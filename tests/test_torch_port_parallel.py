@@ -44,6 +44,7 @@ import torch
 import yaml
 
 from tests._torch_port_common import lengths_mask
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, NCLS, NE, B = 64, 5, 8, 8

@@ -22,6 +22,7 @@ from unav_yolyolva_tpu_torch.models import blocks as tb
 from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
                                                       tblock_reference)
 from tests._torch_port_common import close, lengths_mask, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, T, C, HEADS = 3, 16, 128, 4
 HID = 4 * C

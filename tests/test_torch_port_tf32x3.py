@@ -35,6 +35,7 @@ from unav_yolyolva_tpu_torch.ops.gemm_tc import (conv3_taps, tf32_round, tf32x3_
                                                  tf32x3_split)
 from unav_yolyolva_tpu_torch.utils.convert import csp_entries, mhca_entries
 from tests._torch_port_common import close, lengths_mask, load_port, np_tree, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 TF32 = dict(linear=tf32x3_linear_reference, matmul=tf32x3_matmul_reference)
 

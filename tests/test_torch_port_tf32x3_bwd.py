@@ -21,6 +21,7 @@ import torch
 
 from unav_yolyolva_tpu_torch.ops.gemm_tc import (SLICE, conv3_taps, split_chunk,
                                                  tf32x3_product_reference, tf32x3_products)
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rand(rng, *shape, scale=1.0):

@@ -26,6 +26,7 @@ from unav_yolyolva_tpu_torch.ops.gemm_tc import (gelu_erf, gelu_erf_grad,
                                                  tf32x3_product_reference, tf32x3_products)
 from tests._torch_port_common import close, t
 from tests.test_torch_port_tblock import HEADS, TOL, _case, _to_port
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 TF32 = dict(linear=tf32x3_linear_reference, matmul=tf32x3_matmul_reference)
 SEQ = 50                                     # rows per sequence of a ragged M = 3 * SEQ

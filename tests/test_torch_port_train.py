@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from tests._torch_port_common import close, lengths_mask, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np(x):

@@ -31,6 +31,7 @@ from flax import serialization
 
 from unav_yolyolva_tpu_torch.utils import msgpack
 from tests._torch_port_common import close, lengths_mask, np_tree
+from tests._torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 NCLS, T, NE, LR, ITERS = 5, 64, 8, 1e-3, 2
 # a pyramid of three levels (2 CSP layers each way): the JAX train step's

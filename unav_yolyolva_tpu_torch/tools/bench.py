@@ -3,13 +3,16 @@ the card (the port of the root bench.py).
 
     python -m unav_yolyolva_tpu_torch.tools.bench [--iters 10] [--windows 5]
         [--h2d] [--no-train] [--compute-dtype float32|bfloat16] [--seed 0]
-        [--commit SHA]
+        [--eval-batch 64] [--nms-candidates 0] [--train-batch 8]
+        [--train-dtype float32|bfloat16] [--commit SHA]
 
 Eval: the protocol of configs/avel_unav100_eval.yaml (B=64, T=224, 100
 classes, pre_nms_topk 2000, max_seg_num 100, multiclass Gaussian
 Soft-NMS) at --compute-dtype (fp32 by default; bfloat16 is the bf16
 policy of configs/avel_unav100_bf16.yaml, fp32 weights), weights from
---seed, one batch from synthetic_eval_batch. Each
+--seed, one batch from synthetic_eval_batch; --eval-batch sets the batch
+(the root bench's BENCH_BATCH) and --nms-candidates tpu.nms_max_candidates
+(BENCH_NMS_CAND; 0, the default, is the reference-exact set). Each
 step's detections are copied to pinned host memory and read one step
 later, as valid_one_epoch does. By default the batch is already on the
 device (the root bench's default); with --h2d every step copies one of two
@@ -18,10 +21,13 @@ copy stream, the copy included in the time.
 
 Train: the protocol of configs/avel_unav100.yaml (B=8, T=224, fp32, AdamW
 + clip + warmup/cosine, droppath 0.1, EMA) on synthetic_train_batch
-batches already on the device, at --compute-dtype (bfloat16: the bf16 train
-step of configs/avel_unav100_bf16.yaml, through the bf16 backward kernels;
-fp32 parameters, optimizer state and EMA); --no-train skips it. It reports
-its train_dtype.
+batches already on the device, at --train-dtype, which is --compute-dtype
+unless given (bfloat16: the bf16 train step of
+configs/avel_unav100_bf16.yaml, through the bf16 backward kernels; fp32
+parameters, optimizer state and EMA); --train-batch sets the batch (the root
+bench's BENCH_TRAIN_BATCH and BENCH_TRAIN_DTYPE, whose defaults there are 64
+and bfloat16); --no-train skips it. It reports its train_batch and
+train_dtype.
 
 Both: one warm-up window, then --windows (at least 5) timed windows of
 --iters steps, host clock, the device synchronized at each window's end;
@@ -31,6 +37,17 @@ wall time of one torch.profiler window outside the timed ones), peak
 device memory (torch.cuda.max_memory_allocated), the card's name and power
 limit (nvidia-smi) and the commit (`git rev-parse HEAD`, else --commit).
 
+Model FLOPs (tools/flops.py:model_flops, counted once per configuration in
+a process, outside the timed windows): flops_per_video (GFLOP, the eval forward) and
+train_flops_per_clip (GFLOP, the train step's forward and backward), the same
+whatever kernels run; mfu_vs_bf16_peak = flops_per_video x videos/s / (peak
+x world_size) and train_mfu_vs_bf16_peak likewise, against the card's dense
+bf16 tensor-core peak whatever the run's dtype, as the root bench does:
+989 TFLOP/s for an H100 SXM (NVIDIA H100 80GB HBM3) at its 700 W limit
+(nvidia_smi in the line says the limit the card ran at); an unknown card
+gives null. vs_baseline is videos/s over BASELINE_MEASURED.json's
+pytorch_cpu_eval_videos_per_sec (null without the file).
+
 The last line of standard output is one JSON object with the root
 bench.py's key names where they apply. `--device cpu --tiny` runs a tiny
 width on the CPU, for the tests only: its numbers are not the card's.
@@ -38,9 +55,10 @@ width on the CPU, for the tests only: its numbers are not the card's.
 Data parallel under torchrun (`python -m torch.distributed.run
 --nproc_per_node N -m unav_yolyolva_tpu_torch.tools.bench ...`): every rank
 makes the same global batches and serves or trains its row block of them
-(parallel/mesh.py:shard_batch); videos/s and clips/s count the global
-batch, the busy share and memory are rank 0's, and rank 0 alone prints the
-JSON line, with world_size.
+(parallel/mesh.py:shard_batch); videos/s, clips/s and the FLOP counts
+are of the global batch, the MFUs per card, the busy share and memory are
+rank 0's, and rank 0 alone prints the JSON line, with world_size. Each
+batch must divide over the ranks.
 """
 
 from __future__ import annotations
@@ -82,6 +100,43 @@ def load_protocol(name: str, tiny: bool):
     with open(os.path.join(ROOT, "configs", name)) as f:
         raw = yaml.safe_load(f)
     return load_config_dict(_deep_update(raw, TINY) if tiny else raw)
+
+
+# dense bf16 tensor-core FLOP/s by torch.cuda.get_device_name: the H100 SXM's
+# 989 TFLOP/s at its 700 W limit
+PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
+BASELINE = os.path.join(ROOT, "BASELINE_MEASURED.json")
+
+
+def baseline_videos_per_sec():
+    """The reference's CPU eval videos/s (BASELINE_MEASURED.json), or None."""
+    if not os.path.exists(BASELINE):
+        return None
+    with open(BASELINE) as f:
+        return json.load(f).get("pytorch_cpu_eval_videos_per_sec")
+
+
+_FLOPS: dict = {}
+
+
+def counted_flops(cfg, batch: int, train: bool) -> int:
+    """tools/flops.py:model_flops, counted once per configuration and batch
+    in a process (chip_smoke.py runs main several times in one); the count
+    depends on no tpu.* setting (fp32 always, decode and NMS not counted)."""
+    key = (json.dumps({k: v for k, v in cfg.items() if k != "tpu"}, sort_keys=True,
+                      default=repr), batch, train)
+    if key not in _FLOPS:
+        from .flops import model_flops
+
+        _FLOPS[key] = model_flops(cfg, batch, train)
+    return _FLOPS[key]
+
+
+def mfu(flops_per_item, items_per_sec, peak, world_size):
+    """Model-FLOP utilization per card, or None without a known peak."""
+    if not peak:
+        return None
+    return flops_per_item * items_per_sec / (peak * world_size)
 
 
 def nvidia_smi():
@@ -140,7 +195,16 @@ def main(argv=None) -> int:
                     help="copy a pinned host batch every eval step")
     ap.add_argument("--no-train", action="store_true")
     ap.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="the compute dtype of both halves (tpu.compute_dtype)")
+                    help="the compute dtype (tpu.compute_dtype) of eval, and of train unless "
+                         "--train-dtype is given")
+    ap.add_argument("--eval-batch", type=int, default=None,
+                    help="the eval batch (default: the protocol's, 64)")
+    ap.add_argument("--nms-candidates", type=int, default=0,
+                    help="tpu.nms_max_candidates of the eval step (0: the reference-exact set)")
+    ap.add_argument("--train-batch", type=int, default=None,
+                    help="the train batch (default: the protocol's, 8)")
+    ap.add_argument("--train-dtype", default=None, choices=("float32", "bfloat16"),
+                    help="the train half's compute dtype (default: --compute-dtype)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--commit", default=None,
                     help="the commit to record where the checkout has no git metadata")
@@ -149,11 +213,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.windows < 5 or args.iters < 1:
         ap.error("--windows must be at least 5 and --iters at least 1")
+    batches = [b for b in (args.eval_batch, args.train_batch) if b is not None]
+    if min(batches, default=1) < 1 or args.nms_candidates < 0:
+        ap.error("--eval-batch and --train-batch must be positive, --nms-candidates at least 0")
 
     from ..parallel import make_mesh
 
     mesh = make_mesh(-1, args.device)
     try:
+        if args.train_batch is not None and args.train_batch % mesh.world_size:
+            raise ValueError(f"--train-batch {args.train_batch} does not divide over world "
+                             f"size {mesh.world_size}")
         record = _bench(args, mesh)
     finally:
         mesh.close()
@@ -176,12 +246,17 @@ def _bench(args, mesh) -> dict:
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     record = {"metric": "eval_videos_per_sec"}
+    peak = PEAK_BF16.get(torch.cuda.get_device_name(dev)) if cuda else None
 
     # ---- eval ---------------------------------------------------------------
     cfg = load_protocol("avel_unav100_eval.yaml", args.tiny)
     cfg["tpu"]["compute_dtype"] = args.compute_dtype
+    cfg["tpu"]["nms_max_candidates"] = args.nms_candidates
+    if args.eval_batch is not None:
+        cfg["loader"]["batch_size"] = args.eval_batch
     mcfg = cfg["model"]
     b, t = cfg["loader"]["batch_size"], mcfg["max_seq_len"]
+    flops = counted_flops(cfg, b, False) / b
     model = build_model(cfg, device=dev, seed=args.seed)
     eval_step = make_eval_step(model, cfg, mesh=mesh)
     gen = torch.Generator().manual_seed(args.seed + 1)
@@ -218,8 +293,13 @@ def _bench(args, mesh) -> dict:
         torch.cuda.reset_peak_memory_stats()
     vps, spread, rates = windowed(run_eval, args.iters, args.windows, b, sync)
     busy, copy_ms, overlap = profiled(run_eval, args.iters, sync)
+    base = baseline_videos_per_sec()
     record.update({
         "value": vps, "unit": "videos/s", "spread_pct": spread, "windows": rates,
+        "vs_baseline": vps / base if base else None,
+        "flops_per_video": flops / 1e9, "flops_unit": "GFLOP",
+        "mfu_vs_bf16_peak": mfu(flops, vps, peak, mesh.world_size),
+        "nms_candidates": args.nms_candidates,
         "protocol": ("h2d_pinned_copy_included" if args.h2d and cuda
                      else "device_resident_inputs") + "_median_of_windows",
         "batch": b, "seq_len": t, "num_classes": mcfg["num_classes"],
@@ -233,9 +313,12 @@ def _bench(args, mesh) -> dict:
     # ---- train --------------------------------------------------------------
     if not args.no_train:
         tcfg = load_protocol("avel_unav100.yaml", args.tiny)
-        tcfg["tpu"]["compute_dtype"] = args.compute_dtype
+        tcfg["tpu"]["compute_dtype"] = args.train_dtype or args.compute_dtype
+        if args.train_batch is not None:
+            tcfg["loader"]["batch_size"] = args.train_batch
         tm = tcfg["model"]
         tb_, tt = tcfg["loader"]["batch_size"], tm["max_seq_len"]
+        tflops = counted_flops(tcfg, tb_, True) / tb_
         model = build_model(tcfg, device=dev, seed=args.seed)
         optimizer, _ = make_optimizer(model, tcfg["opt"], 100,
                                       tcfg["train_cfg"]["clip_grad_l2norm"])
@@ -258,6 +341,8 @@ def _bench(args, mesh) -> dict:
         record.update({
             "train_clips_per_sec": cps, "train_spread_pct": tspread, "train_windows": trates,
             "train_batch": tb_, "train_dtype": tcfg["tpu"]["compute_dtype"],
+            "train_flops_per_clip": tflops / 1e9,
+            "train_mfu_vs_bf16_peak": mfu(tflops, cps, peak, mesh.world_size),
             "train_busy_share": tbusy,
             "train_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
             else None,
