@@ -427,13 +427,15 @@ def kernel_profile(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from unav_yolyolva_tpu_torch.utils.profiling import is_kernel
+
     for _ in range(2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
     return {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and not e.key.startswith(("Memcpy", "Memset"))}
+            if is_kernel(e)}
 
 
 def kernel_launches(fn) -> int:

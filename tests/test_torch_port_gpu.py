@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from unav_yolyolva_tpu_torch.utils.profiling import is_kernel
+
 pytestmark = pytest.mark.gpu
 
 RTOL, ATOL = 1e-3, 1e-4
@@ -1529,8 +1531,7 @@ def test_bf16_csp_backward_launch_budget(cuda):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             csp_backward(*args, g=g, attn_heads=8)
             torch.cuda.synchronize()
-    rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
-            and not e.key.startswith(("Memcpy", "Memset"))]
+    rows = [(e.key, e.count) for e in prof.key_averages() if is_kernel(e)]
     n, attn = sum(c for _, c in rows), sum(c for key, c in rows if "attn" in key)
     assert 0 < n <= 70, rows
     assert attn <= 3 * 3, rows
@@ -1616,8 +1617,7 @@ def test_bf16_csp_forward_launch_budget(cuda, t, heads):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fused_csp(*args, attn_heads=heads)
             torch.cuda.synchronize()
-        rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
-                and not e.key.startswith(("Memcpy", "Memset"))]
+        rows = [(e.key, e.count) for e in prof.key_averages() if is_kernel(e)]
         if attempt and rows:   # the first profile is the warm-up
             break
     assert 0 < sum(c for _, c in rows) <= 17, rows
@@ -1732,8 +1732,7 @@ def _kernel_rows(fn):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"
-                and not e.key.startswith(("Memcpy", "Memset"))]
+        rows = [(e.key, e.count) for e in prof.key_averages() if is_kernel(e)]
         if attempt and rows:   # the first profile is the warm-up
             break
     return rows

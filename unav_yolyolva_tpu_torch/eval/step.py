@@ -12,6 +12,7 @@ from ..geometry.points import generate_points
 from ..models.meta_arch import compute_losses
 from ..parallel.collectives import gather_rows, sharded, sum_losses
 from ..train.step import build_targets, loss_kwargs
+from ..utils.profiling import span, spanned
 from .decode import decode_batch, postprocess_batch
 
 BATCH_KEYS = ("visual", "audio", "mask", "fps", "duration", "feat_stride",
@@ -45,6 +46,11 @@ def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool 
     A batch of pinned host tensors (data/pipeline.py on CUDA) is copied on a
     copy stream of the step's own (core/device.py:make_batch_copier).
 
+    Spans (utils/profiling.py): `unav.eval.step` around the call, and in it
+    `unav.eval.forward` (the copy and the model) and `unav.eval.postprocess`
+    (decode, Soft-NMS and the detections in seconds); `fetch_detections` is
+    `unav.eval.fetch`.
+
     With a data-parallel `mesh` (on its device) `batch` is the rank's row
     block of the global batch (train/loop.py:valid_one_epoch pads the last
     one): each rank serves its rows, and the detections of every rank are
@@ -72,38 +78,43 @@ def make_eval_step(model_or_state, cfg: Dict, device=None, *, with_losses: bool 
         return points_by_len[seq_len]
 
     def eval_step(batch: Dict):
-        b = copy(batch, keys)
-        b["mask"] = b["mask"].bool()
-        seq_len = int(b["visual"].shape[1])
-        points = points_for(seq_len)
-        with torch.inference_mode():
-            if with_losses:
-                b["gt_valid"] = b["gt_valid"].bool()
-                b["m_scores"], b["m_start_end"], b["m_labels"], gt_cls, gt_reg = build_targets(
-                    b, torch.cat(points), seq_len, num_classes, class_aware)
-            out = model(b, with_losses=with_losses, mesh=mesh)
-            cands = decode_batch(
-                out["cls_logits"], out["offsets"], out["masks"], points,
-                pre_nms_thresh=test_cfg["pre_nms_thresh"],
-                pre_nms_topk=test_cfg["pre_nms_topk"],
-                duration_thresh=test_cfg["duration_thresh"],
-                class_aware=class_aware,
-                max_candidates=max_candidates,
-            )
-            segs, scores, labels, valid = postprocess_batch(
-                *cands, num_classes=num_classes, test_cfg=test_cfg,
-                fps=b["fps"].float(),
-                duration=b["duration"].float(),
-                feat_stride=b["feat_stride"].float(),
-                num_frames=b["feat_num_frames"].float(),
-            )
-            dets = {"segments": segs, "scores": scores, "labels": labels, "valid": valid}
-            dets = _gather_detections(dets, mesh)
-            if not with_losses:
-                return dets
-            losses, _ = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
-                                       mesh=mesh, **kw)
-            return dets, sum_losses(losses, mesh)
+        with span("unav.eval.step"):
+            with span("unav.eval.forward"):
+                b = copy(batch, keys)
+                b["mask"] = b["mask"].bool()
+                seq_len = int(b["visual"].shape[1])
+                points = points_for(seq_len)
+                with torch.inference_mode():
+                    if with_losses:
+                        b["gt_valid"] = b["gt_valid"].bool()
+                        b["m_scores"], b["m_start_end"], b["m_labels"], gt_cls, gt_reg = \
+                            build_targets(b, torch.cat(points), seq_len, num_classes,
+                                          class_aware)
+                    out = model(b, with_losses=with_losses, mesh=mesh)
+            with torch.inference_mode():
+                with span("unav.eval.postprocess"):
+                    cands = decode_batch(
+                        out["cls_logits"], out["offsets"], out["masks"], points,
+                        pre_nms_thresh=test_cfg["pre_nms_thresh"],
+                        pre_nms_topk=test_cfg["pre_nms_topk"],
+                        duration_thresh=test_cfg["duration_thresh"],
+                        class_aware=class_aware,
+                        max_candidates=max_candidates,
+                    )
+                    segs, scores, labels, valid = postprocess_batch(
+                        *cands, num_classes=num_classes, test_cfg=test_cfg,
+                        fps=b["fps"].float(),
+                        duration=b["duration"].float(),
+                        feat_stride=b["feat_stride"].float(),
+                        num_frames=b["feat_num_frames"].float(),
+                    )
+                dets = {"segments": segs, "scores": scores, "labels": labels, "valid": valid}
+                dets = _gather_detections(dets, mesh)
+                if not with_losses:
+                    return dets
+                losses, _ = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
+                                           mesh=mesh, **kw)
+                return dets, sum_losses(losses, mesh)
 
     eval_step.model = model
     eval_step.with_losses = with_losses
@@ -127,6 +138,7 @@ def _gather_detections(dets: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.T
     return out
 
 
+@spanned("unav.eval.fetch")
 def fetch_detections(dets: Dict[str, torch.Tensor]):
     """Start the copy of a step's detections to the host: on CUDA into pinned
     tensors with non_blocking=True, an event recorded after it; returns

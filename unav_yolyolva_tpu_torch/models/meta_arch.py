@@ -23,6 +23,7 @@ from ..core.registry import DEPENDENCY_BLOCKS
 from ..ops.losses import ctr_diou_loss_1d, diou_pair_weights, sigmoid_focal_loss
 from ..parallel.collectives import all_reduce_sum, gather_rows
 from ..parallel.mesh import draws_for
+from ..utils.profiling import span
 from .alignment import Alignment
 from .backbone import ConvTransformerBackbone
 from .blocks import AffineDropPath, ChannelLayerNorm, Conv1x1, LearnableScale
@@ -138,22 +139,28 @@ class LocPointTransformer(nn.Module):
         In training mode `generator` draws the stochastic depth. With a
         data-parallel `mesh` (parallel/mesh.py) the batch is the rank's row
         block of the global batch: the stochastic depth takes its rows of
-        the global draw, and the losses are its shares of the global ones."""
+        the global draw, and the losses are its shares of the global ones.
+        Spans (utils/profiling.py): `unav.model.alignment`,
+        `unav.model.backbone` (the stem, the downsampling, the fusion pyramid
+        and the dependency block) and `unav.model.heads`."""
         generator = draws_for(generator, mesh)
         mask = batch["mask"]
         targets = ((batch["m_start_end"], batch["m_scores"], batch["m_labels"])
                    if with_losses else None)
-        v_al, a_al, aux = self.alignment(batch["visual"], batch["audio"], mask,
-                                         mask, targets)
-        feats_v, feats_a, masks = self.backbone(v_al, a_al, mask, generator)
-        feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
-        if self.dependency is not None:
-            feats, masks = self.dependency(feats, masks, generator)
-        cls_logits = self.cls_head(feats, masks)
-        offsets = self.reg_head(feats, masks)
-        if self.class_aware:
-            offsets = [o.reshape(o.shape[0], o.shape[1], self.num_classes, 2)
-                       for o in offsets]
+        with span("unav.model.alignment"):
+            v_al, a_al, aux = self.alignment(batch["visual"], batch["audio"], mask,
+                                             mask, targets)
+        with span("unav.model.backbone"):
+            feats_v, feats_a, masks = self.backbone(v_al, a_al, mask, generator)
+            feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
+            if self.dependency is not None:
+                feats, masks = self.dependency(feats, masks, generator)
+        with span("unav.model.heads"):
+            cls_logits = self.cls_head(feats, masks)
+            offsets = self.reg_head(feats, masks)
+            if self.class_aware:
+                offsets = [o.reshape(o.shape[0], o.shape[1], self.num_classes, 2)
+                           for o in offsets]
         out = {"cls_logits": cls_logits, "offsets": offsets, "masks": masks}
         if with_losses:
             aux["row_valid"] = mask.any(dim=1)

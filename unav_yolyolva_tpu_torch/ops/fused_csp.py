@@ -65,6 +65,7 @@ from .cuda_build import FLOAT, INT, LONG, PTR
 from .bf16_grad import broadcast_mul, fan_out, pick_rows_csp_bwd, row_blocks
 from .fused_mhca import MAX_T, _check, mhca_input_uses, mhca_reference
 from .gemm_tc import bf16_product_reference
+from ..utils.profiling import spanned
 
 _FWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5
 _ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
@@ -364,6 +365,7 @@ def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, e
     return tuple(grads)
 
 
+@spanned("unav.kernel.csp_backward")
 def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int = 4,
                  eps: float = 1e-5):
     """Grads of the CSP layer forward for the upstream grad g (R, T, Cout):
@@ -427,6 +429,7 @@ class CSPFunction(torch.autograd.Function):
         return (dx, dguide, None, *gws, None, None, None)
 
 
+@spanned("unav.kernel.csp")
 def fused_csp(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
               wproj, bproj, wfinal, bfinal, *, attn_heads: int,
               mhca_heads: int = 4, eps: float = 1e-5) -> torch.Tensor:

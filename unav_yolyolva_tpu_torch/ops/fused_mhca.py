@@ -67,6 +67,7 @@ from .cuda_build import FLOAT, INT, LONG, PTR
 from .bf16_grad import broadcast_mul, fan_out
 from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
+from ..utils.profiling import spanned
 
 _ARGTYPES = {
     "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
@@ -489,6 +490,7 @@ def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps
     return tuple(grads)
 
 
+@spanned("unav.kernel.mhca_backward")
 def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
                   eps: float = 1e-5):
     """Grads of the MaskedMHCA forward for the upstream grad g (R, T, C):
@@ -554,6 +556,7 @@ class MHCAFunction(torch.autograd.Function):
         return (dx1, dx2, None, *gws, None, None)
 
 
+@spanned("unav.kernel.mhca")
 def fused_mhca(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int,
                eps: float = 1e-5) -> torch.Tensor:
     """MaskedMHCA forward of (R, T, C) inputs (fp32, or bf16 under the bf16

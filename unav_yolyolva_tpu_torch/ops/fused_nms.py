@@ -39,6 +39,7 @@ import torch
 
 from . import cuda_build
 from .cuda_build import FLOAT, INT, PTR
+from ..utils.profiling import spanned
 
 MAX_CANDIDATES = 16384  # 14-bit lane indices; 14 bytes a lane of shared memory
 NMS_HARD, NMS_LINEAR, NMS_GAUSSIAN = 0, 1, 2
@@ -99,6 +100,7 @@ def multiclass_soft_nms_reference(segs, scores, cls_idxs, *, max_out: int,
                            sigma=sigma, min_score=min_score, method=NMS_GAUSSIAN)
 
 
+@spanned("unav.kernel.nms")
 def multiclass_soft_nms(segs, scores, cls_idxs, *, max_out: int, sigma: float,
                         min_score: float):
     """Merged Soft-NMS of G independent candidate sets: segs (G, N, 2),
@@ -143,6 +145,7 @@ def soft_nms_reference(segs, scores, *, max_out: int, iou_threshold: float, sigm
                            sigma=sigma, min_score=min_score, method=method)
 
 
+@spanned("unav.kernel.nms")
 def soft_nms(segs, scores, *, max_out: int, iou_threshold: float, sigma: float,
              min_score: float, method: int = NMS_GAUSSIAN):
     """Single-class Soft-NMS of G independent candidate rows: segs (G, N, 2),

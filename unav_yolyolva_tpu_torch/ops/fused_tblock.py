@@ -58,6 +58,7 @@ from .bf16_grad import pick_rows_tb_bwd, row_blocks
 from .fused_mhca import MAX_T, _check, mhca_reference
 from .gemm_tc import bf16_product_reference
 from .masked import channel_layer_norm
+from ..utils.profiling import spanned
 
 _FWD_TYPES = [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR, PTR, PTR]
 _ARGTYPES = {"unav_tblock_forward": _FWD_TYPES,
@@ -286,6 +287,7 @@ def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps, *extr
     return tuple(grads)
 
 
+@spanned("unav.kernel.tblock_backward")
 def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float = 1e-5,
                     cdtype: torch.dtype = torch.float32):
     """Grads of the block at compute dtype `cdtype` for the upstream grad g
@@ -344,6 +346,7 @@ class TBlockFunction(torch.autograd.Function):
         return (dx, None, dma, dmm, None, None, None, *gws)
 
 
+@spanned("unav.kernel.tblock")
 def fused_tblock(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5,
                  cdtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The block's forward of (R, T, C) fp32 x with a (R, T) bool mask and

@@ -13,7 +13,6 @@ import torch
 from ..eval.postprocessing import postprocess_results
 from ..eval.step import fetch_detections
 from ..utils.meters import AverageMeter
-from ..utils.profiling import annotate
 
 
 def train_one_epoch(state, batches: Iterable[Dict], train_step: Callable, seed: int,
@@ -150,15 +149,13 @@ def valid_one_epoch(model_or_state, batcher: Iterable[Dict], eval_step: Callable
     with_losses = getattr(eval_step, "with_losses", False)
     num = len(batcher) if hasattr(batcher, "__len__") else -1
     for it, batch in enumerate(batcher):
-        with annotate("eval_step"):
-            out = eval_step(batch if world == 1 else rank_rows(batch, batcher.pad_to // world))
-            if with_losses:
-                out, losses = out
-                loss_samples.append(losses)
-            fetched = fetch_detections(out)
+        out = eval_step(batch if world == 1 else rank_rows(batch, batcher.pad_to // world))
+        if with_losses:
+            out, losses = out
+            loss_samples.append(losses)
+        fetched = fetch_detections(out)
         if pending is not None:
-            with annotate("harvest"):
-                harvest(*pending)
+            harvest(*pending)
         pending = (batch["video_id"], *fetched)
         if it != 0 and it % print_freq == 0:
             batch_time.update((time.time() - start) / print_freq)

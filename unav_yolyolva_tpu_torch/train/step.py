@@ -9,7 +9,11 @@ drawn from a generator seeded from (seed, step), the loss assembly, the
 backward (through the MHCA and CSP backward kernels of the compute dtype
 on CUDA), the global-
 norm clip and AdamW update at the scheduled learning rate, the EMA update
-and the loss-normalizer EMA.
+and the loss-normalizer EMA. Spans (utils/profiling.py): `unav.train.step`
+around the call, and in it `unav.train.forward` (the copy to the losses),
+`unav.train.backward` (the grads dropped, the backward) and
+`unav.train.update` (the all-reduce, zero grads for the parameters the
+backward left without one, clip and AdamW, the EMAs).
 
 Data parallel (a `mesh` from parallel/mesh.py:make_mesh under torchrun):
 the batch is the rank's row block of the global batch, the loss is the
@@ -33,6 +37,7 @@ from ..geometry.assign import assign_labels_batch, frame_targets_batch
 from ..geometry.points import concat_points, generate_points
 from ..models.meta_arch import compute_losses
 from ..parallel.collectives import GradSum, sharded, sum_losses
+from ..utils.profiling import span
 from ..utils.seed import fold_in
 from .ema import ema_update
 from .state import TrainState
@@ -91,26 +96,30 @@ def make_train_step(model, optimizer, cfg: Dict, device=None, mesh=None) -> Call
     grad_sum = GradSum(optimizer.params, mesh) if sharded(mesh) else (lambda: None)
 
     def train_step(state: TrainState, batch: Dict, seed: int = 0) -> Dict[str, torch.Tensor]:
-        if not model.training:          # a validation of the raw weights set eval()
-            model.train()
-        b = copy(batch, BATCH_KEYS)
-        b["mask"], b["gt_valid"] = b["mask"].bool(), b["gt_valid"].bool()
-        m_scores, m_start_end, m_labels, gt_cls, gt_reg = build_targets(
-            b, points, seq_len, num_classes, class_aware)
-        inputs = {"visual": b["visual"].float(), "audio": b["audio"].float(),
-                  "mask": b["mask"], "m_scores": m_scores, "m_start_end": m_start_end,
-                  "m_labels": m_labels}
-        gen = torch.Generator(device=device).manual_seed(fold_in(seed, state.step))
-        out = model(inputs, with_losses=True, generator=gen, mesh=mesh)
-        losses, new_norm = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
-                                          mesh=mesh, **kw)
-        optimizer.zero_grad()
-        losses["final_loss"].backward()
-        grad_sum()
-        optimizer.step()
-        ema_update(state.ema, model)
-        state.loss_normalizer = new_norm.detach()
-        state.step += 1
-        return sum_losses(losses, mesh)
+        with span("unav.train.step"):
+            if not model.training:          # a validation of the raw weights set eval()
+                model.train()
+            with span("unav.train.forward"):
+                b = copy(batch, BATCH_KEYS)
+                b["mask"], b["gt_valid"] = b["mask"].bool(), b["gt_valid"].bool()
+                m_scores, m_start_end, m_labels, gt_cls, gt_reg = build_targets(
+                    b, points, seq_len, num_classes, class_aware)
+                inputs = {"visual": b["visual"].float(), "audio": b["audio"].float(),
+                          "mask": b["mask"], "m_scores": m_scores, "m_start_end": m_start_end,
+                          "m_labels": m_labels}
+                gen = torch.Generator(device=device).manual_seed(fold_in(seed, state.step))
+                out = model(inputs, with_losses=True, generator=gen, mesh=mesh)
+                losses, new_norm = compute_losses(out, gt_cls, gt_reg, state.loss_normalizer,
+                                                  mesh=mesh, **kw)
+            with span("unav.train.backward"):
+                optimizer.zero_grad()
+                losses["final_loss"].backward()
+            with span("unav.train.update"):
+                grad_sum()
+                optimizer.step()
+                ema_update(state.ema, model)
+                state.loss_normalizer = new_norm.detach()
+            state.step += 1
+            return sum_losses(losses, mesh)
 
     return train_step
