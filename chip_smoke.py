@@ -80,14 +80,17 @@ Phases (any failure exits non-zero):
      every parameter bit-identical, step 2 moves them, every loss is
      finite, every parameter enters the update with a finite grad, and the
      MHCA / CSP backward kernels run as often as their forwards (>= 5 and
-     10 per step); then times the step as clips/s and reports peak memory;
+     10 per step that runs the wrappers: step 1 eager, step 2 captured as
+     a CUDA graph; steps 3-4 replay it and launch through no wrapper);
+     then times the step as clips/s and reports peak memory;
   8. one train step's gradients at B=2, full width, droppath off, through
      the CUDA kernels against the CPU plain path: norm-wise <= 1e-3 per
      parameter tensor; every parameter the JAX package trains gets a
      finite grad (the Alignment's argmax-only class heads get none: their
      grad is 0 there too);
-  9. the whole-block stem in training: 4 steps at B=8 (16 TBlock forward and
-     backward launches, step 1 bit-identical, finite losses), timed, and
+  9. the whole-block stem in training: 4 steps at B=8 (8 TBlock forward and
+     backward launches in the eager and the captured step, step 1
+     bit-identical, finite losses), timed, and
      one step's grads at B=2 against the CPU plain path (norm-wise <= 1e-3);
  10. serves one batch of 64 with nms_method "hard" and one with
      multiclass_nms False (segment voting): the single-class Soft-NMS
@@ -647,6 +650,13 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
                             "unav_tblock_bf16_backward", cases[-1][2], smi)
 
 
+def ran(step) -> int:
+    """The steps of a train step that ran the kernel wrappers, whose launch
+    counters count host calls: the eager and the captured ones; a replay of
+    the captured CUDA graph calls no wrapper (train/step.py)."""
+    return step.eager_steps + step.captures
+
+
 def require(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -996,9 +1006,9 @@ def train_from_files(seed, dev, smi, reset_counts, counts, keep=None) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = counts()
-        hist = out["history"]
+        hist, ts = out["history"], out["train_steps"]
         log(f"train from files: the train CLI, 3 epochs of 8 steps at B=8 in {secs:.1f} s, "
-            f"kernel launches {got}")
+            f"kernel launches {got}, train steps {ts}")
         for h in hist:
             log(f"train from files: epoch {h['epoch']} train losses "
                 f"{ {k: round(v, 5) for k, v in h['train_losses'].items()} }, mAP "
@@ -1022,11 +1032,17 @@ def train_from_files(seed, dev, smi, reset_counts, counts, keep=None) -> dict:
             with open(os.path.join(keep, "maps.json"), "w") as f:
                 json.dump({"mAPs": [h["mAP"] for h in hist], "final_mAP": out["final_mAP"],
                            "best_mAP": out["best_mAP"]}, f)
-        # 24 steps: 5 MHCA and 10 CSP a step, forward and backward; 4
-        # validations of 8 batches: 10 CSP and one merged NMS a batch
-        require(got["mhca_bwd"] == 5 * 24 and got["csp_bwd"] == 10 * 24
-                and got["csp"] == 10 * (24 + 32) and got["nms"] == 32
-                and got["mhca"] == 5 * (24 + 32),
+        # 24 steps, of which the eager and the captured one run the
+        # wrappers (the rest replay the graph): 5 MHCA and 10 CSP a step,
+        # forward and backward; 4 validations of 8 batches: 10 CSP and one
+        # merged NMS a batch
+        n = ts["eager"] + ts["captured"]
+        # the captured step replays too: 1 eager step and 23 replays
+        require(ts == {"eager": 1, "captured": 1, "replayed": 23},
+                f"train from files: train steps {ts}, not 1 eager, 1 captured, 23 replayed")
+        require(got["mhca_bwd"] == 5 * n and got["csp_bwd"] == 10 * n
+                and got["csp"] == 10 * (n + 32) and got["nms"] == 32
+                and got["mhca"] == 5 * (n + 32),
                 f"train from files: the CLI did not run through every kernel: {got}")
 
         t0 = time.perf_counter()
@@ -1409,7 +1425,8 @@ def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict
     grabbed = {}
     hook = tmodel.dependency.register_forward_hook(
         lambda m, args, out: grabbed.update(args=args) and None)
-    step(state, tb[1], seed)
+    # a new step's first step runs eagerly: a replay runs no module's hook
+    make_train_step(tmodel, optimizer, tcfg, device=dev)(state, tb[1], seed)
     hook.remove()
     feats = [f.detach().requires_grad_(True) for f in grabbed["args"][0]]
     masks = grabbed["args"][1]
@@ -2332,21 +2349,24 @@ def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
         step(state, batches[0], seed)                                   # warm-up
         torch.cuda.synchronize()
         reset()
+        before = ran(step)
         t0 = time.perf_counter()
         losses = [step(state, bt, seed) for bt in batches]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        n = got()
+        n, counted = got(), ran(step) - before
         launches[stem] = n
         log(f"train bf16 ({'whole-block' if stem == 'always' else 'default'} stem): 3 steps "
-            f"at B={B} in {secs:.2f} s, final losses "
-            f"{[round(float(x['final_loss']), 5) for x in losses]}, kernel launches {n}")
+            f"at B={B} in {secs:.2f} s ({counted} captured, {step.replays} replays), final "
+            f"losses {[round(float(x['final_loss']), 5) for x in losses]}, kernel launches {n}")
         require(all(finite_losses(x) for x in losses)
                 and all(x["final_loss"].dtype == torch.float32 for x in losses)
                 and all(p.dtype == torch.float32 for p in model.parameters())
                 and all(p.dtype == torch.float32 for p in state.ema.parameters()),
                 "train bf16: non-finite or non-fp32 losses, parameters or EMA")
-        through_bf16(n, 3, per_step, f"train bf16 stem {stem}")
+        require(counted == 1, f"train bf16 stem {stem}: {counted} of 3 steps ran the "
+                               "wrappers, not the one captured")
+        through_bf16(n, counted, per_step, f"train bf16 stem {stem}")
         del model, opt, state, step
     set_stem("never")
 
@@ -2434,15 +2454,19 @@ def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
         out = cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "straight"]))
         torch.cuda.synchronize()
         cli_n = got()
-        hist = out["history"]
+        hist, ts = out["history"], out["train_steps"]
         log(f"train bf16 from files: the train CLI on configs/avel_unav100_bf16.yaml, "
             f"{len(hist)} epochs of 4 steps at B=8 in {time.perf_counter() - t0:.1f} s, "
             f"train losses {[round(h['train_losses']['final_loss'], 5) for h in hist]}, mAP "
-            f"{[h['mAP'] for h in hist]}, final {out['final_mAP']!r}; kernel launches {cli_n}")
+            f"{[h['mAP'] for h in hist]}, final {out['final_mAP']!r}; kernel launches {cli_n}, "
+            f"train steps {ts}")
         require(len(hist) == 3 and all(finite_losses(h["train_losses"]) for h in hist)
                 and all(finite_losses(h["val_losses"]) for h in hist),
                 "train bf16 from files: non-finite or missing losses")
-        through_bf16(cli_n, 12, {"mhca": 5, "csp": 10}, "train bf16 from files")
+        require(ts == {"eager": 1, "captured": 1, "replayed": 11},
+                f"train bf16 from files: train steps {ts}, not 1 eager, 1 captured, 11 replayed")
+        through_bf16(cli_n, ts["eager"] + ts["captured"], {"mhca": 5, "csp": 10},
+                     "train bf16 from files")
         folder = out["ckpt_folder"]
         cli.main(cli.parse_args([cfg_yaml, "-p", "4", "-c", "1", "--output", "resumed",
                                  "--resume", os.path.join(folder, "epoch_001")]))
@@ -3399,9 +3423,11 @@ def main(argv=None) -> int:
     tl = {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
           "mhca_bwd": mhca_backward.launches, "csp_bwd": csp_backward.launches}
     finals = [float(x["final_loss"]) for x in losses]
+    nr = ran(train_step)
     log(f"train: 4 steps at B={B}, T={T}, lr {[schedule(i) for i in range(4)]}, "
         f"final_loss {finals}, num_pos {[int(x['num_pos']) for x in losses]}, "
-        f"launches {tl}")
+        f"launches {tl} in the {nr} steps that ran the wrappers ({train_step.eager_steps} "
+        f"eager, {train_step.captures} captured; {train_step.replays} replays)")
     require(still, "step 1 (lr 0) changed a parameter")
     require(moved > 0, "step 2 moved no parameter")
     log(f"train: step 1 left all {len(before)} parameter tensors bit-identical; "
@@ -3411,7 +3437,10 @@ def main(argv=None) -> int:
     require(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                 for p in model.parameters()),
             "a parameter without a finite grad in the update")
-    require(tl["mhca_bwd"] >= 5 * 4 and tl["csp_bwd"] == 10 * 4
+    require(nr == 2 and train_step.replays == 3,
+            f"train: {nr} eager or captured steps and {train_step.replays} replays, not "
+            "2 and 3")
+    require(tl["mhca_bwd"] >= 5 * nr and tl["csp_bwd"] == 10 * nr
             and tl["mhca_bwd"] == tl["mhca"] and tl["csp_bwd"] == tl["csp"]
             and not fused_tblock.launches and not tblock_backward.launches,
             f"the train path did not run through every backward kernel: {tl}")
@@ -3461,13 +3490,15 @@ def main(argv=None) -> int:
     tl = {"tblock": fused_tblock.launches, "tblock_bwd": tblock_backward.launches,
           "mhca": fused_mhca.launches, "mhca_bwd": mhca_backward.launches,
           "csp": fused_csp.launches, "csp_bwd": csp_backward.launches}
+    nr = ran(train_step)
     log(f"train with the whole-block stem: 4 steps at B={B}, final_loss "
-        f"{[float(x['final_loss']) for x in losses]}, launches {tl}")
+        f"{[float(x['final_loss']) for x in losses]}, launches {tl} in the {nr} eager or "
+        f"captured steps")
     require(still, "whole-block stem: step 1 (lr 0) changed a parameter")
     require(all(math.isfinite(v) for x in losses for v in map(float, x.values())),
             "whole-block stem: a non-finite loss")
-    require(tl["tblock"] == tl["tblock_bwd"] == 16 and tl["mhca"] == tl["mhca_bwd"] == 4
-            and tl["csp"] == tl["csp_bwd"] == 40,
+    require(nr == 2 and tl["tblock"] == tl["tblock_bwd"] == 4 * nr
+            and tl["mhca"] == tl["mhca_bwd"] == nr and tl["csp"] == tl["csp_bwd"] == 10 * nr,
             f"the whole-block stem did not train through its kernels: {tl}")
     launches["tblock_bwd"] = tl["tblock_bwd"]
     times = []
@@ -3577,8 +3608,9 @@ def main(argv=None) -> int:
 
     def bf16_bwd_entry(name, label, source, replaces):
         """A bf16 backward kernel: its launches in phase 16's three bf16
-        train steps (the whole-block stem's for the TBlock) and in the bf16
-        train CLI's run, the fp32 backward kernel's ms on the same inputs."""
+        train steps (the captured one: the others replay the graph; the
+        whole-block stem's for the TBlock) and in the bf16 train CLI's run,
+        the fp32 backward kernel's ms on the same inputs."""
         err, ms, pms, bms, by, fms = results[label]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": bf16_train[name], "max_abs_err": err, "ms": ms, "plain_ms": pms,

@@ -345,8 +345,12 @@ def test_train_step_cuda_matches_cpu(cuda):
         after = (fused_mhca.launches, mhca_backward.launches, fused_csp.launches,
                  csp_backward.launches)
         runs[dev.type] = (losses, [p.detach().cpu() for p in model.parameters()],
-                          [a - b for a, b in zip(after, counts)])
-    (gl, gp, gc), (cl, cp, cc) = runs["cuda"], runs["cpu"]
+                          [a - b for a, b in zip(after, counts)],
+                          (step.eager_steps, step.captures, step.replays))
+    (gl, gp, gc, gs), (cl, cp, cc, cs) = runs["cuda"], runs["cpu"]
+    # the wrappers count a step that runs them: an eager or a captured one,
+    # not a replay (the card: step 1 eager, step 2 captured and replayed)
+    assert gs == (1, 1, 1) and cs == (2, 0, 0)
     assert gc == [10, 10, 20, 20] and cc == [0, 0, 0, 0]
     for a, b in zip(gl, cl):
         torch.testing.assert_close(a["final_loss"].cpu(), b["final_loss"], rtol=1e-4, atol=1e-6)
@@ -533,10 +537,13 @@ def test_train_step_fused_stem_cuda_matches_cpu(cuda):
             losses = [step(state, b) for b in batches]
             runs[dev.type] = (losses, [p.detach().cpu() for p in model.parameters()],
                               [fused_tblock.launches - counts[0],
-                               tblock_backward.launches - counts[1]])
+                               tblock_backward.launches - counts[1]],
+                              (step.eager_steps, step.captures, step.replays))
     finally:
         blocks.FUSED_TBLOCK = prev
-    (gl, gp, gc), (cl, cp, cc) = runs["cuda"], runs["cpu"]
+    (gl, gp, gc, gs), (cl, cp, cc, cs) = runs["cuda"], runs["cpu"]
+    # per eager or captured step (not per replay), as in the default path's test
+    assert gs == (1, 1, 1) and cs == (2, 0, 0)
     assert gc == [8, 8] and cc == [0, 0]
     for a, b in zip(gl, cl):
         torch.testing.assert_close(a["final_loss"].cpu(), b["final_loss"], rtol=1e-4, atol=1e-6)
@@ -1768,3 +1775,147 @@ def test_bf16_tblock_backward_stage_times(cuda):
     st = fused_tblock.tblock_backward_stage_times(*a, g=g, heads=4, cdtype=torch.bfloat16)
     assert list(st) == list(fused_tblock.BF16_BWD_STAGES)
     assert all(v >= 0 for v in st.values())
+
+
+# ---- the train step's CUDA graph (train/step.py) ------------------------------------
+#
+# The graph path against the eager path on the same weights, batches and
+# seed, cuDNN's deterministic algorithms on (its default weight-grad
+# algorithms sum in a varying order): every number bit-identical. The
+# eager reference takes each step through a new train step, whose first
+# step of a batch's shapes runs eagerly.
+
+
+def _graph_cfg(dtype="float32"):
+    from unav_yolyolva_tpu_torch.core import load_config_dict
+
+    return load_config_dict({
+        "dataset": {"num_classes": 5, "max_seq_len": 64, "max_num_events": 8},
+        "model": {"raw_input_dim_V": 64, "raw_input_dim_A": 16, "input_dim_V": 64,
+                  "input_dim_A": 64, "embd_dim": 64, "head_dim": 64, "use_abs_pe": True},
+        "opt": {"learning_rate": 1e-3, "epochs": 2, "warmup_epochs": 1, "weight_decay": 1e-4},
+        "train_cfg": {"loss_weight": 1, "droppath": 0.1},
+        "test_cfg": {"pre_nms_topk": 100, "max_seg_num": 20, "min_score": 0.001,
+                     "nms_sigma": 0.4, "iou_threshold": 0.7},
+        "tpu": {"compute_dtype": dtype},
+    })
+
+
+def _train_state(cfg, cuda):
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.train import create_train_state, make_optimizer
+
+    model = build_model(cfg, device=cuda, seed=0)
+    opt, _ = make_optimizer(model, cfg["opt"], 2)
+    return create_train_state(model, opt, 250.0)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prev
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_graph_gives_the_eager_bits(cuda, deterministic_cudnn, dtype):
+    """Four steps of one batch shape (eager, captured, replayed twice), one
+    of another shape (eager), one more of the first (replayed), stochastic
+    depth on: the losses of every step, the parameters, the EMA, AdamW's
+    moments and steps and the loss normalizer are the eager path's bits."""
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
+    from unav_yolyolva_tpu_torch.train import make_train_step
+
+    cfg = _graph_cfg(dtype)
+    gen = torch.Generator().manual_seed(21)
+    batches = [synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8) for _ in range(4)]
+    batches += [synthetic_train_batch(gen, 3, 64, 64, 16, 5, 8),
+                synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8)]
+    runs = {}
+    for path in ("graph", "eager"):
+        state = _train_state(cfg, cuda)
+        step = make_train_step(state.model, state.optimizer, cfg, device=cuda)
+        losses = []
+        for b in batches:
+            if path == "eager":
+                step = make_train_step(state.model, state.optimizer, cfg, device=cuda)
+            losses.append(step(state, b, 5))
+            if path == "eager":
+                assert (step.eager_steps, step.captures, step.replays) == (1, 0, 0)
+        torch.cuda.synchronize()
+        runs[path] = (state, losses)
+        if path == "graph":
+            assert (step.eager_steps, step.captures, step.replays) == (2, 1, 4)
+    (gs, gl), (es, el) = runs["graph"], runs["eager"]
+    for i, (a, b) in enumerate(zip(gl, el)):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), f"step {i + 1}: {k} {float(a[k])} != {float(b[k])}"
+    assert torch.equal(gs.loss_normalizer, es.loss_normalizer) and gs.step == es.step
+    for (name, p), q in zip(gs.model.named_parameters(), es.model.parameters()):
+        assert torch.equal(p, q), name
+    for p, q in zip(gs.ema.parameters(), es.ema.parameters()):
+        assert torch.equal(p, q)
+    gopt, eopt = gs.optimizer, es.optimizer
+    for name, p, q in zip(gopt.names, gopt.params, eopt.params):
+        sg, se = gopt.inner.state[p], eopt.inner.state[q]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sg[k], se[k]), f"{name} {k}"
+    assert gopt.count == eopt.count == len(batches)
+
+
+def test_train_and_eval_steps_do_not_sync_after_warm_up(cuda):
+    """From pinned batches, after a train step's warm-up and capture and an
+    eval step's first batch, neither step synchronizes with the host: the
+    replays (with the wait on step n - 2) and a served batch run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch, synthetic_train_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.train import make_train_step
+
+    cfg = _graph_cfg()
+    state = _train_state(cfg, cuda)
+    step = make_train_step(state.model, state.optimizer, cfg, device=cuda)
+    gen = torch.Generator().manual_seed(22)
+    pin = lambda b: {k: v.pin_memory() if isinstance(v, torch.Tensor) else v
+                     for k, v in b.items()}
+    batches = [pin(synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8)) for _ in range(5)]
+    served = pin(synthetic_eval_batch(gen, 4, 64, 64, 16))
+    eval_step = make_eval_step(state, cfg, cuda)
+    step(state, batches[0], 5)
+    step(state, batches[1], 5)
+    eval_step(served)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[2:]:
+            step(state, b, 5)
+        eval_step(served)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (step.eager_steps, step.captures, step.replays) == (1, 1, 4)
+
+
+def test_train_step_graph_memory_stays_flat(cuda):
+    """Memory after 20 steps is at most that after 3 plus one batch: the
+    replays allocate nothing that stays, and at most two steps are in
+    flight."""
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_train_batch
+    from unav_yolyolva_tpu_torch.train import make_train_step
+
+    cfg = _graph_cfg("bfloat16")
+    state = _train_state(cfg, cuda)
+    step = make_train_step(state.model, state.optimizer, cfg, device=cuda)
+    gen = torch.Generator().manual_seed(23)
+    batches = [synthetic_train_batch(gen, 2, 64, 64, 16, 5, 8) for _ in range(4)]
+    one_batch = sum(v.numel() * v.element_size() for v in batches[0].values())
+    for i in range(20):
+        step(state, batches[i % 4], 5)
+        if i == 2:
+            torch.cuda.synchronize()
+            after3 = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= after3 + one_batch
+    assert (step.eager_steps, step.captures, step.replays) == (1, 1, 19)

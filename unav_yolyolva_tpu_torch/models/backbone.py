@@ -10,11 +10,15 @@ reference's never-called cross-attention blocks are not allocated.
 Under the bf16 policy (`dtype`) the embedding convs, LayerNorms, stem
 blocks, pyramid and fusion compute in bf16; the fp32 sinusoid PE promotes
 the stem's input to fp32, and the stem's residual stream stays fp32.
+
+The PE table is built once per (length, device) and kept on the device
+(`pe_table`), so that a forward copies nothing from the host and does not
+wait on the device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -70,6 +74,24 @@ class ConvTransformerBackbone(nn.Module):
             [DownsamplePyramidLevel(n_embd, scale_factor, dtype) for _ in range(arch[2])])
         self.fusion_module = FusionModule(n_embd, seq_len=max_len, num_levels=arch[2] + 1,
                                           dtype=dtype)
+        # {(length, device): the scaled fp32 PE table}; not module state
+        self._pe: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def pe_table(self, t: int, device: torch.device) -> torch.Tensor:
+        """The (t, C) fp32 sinusoid table over sqrt(C), interpolated for t
+        >= max_len, built on `device` at its first use for (t, device) and
+        kept there. The same ops on the same device as at every forward
+        before, so the same bits; built outside inference mode, so that a
+        training forward may use a table an eval forward built."""
+        key = (t, torch.device(device))
+        pe = self._pe.get(key)
+        if pe is None:
+            with torch.inference_mode(False), torch.no_grad():
+                pe = torch.from_numpy(sinusoid_encoding(self.max_len, self.n_embd)).to(
+                    device) / (self.n_embd ** 0.5)
+                pe = interpolate_pe_linear(pe, t) if t >= self.max_len else pe[:t]
+            self._pe[key] = pe
+        return pe
 
     def forward(self, x_v, x_a, mask, generator: Optional[torch.Generator] = None):
         """`generator` draws the stem's stochastic depth in training."""
@@ -83,9 +105,7 @@ class ConvTransformerBackbone(nn.Module):
             x_a = gelu(norm_a(x_a))
 
         if self.use_abs_pe:
-            pe = torch.from_numpy(sinusoid_encoding(self.max_len, self.n_embd)).to(
-                x_v.device) / (self.n_embd ** 0.5)
-            pe = interpolate_pe_linear(pe, t) if t >= self.max_len else pe[:t]
+            pe = self.pe_table(t, x_v.device)
             x_v = x_v + pe[None] * mask_v[..., None].to(x_v.dtype)
             x_a = x_a + pe[None] * mask_a[..., None].to(x_a.dtype)
 

@@ -37,6 +37,11 @@ from ..parallel.mesh import uniform_rows
 FUSED_TBLOCK = os.environ.get("UNAV_FUSED_TBLOCK", "auto")
 
 
+def tblock_mode() -> str:
+    """The whole-block path selector as a forward reads it now."""
+    return os.environ.get("UNAV_FUSED_TBLOCK", FUSED_TBLOCK)
+
+
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
           dtype: Optional[torch.dtype]) -> torch.Tensor:
     """flax nn.Dense(dtype=) over the last axis, weight (out, in): x and the
@@ -267,7 +272,7 @@ class TransformerBlock(nn.Module):
                 self.mlp[3].weight[:, :, 0], self.mlp[3].bias)
 
     def forward(self, x1, x2, mask, generator: Optional[torch.Generator] = None):
-        if (os.environ.get("UNAV_FUSED_TBLOCK", FUSED_TBLOCK) == "always" and x1 is x2
+        if (tblock_mode() == "always" and x1 is x2
                 and self.n_ds_strides == (1, 1)):
             return self._fused(x1, mask, generator), mask
         out, out_mask = self.attn(self.ln11(x1), self.ln12(x2), mask)

@@ -89,9 +89,11 @@ def _silent(*_a, **_k) -> None:
 
 
 def main(args) -> Dict:
-    """Trains; returns {ckpt_folder, best_mAP, final_mAP, history, world_size},
-    history one {epoch, train_losses, mAP, val_losses} a trained epoch (mAP
-    and val_losses None where the epoch was not validated)."""
+    """Trains; returns {ckpt_folder, best_mAP, final_mAP, history, world_size,
+    train_steps}, history one {epoch, train_losses, mAP, val_losses} a
+    trained epoch (mAP and val_losses None where the epoch was not
+    validated), train_steps the train step's {eager, captured, replayed}
+    counts (train/step.py)."""
     from ..core import load_config
     from ..parallel import make_mesh
 
@@ -248,7 +250,9 @@ def _train(args, cfg: Dict, mesh) -> Dict:
     log(f"Best mAP: {best_mAP:0.4f}")
     log("All done!")
     return {"ckpt_folder": ckpt_folder, "best_mAP": best_mAP, "final_mAP": final_mAP,
-            "history": history, "world_size": world}
+            "history": history, "world_size": world,
+            "train_steps": {"eager": train_step.eager_steps, "captured": train_step.captures,
+                            "replayed": train_step.replays}}
 
 
 def parse_args(argv=None):

@@ -129,10 +129,12 @@ class ClippedOptimizer:
     decaying and not, with its lr set from the schedule before each update.
 
     zero_grad() drops the grads, so that backward assigns them instead of
-    adding into zeros; step() gives a zero grad to every parameter that
-    backward left without one (the Alignment's argmax-only class heads), so
-    that the weight decay still applies, as the JAX update does for a zero
-    grad. `count` is the number of updates taken (optax's count)."""
+    adding into zeros (the train step's CUDA graph calls it once, before its
+    capture, and its replays overwrite the grads it assigned); step() gives
+    a zero grad to every parameter that backward left without one (the
+    Alignment's argmax-only class heads), so that the weight decay still
+    applies, as the JAX update does for a zero grad. `count` is the number
+    of updates taken (optax's count)."""
 
     def __init__(self, model: nn.Module, make_inner: Callable, schedule: Callable[[int], float],
                  weight_decay: float, clip_norm: float = 1.0):
