@@ -1898,6 +1898,45 @@ def test_train_and_eval_steps_do_not_sync_after_warm_up(cuda):
     assert (step.eager_steps, step.captures, step.replays) == (1, 1, 4)
 
 
+def _dependency_cfg():
+    """The benchmark's unav100_dep configuration: the published widths with the
+    dependency block."""
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", "unav100_dep.json")) as f:
+        return json.load(f)["config"]
+
+
+def test_eval_step_with_the_dependency_block_does_not_sync(cuda):
+    """A served batch of 64 at the published widths with the dependency
+    block, from pinned memory, after the first batch: no host sync under
+    torch.cuda.set_sync_debug_mode("error"), and its detections finite."""
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.eval.step import fetch_detections
+    from unav_yolyolva_tpu_torch.models import build_model
+
+    cfg = _dependency_cfg()
+    m = cfg["model"]
+    step = make_eval_step(build_model(cfg, device=cuda, seed=0), cfg, cuda)
+    batch = synthetic_eval_batch(torch.Generator().manual_seed(24), 64, m["max_seq_len"],
+                                 m["raw_input_dim_V"], m["raw_input_dim_A"])
+    batch = {k: v.pin_memory() for k, v in batch.items()}
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dets, done = fetch_detections(out)
+    if done is not None:
+        done.synchronize()
+    assert bool(torch.isfinite(dets["scores"]).all()) and int(dets["valid"].sum()) > 0
+
+
 def test_train_step_graph_memory_stays_flat(cuda):
     """Memory after 20 steps is at most that after 3 plus one batch: the
     replays allocate nothing that stays, and at most two steps are in

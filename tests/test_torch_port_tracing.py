@@ -158,6 +158,41 @@ def test_eval_step_spans():
     assert parents["unav.kernel.mhca"] == {"unav.model.backbone"}
 
 
+DEPENDENCY = {"unav.dependency.expand", "unav.dependency.temporal", "unav.dependency.cooccur",
+              "unav.dependency.squeeze"}
+
+
+@pytest.mark.parametrize("use_dependency", [True, False])
+def test_dependency_block_spans(use_dependency):
+    """With the block on, an eval step opens `unav.model.dependency` once, a
+    sibling of `unav.model.backbone` under `unav.eval.forward`, and inside it
+    each `unav.dependency.*` span once per pyramid level, the block's MHCA
+    calls inside the two branches; with the block off, none of them."""
+    from unav_yolyolva_tpu_torch.eval.step import fetch_detections
+
+    cfg = _cfg("unav100_dep" if use_dependency else "unav100_fp32")
+    assert cfg["model"]["use_dependency"] is use_dependency
+    eval_step, batch = _eval(cfg)
+    with record_spans() as rec:
+        fetch_detections(eval_step(batch))
+    counts, parents = _counts(rec), _parents(rec)
+    levels = cfg["model"]["backbone_arch"][2] + 1
+    for name in MODEL:
+        assert counts[name] == 1 and parents[name] == {"unav.eval.forward"}, name
+    if not use_dependency:
+        assert not ({"unav.model.dependency"} | DEPENDENCY) & set(counts)
+        return
+    assert counts["unav.model.dependency"] == 1
+    assert parents["unav.model.dependency"] == {"unav.eval.forward"}
+    for name in DEPENDENCY:
+        assert counts[name] == levels and parents[name] == {"unav.model.dependency"}, name
+    mhca = [p for n, p, _, _ in rec.spans() if n == "unav.kernel.mhca"]
+    assert mhca.count("unav.dependency.temporal") == mhca.count("unav.dependency.cooccur") \
+        == levels
+    assert len(mhca) == _forward_calls(dict(cfg, model=dict(cfg["model"], use_dependency=False))
+                                       )["mhca"] + 2 * levels
+
+
 def test_recording_leaves_the_train_step_bits():
     cfg = _cfg()
     batch = _train_batch(cfg)
@@ -335,3 +370,64 @@ def test_backward_wrapper_spans_on_the_card():
     for entry in ("mhca", "csp", "mhca_backward", "csp_backward"):
         assert counts[f"unav.kernel.{entry}"] == calls[entry], entry
     assert counts["unav.train.backward"] == 1
+
+
+@pytest.mark.gpu
+def test_dependency_block_spans_on_the_card():
+    """A served batch of 64 at the published widths with the dependency
+    block under torch.profiler: the MHCA wrapper launches 17 times (the 5 of
+    the model without the block and the block's 12, portbench's
+    work_dependency count), the block's 12 calls open their spans inside
+    `unav.dependency.temporal` and `.cooccur`, and each launches kernels
+    that the trace attributes to `unav.model.dependency`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import work_dependency
+    from unav_yolyolva_tpu_torch.core import resolve_device
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch
+    from unav_yolyolva_tpu_torch.eval.step import fetch_detections, make_eval_step
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
+
+    dev = resolve_device("cuda")
+    cfg = _cfg("unav100_dep", tiny=False)
+    m = cfg["model"]
+    step = make_eval_step(build_model(cfg, device=dev, seed=0), cfg, dev)
+    batch = synthetic_eval_batch(torch.Generator().manual_seed(5), 64, m["max_seq_len"],
+                                 m["raw_input_dim_V"], m["raw_input_dim_A"])
+    fetch_detections(step(batch))
+    torch.cuda.synchronize()
+    before = fused_mhca.launches
+    with record_spans() as rec, profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(WINDOW):
+            _, done = fetch_detections(step(batch))
+            done.synchronize()
+            torch.cuda.synchronize()
+    calls = work_dependency.step_calls(cfg, 64, train=False)
+    block = work_dependency.block_calls(cfg, 64)
+    assert fused_mhca.launches - before == sum(c.count for c in calls if c.entry == "mhca") == 17
+    assert len(block) == 12
+    mhca_parents = [p for n, p, _, _ in rec.spans() if n == "unav.kernel.mhca"]
+    assert mhca_parents.count("unav.dependency.temporal") == 6
+    assert mhca_parents.count("unav.dependency.cooccur") == 6
+    events = list(prof.events())
+    dep = [e for e in events if e.name == "unav.model.dependency" and e.device_type.name == "CPU"]
+    assert len(dep) == 1
+    d0, d1 = dep[0].time_range.start, dep[0].time_range.end
+    inner = [e for e in events if e.name == "unav.kernel.mhca" and e.device_type.name == "CPU"
+             and d0 <= e.time_range.start and e.time_range.end <= d1]
+    kernel_ids = {e.id for e in events if bench_spans._is_kernel(e)}
+    launches = [e for e in events if e.device_type.name == "CPU" and e.id in kernel_ids
+                and e.name.startswith(bench_spans.LAUNCH_PREFIX)]
+    assert len(inner) == 12
+    for s in inner:
+        assert any(s.time_range.start <= x.time_range.start <= s.time_range.end
+                   for x in launches), "a block MHCA call launched no kernel"
+    r = bench_spans.reduce(prof, WINDOW)
+    assert r["count"]["unav.kernel.mhca"] == 17 and r["count"]["unav.model.dependency"] == 1
+    assert r["device_s"]["unav.model.dependency"] > 0
+    for name in ("expand", "temporal", "cooccur", "squeeze"):
+        assert r["count"][f"unav.dependency.{name}"] == 6, name

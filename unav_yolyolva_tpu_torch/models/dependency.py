@@ -12,6 +12,11 @@ of length T and of length C. The reference's two mask quirks are kept:
   * the co-occurrence branch keeps or zeroes each frame's whole class row:
     a padded frame is a row without a valid key, whose attention is
     exactly 0.
+
+Spans (utils/profiling.py), once per pyramid level: `unav.dependency.expand`
+(the expanding conv and ReLU), `.temporal` (the permute copy and the
+temporal branch), `.cooccur` (the co-occurrence branch) and `.squeeze` (the
+sum and the squeezing conv).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.registry import DEPENDENCY_BLOCKS
+from ..utils.profiling import span
 from .blocks import MaskedConv1D, TransformerBlock
 
 
@@ -48,13 +54,17 @@ class DependencyBlock(nn.Module):
         out = []
         for feat, mask in zip(feats, masks):
             b, t, _ = feat.shape
-            h = F.relu(self.feature_expand(feat, mask)[0]).reshape(b, t, c, e)
-            tmp = h.permute(0, 2, 1, 3).reshape(b * c, t, e)
-            tmp_out, _ = self.temporal_branch(tmp, tmp, mask.repeat(c, 1), generator)
-            tmp_out = tmp_out.reshape(b, c, t, e).permute(0, 2, 1, 3)
-            coo = h.reshape(b * t, c, e)
-            coo_mask = mask.reshape(b * t, 1).expand(b * t, c)
-            coo_out, _ = self.cooccur_branch(coo, coo, coo_mask, generator)
-            merged = (tmp_out + coo_out.reshape(b, t, c, e)).reshape(b, t, c * e)
-            out.append(self.feature_squeeze(merged, mask)[0])
+            with span("unav.dependency.expand"):
+                h = F.relu(self.feature_expand(feat, mask)[0]).reshape(b, t, c, e)
+            with span("unav.dependency.temporal"):
+                tmp = h.permute(0, 2, 1, 3).reshape(b * c, t, e)
+                tmp_out, _ = self.temporal_branch(tmp, tmp, mask.repeat(c, 1), generator)
+                tmp_out = tmp_out.reshape(b, c, t, e).permute(0, 2, 1, 3)
+            with span("unav.dependency.cooccur"):
+                coo = h.reshape(b * t, c, e)
+                coo_mask = mask.reshape(b * t, 1).expand(b * t, c)
+                coo_out, _ = self.cooccur_branch(coo, coo, coo_mask, generator)
+            with span("unav.dependency.squeeze"):
+                merged = (tmp_out + coo_out.reshape(b, t, c, e)).reshape(b, t, c * e)
+                out.append(self.feature_squeeze(merged, mask)[0])
         return out, masks

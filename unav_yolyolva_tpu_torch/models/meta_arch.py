@@ -142,7 +142,8 @@ class LocPointTransformer(nn.Module):
         the global draw, and the losses are its shares of the global ones.
         Spans (utils/profiling.py): `unav.model.alignment`,
         `unav.model.backbone` (the stem, the downsampling, the fusion pyramid
-        and the dependency block) and `unav.model.heads`."""
+        and the per-level concat), `unav.model.dependency` (the dependency
+        block, where there is one) and `unav.model.heads`."""
         generator = draws_for(generator, mesh)
         mask = batch["mask"]
         targets = ((batch["m_start_end"], batch["m_scores"], batch["m_labels"])
@@ -153,7 +154,8 @@ class LocPointTransformer(nn.Module):
         with span("unav.model.backbone"):
             feats_v, feats_a, masks = self.backbone(v_al, a_al, mask, generator)
             feats = [torch.cat([fv, fa], dim=-1) for fv, fa in zip(feats_v, feats_a)]
-            if self.dependency is not None:
+        if self.dependency is not None:
+            with span("unav.model.dependency"):
                 feats, masks = self.dependency(feats, masks, generator)
         with span("unav.model.heads"):
             cls_logits = self.cls_head(feats, masks)
