@@ -126,7 +126,14 @@ Phases (any failure exits non-zero):
      CPU path), and with the whole-block stem (16 TBlock launches); two
      train steps at B=8 (step 1 bit-identical, finite losses, every kernel
      forward and backward); the block's ms in a batch and in a step, the
-     expand and squeeze convs' share, the peak memory;
+     expand and squeeze convs' share, the peak memory; the block's two k=3
+     convs on their 3xTF32 wgmma kernel (ops/conv3_tc.py) alone at level 0
+     (T=224) and level 5 (T=7) of a batch of 64, each against fp64 (within
+     2x cuDNN's fp32 error, the same bits on repeat), timed beside its
+     3xTF32 and FFMA bounds, its plain version, cuDNN's fp32 conv1d
+     (`library_ms`) and `tf32x3_linear(taps=3)` (`check/time conv3@...`
+     lines), and all six levels as the block runs them (`time conv3
+     block ...`), 7 launches in a served batch;
  15. the bf16 compute policy on the serving path: the bf16 MHCA (64, 224,
      512) and (128, 224, 256), CSP layer (T=224 with 4 and 8 heads, T=7)
      and whole-block TBlock (64, 224, 512) kernels against their plain
@@ -1203,6 +1210,90 @@ def dependency_case(n, t, long_rows, gen, dev):
     return x1.to(dev), x2.to(dev), mask.to(dev)
 
 
+def conv3_lines(model, dev, smi, gen, results) -> None:
+    """The dependency block's two k=3 convs on their kernel (ops/conv3_tc.py)
+    alone, with the block's weights, at level 0 (T=224) and level 5 (T=7)
+    of a batch of 64 with padded rows: the error against fp64 within 2x
+    that of cuDNN's fp32 conv (TF32 off), the same bits on repeat, and the
+    time (CUDA events) beside the 3xTF32 and FFMA bounds, the plain
+    version, cuDNN's fp32 conv1d (library_ms: what the block ran before)
+    and the port's mma.sync product with its k=3 tap loader
+    (tf32x3_linear(taps=3)); results[conv3@...] = (err, ms, plain ms,
+    bound ms, what bounds it, FFMA bound ms, library ms, tf32x3_linear ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import (conv3_split, masked_conv3,
+                                                      masked_conv3_reference)
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import conv3_taps, tf32x3_linear
+    from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
+
+    dep = model.dependency
+    for name, conv, relu in (("expand", dep.feature_expand, True),
+                             ("squeeze", dep.feature_squeeze, False)):
+        w = conv.conv.weight.detach()
+        n, kc, _ = w.shape
+        for lvl in (0, 5):
+            t = 224 >> lvl
+            x = torch.randn(64, t, kc, generator=gen).to(dev)
+            lengths = torch.randint(1, t + 1, (64,), generator=gen)
+            lengths[0] = t
+            mask = (torch.arange(t)[None, :] < lengths[:, None]).to(dev)
+            split = conv3_split(w)
+            with torch.inference_mode():
+                y = masked_conv3([x], w, [mask], relu=relu, split=split)[0]
+                again = masked_conv3([x], w, [mask], relu=relu, split=split)[0]
+                a = conv3_taps(x.reshape(64 * t, kc).double(), t)
+                ref = a @ w.double().permute(0, 2, 1).reshape(n, 3 * kc).T
+                del a
+                ref = ((ref.clamp_min(0) if relu else ref) * mask.reshape(-1, 1)).reshape(y.shape)
+                y32 = F.conv1d(x.transpose(1, 2), w, padding=1).transpose(1, 2)
+                y32 = (y32.clamp_min(0) if relu else y32) * mask[..., None]
+                err = float((y.double() - ref).norm() / ref.norm())
+                err32 = float((y32.double() - ref).norm() / ref.norm())
+                del ref, y32
+                label = f"conv3@{name}/64x{t}x{kc}->{n}"
+                log(f"check {label}: rel err vs fp64 {err:.3e} (cuDNN fp32 {err32:.3e}), masked "
+                    f"rows zero {bool((y[~mask] == 0).all())}")
+                require(err <= 2 * err32 and torch.equal(y, again) and bool((y[~mask] == 0).all()),
+                        f"{label}: error above 2x fp32's, another result on repeat, or a masked "
+                        f"row not 0")
+                ms = cuda_ms(lambda: masked_conv3([x], w, [mask], relu=relu, split=split), 10)
+                split_ms = cuda_ms(lambda: conv3_split(w), 10)
+                lib_ms = cuda_ms(lambda: F.conv1d(x.transpose(1, 2), w, padding=1), 10)
+                xm, wk = x.reshape(64 * t, kc), w.permute(0, 2, 1).reshape(n, 3 * kc).contiguous()
+                tc_ms = cuda_ms(lambda: tf32x3_linear(xm, wk, taps=3, seq=t), 10)
+                pms = cuda_ms(lambda: masked_conv3_reference(x, w, mask, relu), 1, warmup=1)
+            flops = 2 * 64 * t * n * 3 * kc
+            nbytes = 4 * (64 * t * (kc + n) + 2 * n * 3 * kc) + 64 * t
+            bms, by, ffma = bound_ms(flops, nbytes, flops)
+            results[label] = (err, ms, pms, bms, by, ffma, lib_ms, tc_ms)
+            log(f"time {label}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+                f"{bms:.3f} ms ({by}, 3xTF32) / FFMA {ffma:.3f} ms; plain {pms:.3f} ms; "
+                f"library_ms (cuDNN fp32 conv1d) {lib_ms:.3f} ms; tf32x3_linear(taps=3) "
+                f"{tc_ms:.3f} ms; the weight's split {split_ms:.3f} ms [{smi}]")
+            del x, y, again, xm, wk
+            torch.cuda.empty_cache()
+    # the six levels as the block runs them: a launch a level for the
+    # expanding conv, one over every level for the squeezing conv
+    xs = {name: [torch.randn(64, 224 >> lvl, kc, generator=gen).to(dev) for lvl in range(6)]
+          for name, kc in (("expand", 1024), ("squeeze", 12800))}
+    masks = [torch.ones(64, 224 >> lvl, dtype=torch.bool, device=dev) for lvl in range(6)]
+    w_in, w_out = dep.feature_expand.conv.weight.detach(), dep.feature_squeeze.conv.weight.detach()
+    with torch.inference_mode():
+        s_in = conv3_split(w_in)
+        e_ms = cuda_ms(lambda: [masked_conv3([x], w_in, [m], relu=True, split=s_in)
+                                for x, m in zip(xs["expand"], masks)], 5)
+        q_ms = cuda_ms(lambda: masked_conv3(xs["squeeze"], w_out, masks, relu=False), 5)
+        q1_ms = cuda_ms(lambda: [masked_conv3([x], w_out, [m], relu=False)
+                                 for x, m in zip(xs["squeeze"], masks)], 5)
+    flops = 2 * 64 * sum(224 >> lvl for lvl in range(6)) * 12800 * 3 * 1024
+    log(f"time conv3 block (6 levels, B=64): expand a launch a level {e_ms:.3f} ms "
+        f"({flops / e_ms / 1e9:.1f} TFLOP/s); squeeze in one launch {q_ms:.3f} ms "
+        f"({flops / q_ms / 1e9:.1f} TFLOP/s, a launch a level {q1_ms:.3f} ms, its split "
+        f"included) [{smi}]")
+
+
 def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict:
     """Phase 14: the dependency block (use_dependency: True). The MHCA
     kernel (one head of width 128) against its plain version at the
@@ -1223,6 +1314,7 @@ def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict
     from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_backward,
                                                         mhca_backward_reference,
                                                         mhca_reference)
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import conv3_split, masked_conv3
     from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_backward,
                                                           tblock_backward_reference,
                                                           tblock_reference)
@@ -1339,7 +1431,8 @@ def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict
     served = counts()
     log(f"dependency serve: 1 batch x 64 videos, kernel launches {served}, peak memory "
         f"{peak:.2f} GiB [{smi}]")
-    require(served["mhca"] == 5 + 12 and served["csp"] == 10 and served["nms"] == 1,
+    require(served["mhca"] == 5 + 12 and served["csp"] == 10 and served["nms"] == 1
+            and served["conv3"] == 6 + 1,
             f"the dependency path did not run through its kernels: {served}")
     n = check_detections(dets, batch, mcfg["num_classes"])
     two = {k: v[:2] for k, v in batch.items()}
@@ -1377,18 +1470,34 @@ def dependency_phase(seed, dev, smi, gen, reset_counts, counts, results) -> dict
     eval_step(batch)
     hook.remove()
     feats, masks = grabbed["args"][0], grabbed["args"][1]
+    w_in, w_out = dep.feature_expand.conv.weight, dep.feature_squeeze.conv.weight
+    cmasks = [m.contiguous() for m in masks]
+    sq_in = [torch.randn(f.shape[0], f.shape[1], w_out.shape[1], generator=gen).to(dev)
+             for f in feats]
+
+    def block_convs():
+        split = conv3_split(w_in)
+        for f, m in zip(feats, cmasks):
+            masked_conv3([f], w_in, [m], relu=True, split=split)
+        masked_conv3(sq_in, w_out, cmasks, relu=False)
+
     with torch.inference_mode():
         dep_ms = cuda_ms(lambda: dep(feats, masks), 5)
-        conv_ms = cuda_ms(lambda: [dep.feature_squeeze(dep.feature_expand(f, m)[0], m)
-                                   for f, m in zip(feats, masks)], 5)
+        conv_ms = cuda_ms(block_convs, 5)
+        cudnn_ms = cuda_ms(lambda: [dep.feature_squeeze(dep.feature_expand(f, m)[0], m)
+                                    for f, m in zip(feats, masks)], 5)
     batch_ms = cuda_ms(lambda: eval_step(batch), 5)
     model.dependency = None
     base_ms = cuda_ms(lambda: eval_step(batch), 5)
     model.dependency = dep
     log(f"time dependency block in a batch of 64: {dep_ms:.3f} ms (the expand and squeeze "
-        f"convs, cuDNN fp32: {conv_ms:.3f} ms); the whole batch {batch_ms:.3f} ms, "
-        f"{base_ms:.3f} ms without the block [{smi}]")
-    del feats, masks, grabbed, dets, fdets, eval_step, cpu_step, cpu_model, model, dep
+        f"convs on the conv3 kernel: {conv_ms:.3f} ms, through MaskedConv1D and cuDNN fp32: "
+        f"{cudnn_ms:.3f} ms); the whole batch {batch_ms:.3f} ms, {base_ms:.3f} ms without "
+        f"the block [{smi}]")
+    del feats, masks, cmasks, sq_in, grabbed, dets, fdets, eval_step, cpu_step, cpu_model
+    torch.cuda.empty_cache()
+    conv3_lines(model, dev, smi, gen, results)
+    del model, dep
     torch.cuda.empty_cache()
 
     # two train steps at B=8
@@ -2964,6 +3073,9 @@ def main(argv=None) -> int:
                     help="only build, then run phase 18 (the host Soft-NMS cross-check, the "
                          "bench at the root bench's train configuration, a short "
                          "accuracy-cost run)")
+    ap.add_argument("--dependency-only", action="store_true",
+                    help="only build, then run phase 14 (the dependency block, its conv "
+                         "kernel's check and time lines)")
     ap.add_argument("--bf16-profile-only", action="store_true",
                     help="only build, then profile the bf16 backward kernels (phase 16's "
                          "profile, launch and stage lines; phase 16 runs it so, in a process "
@@ -3004,8 +3116,10 @@ def main(argv=None) -> int:
     from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
     from unav_yolyolva_tpu_torch.tools.grad_gaps import step_grads
 
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import masked_conv3
+
     counted = (fused_mhca, fused_csp, multiclass_soft_nms, mhca_backward, csp_backward,
-               fused_tblock, tblock_backward, soft_nms)
+               fused_tblock, tblock_backward, soft_nms, masked_conv3)
 
     def reset_counts():
         for fn in counted:
@@ -3015,7 +3129,8 @@ def main(argv=None) -> int:
         return {"mhca": fused_mhca.launches, "csp": fused_csp.launches,
                 "nms": multiclass_soft_nms.launches, "mhca_bwd": mhca_backward.launches,
                 "csp_bwd": csp_backward.launches, "tblock": fused_tblock.launches,
-                "tblock_bwd": tblock_backward.launches, "soft_nms": soft_nms.launches}
+                "tblock_bwd": tblock_backward.launches, "soft_nms": soft_nms.launches,
+                "conv3": masked_conv3.launches}
 
     os.environ.pop("UNAV_FUSED_TBLOCK", None)     # the stem path is set below, per phase
     set_stem("never")
@@ -3042,6 +3157,10 @@ def main(argv=None) -> int:
         return 0
     if args.slice16_only:
         slice16_phase(args.seed, dev, smi, counted)
+        return 0
+    if args.dependency_only:
+        dependency_phase(args.seed, dev, smi, torch.Generator().manual_seed(args.seed + 1),
+                         reset_counts, counts, {})
         return 0
 
     # ---- 3. kernels against their plain versions at the real shapes ---------
@@ -3680,6 +3799,16 @@ def main(argv=None) -> int:
                     "(u and GELU(u) from fc1's epilogue, du from dy2 W2's: no GELU pass), the "
                     "multiplier sums a block per (sequence, 32 channels) over T, the "
                     "redesigned MHCA backward"),
+        {"name": "conv3", "route": "cuda", "source": pkg + "conv3_tc.cu", "replaces": None,
+         "why": "the dependency block's two k=3 convs, cuDNN fp32 at the FFMA rate before",
+         "launches_dependency": {"serve": dep["served"]["conv3"]},
+         "cases": {k: dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "bound_ffma_ms", "library_ms", "tf32x3_linear_ms"), v))
+                   for k, v in results.items() if k.startswith("conv3@")},
+         "design": "3xTF32 on wgmma m64n128k8, the weight's halves and the activation TMA'd "
+                   "(the activation once for the three taps), the activation split in "
+                   "registers; persistent blocks, a producer and two consumer warpgroups; "
+                   "ReLU and row mask in the epilogue"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

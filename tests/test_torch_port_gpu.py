@@ -1044,6 +1044,191 @@ def test_tblock_kernel_at_hidden_c(cuda, t):
     assert (got[0][1] == 0).all() and (got[0][3] == 0).all()
 
 
+# ---- the dependency block's k=3 convs on wgmma (ops/conv3_tc.py) -------------------
+
+# (name, Kc, N, relu) of the block's two convs at the published widths
+_DEP_CONVS = {"expand": (1024, 12800, True), "squeeze": (12800, 1024, False)}
+
+
+def _conv3_case(gen, cuda, b, t, kc, n):
+    """x (b, t, kc), the conv's weight (n, kc, 3), a mask with the first row
+    full, the last padded to a third and one row empty."""
+    x = torch.randn(b, t, kc, generator=gen).to(cuda)
+    w = (torch.randn(n, kc, 3, generator=gen) / (3 * kc) ** 0.5).to(cuda)
+    lengths = [t] + [max(1, (t * (i + 1)) // b) for i in range(1, b - 2)] + [0, max(1, t // 3)]
+    return x, w, _mask(b, t, lengths[:b], cuda)
+
+
+def _conv3_fp64(x, w, mask, relu):
+    from unav_yolyolva_tpu_torch.ops.gemm_tc import conv3_taps
+
+    b, t, kc = x.shape
+    y = conv3_taps(x.reshape(b * t, kc).double(), t) @ w.double().permute(0, 2, 1).reshape(
+        w.shape[0], -1).T
+    return ((y.clamp_min(0) if relu else y) * mask.reshape(-1, 1)).reshape(b, t, -1)
+
+
+@pytest.mark.parametrize("level", range(6))
+@pytest.mark.parametrize("conv", ["expand", "squeeze"])
+def test_masked_conv3_against_fp64_at_the_blocks_shapes(cuda, conv, level):
+    """Each level's shape of both convs at B=64 (T = 224 >> level): the
+    kernel's norm-wise error against fp64 within 2x that of cuDNN's fp32
+    conv (TF32 off), masked rows exactly 0, the same bits on repeat, one
+    launch a call; at levels 3-5 also within rtol 1e-3 / atol 1e-4 of the
+    plain version."""
+    import torch.nn.functional as F
+
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import masked_conv3, masked_conv3_reference
+
+    kc, n, relu = _DEP_CONVS[conv]
+    gen = torch.Generator().manual_seed(40 + level)
+    x, w, mask = _conv3_case(gen, cuda, 64, 224 >> level, kc, n)
+    before = masked_conv3.launches
+    y = masked_conv3([x], w, [mask], relu=relu)[0]
+    again = masked_conv3([x], w, [mask], relu=relu)[0]
+    torch.cuda.synchronize()
+    assert masked_conv3.launches == before + 2
+    ref = _conv3_fp64(x, w, mask, relu)
+    y32 = F.conv1d(x.transpose(1, 2), w, padding=1).transpose(1, 2)
+    y32 = (y32.clamp_min(0) if relu else y32) * mask[..., None]
+    err = float((y.double() - ref).norm() / ref.norm())
+    err32 = float((y32.double() - ref).norm() / ref.norm())
+    assert err <= 2 * err32, f"3xTF32 error {err:.3e} vs fp32 conv {err32:.3e}"
+    assert torch.equal(y, again), "not bit-identical on repeat"
+    assert bool((y[~mask] == 0).all())
+    if level >= 3:
+        torch.testing.assert_close(y, masked_conv3_reference(x, w, mask, relu), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("conv", ["expand", "squeeze"])
+def test_masked_conv3_bits_independent_of_the_levels_of_a_launch(cuda, conv):
+    """The six levels of a batch of 64 in one launch, one launch a level,
+    and levels 1-5 in reverse order with level 0 left out: the same bits."""
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import conv3_split, masked_conv3
+
+    kc, n, relu = _DEP_CONVS[conv]
+    gen = torch.Generator().manual_seed(47)
+    w = (torch.randn(n, kc, 3, generator=gen) / (3 * kc) ** 0.5).to(cuda)
+    cases = [_conv3_case(gen, cuda, 64, 224 >> lv, kc, 8) for lv in range(6)]
+    xs, masks = [c[0] for c in cases], [c[2] for c in cases]
+    split = conv3_split(w)
+    together = masked_conv3(xs, w, masks, relu=relu, split=split)
+    alone = [masked_conv3([x], w, [m], relu=relu, split=split)[0] for x, m in zip(xs, masks)]
+    rest = masked_conv3(xs[:0:-1], w, masks[:0:-1], relu=relu, split=split)[::-1]
+    torch.cuda.synchronize()
+    for lv in range(6):
+        assert torch.equal(together[lv], alone[lv]), lv
+        if lv:
+            assert torch.equal(together[lv], rest[lv - 1]), lv
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_masked_conv3_grads_against_fp64(cuda, relu):
+    """Two levels sharing the weight (T = 40 and 7): the autograd Function's
+    input grads and summed weight grad (the 3xTF32 A.B and A^T.B products,
+    no cuDNN) against autograd of the fp64 conv, norm-wise within 1e-4;
+    the same bits on repeat."""
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import masked_conv3
+
+    gen = torch.Generator().manual_seed(48)
+    (x1, w, m1), (x2, _, m2) = (_conv3_case(gen, cuda, 4, 40, 256, 384),
+                                _conv3_case(gen, cuda, 4, 7, 256, 384))
+    gs = [torch.randn(4, t, 384, generator=gen).to(cuda) for t in (40, 7)]
+
+    def grads():
+        xs = [x.clone().requires_grad_(True) for x in (x1, x2)]
+        wg = w.clone().requires_grad_(True)
+        torch.autograd.backward(masked_conv3(xs, wg, [m1, m2], relu=relu), gs)
+        return [xs[0].grad, xs[1].grad, wg.grad]
+
+    got, again = grads(), grads()
+    xr = [x.double().requires_grad_(True) for x in (x1, x2)]
+    wr = w.double().requires_grad_(True)
+    torch.autograd.backward([_conv3_fp64(x, wr, m, relu) for x, m in zip(xr, (m1, m2))],
+                            [g.double() for g in gs])
+    for k, r in zip(got, [xr[0].grad, xr[1].grad, wr.grad]):
+        assert float((k.double() - r).norm() / r.norm()) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
+
+
+def test_masked_conv3_refuses_what_it_does_not_take(cuda):
+    """Unaligned or non-contiguous x, Kc off 4 floats, bf16 x, a mask that is
+    not a contiguous bool (B, T), seven levels, halves of another shape."""
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import conv3_split, masked_conv3
+
+    gen = torch.Generator().manual_seed(49)
+    x, w, mask = _conv3_case(gen, cuda, 4, 14, 64, 32)
+    split = conv3_split(w)
+    wide = torch.randn(4, 14, 65, generator=gen).to(cuda)
+    bad = [
+        ([wide[..., 1:]], [mask], split),                                 # unaligned, strided
+        ([x.transpose(0, 1).contiguous().transpose(0, 1)], [mask], split),  # non-contiguous
+        ([x.to(torch.bfloat16)], [mask], split),
+        ([x], [mask.int()], split),
+        ([x], [torch.ones(4, 28, dtype=torch.bool, device=cuda)[:, ::2]], split),
+        ([x] * 7, [mask] * 7, split),
+        ([x], [mask], (split[0][:, :, :60].contiguous(), split[1][:, :, :60].contiguous())),
+    ]
+    before = masked_conv3.launches
+    for xs, masks, sp in bad:
+        with pytest.raises(ValueError):
+            masked_conv3(xs, w, masks, relu=True, split=sp)
+    with pytest.raises(ValueError):       # Kc off 4 floats
+        wk = (torch.randn(32, 6, 3, generator=gen)).to(cuda)
+        masked_conv3([torch.randn(4, 14, 6, generator=gen).to(cuda)], wk, [mask], relu=True)
+    assert masked_conv3.launches == before
+
+
+def _dependency_kernels(prof):
+    """Names of the kernels launched on the main thread inside a
+    `unav.dependency.expand` or `.squeeze` span of a torch.profiler run."""
+    events = list(prof.events())
+    spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
+             if e.device_type.name == "CPU"
+             and e.name in ("unav.dependency.expand", "unav.dependency.squeeze")]
+    launched = {e.id for e in events if e.device_type.name == "CPU" and e.name.startswith("cu")
+                and any(a <= e.time_range.start <= b and e.thread == th for a, b, th in spans)}
+    return [e.name for e in events if e.device_type.name == "CUDA" and e.id in launched
+            and not e.name.startswith(("Memcpy", "Memset", "unav."))]
+
+
+def test_dependency_block_serves_its_convs_on_the_tensor_core_kernel(cuda):
+    """A served batch of 64 at the published widths with the block: 7
+    launches of the conv kernel (the expanding conv at each of the 6
+    levels, the squeezing conv over all 6 in one), 2 weight splits, and no
+    cuDNN convolution under the block's `unav.dependency.expand` or
+    `.squeeze` spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unav_yolyolva_tpu_torch.data.synthetic import synthetic_eval_batch
+    from unav_yolyolva_tpu_torch.eval import make_eval_step
+    from unav_yolyolva_tpu_torch.eval.step import fetch_detections
+    from unav_yolyolva_tpu_torch.models import build_model
+    from unav_yolyolva_tpu_torch.ops.conv3_tc import masked_conv3
+
+    cfg = _dependency_cfg()
+    m = cfg["model"]
+    step = make_eval_step(build_model(cfg, device=cuda, seed=0), cfg, cuda)
+    batch = synthetic_eval_batch(torch.Generator().manual_seed(25), 64, m["max_seq_len"],
+                                 m["raw_input_dim_V"], m["raw_input_dim_A"])
+    fetch_detections(step(batch))
+    torch.cuda.synchronize()
+    before = masked_conv3.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, done = fetch_detections(step(batch))
+        if done is not None:
+            done.synchronize()
+        torch.cuda.synchronize()
+    assert masked_conv3.launches - before == 7
+    names = _dependency_kernels(prof)
+    assert sum("conv3_tc_kernel" in k for k in names) == 7
+    assert sum("conv3_split_kernel" in k for k in names) == 2
+    conv = [k for k in names if any(s in k.lower() for s in ("conv", "xmma", "cudnn", "implicit"))
+            and "conv3_" not in k]
+    assert not conv, conv
+
+
 def test_train_step_pinned_batches_give_the_pageable_losses(cuda, tmp_path):
     """Four train batches from the pinned Batcher, dispatched back to back
     (the copy stream of the train step), give the losses of the same batches

@@ -48,6 +48,7 @@
 #include <cstring>
 
 #include "bf16.cuh"
+#include "wgmma.cuh"
 
 constexpr int WG_RAW = 0, WG_STORE = 1, WG_GELU = 2, WG_UA = 3, WG_RES = 4, WG_DU = 5;
 constexpr int WG_BM = 64, WG_BK = 64;        // a consumer's rows, a stage's k
@@ -87,87 +88,6 @@ struct WgArgs {
   int nblk, ksb;                    // K's row blocks, a block's 64-deep stages
 };
 
-// ---- shared memory, barriers, TMA and wgmma ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-// arrives where pred holds (a predicate inside the PTX: no divergent branch
-// among the warpgroup's wgmma)
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* b, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::
-          "r"(smem_u32(b)),
-      "r"((int)pred)
-      : "memory");
-}
-// waits until the phase of `parity` has completed (a fresh barrier has
-// completed the phase of parity 1)
-// (the loop inside the PTX, so that no divergent branch sits among the
-// warpgroup's wgmma)
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWG_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra.uni WG_WAIT;\n}\n" ::"r"(smem_u32(b)),
-      "r"(parity)
-      : "memory");
-}
-// a 2-d box of the tensor map at (c0 inner, c1) into shared memory, counted
-// on the barrier (out-of-bounds elements land as zeros)
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// a wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`:
-// lbo / sbo the leading and stride byte offsets (K-major: sbo the 8-row
-// group's 1024 bytes; MN-major: lbo the next 64 columns', sbo the next 8
-// k rows' 1024 bytes)
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of the registers across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (+)= A.B on a 64 x 128 tile, one k16 step: A and B from shared memory by
 // descriptor, A MN-major with TA, B with TB; ACC 0 writes d (scale-d 0: the sum of a
 // slice starts from zero), 1 adds to it (d is "+f" in both: an output-only
@@ -194,12 +114,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %34, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(ACC));
-}
-
-template <int N>
-__device__ __forceinline__ void add_regs(float (&d)[N], const float (&s)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] += s[i];
 }
 
 template <int BN, int TA, int TB, int ACC>
@@ -482,28 +396,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgmma_bf16_kernel(
 
 // ---- the host side --------------------------------------------------------------------
 
-typedef CUresult (*WgEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (no -lcuda), looked up once
-static WgEncodeTiled wg_encoder() {
-  static WgEncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (WgEncodeTiled)f;
-  }
-  return fn;
-}
-
 // a bf16 tensor map of a row-major (rows, cols) operand with row stride ld
 // values, boxes of box_rows x 64 columns, 128-byte swizzle, zeros outside:
 // 2-d, or with kb (a divisor of rows) 3-d as (rows / kb, kb, cols), so that
@@ -521,17 +413,6 @@ static int wg_map(CUtensorMap* map, const bf16* base, long rows, long cols, long
                          box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-static int wg_sms() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms < 1) sms = 132;
-  }
-  return sms;
 }
 
 // 0, or why launch_wgmma_bf16 refuses a product: TMA's 16-byte rows and

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("mhca", "mhca_bwd", "csp", "csp_bwd", "nms", "tblock", "tblock_bwd",
                   "gemm_tc", "mhca_bf16", "csp_bf16", "tblock_bf16", "gemm_bf16",
-                  "mhca_bwd_bf16", "csp_bwd_bf16", "tblock_bwd_bf16")
+                  "mhca_bwd_bf16", "csp_bwd_bf16", "tblock_bwd_bf16", "conv3_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
