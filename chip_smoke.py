@@ -34,10 +34,6 @@ Phases (any failure exits non-zero):
      alone at the stem's fc1 (GELU, its input kept, bit-equal to the product
      without the epilogue) and the train protocol's du (A.B times GELU'),
      held the same way against fp32 torch.matmul with the same epilogue;
-     and CUDA-event breakdowns by launch of one CSP forward (main; each
-     MHCA's ln, q/k/v, attention, proj; guide_fc; projection conv; gate;
-     final) at T=224 and T=7 and of one whole-block TBlock forward at
-     (64, 224, 512) and (8, 224, 512) (`stages ...` lines);
   4. serves: the flagship model (width 512, 100 classes, T=224, fp32,
      weights from --seed) answers three batches of 64 synthetic videos
      through make_eval_step; every kernel's launch count must rise, the
@@ -69,10 +65,7 @@ Phases (any failure exits non-zero):
      rtol 1e-3 / atol 1e-4, weight and multiplier grads norm-wise within
      1e-4 (sums over thousands of rows in another order); each kernel run
      twice must give the same bits; times them with CUDA events beside the
-     bound, and the block's forward + backward on both stem paths; a
-     CUDA-event breakdown of one CSP backward by stage at T=224 and T=7 and
-     of one TBlock backward at (8, 224, 512) (`stages csp_bwd@...`,
-     `stages tblock_bwd@...` lines);
+     bound, and the block's forward + backward on both stem paths;
   7. trains: the flagship model of configs/avel_unav100.yaml (B=8, T=224,
      fp32, AdamW + clip + warmup/cosine per iteration, droppath 0.1, EMA,
      weights from --seed) takes 4 steps of make_train_step on synthetic
@@ -139,10 +132,9 @@ Phases (any failure exits non-zero):
      and whole-block TBlock (64, 224, 512) kernels against their plain
      versions (norm-wise <= 8e-3, each one's error against the fp32 plain
      version within 1.25x of the other's, the same bits on repeat), timed
-     beside the fp32 kernel on the same inputs, with per-launch breakdowns
-     (`stages mhca_bf16@...`, `stages csp_bf16@...`, `stages
-     tblock_bf16@...`); the attention alone at the CSP's and the stem's
-     shapes, held the same way, timed beside PyTorch's
+     beside the fp32 kernel on the same inputs (their breakdowns by kernel
+     come last, in 12); the attention alone at the CSP's and the
+     stem's shapes, held the same way, timed beside PyTorch's
      scaled_dot_product_attention with its resident blocks a SM (`check/time
      attn_bf16@...`); the bf16 product alone at the CSP final conv's shape
      (its fp32 sums against fp64 within 2x fp32 torch.matmul's error, its
@@ -174,13 +166,12 @@ Phases (any failure exits non-zero):
      distance from the CPU's), the same bits on repeat; the small CSP and
      TBlock cases with the row picker at 1, each weight grad moving as the
      CPU plain version's (check_row_blocks); at the protocol timed beside
-     the fp32 backward kernel on the same inputs, profiled launch by launch
-     (a warm-up profile first; an empty profile is said so and fails the
-     phase): the CSP backward at T=224 and T=7 within 70 launches, the
-     attention at most 3 a MHCA (the recompute's forward and the fused
-     backward's two), and the CSP, MHCA and whole-block TBlock backward's
-     stages by CUDA events (`stages csp_bwd_bf16@...`, `stages
-     mhca_bwd_bf16@...`, `stages tblock_bwd_bf16@...`), with the host work
+     the fp32 backward kernel on the same inputs, profiled kernel by kernel
+     in a process of its own (a warm-up profile first; an empty profile is
+     said so and fails the phase; `launches csp_bwd_bf16@...`, `launches
+     mhca_bwd_bf16@...`, `launches tblock_bwd_bf16@...`): the CSP backward
+     at T=224 and T=7 within 70 launches, the attention at most 3 a MHCA
+     (the recompute's forward and the fused backward's two), with the host work
      of a T=7 CSP backward and of a TBlock backward, whose products encode
      their tensor maps on the host each call (`host ...`);
      the backward's bf16 product alone (A.B, and A^T.B in row blocks) at the
@@ -215,9 +206,17 @@ Phases (any failure exits non-zero):
      served through the fp32 kernels and bf16_exact through the bf16 ones,
      fp32_exact above 0 and bf16_exact within 0.01 of it; the kernels of
      the bench's and the tool's paths counted from 0 around each;
- 12. (last) counts the kernels one CSP backward (T=224 and T=7) and one MHCA
-     backward launch, with torch.profiler, after every timed phase so that
-     the profiler cannot touch their times.
+ 12. (last) where the device time of one call goes, kernel by kernel
+     (torch.profiler: each kernel's launches and ms, `launches ...` lines):
+     the CSP forward at T=224 and T=7 (2B=128), the whole-block TBlock
+     forward at (64, 224, 512) and (8, 224, 512), the CSP backward at the
+     train protocol's T=224 and T=7 (2B=16), the TBlock and the MHCA
+     backward at (8, 224, 512), and phase 15's bf16 MHCA (64, 224, 512),
+     CSP (T=224 with 4 heads, T=7) and whole-block TBlock (64, 224, 512)
+     forwards (`launches mhca_bf16@...`, `launches csp_bf16@...`,
+     `launches tblock_bf16@...`); each case's inputs drawn in phase 3, 6
+     or 15, as the phase's own, and profiled after every timed phase, so
+     that the profiler cannot touch their times.
 The line before the last is a JSON object with one entry per kernel, the
 eight fp32 kernels and the six bf16 ones (each redesigned bf16 kernel with
 its `design`; with each fp32 kernel's
@@ -227,9 +226,7 @@ on the bf16 served path, a bf16 backward kernel's on phase 16's train
 steps and bf16 train CLI); the
 last line is {"ok": true, "device": {...}}. It needs the repository beside
 it and a CUDA device; without either it exits non-zero and prints no
-result. With --stages-only it builds, prints the CSP and whole-block TBlock
-forward's and backward's breakdowns (`stages ...` lines) and launch counts,
-and stops; with --bf16-fwd-only it builds and runs phase 15's kernel checks
+result. With --bf16-fwd-only it builds and runs phase 15's kernel checks
 and lines alone; with --bf16-train-only it builds and runs phase 16 alone; with
 --bf16-profile-only, phase 16's profile of the bf16 backward kernels alone
 (phase 16 runs it so, in a process of its own); with --dp-only (under
@@ -458,81 +455,82 @@ def launches_text(n: int) -> str:
     return f"{n} kernels" if n else "the profile came back empty (no kernel seen)"
 
 
-def stage_line(label, run, smi):
-    """Three runs of a stage breakdown ({stage: device ms}), their median
-    printed as one `stages` line."""
-    runs = [run() for _ in range(3)]
-    med = {st: sorted(rn[st] for rn in runs)[1] for st in runs[0]}
-    log(f"stages {label} (device ms, median of 3): "
-        + ", ".join(f"{st} {v:.4f}" for st, v in med.items())
-        + f"; sum {sum(med.values()):.4f} [{smi}]")
+def launch_line(label, fn, smi):
+    """One call of fn by kernel (kernel_profile): each kernel's launches and
+    device ms, the longest first, as one `launches` line; returns the
+    profile."""
+    prof = kernel_profile(fn)
+    rows = sorted(prof.items(), key=lambda kv: -kv[1][1])
+    log(f"launches {label}: {launches_text(sum(c for c, _ in prof.values()))}, "
+        f"{sum(ms for _, ms in prof.values()):.4f} ms of kernels (torch.profiler, one call); "
+        + "; ".join(f"{k[:48]} x{c} {ms:.4f} ms" for k, (c, ms) in rows) + f" [{smi}]")
+    return prof
 
 
-def forward_stage_lines(model, gen, dev, smi):
-    """Where the time of one CSP forward and one whole-block TBlock forward
-    goes, launch by launch."""
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_stage_times
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_stage_times
+def forward_launch_cases(model, gen, dev):
+    """launch_lines' forward cases, as (label, call) pairs: one CSP forward at
+    T=224 and T=7 (2B=128) and one whole-block TBlock forward at (64, 224,
+    512) and (8, 224, 512) of the eval model."""
+    from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock
 
+    cases = []
     for label, key, t in (("csp@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
                           ("csp@T7/4h", "backbone.fusion_module.top_down_layers.1", 7)):
         a, heads = csp_case(model, key, 128, t, gen, dev)
-        stage_line(label, lambda: csp_stage_times(*a, attn_heads=heads), smi)
+        cases.append((label, lambda a=a, h=heads: fused_csp(*a, attn_heads=h)))
     for r in (64, 8):
         blk, a = tblock_case(model, "backbone.self_att_V.0", r, 224, gen, dev)
-        tblock_stage_times(*a, heads=blk.attn.n_head)                # warm-up
-        stage_line(f"tblock@{r}x224x512", lambda: tblock_stage_times(*a, heads=blk.attn.n_head),
-                   smi)
+        cases.append((f"tblock@{r}x224x512",
+                      lambda a=a, h=blk.attn.n_head: fused_tblock(*a, heads=h)))
+    return cases
 
 
-def backward_stage_lines(tmodel, b, t_max, gen, dev, smi):
-    """Where the time of one CSP backward goes, stage by stage, at the train
-    protocol's T=224 and T=7 levels (2B rows), and of one whole-block TBlock
-    backward at (B, T, 512)."""
-    import torch
-
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_stage_times
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward_stage_times
-
-    for label, key, t in ((f"csp_bwd@T{t_max}", "backbone.fusion_module.bottom_up_layers.0",
-                           t_max),
-                          ("csp_bwd@T7", "backbone.fusion_module.bottom_up_layers.4", 7)):
-        a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
-        g = torch.randn(2 * b, t, 512, generator=gen).to(dev)
-        csp_backward(*a, g=g, attn_heads=heads)                   # warm-up
-        stage_line(f"{label}/{heads}h",
-                   lambda: csp_backward_stage_times(*a, g=g, attn_heads=heads), smi)
-    blk, a = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
-    g = torch.randn(b, t_max, 512, generator=gen).to(dev)
-    tblock_backward_stage_times(*a, g=g, heads=blk.attn.n_head)  # warm-up
-    stage_line(f"tblock_bwd@{b}x{t_max}x512",
-               lambda: tblock_backward_stage_times(*a, g=g, heads=blk.attn.n_head), smi)
-
-
-def backward_launch_lines(tmodel, b, t_max, gen, dev):
-    """The kernels that one CSP backward (T=224 and T=7, 2B rows) and one
-    MHCA backward launch, counted by torch.profiler. Run after every timed
-    phase, so that the profiler cannot touch their times."""
+def backward_launch_cases(tmodel, b, t_max, gen, dev):
+    """launch_lines' backward cases: one CSP backward at the train protocol's
+    T=224 and T=7 (2B rows) and one whole-block TBlock backward at (B, T,
+    512) of the train model."""
     import torch
 
     from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward
 
+    cases = []
     for label, key, t in ((f"csp_bwd@T{t_max}", "backbone.fusion_module.bottom_up_layers.0",
                            t_max),
                           ("csp_bwd@T7", "backbone.fusion_module.bottom_up_layers.4", 7)):
         a, heads = csp_case(tmodel, key, 2 * b, t, gen, dev)
         g = torch.randn(2 * b, t, 512, generator=gen).to(dev)
-        n = kernel_launches(lambda: csp_backward(*a, g=g, attn_heads=heads))
-        log(f"launches {label}/{heads}h: {launches_text(n)} in one csp_backward call "
-            f"(torch.profiler, the wrapper's copies included)")
+        cases.append((f"{label}/{heads}h",
+                      lambda a=a, g=g, h=heads: csp_backward(*a, g=g, attn_heads=h)))
+    blk, a = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
+    g = torch.randn(b, t_max, 512, generator=gen).to(dev)
+    cases.append((f"tblock_bwd@{b}x{t_max}x512",
+                  lambda: tblock_backward(*a, g=g, heads=blk.attn.n_head)))
+    return cases
+
+
+def mhca_backward_launch_case(tmodel, b, t_max, gen, dev):
+    """launch_lines' MHCA backward case at (B, T, 512) of the train model."""
+    import torch
+
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
+
     key = "backbone.self_att_V.0.attn"
     a = mhca_case(tmodel, key, b, t_max, 512, gen, dev)
     g = torch.randn(b, t_max, 512, generator=gen).to(dev)
     heads = dict(tmodel.named_modules())[key].n_head
-    n = kernel_launches(lambda: mhca_backward(*a, g, heads=heads))
-    log(f"launches mhca_bwd@{b}x{t_max}x512: {launches_text(n)} in one mhca_backward call "
-        f"(torch.profiler)")
+    return f"mhca_bwd@{b}x{t_max}x512", lambda: mhca_backward(*a, g, heads=heads)
+
+
+def launch_lines(cases, smi):
+    """Where the device time of one call goes, kernel by kernel: launch_line
+    over each (label, call) of cases, after every timed phase, so that the
+    profiler cannot touch their times. The cases draw their inputs from the
+    run's one generator in the phases they belong to: a draw moved to the
+    end would change the inputs of every phase after its own."""
+    for label, call in cases:
+        launch_line(label, call, smi)
 
 
 # launches a bf16 backward may make (the fused design's budget): a CSP layer's, and its
@@ -579,22 +577,20 @@ def host_split_line(label, wrapper, prepare, entry, call, smi, n=20):
 
 def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
     """Each bf16 backward kernel's launches at the protocol shape, by device
-    time (kernel_profile over one call, after its timed runs): the kernels'
+    time (launch_line over one call, after its timed runs): the kernels'
     names, calls and ms; then the CSP layer's launches at T=224 and T=7 held
     to CSP_BWD_BF16_LAUNCHES and its and the MHCA's attention backward to
     ATTN_BWD_BF16_LAUNCHES a MHCA (a profile that stays empty is said so,
-    and fails the phase); and each one's stages by CUDA events (`stages
-    csp_bwd_bf16@...`, `stages mhca_bwd_bf16@...`); at T=7 the CSP layer's
-    host work (`host csp_bwd_bf16@T7/...`, host_split_line), and the whole-block
-    TBlock's (`host tblock_bwd_bf16@...`: it encodes its products' tensor
-    maps on the host each call)."""
+    and fails the phase); at T=7 the CSP layer's host work (`host
+    csp_bwd_bf16@T7/...`, host_split_line), and the whole-block TBlock's
+    (`host tblock_bwd_bf16@...`: it encodes its products' tensor maps on
+    the host each call)."""
     import torch
 
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward, csp_backward_stage_times
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward, mhca_backward_stage_times
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_backward
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import mhca_backward
     from unav_yolyolva_tpu_torch.ops import fused_csp, fused_tblock
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import (tblock_backward,
-                                                          tblock_backward_stage_times)
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import tblock_backward
 
     bf = torch.bfloat16
     cases = []
@@ -607,32 +603,24 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
             host_args = (ab, gc, heads)
         cases.append((f"csp_bwd_bf16@T{t}/{heads}h", 3,
                       lambda ab=ab, gc=gc, heads=heads: csp_backward(*ab, g=gc,
-                                                                     attn_heads=heads),
-                      lambda ab=ab, gc=gc, heads=heads: csp_backward_stage_times(
-                          *ab, g=gc, attn_heads=heads)))
+                                                                     attn_heads=heads)))
     m = mhca_case(tmodel, "backbone.self_att_V.0.attn", b, t_max, 512, gen, dev)
     mb = (m[0].to(bf), m[1].to(bf), *m[2:])
     gm = torch.randn(b, t_max, 512, generator=gen).to(dev, bf)
     nh = dict(tmodel.named_modules())["backbone.self_att_V.0.attn"].n_head
     cases.append((f"mhca_bwd_bf16@{b}x{t_max}x512", 1,
-                  lambda: mhca_backward(*mb, gm, heads=nh),
-                  lambda: mhca_backward_stage_times(*mb, gm, heads=nh)))
+                  lambda: mhca_backward(*mb, gm, heads=nh)))
     blk, ta = tblock_case(tmodel, "backbone.self_att_V.0", b, t_max, gen, dev)
     gt = torch.randn(b, t_max, 512, generator=gen).to(dev)
     cases.append((f"tblock_bwd_bf16@{b}x{t_max}x512", 1,
-                  lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf),
-                  lambda: tblock_backward_stage_times(*ta, g=gt, heads=blk.attn.n_head,
-                                                      cdtype=bf)))
-    for label, n_mhca, fn, stages in cases:
+                  lambda: tblock_backward(*ta, g=gt, heads=blk.attn.n_head, cdtype=bf)))
+    for label, n_mhca, fn in cases:
         fn()
         torch.cuda.synchronize()
-        prof = kernel_profile(fn)
-        rows = sorted(((k, c, ms) for k, (c, ms) in prof.items()), key=lambda r: -r[2])
-        total = sum(r[1] for r in rows)
-        attn = sum(c for k, c, _ in rows if "attn" in k)
-        log(f"profile {label}: {launches_text(total)}, {sum(r[2] for r in rows):.3f} ms of "
-            f"kernels, {attn} of them attention kernels ({n_mhca} MHCA); "
-            + "; ".join(f"{k[:48]} x{c} {ms:.3f} ms" for k, c, ms in rows[:8]))
+        prof = launch_line(label, fn, smi)
+        total = sum(c for c, _ in prof.values())
+        attn = sum(c for k, (c, _) in prof.items() if "attn" in k)
+        log(f"attention {label}: {attn} of its launches attention kernels ({n_mhca} MHCA)")
         if not label.startswith("tblock"):
             require(total > 0, f"{label}: torch.profiler saw no kernel; launches not measured")
             require(attn <= ATTN_BWD_BF16_LAUNCHES * n_mhca,
@@ -640,9 +628,6 @@ def bf16_backward_profile(tmodel, b, t_max, gen, dev, smi):
         if label.startswith("csp"):
             require(total <= CSP_BWD_BF16_LAUNCHES,
                     f"{label}: {total} launches, over {CSP_BWD_BF16_LAUNCHES}")
-        if stages:
-            stages()                                              # warm-up
-            stage_line(label, stages, smi)
         if label.startswith("csp_bwd_bf16@T7/"):
             hab, hg, hh = host_args
             kw = dict(g=hg, attn_heads=hh, mhca_heads=4, eps=1e-5)
@@ -1761,20 +1746,18 @@ def bf16_mlp_product_lines(dev, smi, gen) -> None:
             f"({by}) [{smi}]")
 
 
-def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
+def bf16_forward_checks(model32, dev, smi, gen, results, profiled) -> None:
     """Phase 15's kernels: the three bf16 forward kernels against their
     plain versions at the protocol shapes, beside the fp32 kernels' times,
-    with per-launch breakdowns (`stages ...`); the attention alone at the
+    each one's call added to profiled (launch_lines); the attention alone at the
     CSP's and the stem's shapes (`check/time attn_bf16@...`, its resident
     blocks a SM); the bf16 product alone against fp64 and cuBLAS, and at
     each of the forward's product shapes (`time product_bf16@...`)."""
     import torch
 
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, csp_stage_times, fused_csp
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import (fused_mhca, mhca_reference,
-                                                        mhca_stage_times)
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import (fused_tblock, tblock_reference,
-                                                          tblock_stage_times)
+    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_reference, fused_csp
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_reference
+    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_reference
     from unav_yolyolva_tpu_torch.ops.gemm_tc import bf16_products
     from unav_yolyolva_tpu_torch.tools.nms_bench import cuda_ms
 
@@ -1801,7 +1784,7 @@ def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
                 f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
                 f"({results[label][4]}) [{smi}]")
             if r == 64:
-                stage_line(label, lambda: mhca_stage_times(*ab, heads=heads), smi)
+                profiled.append((label, lambda ab=ab, h=heads: fused_mhca(*ab, heads=h)))
 
         for label, key, t in (("csp_bf16@T224/4h", "backbone.fusion_module.top_down_layers.4", 224),
                               ("csp_bf16@T224/8h", "backbone.fusion_module.bottom_up_layers.0", 224),
@@ -1827,7 +1810,8 @@ def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
                 f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
                 f"({results[label][4]}; gate on the tensor cores) [{smi}]")
             if label != "csp_bf16@T224/8h":
-                stage_line(label, lambda: csp_stage_times(*ab, attn_heads=heads), smi)
+                profiled.append((label,
+                                 lambda ab=ab, h=heads: fused_csp(*ab, attn_heads=h)))
 
         label = "tblock_bf16@64x224x512"
         blk, a = tblock_case(model32, "backbone.self_att_V.0", 64, 224, gen, dev)
@@ -1845,7 +1829,7 @@ def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
         log(f"time {label}: kernel {ms:.3f} ms, plain {pms:.3f} ms, the fp32 kernel on the "
             f"same inputs {fms:.3f} ms, bound {results[label][3]:.3f} ms "
             f"({results[label][4]}) [{smi}]")
-        stage_line(label, lambda: tblock_stage_times(*a, heads=heads, cdtype=bf), smi)
+        profiled.append((label, lambda a=a, h=heads: fused_tblock(*a, heads=h, cdtype=bf)))
 
         # the bf16 product alone at the CSP final conv's shape, beside cuBLAS's
         # bf16 torch.matmul (fp32 sums: allow_bf16_reduced_precision_reduction
@@ -1880,7 +1864,7 @@ def bf16_forward_checks(model32, dev, smi, gen, results) -> None:
         bf16_mlp_product_lines(dev, smi, gen)
 
 
-def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
+def bf16_phase(model32, seed, dev, smi, gen, results, profiled) -> dict:
     """Phase 15: the bf16 compute policy on the serving path. The three bf16
     forward kernels against their plain versions at the protocol shapes,
     beside the fp32 kernels' times; the bf16 product alone against fp64 and
@@ -1914,7 +1898,7 @@ def bf16_phase(model32, seed, dev, smi, gen, results) -> dict:
 
     t_phase = time.perf_counter()
 
-    bf16_forward_checks(model32, dev, smi, gen, results)
+    bf16_forward_checks(model32, dev, smi, gen, results, profiled)
 
     # ---- serve three batches of 64 at bf16 ---------------------------------
     cfg = load_config(os.path.join(ROOT, "configs", "avel_unav100_eval.yaml"))
@@ -2434,7 +2418,7 @@ def bf16_train_phase(seed, dev, smi, gen, results, B, T) -> dict:
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--bf16-profile-only",
                            "--seed", str(seed)], capture_output=True, text=True, timeout=900)
     for line in proc.stdout.splitlines():
-        if line.startswith(("profile ", "stages ", "host ")):
+        if line.startswith(("launches ", "attention ", "host ")):
             log(line)
     require(proc.returncode == 0, "phase 16's profile of the bf16 backward kernels failed:\n"
             + "\n".join((proc.stdout + proc.stderr).splitlines()[-20:]))
@@ -3054,9 +3038,6 @@ def slice16_phase(seed: int, dev, smi: str, counted) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--stages-only", action="store_true",
-                    help="only build, then print the CSP and TBlock forward's and "
-                         "backward's per-launch breakdowns and launch counts")
     ap.add_argument("--bf16-train-only", action="store_true",
                     help="only build, then run phase 16 (the bf16 train step)")
     ap.add_argument("--bf16-fwd-only", action="store_true",
@@ -3078,8 +3059,8 @@ def main(argv=None) -> int:
                          "kernel's check and time lines)")
     ap.add_argument("--bf16-profile-only", action="store_true",
                     help="only build, then profile the bf16 backward kernels (phase 16's "
-                         "profile, launch and stage lines; phase 16 runs it so, in a process "
-                         "of its own)")
+                         "launch and host lines; phase 16 runs it so, in a process of its "
+                         "own)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "unav_yolyolva_tpu_torch")):
@@ -3179,19 +3160,14 @@ def main(argv=None) -> int:
     model = build_model(cfg, device=dev, seed=args.seed)
     eval_model = model
     if args.bf16_fwd_only:
-        bf16_forward_checks(model, dev, smi, gen, {})
+        profiled = []
+        bf16_forward_checks(model, dev, smi, gen, {}, profiled)
+        launch_lines(profiled, smi)
         return 0
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: LocPointTransformer width {cfg['model']['embd_dim']}, "
         f"{cfg['model']['num_classes']} classes, T={cfg['model']['max_seq_len']}, "
         f"{n_params / 1e6:.2f} M parameters, fp32")
-    if args.stages_only:
-        with torch.inference_mode():
-            forward_stage_lines(model, gen, dev, smi)
-        tmodel = build_model(tcfg, device=dev, seed=args.seed)
-        backward_stage_lines(tmodel, B, T, gen, dev, smi)
-        backward_launch_lines(tmodel, B, T, gen, dev)
-        return 0
     results = {}
     with torch.inference_mode():
         for label, key, r, c in (("mhca@64x224x512", "backbone.self_att_V.0.attn", 64, 512),
@@ -3377,7 +3353,7 @@ def main(argv=None) -> int:
                 f"ms, bound {bms:.4f} ms 3xTF32 ({by}) [{smi}]")
         del xe, w1, b1, gy, w2, u, pre, y
 
-        forward_stage_lines(model, gen, dev, smi)
+        profiled = forward_launch_cases(model, gen, dev)     # launch_lines
 
     # ---- 4. serve three batches of 64 videos --------------------------------
     eval_step = make_eval_step(model, cfg, device=dev)
@@ -3516,7 +3492,7 @@ def main(argv=None) -> int:
     set_stem("never")
     log(f"time tblock fwd+bwd@{B}x{T}x512: whole-block kernels {fb['always']} ms, "
         f"default path {fb['never']} ms [{smi}]")
-    backward_stage_lines(tmodel, B, T, gen, dev, smi)
+    profiled += backward_launch_cases(tmodel, B, T, gen, dev)
     del tmodel, blk
 
     # ---- 7. train: 4 checked steps, then timed steps ------------------------
@@ -3681,7 +3657,7 @@ def main(argv=None) -> int:
     dep = dependency_phase(args.seed, dev, smi, gen, reset_counts, counts, results)
 
     # ---- 15. the bf16 compute policy on the serving path ----------------------
-    bf16_launches = bf16_phase(eval_model, args.seed, dev, smi, gen, results)
+    bf16_launches = bf16_phase(eval_model, args.seed, dev, smi, gen, results, profiled)
 
     # ---- 16. the bf16 train step --------------------------------------------------
     bf16_train = bf16_train_phase(args.seed, dev, smi, gen, results, B, T)
@@ -3695,8 +3671,10 @@ def main(argv=None) -> int:
     # ---- 18. the host Soft-NMS, the bench's knobs and MFUs, the accuracy tool -------
     slice16_phase(args.seed, dev, smi, counted)
 
-    # ---- last: the kernels one CSP and one MHCA backward launch --------------
-    backward_launch_lines(build_model(tcfg, device=dev, seed=args.seed), B, T, gen, dev)
+    # ---- last: where one call's device time goes, kernel by kernel -------------
+    profiled.append(mhca_backward_launch_case(build_model(tcfg, device=dev, seed=args.seed),
+                                              B, T, gen, dev))
+    launch_lines(profiled, smi)
 
     def entry(name, label, source, replaces):
         err, ms, pms, bms, by, ffma = results[label]

@@ -267,14 +267,22 @@ def jax_loaded_before(monkeypatch):
     monkeypatch.setattr(run, "forbidden_modules", lambda: sorted(set(real()) - before))
 
 
-def _tiny(seed=5, trace=False, seconds=1.0):
+def _tiny(seed=5, trace=False, seconds=1.0, mix=TINY_MIX):
     return run.run_cell(CELL, seed, seconds, trace, device="cpu", overrides=copy.deepcopy(TINY),
-                        mix_overrides=TINY_MIX)
+                        mix_overrides=mix)
+
+
+# A pool of the cell's check_batches (2) batches: every batch the window serves
+# is a checked one, so the first batch served is judged however few a loaded
+# CPU serves in the window. With the pool of 5, a window that serves only
+# unchecked batches compares no video, and its verdict says nothing of the
+# answers.
+CHECKED_POOL = dict(TINY_MIX, pool=2)
 
 
 @pytest.mark.parametrize("trace", [False, True])
 def test_eval_dep_runs_and_reads_as_eval(trace):
-    rc, line = _tiny(seed=2**31 + 3, trace=trace)
+    rc, line = _tiny(seed=2**31 + 3, trace=trace, mix=CHECKED_POOL)
     assert rc == 0 and line["correct"] is True
     w = spec.cell(spec.benchmark(), CELL)
     wanted = {m["name"] for m in w["per_layer" if trace else "end_to_end"]}
@@ -299,7 +307,7 @@ def test_eval_dep_record_reads_through_the_eval_readers(monkeypatch):
         return records[-1]
 
     monkeypatch.setattr(eval_dep, "run", keep)
-    rc, line = _tiny(seed=11, trace=True)
+    rc, line = _tiny(seed=11, trace=True, mix=CHECKED_POOL)
     assert rc == 0 and line["correct"]
     rec = records[0]
     assert rec["kind"] == "eval" and rec["device"]["platform"] == "cpu"
@@ -325,6 +333,8 @@ def test_eval_dep_record_reads_through_the_eval_readers(monkeypatch):
 
 
 def test_an_altered_answer_is_not_correct(monkeypatch):
+    """Every video's top score halved: one checked batch is over the
+    videos_off limit (2) on its own, whatever the count of batches served."""
     from unav_yolyolva_tpu_torch.eval import step as step_mod
 
     real = step_mod.make_eval_step
@@ -334,17 +344,17 @@ def test_an_altered_answer_is_not_correct(monkeypatch):
 
         def broken(batch):
             dets = {n: v.clone() for n, v in inner(batch).items()}
-            dets["scores"][0, 0] *= 0.5
+            dets["scores"][:, 0] *= 0.5
             return dets
         return broken
     monkeypatch.setattr(step_mod, "make_eval_step", make)
-    rc, line = _tiny(seed=21, seconds=3.0)    # the checked batches served again and again
+    rc, line = _tiny(seed=21, mix=CHECKED_POOL)
     assert rc == 0 and line["correct"] is False
 
 
 def test_a_reference_without_the_block_is_not_correct(monkeypatch):
     monkeypatch.setattr(ref_dep.DependencyBlock, "forward", lambda self, feats, masks: feats)
-    rc, line = _tiny(seed=22)
+    rc, line = _tiny(seed=22, mix=CHECKED_POOL)
     assert rc == 0 and line["correct"] is False
     assert line["checks"]["videos_off"]["value"] > line["checks"]["videos_off"]["limit"]
 

@@ -716,36 +716,6 @@ def test_csp_backward_routes_a_tie_across_tiles(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "not deterministic"
 
 
-def test_csp_stage_times(cuda):
-    """The staged forward times each of its 17 launches and is not counted
-    as a launch of the forward."""
-    from unav_yolyolva_tpu_torch.ops.fused_csp import STAGES, csp_stage_times, fused_csp
-
-    args = _csp_args(torch.Generator().manual_seed(23), cuda, 3, 7, 128, 64, 40, 24, 4)
-    before = fused_csp.launches
-    times = csp_stage_times(*args, attn_heads=4)
-    assert list(times) == list(STAGES) and len(STAGES) == 17
-    assert all(v > 0 for v in times.values())
-    assert fused_csp.launches == before
-
-
-def test_csp_backward_stage_times(cuda):
-    """The staged backward times each of its stages with finite, positive
-    ms and is not counted as a launch of the backward."""
-    import math
-
-    from unav_yolyolva_tpu_torch.ops.fused_csp import (BWD_STAGES, csp_backward,
-                                                       csp_backward_stage_times)
-
-    args = _csp_args(torch.Generator().manual_seed(26), cuda, 3, 20, 128, 64, 40, 24, 4)
-    g = torch.randn(3, 20, 128, generator=torch.Generator().manual_seed(27)).to(cuda)
-    before = csp_backward.launches
-    times = csp_backward_stage_times(*args, g=g, attn_heads=4)
-    assert csp_backward.launches == before
-    assert list(times) == list(BWD_STAGES) and len(BWD_STAGES) == 34
-    assert all(math.isfinite(v) and v > 0 for v in times.values())
-
-
 @pytest.mark.parametrize("case", ["fc1_gelu", "fc2_tail", "du_gelu_grad"])
 def test_tc_epilogue_against_plain_and_fp64(cuda, case):
     """The epilogue product alone at the TBlock MLP's shapes with ragged M
@@ -832,28 +802,6 @@ def test_tc_epilogue_refuses_what_it_does_not_take(cuda):
         tf32x3_products([dict(x=x, w=w, act="gelu_grad", aux=u[:, 1:])])
     with pytest.raises(ValueError):                      # GELU' without its input
         tf32x3_products([dict(x=x, w=w, act="gelu_grad")])
-
-
-def test_tblock_stage_times(cuda):
-    """The staged forward and backward time each of their launches / stages
-    with finite, positive ms and are not counted as launches."""
-    import math
-
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import (BWD_STAGES, STAGES, fused_tblock,
-                                                          tblock_backward,
-                                                          tblock_backward_stage_times,
-                                                          tblock_stage_times)
-
-    gen = torch.Generator().manual_seed(32)
-    args = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 0, 17])
-    g = torch.randn(3, 40, 64, generator=gen).to(cuda)
-    before = (fused_tblock.launches, tblock_backward.launches)
-    fwd = tblock_stage_times(*args, heads=4)
-    bwd = tblock_backward_stage_times(*args, g=g, heads=4)
-    assert (fused_tblock.launches, tblock_backward.launches) == before
-    assert list(fwd) == list(STAGES) and len(STAGES) == 8
-    assert list(bwd) == list(BWD_STAGES) and len(BWD_STAGES) == 20
-    assert all(math.isfinite(v) and v > 0 for v in [*fwd.values(), *bwd.values()])
 
 
 def test_tc_wrappers_refuse_unaligned_operands(cuda):
@@ -1640,38 +1588,6 @@ def test_bf16_wrappers_refuse_unaligned_widths(cuda):
         fused_mhca(x, x, _mask(2, 8, [8, 3], cuda), *ws, heads=4)
 
 
-def test_bf16_stage_times(cuda):
-    """The staged bf16 CSP, MHCA and TBlock forwards time each of their
-    launches (the weights' cast first; the CSP's main conv and guide_fc
-    share one) with finite, positive ms and are not counted as launches."""
-    import math
-
-    from unav_yolyolva_tpu_torch.ops.fused_csp import BF16_STAGES as CSP_STAGES
-    from unav_yolyolva_tpu_torch.ops.fused_csp import csp_stage_times, fused_csp
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import BF16_STAGES as MHCA_STAGES
-    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca, mhca_stage_times
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import BF16_STAGES as TB_STAGES
-    from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_stage_times
-
-    gen = torch.Generator().manual_seed(46)
-    cargs = _csp_args(gen, cuda, 3, 7, 128, 64, 40, 24, 4)
-    cargs = [cargs[0].bfloat16(), cargs[1].bfloat16(), *cargs[2:]]
-    targs = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 0, 17])
-    x = torch.randn(3, 40, 64, generator=gen).to(cuda, torch.bfloat16)
-    margs = (x, x, _mask(3, 40, [40, 0, 17], cuda), *[w.to(cuda) for w in
-                                                      _mhca_weights(64, gen, cuda)])
-    before = (fused_csp.bf16_launches, fused_tblock.bf16_launches, fused_mhca.bf16_launches)
-    csp = csp_stage_times(*cargs, attn_heads=4)
-    tb = tblock_stage_times(*targs, heads=4, cdtype=torch.bfloat16)
-    mh = mhca_stage_times(*margs, heads=4)
-    assert (fused_csp.bf16_launches, fused_tblock.bf16_launches,
-            fused_mhca.bf16_launches) == before
-    assert list(csp) == list(CSP_STAGES) and len(CSP_STAGES) == 17
-    assert list(tb) == list(TB_STAGES) and len(TB_STAGES) == 9
-    assert list(mh) == list(MHCA_STAGES) and len(MHCA_STAGES) == 5
-    assert all(math.isfinite(v) and v > 0 for v in [*csp.values(), *tb.values(), *mh.values()])
-
-
 @pytest.mark.parametrize("vjp", [False, True])
 @pytest.mark.parametrize("t,c,heads,lengths", [(100, 256, 4, [100, 57, 0]),
                                                (512, 256, 2, [512, 300, 1])])
@@ -1789,30 +1705,26 @@ def test_bf16_csp_backward_routes_a_tie_across_tiles(cuda):
     assert torch.equal(dguide[:, 3], dguide[:, 150]), "the tie was broken across tiles"
 
 
-@pytest.mark.parametrize("t,heads", [(7, 8), (20, 4)])
-def test_bf16_csp_forward_launch_budget(cuda, t, heads):
-    """One bf16 CSP forward launches at most 17 kernels (the weights' cast,
-    the main conv with guide_fc, four a MHCA, the projection conv, the gate,
-    the final conv), counted by torch.profiler after a warm-up profile. A
-    process that has profiled before may get a profile back without device
-    events; the count is taken from the first of up to four profiles that
-    has kernels, and a test whose profiles all come back empty fails."""
-    from torch.profiler import ProfilerActivity, profile
-
+@pytest.mark.parametrize("t,heads,dtype,budget", [(7, 8, torch.bfloat16, 17),
+                                                  (20, 4, torch.bfloat16, 17),
+                                                  (7, 4, torch.float32, 18)])
+def test_bf16_csp_forward_launch_budget(cuda, t, heads, dtype, budget):
+    """One CSP forward launches at most `budget` kernels: in bf16 17, the
+    weights' cast, the main conv with guide_fc, four a MHCA, the projection
+    conv, the gate, the final conv; in fp32 the C entry's 17 (the main conv,
+    four a MHCA, guide_fc, the projection conv, the gate, the final conv)
+    and the wrapper's copy of Wproj into (mid, 3, mid). Counted by
+    torch.profiler (_kernel_rows)."""
     from unav_yolyolva_tpu_torch.ops.fused_csp import fused_csp
 
-    args = _bf16_csp_args(torch.Generator().manual_seed(55), cuda, 3, t, heads)
-    fused_csp(*args, attn_heads=heads)
-    rows = []
-    for attempt in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fused_csp(*args, attn_heads=heads)
-            torch.cuda.synchronize()
-        rows = [(e.key, e.count) for e in prof.key_averages() if is_kernel(e)]
-        if attempt and rows:   # the first profile is the warm-up
-            break
-    assert 0 < sum(c for _, c in rows) <= 17, rows
+    gen = torch.Generator().manual_seed(55)
+    if dtype == torch.bfloat16:
+        args = _bf16_csp_args(gen, cuda, 3, t, heads)
+    else:
+        args = _csp_args(gen, cuda, 3, t, 128, 64, 40, 24, heads)
+    assert args[0].dtype == dtype
+    rows = _kernel_rows(lambda: fused_csp(*args, attn_heads=heads))
+    assert 0 < sum(c for _, c in rows) <= budget, rows
 
 
 @pytest.mark.parametrize("mid,heads", [(64, 16), (96, 8)])
@@ -1932,11 +1844,14 @@ def _kernel_rows(fn):
 
 def test_bf16_tblock_launch_budgets(cuda):
     """One bf16 whole-block TBlock forward launches at most 9 kernels (the
-    weights' cast, ln11 + ln12, four of the MHCA, residual + ln2, fc1, fc2)
-    and one backward at most 32: the first design's 34 at this shape
-    (tools/bf16_tblock_ab.py's `launches` line) less the two GELU passes
-    that the products' epilogues took over; none of them a GELU pass.
-    Counted by torch.profiler."""
+    weights' cast, ln11 + ln12, four of the MHCA, residual + ln2, fc1, fc2),
+    its bf16 MHCA alone at most 5 (the weights' cast, conv + LayerNorm,
+    q/k/v, the attention, proj), the fp32 TBlock forward at most 8 (no
+    cast), and one bf16 backward at most 32: the first design's 34 at this
+    shape (tools/bf16_tblock_ab.py's `launches` line) less the two GELU
+    passes that the products' epilogues took over; none of them a GELU
+    pass. Counted by torch.profiler."""
+    from unav_yolyolva_tpu_torch.ops.fused_mhca import fused_mhca
     from unav_yolyolva_tpu_torch.ops.fused_tblock import fused_tblock, tblock_backward
 
     gen = torch.Generator().manual_seed(58)
@@ -1944,22 +1859,15 @@ def test_bf16_tblock_launch_budgets(cuda):
     g = torch.randn(3, 40, 64, generator=gen).to(cuda)
     rows = _kernel_rows(lambda: fused_tblock(*a, heads=4, cdtype=torch.bfloat16))
     assert 0 < sum(c for _, c in rows) <= 9, rows
+    rows = _kernel_rows(lambda: fused_tblock(*a, heads=4))
+    assert 0 < sum(c for _, c in rows) <= 8, rows
+    x = a[0].bfloat16()
+    ws = [w.to(cuda) for w in _mhca_weights(64, gen, cuda)]
+    rows = _kernel_rows(lambda: fused_mhca(x, x, a[1], *ws, heads=4))
+    assert 0 < sum(c for _, c in rows) <= 5, rows
     rows = _kernel_rows(lambda: tblock_backward(*a, g=g, heads=4, cdtype=torch.bfloat16))
     assert 0 < sum(c for _, c in rows) <= 32, rows
     assert not any("gelu" in k for k, _ in rows), rows
-
-
-def test_bf16_tblock_backward_stage_times(cuda):
-    """The bf16 backward's stage breakdown: one entry a stage of
-    BF16_BWD_STAGES, in order, each a time >= 0."""
-    from unav_yolyolva_tpu_torch.ops import fused_tblock
-
-    gen = torch.Generator().manual_seed(59)
-    a = _tblock_args(gen, cuda, 3, 40, 64, 4, [40, 20, 0])
-    g = torch.randn(3, 40, 64, generator=gen).to(cuda)
-    st = fused_tblock.tblock_backward_stage_times(*a, g=g, heads=4, cdtype=torch.bfloat16)
-    assert list(st) == list(fused_tblock.BF16_BWD_STAGES)
-    assert all(v >= 0 for v in st.values())
 
 
 # ---- the train step's CUDA graph (train/step.py) ------------------------------------

@@ -791,8 +791,7 @@ static long mhca_bf16_scratch_elems(int R, int T, int C) { return 6L * R * T * C
 // One MaskedMHCA forward in bf16. x1 (k/v source), x2 (q source) (R*T, C)
 // bf16 with row strides ld1 / ld2; out bf16 with row stride ldo. Weights:
 // dw (3, C, 3), lnw / lnb (3, C) fp32; wb (4, C, C), bb (4, C) bf16 (cast).
-// marks, if given, gets an event after each of the four launches. The
-// attention's output goes to att (P x C) if given, else over the start of
+// The attention's output goes to att (P x C) if given, else over the start of
 // the scratch; a backward that keeps the scratch and att reads its
 // recompute from them.
 static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long ld2,
@@ -800,7 +799,7 @@ static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long
                                   const float* dw, const float* lnw, const float* lnb,
                                   const bf16* wb, const bf16* bb, float eps, bf16* out,
                                   long ldo, bf16* scratch, cudaStream_t stream,
-                                  StageMarks* marks = nullptr, bf16* att = nullptr) {
+                                  bf16* att = nullptr) {
   const long P = (long)R * T, PC = P * C;
   const int d = C / H;
   bf16* nrm = scratch;            // normalized q/k/v, later the attention output
@@ -810,7 +809,6 @@ static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long
         x1, ld1, x2, ld2, mask, P, T, C, dw, lnw, lnb, eps, nrm);
   });
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   Bf16Batch b;
   for (int i = 0; i < 3; ++i)
@@ -818,17 +816,14 @@ static int mhca_bf16_forward_impl(const bf16* x1, long ld1, const bf16* x2, long
                        bb + (long)i * C, i == 2 ? mask : nullptr, (int)P, C, C);
   b.g[0].scale = __bfloat162float(__float2bfloat16_rn((float)(1.0 / sqrt((double)d))));
   if ((rc = launch_gemm_bf16(b, 3, stream))) return rc;
-  mark_stage(marks, stream);
 
   bf16* o = att ? att : nrm;
   rc = launch_attn_bf16(qkv, qkv + PC, qkv + 2 * PC, mask, R, T, C, H, o, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   rc = launch_gemm_bf16_one(bf16_gemm(o, C, wb + 3L * C * C, C, out, ldo, bb + 3L * C, mask,
                                       (int)P, C, C),
                             stream);
-  mark_stage(marks, stream);
   return rc;
 }
 

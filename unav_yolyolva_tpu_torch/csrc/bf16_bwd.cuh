@@ -997,13 +997,6 @@ __global__ void __launch_bounds__(256) mhca_dx_bf16_kernel(
 
 constexpr int MHCA_HAND = 0, MHCA_VJP = 1;
 
-// stages of mhca_bf16_backward, each marked at its end: the recompute (conv
-// + LN, q/k/v, the attention's output; none where the caller kept them),
-// proj (go), the attention backward (dq, dk, dv), the dense layers' input
-// grads, their weight grads, the LN and conv backward, the sums (none where
-// the caller takes them) (ops/fused_mhca.py:BWD_BF16_STAGES)
-constexpr int MHCA_BF16_BWD_STAGES = 7;
-
 // One MHCA backward's device buffers (mhca_bwd_bf16_buffers carves them):
 // the forward's recompute (y3 the normalized q/k/v inputs and qkv the
 // projections, one 6 x P x C piece as mhca_bf16_forward_impl's scratch, o
@@ -1065,7 +1058,7 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
                               long ldg, const bf16* prev, long ldprev, bf16* dx1, long lddx1,
                               bf16* dx2, long lddx2, const MhcaGrads& gr, int Rj, int tpad,
                               const MhcaBwdBufs& bu, bool recompute, SumLists* sums,
-                              XSplit split, cudaStream_t s, StageMarks* marks = nullptr) {
+                              XSplit split, cudaStream_t s) {
   const long P = (long)R * T, PC = P * C, CC = (long)C * C;
   const int d = C / H, vjp = form == MHCA_VJP;
   const bool one = vjp && x1 == x2 && ld1 == ld2;
@@ -1090,7 +1083,6 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
     if ((rc = launch_attn_bf16(bu.qkv, bu.qkv + PC, bu.qkv + 2 * PC, mask, R, T, C, H, bu.o, s)))
       return rc;
   }
-  mark_stage(marks, s);
   const bf16 *q = bu.qkv, *k = bu.qkv + PC, *v = bu.qkv + 2 * PC;
 
   // proj: go = bf16((g . m) Wp), the mask read with g
@@ -1100,14 +1092,12 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
   xg_b(pg, wb + 3 * CC, C);
   xg_c(pg, bu.go, C, 0);
   if ((rc = launch_xgemm(pg, s))) return rc;
-  mark_stage(marks, s);
 
   // attention backward: dq = bf16(dS k) * scale, dk = bf16(dS^T q), dv =
   // bf16(bf16(P)^T go) * mask
   if ((rc = launch_attn_bwd_bf16(q, k, v, bu.go, mask, R, T, C, H, vjp, scale, bu.dqkv,
                                  bu.dqkv + PC, bu.dqkv + 2 * PC, bu.stat, s)))
     return rc;
-  mark_stage(marks, s);
 
   // dense layers: the LN outputs' grads dyl_i = bf16(dy_i W_i), one launch;
   // the weight grads dy_i^T y_i and (g . m)^T o, per block rounded (vjp) or
@@ -1120,7 +1110,6 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
     xg_c(xg[i], bu.dyl + i * PC, C, 0);
   }
   if ((rc = launch_xgemms(xg, 3, s))) return rc;
-  mark_stage(marks, s);
   for (int i = 0; i < 4; ++i) {
     xg[i] = xgemm(C, C, (int)P);
     if (i < 3) {
@@ -1135,7 +1124,6 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
     if (vjp) xg_blocks(xg[i], Rj * T);
   }
   if ((rc = launch_xgemms(xg, 4, s, split))) return rc;
-  mark_stage(marks, s);
 
   // LayerNorm backward, the conv's input grads
   rc = with_cpl(C, [&](auto cpl) {
@@ -1146,7 +1134,6 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
   mhca_dx_bf16_kernel<<<ceil_div(PC, 256), 256, 0, s>>>(bu.dzm, P, T, C, dw, vjp, one, prev,
                                                         ldprev, dx1, lddx1, dx2, lddx2);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, s);
 
   // the sums: LN affine (fp32 in both forms); biases and taps fp32 (hand) or
   // bf16 in XLA's order per block (vjp)
@@ -1193,6 +1180,5 @@ static int mhca_bf16_backward(int form, const bf16* x1, long ld1, const bf16* x2
     if (own.nx && (rc = launch_xla_sums(xown, own.nx, R / Rj, Rj, bu.xwork, bu.xwork_floats, s)))
       return rc;
   }
-  mark_stage(marks, s);
   return 0;
 }

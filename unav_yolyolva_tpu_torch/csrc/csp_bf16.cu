@@ -38,20 +38,13 @@ extern "C" long unav_csp_bf16_scratch(int R, int T, int Cin, int mid, int Ng, in
 // Fg); battn (H); wproj (mid, mid, 3) [out, in, tap] as the layer keeps it
 // (the weights' cast writes the product's (mid, 3, mid)); wfinal (Cout,
 // 6mid).
-#define UNAV_CSP_BF16_PARAMS                                                             \
-  const bf16 *x, const bf16 *guide, const unsigned char *mask, int R, int T, int Cin,    \
-      int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads,                  \
-      const float *wmain, const float *bmain, const float *dw, const float *lnw,          \
-      const float *lnb, const float *w, const float *b, const float *wg, const float *bg, \
-      const float *battn, const float *wproj, const float *bproj, const float *wfinal,    \
-      const float *bfinal, float eps, bf16 *out, bf16 *scratch, void *stream
-#define UNAV_CSP_BF16_ARGS                                                               \
-  x, guide, mask, R, T, Cin, mid, Ng, Fg, Cout, attn_heads, mhca_heads, wmain, bmain, dw, \
-      lnw, lnb, w, b, wg, bg, battn, wproj, bproj, wfinal, bfinal, eps, out, scratch, stream
-
-// The forward; marks, if given, gets an event after each launch
-// (CSP_BF16_STAGES of them).
-static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
+extern "C" int unav_csp_bf16_forward(
+    const bf16* x, const bf16* guide, const unsigned char* mask, int R, int T, int Cin,
+    int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads, const float* wmain,
+    const float* bmain, const float* dw, const float* lnw, const float* lnb, const float* w,
+    const float* b, const float* wg, const float* bg, const float* battn, const float* wproj,
+    const float* bproj, const float* wfinal, const float* bfinal, float eps, bf16* out,
+    bf16* scratch, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int P = R * T, C6 = 6 * mid, emb = mid;
   bf16* cat = scratch;
@@ -72,27 +65,24 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
   const bf16* bfinal_b = cast_push(l, next, bfinal, Cout);
   int rc = launch_cast(l, s);
   if (rc) return rc;
-  mark_stage(marks, s);
 
   Bf16Batch mg;   // the main conv and guide_fc: independent products, one launch
   mg.g[0] = bf16_gemm(x, Cin, wmain_b, Cin, cat, C6, bmain_b, mask, P, 2 * mid, Cin);
   mg.g[1] = bf16_gemm(guide, Fg, wg_b, Fg, gp, emb, bg_b, nullptr, R * Ng, emb, Fg);
   if ((rc = launch_gemm_bf16(mg, 2, s))) return rc;
-  mark_stage(marks, s);
   for (int bi = 0; bi < 3; ++bi) {
     const bf16* src = cat + (1 + bi) * mid;
     rc = mhca_bf16_forward_impl(src, C6, src, C6, mask, R, T, mid, mhca_heads,
                                 dw + (long)bi * 3 * mid * 3, lnw + (long)bi * 3 * mid,
                                 lnb + (long)bi * 3 * mid, w_b + (long)bi * 4 * mid * mid,
                                 b_b + (long)bi * 4 * mid, eps, cat + (2 + bi) * mid, C6, mhca,
-                                s, marks);
+                                s);
     if (rc) return rc;
   }
   Bf16Gemm pj = bf16_gemm(cat + 4 * mid, C6, wproj_b, 3 * mid, cat + 5 * mid, C6, bproj_b, mask,
                           P, mid, 3 * mid);
   pj.taps = 3; pj.Kc = mid; pj.seq = T;
   if ((rc = launch_gemm_bf16_one(pj, s))) return rc;
-  mark_stage(marks, s);
 
   const int hc = emb / attn_heads;
   rc = with_gate_hp(hc, [&](auto hp) {
@@ -105,27 +95,8 @@ static int csp_bf16_forward_impl(UNAV_CSP_BF16_PARAMS, StageMarks* marks) {
         cat + 5 * mid, C6, mid / attn_heads);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
 
   rc = launch_gemm_bf16_one(
       bf16_gemm(cat, C6, wfinal_b, C6, out, Cout, bfinal_b, mask, P, Cout, C6), s);
-  mark_stage(marks, s);
   return rc;
-}
-
-extern "C" int unav_csp_bf16_forward(UNAV_CSP_BF16_PARAMS) {
-  return csp_bf16_forward_impl(UNAV_CSP_BF16_ARGS, nullptr);
-}
-
-// stages of one forward, in launch order: the weights' cast; main conv and
-// guide_fc; per MHCA block its conv + LayerNorm, q/k/v, attention and proj;
-// projection conv; gate; final conv
-constexpr int CSP_BF16_STAGES = 2 + 3 * 4 + 3;
-
-// The same forward, synchronised, with the device time of each stage in
-// stage_ms (CSP_BF16_STAGES floats, CUDA events between the launches).
-extern "C" int unav_csp_bf16_forward_stages(UNAV_CSP_BF16_PARAMS, float* stage_ms) {
-  return time_stages<CSP_BF16_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
-    return csp_bf16_forward_impl(UNAV_CSP_BF16_ARGS, marks);
-  });
 }

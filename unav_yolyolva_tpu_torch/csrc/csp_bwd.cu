@@ -235,9 +235,8 @@ extern "C" long unav_csp_backward_scratch(int R, int T, int Cin, int mid, int Ng
 // The grads of one CSP layer forward (operands as unav_csp_forward, plus
 // wprojT (3, mid, mid) [tap, out, in]) for the upstream grad gout (R*T, Cout):
 // dx, dguide, and one fp32 grad per weight in the weight's own layout
-// (gwproj (mid, 3, mid) as wproj is passed). marks, if given, gets an event
-// after each stage (CSP_BWD_STAGES of them).
-static int csp_backward_impl(
+// (gwproj (mid, 3, mid) as wproj is passed).
+extern "C" int unav_csp_backward(
     const float* x, const float* guide, const unsigned char* mask,
     int R, int T, int Cin, int mid, int Ng, int Fg, int Cout, int attn_heads,
     int mhca_heads, const float* wmain, const float* bmain, const float* dw,
@@ -247,7 +246,8 @@ static int csp_backward_impl(
     float eps, const float* gout, float* dx, float* dguide, float* gwmain, float* gbmain,
     float* gdw, float* glnw, float* glnb, float* gw, float* gb, float* gwg, float* gbg,
     float* gbattn, float* gwproj, float* gbproj, float* gwfinal, float* gbfinal,
-    float* scratch, cudaStream_t stream, StageMarks* marks) {
+    float* scratch, void* stream_) {
+  const cudaStream_t stream = (cudaStream_t)stream_;
   const int P = R * T, C6 = 6 * mid, emb = mid, H = attn_heads, hc = emb / H;
   const CspScratch s = csp_scratch(scratch, R, T, Cin, mid, Ng, Fg, Cout, H, mhca_heads);
   const long MM = (long)mid * mid;
@@ -284,41 +284,34 @@ static int csp_backward_impl(
                                                   H, sqrt_hc, s.cat + 5 * mid, C6, mid / H,
                                                   s.mx, s.idx, s.cnt);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
 
   // ---- final conv ----------------------------------------------------------
   g.g[0] = gemm_nn(gout, Cout, wfinal, C6, s.dcat, C6, mask, P, C6, Cout);
   if ((rc = launch_gemm(g, 1, stream))) return rc;
-  mark_stage(marks, stream);
   g.g[0] = gemm_wgrad(gout, Cout, s.cat, C6, gwfinal, mask, Cout, C6, P);
   if ((rc = launch_gemm(g, 1, stream, s.split, s.split_floats))) return rc;
-  mark_stage(marks, stream);
 
   // ---- gate: d(pc), d(bias), d(p) into slice 4, d(gp) --------------------
   gate_bwd_kernel<<<tgrid, 256, 0, stream>>>(
       s.cat + 4 * mid, C6, s.gp, battn, s.pc, s.dcat + 5 * mid, C6, mask, T, Ng, emb, H,
       sqrt_hc, mid / H, s.mx, s.idx, s.cnt, s.dpc, s.dz, s.coef, s.dcat + 4 * mid, C6);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
   const size_t gsmem = gate_guide_smem_bytes(hc, T);
   static int glimit = 0;
   raise_smem_limit((const void*)gate_bwd_guide_kernel, (int)gsmem, glimit);
   gate_bwd_guide_kernel<<<dim3(ceil_div(Ng, GUIDE_NB), H, R), 256, gsmem, stream>>>(
       s.cat + 4 * mid, C6, s.gp, T, Ng, emb, H, s.coef, s.mx, s.idx, s.cnt, s.dgp);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
 
   // ---- k=3 projection conv, guide_fc -------------------------------------
   g.g[0] = gemm_nn(s.dpc, mid, wprojT, mid, s.dcat + 4 * mid, C6, nullptr, P, mid, 3 * mid);
   g.g[0].taps = 3; g.g[0].tapdir = -1; g.g[0].Kc = mid; g.g[0].seq = T; g.g[0].beta = 1;
   g.g[1] = gemm_nn(s.dgp, emb, wg, Fg, dguide, Fg, nullptr, R * Ng, Fg, emb);
   if ((rc = launch_gemm(g, 2, stream))) return rc;
-  mark_stage(marks, stream);
   g.g[0] = gemm_wgrad(s.dpc, mid, s.cat + 4 * mid, C6, gwproj, nullptr, mid, 3 * mid, P);
   g.g[0].btaps = 3; g.g[0].Kc = mid; g.g[0].seq = T;
   g.g[1] = gemm_wgrad(s.dgp, emb, guide, Fg, gwg, nullptr, emb, Fg, R * Ng);
   if ((rc = launch_gemm(g, 2, stream, s.split, s.split_floats))) return rc;
-  mark_stage(marks, stream);
 
   // ---- the three MHCA blocks in reverse ----------------------------------
   for (int bi = 2; bi >= 0; --bi) {
@@ -328,17 +321,15 @@ static int csp_backward_impl(
         lnw + (long)bi * 3 * mid, w + (long)bi * 4 * MM, eps, sv[bi], s.dcat + (2 + bi) * mid,
         C6, s.dcat + (1 + bi) * mid, C6, s.dcat + (1 + bi) * mid, C6, 1,
         gdw + (long)bi * 3 * mid * 3, glnw + (long)bi * 3 * mid, glnb + (long)bi * 3 * mid,
-        gw + (long)bi * 4 * MM, gb + (long)bi * 4 * mid, s.work, stream, marks);
+        gw + (long)bi * 4 * MM, gb + (long)bi * 4 * mid, s.work, stream);
     if (rc) return rc;
   }
 
   // ---- main conv -----------------------------------------------------------
   g.g[0] = gemm_nn(s.dcat, C6, wmain, Cin, dx, Cin, mask, P, Cin, 2 * mid);
   if ((rc = launch_gemm(g, 1, stream))) return rc;
-  mark_stage(marks, stream);
   g.g[0] = gemm_wgrad(s.dcat, C6, x, Cin, gwmain, mask, 2 * mid, Cin, P);
   if ((rc = launch_gemm(g, 1, stream, s.split, s.split_floats))) return rc;
-  mark_stage(marks, stream);
 
   ColBatch cb;
   int n = 0;
@@ -350,41 +341,5 @@ static int csp_backward_impl(
   cb.j[n++].rowmask = mask;
   cb.j[n++] = col_job(s.dz, H, P, H, gbattn);
   rc = launch_colsum(cb, n, s.partial, stream);
-  mark_stage(marks, stream);
   return rc;
-}
-
-#define UNAV_CSP_BWD_PARAMS                                                              \
-  const float *x, const float *guide, const unsigned char *mask, int R, int T, int Cin,   \
-      int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads,                 \
-      const float *wmain, const float *bmain, const float *dw, const float *lnw,         \
-      const float *lnb, const float *w, const float *b, const float *wg,                 \
-      const float *bg, const float *battn, const float *wproj, const float *wprojT,      \
-      const float *bproj, const float *wfinal, const float *bfinal, float eps,           \
-      const float *gout, float *dx, float *dguide, float *gwmain, float *gbmain,         \
-      float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gwg, float *gbg, \
-      float *gbattn, float *gwproj, float *gbproj, float *gwfinal, float *gbfinal,       \
-      float *scratch, void *stream
-#define UNAV_CSP_BWD_ARGS                                                                \
-  x, guide, mask, R, T, Cin, mid, Ng, Fg, Cout, attn_heads, mhca_heads, wmain, bmain, dw, \
-      lnw, lnb, w, b, wg, bg, battn, wproj, wprojT, bproj, wfinal, bfinal, eps, gout, dx, \
-      dguide, gwmain, gbmain, gdw, glnw, glnb, gw, gb, gwg, gbg, gbattn, gwproj, gbproj,  \
-      gwfinal, gbfinal, scratch, (cudaStream_t)stream
-
-extern "C" int unav_csp_backward(UNAV_CSP_BWD_PARAMS) {
-  return csp_backward_impl(UNAV_CSP_BWD_ARGS, nullptr);
-}
-
-// stages of one backward, in launch order (ops/fused_csp.py:BWD_STAGES):
-// recompute; final conv dx, dW; gate, guide gather; projection conv and
-// guide_fc dx, dW; per MHCA block (2, 1, 0) its MHCA_BWD_STAGES; main conv
-// dx, dW; column sums
-constexpr int CSP_BWD_STAGES = 1 + 2 + 2 + 2 + 3 * MHCA_BWD_STAGES + 2 + 1;
-
-// The same backward, synchronised, with the device time of each stage in
-// stage_ms (CSP_BWD_STAGES floats, CUDA events between the stages).
-extern "C" int unav_csp_backward_stages(UNAV_CSP_BWD_PARAMS, float* stage_ms) {
-  return time_stages<CSP_BWD_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
-    return csp_backward_impl(UNAV_CSP_BWD_ARGS, marks);
-  });
 }

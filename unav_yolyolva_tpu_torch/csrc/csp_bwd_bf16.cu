@@ -181,25 +181,16 @@ extern "C" long unav_csp_bf16_backward_scratch(int R, int T, int Cin, int mid, i
 // (4, mid, mid), b (4, mid); wg (emb, Fg); battn (H); wproj (mid, mid, 3)
 // [out, in, tap]; wfinal (Cout, 6mid). Writes dx (R*T, Cin) and dguide
 // (R*Ng, Fg) bf16, and the fp32 weight grads in the weights' layouts.
-#define UNAV_CSP_BF16_BWD_PARAMS                                                            \
-  const bf16 *x, const bf16 *guide, const unsigned char *mask, int R, int T, int Cin,       \
-      int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads, int Rj, int tpad,   \
-      const float *wmain, const float *bmain, const float *dw, const float *lnw,             \
-      const float *lnb, const float *w, const float *b, const float *wg, const float *bg,    \
-      const float *battn, const float *wproj, const float *bproj, const float *wfinal,       \
-      const float *bfinal, float eps, const bf16 *g, bf16 *dx, bf16 *dguide, float *gwmain,  \
-      float *gbmain, float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gwg,  \
-      float *gbg, float *gbattn, float *gwproj, float *gbproj, float *gwfinal,               \
-      float *gbfinal, float *scratch, void *stream
-#define UNAV_CSP_BF16_BWD_ARGS                                                              \
-  x, guide, mask, R, T, Cin, mid, Ng, Fg, Cout, attn_heads, mhca_heads, Rj, tpad, wmain,     \
-      bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj, wfinal, bfinal, eps, g, dx,     \
-      dguide, gwmain, gbmain, gdw, glnw, glnb, gw, gb, gwg, gbg, gbattn, gwproj, gbproj,     \
-      gwfinal, gbfinal, scratch, stream
-
-// The backward; marks, if given, gets an event at the end of each stage
-// (CSP_BF16_BWD_STAGES of them).
-static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
+extern "C" int unav_csp_bf16_backward(
+    const bf16* x, const bf16* guide, const unsigned char* mask, int R, int T, int Cin,
+    int mid, int Ng, int Fg, int Cout, int attn_heads, int mhca_heads, int Rj, int tpad,
+    const float* wmain, const float* bmain, const float* dw, const float* lnw,
+    const float* lnb, const float* w, const float* b, const float* wg, const float* bg,
+    const float* battn, const float* wproj, const float* bproj, const float* wfinal,
+    const float* bfinal, float eps, const bf16* g, bf16* dx, bf16* dguide, float* gwmain,
+    float* gbmain, float* gdw, float* glnw, float* glnb, float* gw, float* gb, float* gwg,
+    float* gbg, float* gbattn, float* gwproj, float* gbproj, float* gwfinal,
+    float* gbfinal, float* scratch, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const int H = attn_heads, emb = mid, hc = emb / H, och = mid / H, C6 = 6 * mid;
   const long P = (long)R * T, Z = (long)R * H, MM = (long)mid * mid;
@@ -222,7 +213,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   }
   int rc = launch_cast(l, s);
   if (rc) return rc;
-  mark_stage(marks, s);
 
   // ---- the forward, recomputed; each MHCA keeps its recompute
   if ((rc = launch_gemm_bf16_one(
@@ -234,7 +224,7 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
                                 dw + (long)bi * 3 * mid * 3, lnw + (long)bi * 3 * mid,
                                 lnb + (long)bi * 3 * mid, u.w + (long)bi * 4 * MM,
                                 u.b + (long)bi * 4 * mid, eps, u.cat + (2 + bi) * mid, C6,
-                                u.mb[bi].y3, s, nullptr, u.mb[bi].o);
+                                u.mb[bi].y3, s, u.mb[bi].o);
     if (rc) return rc;
   }
   Bf16Batch gb2;
@@ -254,7 +244,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
         u.cat + 5 * mid, C6);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
 
   // ---- final conv: its output's grad g . m, the mask read with g
   XGemm fw = xgemm(Cout, C6, (int)P);
@@ -270,7 +259,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   xg_b(fx, u.wfinal, C6);
   xg_c(fx, u.dcat, C6, 0);
   if ((rc = launch_xgemm(fx, s))) return rc;
-  mark_stage(marks, s);
 
   // ---- the gate; with it the projection conv's products (the taps (left,
   // centre, right) read p[t-1], p[t], p[t+1])
@@ -278,7 +266,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
       u.dcat + 5 * mid, C6, u.pc, mask, u.sc, u.stat, R, T, Ng, H, sqrt_hc, och, u.dpc, u.dbias,
       u.dsc);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, s);
   const long TN = (long)T * Ng;
   XGemm xa[4];
   xa[0] = xgemm(T, hc, Ng);   // d(p) of the scores: dsc . gp_h
@@ -313,7 +300,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   p_grad_bf16_kernel<<<ceil_div(P * mid, 256), 256, 0, s>>>(u.dcat + 4 * mid, C6, u.de, u.dC,
                                                             u.dR, u.dL, P, T, mid);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, s);
 
   // ---- guide_fc
   XGemm gw_ = xgemm(emb, Fg, R * Ng);
@@ -327,7 +313,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   xg_b(gx, u.wg, Fg);
   xg_c(gx, dguide, Fg, 0);
   if ((rc = launch_xgemm(gx, s))) return rc;
-  mark_stage(marks, s);
 
   // ---- the three MHCAs in reverse: block bi reads slice bi+1, its output's
   // grad is slice bi+2, its input's grads go after the concat's, in place;
@@ -345,7 +330,7 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
         C6, dsrc, C6, dsrc, C6, nullptr, 0,
         MhcaGrads{gdw + o3 * 3, glnw + o3, glnb + o3, gw + (long)bi * 4 * MM,
                   gb + (long)bi * 4 * mid},
-        Rj, tpad, u.mb[bi], false, &lists, split, s, marks);
+        Rj, tpad, u.mb[bi], false, &lists, split, s);
     if (rc) return rc;
   }
 
@@ -363,7 +348,6 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   xg_b(mx, u.wmain, Cin);
   xg_c(mx, dx, Cin, 0);
   if ((rc = launch_xgemm(mx, s))) return rc;
-  mark_stage(marks, s);
 
   // ---- the sums: the biases and taps in XLA's order per block, the three
   // MHCAs' with them; the LayerNorms' affine and battn's in fp32
@@ -375,23 +359,5 @@ static int csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_PARAMS, StageMarks* marks) {
   if ((rc = launch_xla_sums(xj, lists.nx, R / Rj, Rj, u.xwork, u.xwork_floats, s))) return rc;
   fj.j[lists.nf++] = fjob(u.dbias, H, 0, (int)P, H, gbattn);
   rc = launch_fsums(fj, lists.nf, u.partial, s);
-  mark_stage(marks, s);
   return rc;
-}
-
-extern "C" int unav_csp_bf16_backward(UNAV_CSP_BF16_BWD_PARAMS) {
-  return csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_ARGS, nullptr);
-}
-
-// stages of one backward (ops/fused_csp.py:BWD_BF16_STAGES): the weights'
-// cast; the recompute; final conv; the gate; the projection conv; guide_fc;
-// per MHCA block (2, 1, 0) its MHCA_BF16_BWD_STAGES; main conv; the sums
-constexpr int CSP_BF16_BWD_STAGES = 6 + 3 * MHCA_BF16_BWD_STAGES + 2;
-
-// The same backward, synchronised, with the device time of each stage in
-// stage_ms (CSP_BF16_BWD_STAGES floats, CUDA events between them).
-extern "C" int unav_csp_bf16_backward_stages(UNAV_CSP_BF16_BWD_PARAMS, float* stage_ms) {
-  return time_stages<CSP_BF16_BWD_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
-    return csp_bf16_backward_impl(UNAV_CSP_BF16_BWD_ARGS, marks);
-  });
 }

@@ -306,45 +306,14 @@ static int launch_attn(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Optional CUDA events recorded between the stages of a forward or backward
-// (the breakdowns of the *_stages entry points); nullptr records nothing.
-struct StageMarks {
-  cudaEvent_t* ev;
-  int n, cap;
-};
-
-static void mark_stage(StageMarks* m, cudaStream_t stream) {
-  if (m && m->n < m->cap) cudaEventRecord(m->ev[m->n++], stream);
-}
-
-// Runs fn(&marks), which marks the end of each of its N stages, after one
-// event on the stream; synchronises and writes each stage's device ms into
-// stage_ms (N floats): the *_stages entry points.
-template <int N, class F>
-static int time_stages(cudaStream_t stream, float* stage_ms, F fn) {
-  cudaEvent_t ev[N + 1];
-  for (auto& e : ev) cudaEventCreate(&e);
-  StageMarks marks{ev + 1, 0, N};
-  cudaEventRecord(ev[0], stream);
-  int rc = fn(&marks);
-  if (!rc && marks.n != N) rc = (int)cudaErrorInvalidValue;
-  if (!rc) rc = (int)cudaEventSynchronize(ev[N]);
-  for (int i = 0; !rc && i < N; ++i)
-    rc = (int)cudaEventElapsedTime(stage_ms + i, ev[i], ev[i + 1]);
-  for (auto& e : ev) cudaEventDestroy(e);
-  return rc;
-}
-
 // Launches 1-3 of the forward: nrm (3 x P x C) gets the normalized q/k/v
 // inputs, qkv (3 x P x C) the projections (q scaled by 1/sqrt(d), v masked),
-// att (P x C) the attention output; lse (R x H x T) is optional. marks, if
-// given, gets an event after each launch.
+// att (P x C) the attention output; lse (R x H x T) is optional.
 static int mhca_attention_impl(const float* x1, long ld1, const float* x2, long ld2,
                                const unsigned char* mask, int R, int T, int C, int H,
                                const float* dw, const float* lnw, const float* lnb,
                                const float* w, const float* b, float eps, float* nrm,
-                               float* qkv, float* att, float* lse, cudaStream_t stream,
-                               StageMarks* marks = nullptr) {
+                               float* qkv, float* att, float* lse, cudaStream_t stream) {
   const long P = (long)R * T, PC = P * C;
   const int d = C / H;
 
@@ -360,7 +329,6 @@ static int mhca_attention_impl(const float* x1, long ld1, const float* x2, long 
     default: return (int)cudaErrorInvalidValue;
   }
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
 
   const float qscale = (float)(1.0 / sqrt((double)d));
   GemmBatch qkv_batch;
@@ -370,34 +338,29 @@ static int mhca_attention_impl(const float* x1, long ld1, const float* x2, long 
                                i == 0 ? qscale : 1.f, (int)P, C, C);
   int rc = launch_gemm(qkv_batch, 3, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   rc = launch_attn(qkv, qkv + PC, qkv + 2 * PC, mask, R, T, C, H, att, lse, stream);
-  mark_stage(marks, stream);
   return rc;
 }
 
 // One MaskedMHCA forward. x1 (k/v source) and x2 (q source) are (R*T, C)
 // with row strides ld1/ld2; out has row stride ldo. Weights: dw (3, C, 3)
 // [q/k/v, channel, tap], lnw/lnb (3, C), w (4, C, C) [q/k/v/proj, out, in],
-// b (4, C). scratch holds 6 * R * T * C floats. marks: as
-// mhca_attention_impl, plus one after the proj product.
+// b (4, C). scratch holds 6 * R * T * C floats.
 static int mhca_forward_impl(const float* x1, long ld1, const float* x2, long ld2,
                              const unsigned char* mask, int R, int T, int C, int H,
                              const float* dw, const float* lnw, const float* lnb,
                              const float* w, const float* b, float eps,
-                             float* out, long ldo, float* scratch, cudaStream_t stream,
-                             StageMarks* marks = nullptr) {
+                             float* out, long ldo, float* scratch, cudaStream_t stream) {
   const long P = (long)R * T, PC = P * C;
   float* nrm = scratch;            // normalized q/k/v, later the attention output
   float* qkv = scratch + 3 * PC;   // projected q/k/v
   int rc = mhca_attention_impl(x1, ld1, x2, ld2, mask, R, T, C, H, dw, lnw, lnb, w, b,
-                               eps, nrm, qkv, nrm, nullptr, stream, marks);
+                               eps, nrm, qkv, nrm, nullptr, stream);
   if (rc) return rc;
   GemmBatch proj;
   proj.g[0] = gemm_args(nrm, C, w + 3L * C * C, C, out, ldo, b + 3L * C, mask, 1.f,
                         (int)P, C, C);
   rc = launch_gemm(proj, 1, stream);
-  mark_stage(marks, stream);
   return rc;
 }

@@ -8,17 +8,13 @@ extern "C" long unav_mhca_bf16_scratch(int R, int T, int C) {
   return mhca_bf16_scratch_elems(R, T, C) + cast_elems(4L * C * C) + cast_elems(4L * C);
 }
 
-#define UNAV_MHCA_BF16_PARAMS                                                            \
-  const bf16 *x1, const bf16 *x2, const unsigned char *mask, int R, int T, int C,        \
-      int heads, const float *dw, const float *lnw, const float *lnb, const float *w,     \
-      const float *b, float eps, bf16 *out, bf16 *scratch, void *stream
-#define UNAV_MHCA_BF16_ARGS \
-  x1, x2, mask, R, T, C, heads, dw, lnw, lnb, w, b, eps, out, scratch, stream
-
 // x1 (k/v source), x2 (q source), out (R*T, C) bf16; mask (R*T) bool;
 // fp32 weights dw (3, C, 3), lnw / lnb (3, C), w (4, C, C), b (4, C).
-// marks, if given, gets an event after each launch (MHCA_BF16_STAGES).
-static int mhca_bf16_forward_entry(UNAV_MHCA_BF16_PARAMS, StageMarks* marks) {
+extern "C" int unav_mhca_bf16_forward(const bf16* x1, const bf16* x2, const unsigned char* mask,
+                                      int R, int T, int C, int heads, const float* dw,
+                                      const float* lnw, const float* lnb, const float* w,
+                                      const float* b, float eps, bf16* out, bf16* scratch,
+                                      void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   CastList l;
   l.count = 0;
@@ -26,25 +22,8 @@ static int mhca_bf16_forward_entry(UNAV_MHCA_BF16_PARAMS, StageMarks* marks) {
   const bf16* wb = cast_push(l, next, w, 4L * C * C);
   const bf16* bb = cast_push(l, next, b, 4L * C);
   if (const int rc = launch_cast(l, s)) return rc;
-  mark_stage(marks, s);
   return mhca_bf16_forward_impl(x1, C, x2, C, mask, R, T, C, heads, dw, lnw, lnb, wb, bb, eps,
-                                out, C, scratch, s, marks);
-}
-
-extern "C" int unav_mhca_bf16_forward(UNAV_MHCA_BF16_PARAMS) {
-  return mhca_bf16_forward_entry(UNAV_MHCA_BF16_ARGS, nullptr);
-}
-
-// stages of one forward: the weights' cast, the conv + LayerNorm, q/k/v,
-// the attention, proj
-constexpr int MHCA_BF16_STAGES = 5;
-
-// The same forward, synchronised, with the device ms of each launch in
-// stage_ms (MHCA_BF16_STAGES floats, CUDA events between the launches).
-extern "C" int unav_mhca_bf16_forward_stages(UNAV_MHCA_BF16_PARAMS, float* stage_ms) {
-  return time_stages<MHCA_BF16_STAGES>((cudaStream_t)stream, stage_ms, [&](StageMarks* marks) {
-    return mhca_bf16_forward_entry(UNAV_MHCA_BF16_ARGS, marks);
-  });
+                                out, C, scratch, s);
 }
 
 // The attention alone (ops/fused_mhca.py:attention_forward): q (scaled by

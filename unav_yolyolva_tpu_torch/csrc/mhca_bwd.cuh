@@ -381,7 +381,7 @@ template <int DP>
 static int launch_attn_bwd_tc(const float* qkv, const float* att, const float* go,
                               const float* lse, const unsigned char* mask, int R, int T, int C,
                               int H, float scale, float* dqkv, float* Dsum,
-                              cudaStream_t stream, StageMarks* marks) {
+                              cudaStream_t stream) {
   const long PC = (long)R * T * C;
   const int pairs = 4 * ATB_T * (2 * DP + 8);
   const int smem_dq = (int)sizeof(float) * (pairs + ATB_T * (ATB_T + 4) + 2 * ATB_T);
@@ -393,7 +393,6 @@ static int launch_attn_bwd_tc(const float* qkv, const float* att, const float* g
   attn_bwd_dq_kernel<DP><<<grid, 256, smem_dq, stream>>>(qkv, qkv + PC, qkv + 2 * PC, att, go,
                                                          lse, mask, T, C, H, scale, dqkv, Dsum);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
   attn_bwd_dkdv_kernel<DP><<<grid, 256, smem_kv, stream>>>(qkv, qkv + PC, qkv + 2 * PC, go, lse,
                                                            Dsum, mask, T, C, H, dqkv + PC,
                                                            dqkv + 2 * PC);
@@ -548,16 +547,14 @@ static int mhca_recompute(const float* x1, long ld1, const float* x2, long ld2,
 // stride ldg), writes (or, with accumulate, adds) the input grads into dx1 /
 // dx2 (row strides), and writes the fp32 weight grads gdw (3, C, 3),
 // glnw/glnb (3, C), gw (4, C, C), gb (4, C). work: mhca_backward_work_floats
-// floats. marks, if given, gets an event after each stage
-// (MHCA_BWD_STAGES of them).
-constexpr int MHCA_BWD_STAGES = 8;
+// floats.
 static int mhca_backward_saved(const float* x1, long ld1, const float* x2, long ld2,
                                const unsigned char* mask, int R, int T, int C, int H,
                                const float* dw, const float* lnw, const float* w, float eps,
                                const MhcaSaved& sv, const float* g, long ldg, float* dx1,
                                long lddx1, float* dx2, long lddx2, int accumulate, float* gdw,
                                float* glnw, float* glnb, float* gw, float* gb, float* work,
-                               cudaStream_t stream, StageMarks* marks = nullptr) {
+                               cudaStream_t stream) {
   const long P = (long)R * T, PC = P * C, CC = (long)C * C, HT = (long)R * H * T;
   const int d = C / H;
   float* go = work;              // PC: the attention output's grad
@@ -573,33 +570,29 @@ static int mhca_backward_saved(const float* x1, long ld1, const float* x2, long 
   gbat.g[0] = gemm_nn(g, ldg, w + 3 * CC, C, go, C, mask, (int)P, C, C);
   int rc = launch_gemm(gbat, 1, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   const float qscale = (float)(1.0 / sqrt((double)d));
   if (d % 4 || C % 4) return (int)cudaErrorMisalignedAddress;
   rc = d <= 16   ? launch_attn_bwd_tc<16>(sv.qkv, sv.att, go, sv.lse, mask, R, T, C, H, qscale,
-                                         dqkv, Dsum, stream, marks)
+                                         dqkv, Dsum, stream)
        : d <= 32 ? launch_attn_bwd_tc<32>(sv.qkv, sv.att, go, sv.lse, mask, R, T, C, H, qscale,
-                                          dqkv, Dsum, stream, marks)
+                                          dqkv, Dsum, stream)
        : d <= 64 ? launch_attn_bwd_tc<64>(sv.qkv, sv.att, go, sv.lse, mask, R, T, C, H, qscale,
-                                          dqkv, Dsum, stream, marks)
+                                          dqkv, Dsum, stream)
        : d <= ATT_MAX_D
            ? launch_attn_bwd_tc<128>(sv.qkv, sv.att, go, sv.lse, mask, R, T, C, H, qscale,
-                                     dqkv, Dsum, stream, marks)
+                                     dqkv, Dsum, stream)
            : (int)cudaErrorInvalidValue;
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   for (int i = 0; i < 3; ++i)
     gbat.g[i] = gemm_nn(dqkv + i * PC, C, w + i * CC, C, dy + i * PC, C, nullptr, (int)P, C, C);
   if ((rc = launch_gemm(gbat, 3, stream))) return rc;
-  mark_stage(marks, stream);
   for (int i = 0; i < 3; ++i)
     gbat.g[i] = gemm_wgrad(dqkv + i * PC, C, sv.nrm + i * PC, C, gw + i * CC, nullptr, C, C,
                            (int)P);
   gbat.g[3] = gemm_wgrad(g, ldg, sv.att, C, gw + 3 * CC, mask, C, C, (int)P);
   if ((rc = launch_gemm(gbat, 4, stream, split, gemm_splitk_floats(CC)))) return rc;
-  mark_stage(marks, stream);
 
   const int blocks = ceil_div(P, 8);
   int cpl = 1;
@@ -613,11 +606,9 @@ static int mhca_backward_saved(const float* x1, long ld1, const float* x2, long 
     default: return (int)cudaErrorInvalidValue;
   }
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
   dwconv_bwd_kernel<<<ceil_div(PC, 256), 256, 0, stream>>>(dzm, P, T, C, dw, dx1, lddx1, dx2,
                                                            lddx2, accumulate);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
 
   ColBatch cb;
   int n = 0;
@@ -638,6 +629,5 @@ static int mhca_backward_saved(const float* x1, long ld1, const float* x2, long 
       j.b = dzm + i * PC; j.ldb = C;
     }
   rc = launch_colsum(cb, n, partial, stream);
-  mark_stage(marks, stream);
   return rc;
 }

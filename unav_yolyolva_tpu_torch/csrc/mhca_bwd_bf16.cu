@@ -26,21 +26,15 @@ extern "C" long unav_mhca_bf16_backward_scratch(int R, int T, int C, int heads) 
   return (mhca_bf16_bwd_bytes(R, T, C, heads) + 3) / 4;
 }
 
-#define UNAV_MHCA_BF16_BWD_PARAMS                                                         \
-  const bf16 *x1, const bf16 *x2, const unsigned char *mask, int R, int T, int C, int heads, \
-      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,   \
-      float eps, const bf16 *g, bf16 *dx1, bf16 *dx2, float *gdw, float *glnw, float *glnb,  \
-      float *gw, float *gb, float *scratch, void *stream_
-#define UNAV_MHCA_BF16_BWD_ARGS                                                           \
-  x1, x2, mask, R, T, C, heads, dw, lnw, lnb, w, b, eps, g, dx1, dx2, gdw, glnw, glnb, gw, gb, \
-      scratch, stream_
-
 // The grads of one bf16 forward for the upstream grad g (R*T, C) bf16: dx1,
 // dx2 (R*T, C) bf16; fp32 gdw (3, C, 3), glnw / glnb (3, C), gw (4, C, C),
-// gb (4, C). x1, x2 bf16; fp32 weights, cast to bf16 once here. marks, if
-// given, gets an event after the cast and after each of the backward's
-// stages (MHCA_BF16_BWD_STAGES of them).
-static int mhca_bf16_backward_entry(UNAV_MHCA_BF16_BWD_PARAMS, StageMarks* marks) {
+// gb (4, C). x1, x2 bf16; fp32 weights, cast to bf16 once here.
+extern "C" int unav_mhca_bf16_backward(const bf16* x1, const bf16* x2, const unsigned char* mask,
+                                       int R, int T, int C, int heads, const float* dw,
+                                       const float* lnw, const float* lnb, const float* w,
+                                       const float* b, float eps, const bf16* g, bf16* dx1,
+                                       bf16* dx2, float* gdw, float* glnw, float* glnb, float* gw,
+                                       float* gb, float* scratch, void* stream_) {
   const cudaStream_t s = (cudaStream_t)stream_;
   Bump bump{reinterpret_cast<char*>(scratch), 0};
   bf16* next = bump.take<bf16>(cast_elems(4L * C * C) + cast_elems(4L * C));
@@ -49,7 +43,6 @@ static int mhca_bf16_backward_entry(UNAV_MHCA_BF16_BWD_PARAMS, StageMarks* marks
   const bf16* wb = cast_push(l, next, w, 4L * C * C);
   const bf16* bb = cast_push(l, next, b, 4L * C);
   if (const int rc = launch_cast(l, s)) return rc;
-  mark_stage(marks, s);
   const MhcaBwdBufs bu = mhca_bwd_bf16_buffers(bump, R, T, C, heads);
   const long split_floats = mhca_hand_split_floats(R, T, C);
   const XSplit split{bump.take<float>(split_floats), split_floats,
@@ -57,23 +50,7 @@ static int mhca_bf16_backward_entry(UNAV_MHCA_BF16_BWD_PARAMS, StageMarks* marks
   return mhca_bf16_backward(MHCA_HAND, x1, C, x2, C, mask, R, T, C, heads, dw, lnw, lnb, wb,
                             bb, eps, g, C, nullptr, 0, dx1, C, dx2, C,
                             MhcaGrads{gdw, glnw, glnb, gw, gb}, R, T, bu, true, nullptr, split,
-                            s, marks);
-}
-
-extern "C" int unav_mhca_bf16_backward(UNAV_MHCA_BF16_BWD_PARAMS) {
-  return mhca_bf16_backward_entry(UNAV_MHCA_BF16_BWD_ARGS, nullptr);
-}
-
-// stages of one backward (ops/fused_mhca.py:BWD_BF16_STAGES): the weights'
-// cast, then mhca_bf16_backward's seven
-constexpr int MHCA_BF16_BWD_ENTRY_STAGES = 1 + MHCA_BF16_BWD_STAGES;
-
-// The same backward, synchronised, with the device time of each stage in
-// stage_ms (CUDA events between them).
-extern "C" int unav_mhca_bf16_backward_stages(UNAV_MHCA_BF16_BWD_PARAMS, float* stage_ms) {
-  return time_stages<MHCA_BF16_BWD_ENTRY_STAGES>(
-      (cudaStream_t)stream_, stage_ms,
-      [&](StageMarks* marks) { return mhca_bf16_backward_entry(UNAV_MHCA_BF16_BWD_ARGS, marks); });
+                            s);
 }
 
 // The fused attention backward alone (launch_attn_bwd_bf16): q (scaled), k,

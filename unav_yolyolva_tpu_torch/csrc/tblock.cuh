@@ -162,12 +162,10 @@ static long tblock_forward_scratch_floats(int R, int T, int C, int Hd) {
 
 // The block's forward of x (R*T, C) with the (R*T) mask and (R, C) branch
 // multipliers into out (R*T, C). scratch: tblock_forward_scratch_floats.
-// marks, if given, gets an event after each launch (TBLOCK_STAGES of them).
-constexpr int TBLOCK_STAGES = 8;
 static int tblock_forward_impl(const float* x, const unsigned char* mask, int R, int T, int C,
                                int Hd, int H, const float* mult_a, const float* mult_m,
                                const TBlockWeights& W, float eps, float* out, float* scratch,
-                               cudaStream_t stream, StageMarks* marks = nullptr) {
+                               cudaStream_t stream) {
   const long P = (long)R * T, PC = P * C;
   // ln11 / ln12 go into the MHCA's q/k/v region: only its first launch
   // reads them, and its second overwrites them (stream order)
@@ -175,22 +173,18 @@ static int tblock_forward_impl(const float* x, const unsigned char* mask, int R,
   float* h2 = h1 + PC;
   int rc = launch_ln_pair(x, P, C, W.lnw3, W.lnb3, eps, h1, h2, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   rc = mhca_forward_impl(h1, C, h2, C, mask, R, T, C, H, W.dw, W.lnw, W.lnb, W.w, W.b, eps,
-                         out, C, scratch, stream, marks);
+                         out, C, scratch, stream);
   if (rc) return rc;
   float* h = scratch;           // ln2 output
   float* hid = scratch + PC;    // (P, Hd) GELU(fc1)
   rc = launch_residual_ln2(x, mask, mult_a, out, P, T, C, W.lnw3 + 2L * C, W.lnb3 + 2L * C,
                            eps, out, h, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   rc = launch_gemm_tc_epi(tblock_fc1(W, h, hid, P, C, Hd), GemmEpi{GEMM_ACT_GELU}, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   GemmArgs fc2 = gemm_args(hid, Hd, W.w2, Hd, out, C, W.b2, mask, 1.f, (int)P, C, Hd);
   fc2.beta = 1;
   rc = launch_gemm_tc_epi(fc2, GemmEpi{GEMM_ACT_NONE, nullptr, 0, mult_m, T}, stream);
-  mark_stage(marks, stream);
   return rc;
 }

@@ -28,19 +28,14 @@ extern "C" long unav_tblock_bf16_scratch(int R, int T, int C, int Hd) {
 
 // x, out (R*T, C) fp32, mask (R*T) bool, mult_a / mult_m (R, C) fp32; the
 // packed fp32 weights as TBlockWeights lists them (tblock.cuh).
-#define UNAV_TBLOCK_BF16_PARAMS                                                            \
-  const float *x, const unsigned char *mask, int R, int T, int C, int Hd, int heads,         \
-      const float *mult_a, const float *mult_m, const float *lnw3, const float *lnb3,        \
-      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,   \
-      const float *w1, const float *b1, const float *w2, const float *b2, float eps,         \
-      float *out, bf16 *scratch, void *stream
-#define UNAV_TBLOCK_BF16_ARGS                                                              \
-  x, mask, R, T, C, Hd, heads, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1, w2, \
-      b2, eps, out, scratch, stream
-
-// The forward; marks, if given, gets an event after each launch
-// (TBLOCK_BF16_STAGES of them).
-static int tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_PARAMS, StageMarks* marks) {
+extern "C" int unav_tblock_bf16_forward(const float* x, const unsigned char* mask, int R, int T,
+                                        int C, int Hd, int heads, const float* mult_a,
+                                        const float* mult_m, const float* lnw3,
+                                        const float* lnb3, const float* dw, const float* lnw,
+                                        const float* lnb, const float* w, const float* b,
+                                        const float* w1, const float* b1, const float* w2,
+                                        const float* b2, float eps, float* out, bf16* scratch,
+                                        void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long P = (long)R * T, PC = P * C;
   bf16* attn = scratch + tblock_bf16_act_elems(R, T, C, Hd) - PC;
@@ -55,7 +50,6 @@ static int tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_PARAMS, StageMarks* marks) 
   const bf16* b2b = cast_push(l, next, b2, C);
   int rc = launch_cast(l, s);
   if (rc) return rc;
-  mark_stage(marks, s);
 
   // ln11 / ln12 go into the MHCA's q/k/v region: only its first launch
   // reads them, and its second overwrites them (stream order)
@@ -66,9 +60,8 @@ static int tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_PARAMS, StageMarks* marks) 
         x, P, C, lnw3, lnb3, eps, h1, h2);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
   rc = mhca_bf16_forward_impl(h1, C, h2, C, mask, R, T, C, heads, dw, lnw, lnb, wb, bb, eps,
-                              attn, C, scratch, s, marks);
+                              attn, C, scratch, s);
   if (rc) return rc;
   bf16* h = scratch;          // ln2 output
   bf16* hid = scratch + PC;   // GELU(fc1), (P, Hd)
@@ -77,34 +70,14 @@ static int tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_PARAMS, StageMarks* marks) 
         x, mask, mult_a, attn, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps, out, h);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
   WgProduct fc1 = wg_product(h, C, w1b, C, hid, Hd, (int)P, Hd, C);
   fc1.bias = b1b;
   if ((rc = launch_wgmma_bf16<0, 0, WG_GELU>(fc1, s))) return rc;
-  mark_stage(marks, s);
   WgProduct fc2 = wg_product(hid, Hd, w2b, Hd, out, C, (int)P, C, Hd);
   fc2.bias = b2b;
   fc2.rowmask = mask;
   fc2.seqmul = mult_m;
   fc2.mseq = T;
   rc = launch_wgmma_bf16<0, 0, WG_RES>(fc2, s);
-  mark_stage(marks, s);
   return rc;
-}
-
-extern "C" int unav_tblock_bf16_forward(UNAV_TBLOCK_BF16_PARAMS) {
-  return tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_ARGS, nullptr);
-}
-
-// stages of one forward: the weights' cast, ln11 + ln12, the MHCA's conv +
-// LN, q/k/v, attention and proj, residual + ln2, fc1, fc2
-constexpr int TBLOCK_BF16_STAGES = 9;
-
-// The same forward, synchronised, with the device ms of each launch in
-// stage_ms (TBLOCK_BF16_STAGES floats).
-extern "C" int unav_tblock_bf16_forward_stages(UNAV_TBLOCK_BF16_PARAMS, float* stage_ms) {
-  return time_stages<TBLOCK_BF16_STAGES>((cudaStream_t)stream, stage_ms,
-                                         [&](StageMarks* marks) {
-    return tblock_bf16_forward_impl(UNAV_TBLOCK_BF16_ARGS, marks);
-  });
 }

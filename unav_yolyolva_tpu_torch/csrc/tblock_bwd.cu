@@ -179,25 +179,19 @@ extern "C" long unav_tblock_backward_scratch(int R, int T, int C, int Hd, int he
   return tblock_bwd_layout(nullptr, R, T, C, Hd, heads).total;
 }
 
-#define UNAV_TBLOCK_BWD_PARAMS                                                              \
-  const float *x, const unsigned char *mask, int R, int T, int C, int Hd, int H,              \
-      const float *mult_a, const float *mult_m, const float *lnw3, const float *lnb3,         \
-      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,    \
-      const float *w1, const float *b1, const float *w2, const float *b2, float eps,          \
-      const float *g, float *dx, float *dma, float *dmm, float *glnw3, float *glnb3,          \
-      float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gw1, float *gb1,     \
-      float *gw2, float *gb2, float *scratch, void *stream_
-#define UNAV_TBLOCK_BWD_ARGS                                                                \
-  x, mask, R, T, C, Hd, H, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1, w2, b2,  \
-      eps, g, dx, dma, dmm, glnw3, glnb3, gdw, glnw, glnb, gw, gb, gw1, gb1, gw2, gb2,      \
-      scratch, stream_
-
 // The grads of one block forward for the upstream grad g (R*T, C): dx
 // (R*T, C), d(mult_a) / d(mult_m) (R, C), and the eleven weight grads in
 // the weights' layouts. scratch: unav_tblock_backward_scratch floats.
-// marks, if given, gets an event after each stage (TBLOCK_BWD_STAGES).
-constexpr int TBLOCK_BWD_STAGES = 12 + MHCA_BWD_STAGES;
-static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
+extern "C" int unav_tblock_backward(const float* x, const unsigned char* mask, int R, int T, int C,
+                                    int Hd, int H, const float* mult_a, const float* mult_m,
+                                    const float* lnw3, const float* lnb3, const float* dw,
+                                    const float* lnw, const float* lnb, const float* w,
+                                    const float* b, const float* w1, const float* b1,
+                                    const float* w2, const float* b2, float eps, const float* g,
+                                    float* dx, float* dma, float* dmm, float* glnw3,
+                                    float* glnb3, float* gdw, float* glnw, float* glnb,
+                                    float* gw, float* gb, float* gw1, float* gb1, float* gw2,
+                                    float* gb2, float* scratch, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const TBlockWeights W{lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1, w2, b2};
   const long P = (long)R * T;
@@ -207,40 +201,32 @@ static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
   // ---- recompute: ln11 / ln12, MHCA, residual + ln2, fc1 + GELU, fc2 -----
   int rc = launch_ln_pair(x, P, C, lnw3, lnb3, eps, s.h1, s.h2, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   const MhcaSaved sv = mhca_saved(s.saved, R, T, C);
   rc = mhca_recompute(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, lnb, w, b, eps, sv, s.a, C,
                       stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   rc = launch_residual_ln2(x, mask, mult_a, s.a, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps,
                            s.res, s.h, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   // z = GELU(u), u kept for GELU'
   rc = launch_gemm_tc_epi(tblock_fc1(W, s.h, s.z, P, C, Hd),
                           GemmEpi{GEMM_ACT_GELU, nullptr, 0, nullptr, 0, s.u, Hd}, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   GemmBatch prod;
   prod.g[0] = gemm_args(s.z, Hd, w2, Hd, s.y, C, b2, nullptr, 1.f, (int)P, C, Hd);
   if ((rc = launch_gemm(prod, 1, stream))) return rc;
-  mark_stage(marks, stream);
 
   // ---- the MLP branch in reverse -----------------------------------------
   const dim3 sgrid(ceil_div(C, 32), R), sblock(32, 8);
   seq_dot_kernel<<<sgrid, sblock, 0, stream>>>(g, s.y, mask, mult_m, T, C, dmm, s.gy);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
   rc = launch_gemm_tc_epi(gemm_nn(s.gy, C, w2, Hd, s.du, Hd, nullptr, (int)P, Hd, C),
                           GemmEpi{GEMM_ACT_GELU_GRAD, s.u, Hd}, stream);
   if (rc) return rc;
-  mark_stage(marks, stream);
   prod.g[0] = gemm_nn(s.du, Hd, w1, C, s.dh, C, nullptr, (int)P, C, Hd);
   prod.g[1] = gemm_wgrad(s.gy, C, s.z, Hd, gw2, nullptr, C, Hd, (int)P);
   prod.g[2] = gemm_wgrad(s.du, Hd, s.h, C, gw1, nullptr, Hd, C, (int)P);
   if ((rc = launch_gemm(prod, 3, stream, s.split, s.split_floats))) return rc;
-  mark_stage(marks, stream);
 
   // ---- ln2, the residual and the attention branch ------------------------
   rc = with_cpl(C, [&](auto cpl) {
@@ -248,14 +234,11 @@ static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
         s.res, s.dh, lnw3 + 2L * C, g, P, C, eps, s.dout, s.yhat2);
   });
   if (rc) return rc;
-  mark_stage(marks, stream);
   seq_dot_kernel<<<sgrid, sblock, 0, stream>>>(s.dout, s.a, nullptr, mult_a, T, C, dma,
                                                s.gmh);
   UNAV_RETURN_IF_ERROR();
-  mark_stage(marks, stream);
   rc = mhca_backward_saved(s.h1, C, s.h2, C, mask, R, T, C, H, dw, lnw, w, eps, sv, s.gmh, C,
-                           s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream,
-                           marks);
+                           s.dh1, C, s.dh2, C, 0, gdw, glnw, glnb, gw, gb, s.mhca, stream);
   if (rc) return rc;
 
   // ---- ln11 / ln12 and x -------------------------------------------------
@@ -264,7 +247,6 @@ static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
         x, mask, lnw3, s.dh1, s.dh2, s.dout, P, C, eps, dx, s.yhat1);
   });
   if (rc) return rc;
-  mark_stage(marks, stream);
 
   // ---- biases and LayerNorm affines: one batched column-sum launch -------
   ColBatch cb;
@@ -280,19 +262,5 @@ static int tblock_backward_impl(UNAV_TBLOCK_BWD_PARAMS, StageMarks* marks) {
     cb.j[n++] = col_job(dys[i], C, (int)P, C, glnb3 + (long)i * C);
   }
   rc = launch_colsum(cb, n, s.partial, stream);
-  mark_stage(marks, stream);
   return rc;
-}
-
-extern "C" int unav_tblock_backward(UNAV_TBLOCK_BWD_PARAMS) {
-  return tblock_backward_impl(UNAV_TBLOCK_BWD_ARGS, nullptr);
-}
-
-// The same backward, synchronised, with the device ms of each stage in
-// stage_ms (TBLOCK_BWD_STAGES floats, the names of
-// ops/fused_tblock.py:BWD_STAGES).
-extern "C" int unav_tblock_backward_stages(UNAV_TBLOCK_BWD_PARAMS, float* stage_ms) {
-  return time_stages<TBLOCK_BWD_STAGES>(
-      (cudaStream_t)stream_, stage_ms,
-      [&](StageMarks* marks) { return tblock_backward_impl(UNAV_TBLOCK_BWD_ARGS, marks); });
 }

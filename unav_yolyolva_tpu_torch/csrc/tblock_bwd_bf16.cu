@@ -215,22 +215,14 @@ extern "C" long unav_tblock_bf16_backward_scratch(int R, int T, int C, int Hd, i
 // fp32 weights (tblock.cuh's order); Rj the JAX kernel's block of sequences
 // (a divisor of R). Writes dx (R*T, C), d(mult_a), d(mult_m) (R, C) and the
 // weight grads, fp32, in the weights' layouts.
-#define UNAV_TBLOCK_BWD_BF16_PARAMS                                                          \
-  const float *x, const unsigned char *mask, int R, int T, int C, int Hd, int heads, int Rj, \
-      const float *mult_a, const float *mult_m, const float *lnw3, const float *lnb3,        \
-      const float *dw, const float *lnw, const float *lnb, const float *w, const float *b,   \
-      const float *w1, const float *b1, const float *w2, const float *b2, float eps,         \
-      const float *g, float *dx, float *dma, float *dmm, float *glnw3, float *glnb3,         \
-      float *gdw, float *glnw, float *glnb, float *gw, float *gb, float *gw1, float *gb1,    \
-      float *gw2, float *gb2, float *scratch, void *stream
-#define UNAV_TBLOCK_BWD_BF16_ARGS                                                            \
-  x, mask, R, T, C, Hd, heads, Rj, mult_a, mult_m, lnw3, lnb3, dw, lnw, lnb, w, b, w1, b1,  \
-      w2, b2, eps, g, dx, dma, dmm, glnw3, glnb3, gdw, glnw, glnb, gw, gb, gw1, gb1, gw2,    \
-      gb2, scratch, stream
-
-// The backward; marks, if given, gets an event after each stage
-// (TBLOCK_BF16_BWD_STAGES of them).
-static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* marks) {
+extern "C" int unav_tblock_bf16_backward(
+    const float* x, const unsigned char* mask, int R, int T, int C, int Hd, int heads, int Rj,
+    const float* mult_a, const float* mult_m, const float* lnw3, const float* lnb3,
+    const float* dw, const float* lnw, const float* lnb, const float* w, const float* b,
+    const float* w1, const float* b1, const float* w2, const float* b2, float eps,
+    const float* g, float* dx, float* dma, float* dmm, float* glnw3, float* glnb3, float* gdw,
+    float* glnw, float* glnb, float* gw, float* gb, float* gw1, float* gb1, float* gw2,
+    float* gb2, float* scratch, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long P = (long)R * T;
   if (R % Rj) return (int)cudaErrorInvalidValue;
@@ -249,7 +241,6 @@ static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* ma
   }
   int rc = launch_cast(l, s);
   if (rc) return rc;
-  mark_stage(marks, s);
 
   // ---- the forward, recomputed
   rc = with_cpl(C, [&](auto cpl) {
@@ -257,49 +248,39 @@ static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* ma
         x, P, C, lnw3, lnb3, eps, u.h1, u.h2);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
   rc = mhca_bf16_forward_impl(u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb, u.bb,
-                              eps, u.attn, C, u.mb.y3, s, nullptr, u.mb.o);
+                              eps, u.attn, C, u.mb.y3, s, u.mb.o);
   if (rc) return rc;
-  mark_stage(marks, s);
   rc = with_cpl(C, [&](auto cpl) {
     residual_ln2_bf16_kernel<decltype(cpl)::value><<<ceil_div(P, 8), 256, 0, s>>>(
         x, mask, mult_a, u.attn, P, T, C, lnw3 + 2L * C, lnb3 + 2L * C, eps, u.res, u.h);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
   WgProduct fc1 = wg_product(u.h, C, u.w1b, C, u.u, Hd, (int)P, Hd, C);
   fc1.bias = u.b1b;
   fc1.C2 = u.a;
   if ((rc = launch_wgmma_bf16<0, 0, WG_UA>(fc1, s))) return rc;
-  mark_stage(marks, s);
   WgProduct fc2 = wg_product(u.a, Hd, u.w2b, Hd, u.y2, C, (int)P, C, Hd);
   fc2.bias = u.b2b;
   fc2.rowmask = mask;
   if ((rc = launch_wgmma_bf16<0, 0, WG_STORE>(fc2, s))) return rc;
-  mark_stage(marks, s);
 
   // ---- mult_m, fc2, GELU, fc1
   if ((rc = launch_mult_bwd(u.y2, 1, g, mult_m, mask, R, T, C, dmm, u.dy2, s))) return rc;
-  mark_stage(marks, s);
   // the weight grads: fp32 sums of JAX row blocks of Rj * T rows, each rounded
   WgProduct w2g = wg_product(u.dy2, C, u.a, Hd, gw2, Hd, C, Hd, (int)P);
   w2g.kb = Rj * T;
   if ((rc = launch_wgmma_bf16<1, 1, WG_RAW>(w2g, s))) return rc;
-  mark_stage(marks, s);
   // du = bf16(GELU'(u) * bf16(dy2 W2)), u read by the epilogue
   WgProduct dag = wg_product(u.dy2, C, u.w2b, Hd, u.du, Hd, (int)P, Hd, C);
   dag.aux = u.u;
   if ((rc = launch_wgmma_bf16<0, 1, WG_DU>(dag, s))) return rc;
-  mark_stage(marks, s);
   WgProduct w1g = wg_product(u.du, Hd, u.h, C, gw1, C, Hd, C, (int)P);
   w1g.kb = Rj * T;
   if ((rc = launch_wgmma_bf16<1, 1, WG_RAW>(w1g, s))) return rc;
-  mark_stage(marks, s);
   if ((rc = launch_wgmma_bf16<0, 1, WG_STORE>(
            wg_product(u.du, Hd, u.w1b, C, u.dh, C, (int)P, C, Hd), s)))
     return rc;
-  mark_stage(marks, s);
 
   // ---- ln2 and the residual, mult_a
   rc = with_cpl(C, [&](auto cpl) {
@@ -307,18 +288,16 @@ static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* ma
         x, mask, mult_a, u.attn, P, T, C, lnw3 + 2L * C, eps, u.dh, g, u.yhat2, u.dout);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
   // d(mult_a) and the MHCA output's grad bf16(dout * mult_a) (no row mask:
   // JAX's residual add is not masked)
   if ((rc = launch_mult_bwd(u.attn, 1, u.dout, mult_a, nullptr, R, T, C, dma, u.dattn, s)))
     return rc;
-  mark_stage(marks, s);
 
   // ---- the MHCA
   rc = mhca_bf16_backward(MHCA_VJP, u.h1, C, u.h2, C, mask, R, T, C, heads, dw, lnw, lnb, u.wb,
                           u.bb, eps, u.dattn, C, nullptr, 0, u.dh1, C, u.dh2, C,
                           MhcaGrads{gdw, glnw, glnb, gw, gb}, Rj, T, u.mb, false, nullptr,
-                          split, s, marks);
+                          split, s);
   if (rc) return rc;
 
   // ---- ln11, ln12 and x
@@ -327,7 +306,6 @@ static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* ma
         x, mask, P, C, lnw3, eps, u.dh1, u.dh2, u.dout, u.yhat, dx);
   });
   if (rc) return rc;
-  mark_stage(marks, s);
 
   // ---- the sums: LayerNorm affine fp32, the MLP's biases in XLA's order
   FJobs fj;
@@ -339,32 +317,9 @@ static int tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_PARAMS, StageMarks* ma
     fj.j[2 * i + 1] = fjob(dls[i], C, 1, (int)P, C, glnb3 + (long)i * C);
   }
   if ((rc = launch_fsums(fj, 6, u.partial, s))) return rc;
-  mark_stage(marks, s);
   XJobs xj;
   xj.j[0] = xjob(u.dy2, C, gb2, C, T, T);
   xj.j[1] = xjob(u.du, Hd, gb1, Hd, T, T);
   rc = launch_xla_sums(xj, 2, R / Rj, Rj, u.xwork, u.xwork_floats, s);
-  mark_stage(marks, s);
   return rc;
-}
-
-extern "C" int unav_tblock_bf16_backward(UNAV_TBLOCK_BWD_BF16_PARAMS) {
-  return tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_ARGS, nullptr);
-}
-
-// stages of one backward (ops/fused_tblock.py: BF16_BWD_STAGES): the
-// weights' cast, the recompute (ln11 + ln12, the MHCA's four launches,
-// residual + ln2, fc1 with u and GELU(u), fc2), d(mult_m), w2's grad, du,
-// w1's grad, dh, ln2, d(mult_a), the MHCA backward's seven
-// (MHCA_BF16_BWD_STAGES; its recompute was done above), ln11 + ln12, the
-// LayerNorm affine sums, the biases' sums
-constexpr int TBLOCK_BF16_BWD_STAGES = 16 + MHCA_BF16_BWD_STAGES;
-
-// The same backward, synchronised, with the device ms of each stage in
-// stage_ms (TBLOCK_BF16_BWD_STAGES floats).
-extern "C" int unav_tblock_bf16_backward_stages(UNAV_TBLOCK_BWD_BF16_PARAMS, float* stage_ms) {
-  return time_stages<TBLOCK_BF16_BWD_STAGES>((cudaStream_t)stream, stage_ms,
-                                             [&](StageMarks* marks) {
-    return tblock_bf16_backward_impl(UNAV_TBLOCK_BWD_BF16_ARGS, marks);
-  });
 }

@@ -26,9 +26,9 @@ intermediates and the gate's max, tie count and argmax, and walks it in
 reverse (csrc/csp_bwd.cu); the max over guide tokens routes its grad to the
 argmax token(s), split evenly over ties. Every product of the backward
 (the convs' and guide_fc's input and weight grads, the MHCAs' dense layers
-and attention) runs in 3xTF32 on the tensor cores; `csp_backward_stage_times`
-times it stage by stage. On CUDA with grad enabled, `fused_csp` runs
-through `CSPFunction`, whose backward is that kernel.
+and attention) runs in 3xTF32 on the tensor cores. On CUDA with grad
+enabled, `fused_csp` runs through `CSPFunction`, whose backward is that
+kernel.
 
 Under the bf16 compute policy (bf16 x and guide) the layer is the JAX
 package's bf16 program: every product's fp32 sum rounded to bf16 before
@@ -54,7 +54,6 @@ bfinal (Cout). emb == mid.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -67,38 +66,14 @@ from .fused_mhca import MAX_T, _check, mhca_input_uses, mhca_reference
 from .gemm_tc import bf16_product_reference
 from ..utils.profiling import spanned
 
-_FWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5
-_ARGTYPES = {"unav_csp_forward": _FWD_TYPES,
-             "unav_csp_forward_stages": _FWD_TYPES + [PTR]}
-# the launches of one forward, in order (csp.cu: CSP_STAGES)
-STAGES = (("main",) + tuple(f"mhca{i}.{part}" for i in range(3)
-                            for part in ("ln", "qkv", "attention", "proj"))
-          + ("guide_fc", "proj_conv", "gate", "final"))
-_BF16_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 3
-_BF16_ARGTYPES = {"unav_csp_bf16_forward": _BF16_TYPES,
-                  "unav_csp_bf16_forward_stages": _BF16_TYPES + [PTR]}
-# the launches of one bf16 forward, in order (csp_bf16.cu: CSP_BF16_STAGES): the
-# main conv and guide_fc share a launch
-BF16_STAGES = ("cast", "main+guide_fc") + STAGES[1:13] + STAGES[14:]
+_ARGTYPES = {"unav_csp_forward": [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT] + [PTR] * 5}
+_BF16_ARGTYPES = {"unav_csp_bf16_forward": [PTR] * 3 + [INT] * 9 + [PTR] * 14 + [FLOAT]
+                  + [PTR] * 3}
 _BF16_RESTYPES = {"unav_csp_bf16_scratch": ([INT] * 7, LONG)}
-_BWD_TYPES = [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19
-_BWD_ARGTYPES = {"unav_csp_backward": _BWD_TYPES,
-                 "unav_csp_backward_stages": _BWD_TYPES + [PTR]}
-# the stages of one backward, in order (csp_bwd.cu: CSP_BWD_STAGES)
-MHCA_BWD_STAGES = ("proj", "dq", "dkdv", "qkv_dx", "wgrad", "ln", "conv", "colsum")
-BWD_STAGES = (("recompute", "final.dx", "final.dw", "gate", "gate_guide", "proj_guide.dx",
-               "proj_guide.dw")
-              + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_STAGES)
-              + ("main.dx", "main.dw", "colsum"))
+_BWD_ARGTYPES = {"unav_csp_backward": [PTR] * 3 + [INT] * 9 + [PTR] * 15 + [FLOAT] + [PTR] * 19}
 _BWD_RESTYPES = {"unav_csp_backward_scratch": ([INT] * 9, LONG)}
-_BWD_BF16_TYPES = [PTR] * 3 + [INT] * 11 + [PTR] * 14 + [FLOAT] + [PTR] * 19
-_BWD_BF16_ARGTYPES = {"unav_csp_bf16_backward": _BWD_BF16_TYPES,
-                      "unav_csp_bf16_backward_stages": _BWD_BF16_TYPES + [PTR]}
-# the stages of one bf16 backward, in order (csp_bwd_bf16.cu: CSP_BF16_BWD_STAGES)
-MHCA_BWD_BF16_STAGES = ("recompute", "proj", "attention", "dense", "wgrad", "ln_conv", "sums")
-BWD_BF16_STAGES = (("cast", "recompute", "final", "gate", "proj_conv", "guide_fc")
-                   + tuple(f"mhca{i}.{part}" for i in (2, 1, 0) for part in MHCA_BWD_BF16_STAGES)
-                   + ("main", "sums"))
+_BWD_BF16_ARGTYPES = {"unav_csp_bf16_backward": [PTR] * 3 + [INT] * 11 + [PTR] * 14 + [FLOAT]
+                      + [PTR] * 19}
 _BWD_BF16_RESTYPES = {"unav_csp_bf16_backward_scratch": ([INT] * 9, LONG)}
 
 
@@ -230,8 +205,8 @@ def _check_args(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
     return r, t, cin, mid, ng, fg, cout
 
 
-def _launch_forward(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
-                    battn, wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps, *extra):
+def _launch_forward(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj,
+                    bproj, wfinal, bfinal, attn_heads, mhca_heads, eps):
     r, t, cin, mid, ng, fg, cout = _check_args(
         x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
         wfinal, bfinal, attn_heads, mhca_heads)
@@ -242,24 +217,24 @@ def _launch_forward(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg,
     gp = torch.empty(r * ng * mid, device=dev, dtype=torch.float32)
     scratch = torch.empty(6 * r * t * mid, device=dev, dtype=torch.float32)
     lib = cuda_build.library("csp", _ARGTYPES)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_csp_forward(
         x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg,
         cout, attn_heads, mhca_heads,
         wmain.data_ptr(), bmain.data_ptr(), dw.data_ptr(), lnw.data_ptr(),
         lnb.data_ptr(), w.data_ptr(), b.data_ptr(), wg.data_ptr(), bg.data_ptr(),
         battn.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), wfinal.data_ptr(),
         bfinal.data_ptr(), eps, out.data_ptr(), cat.data_ptr(), gp.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, *extra,
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, rc, entry)
+    cuda_build.check(lib, rc, "unav_csp_forward")
     return out
 
 
-def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg,
-                         battn, wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps,
-                         *extra, keep=None):
-    """The bf16 forward's C entry `entry`; `keep`, a list, gets the call's
-    scratch (the (R*T, 6 mid) bf16 concat at its start)."""
+def _launch_forward_bf16(x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn,
+                         wproj, bproj, wfinal, bfinal, attn_heads, mhca_heads, eps, *,
+                         keep=None):
+    """The bf16 forward's C entry; `keep`, a list, gets the call's scratch
+    (the (R*T, 6 mid) bf16 concat at its start)."""
     r, t, cin, mid, ng, fg, cout = _check_args(
         x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj, bproj,
         wfinal, bfinal, attn_heads, mhca_heads)
@@ -267,14 +242,13 @@ def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b
     lib = cuda_build.library("csp_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
     scratch = torch.empty(lib.unav_csp_bf16_scratch(r, t, cin, mid, ng, fg, cout),
                           device=x.device, dtype=torch.bfloat16)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_csp_bf16_forward(
         x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg,
         cout, attn_heads, mhca_heads,
         *[a.data_ptr() for a in (wmain, bmain, dw, lnw, lnb, w, b, wg, bg, battn, wproj,
                                  bproj, wfinal, bfinal)],
-        eps, out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        *extra)
-    cuda_build.check(lib, rc, entry)
+        eps, out.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, rc, "unav_csp_bf16_forward")
     if keep is not None:
         keep.append(scratch)
     return out
@@ -282,33 +256,15 @@ def _launch_forward_bf16(entry, x, guide, mask, wmain, bmain, dw, lnw, lnb, w, b
 
 def _forward_kernel(*args):
     if args[0].dtype == torch.bfloat16:
-        out = _launch_forward_bf16("unav_csp_bf16_forward", *args)
+        out = _launch_forward_bf16(*args)
         fused_csp.bf16_launches += 1
         return out
-    out = _launch_forward("unav_csp_forward", *args)
+    out = _launch_forward(*args)
     fused_csp.launches += 1
     return out
 
 
-def csp_stage_times(x, guide, mask, *weights, attn_heads: int, mhca_heads: int = 4,
-                    eps: float = 1e-5):
-    """One CUDA forward of the kernel sequence, synchronised, and the device
-    ms of each of its launches (CUDA events between them): {stage: ms} in
-    launch order, the names of STAGES (of BF16_STAGES for bf16 x and
-    guide). Not counted in the launch counts."""
-    if x.dtype == torch.bfloat16:
-        ms = (ctypes.c_float * len(BF16_STAGES))()
-        _launch_forward_bf16("unav_csp_bf16_forward_stages", x, guide, mask, *weights,
-                             attn_heads, mhca_heads, eps, ms)
-        return dict(zip(BF16_STAGES, ms))
-    ms = (ctypes.c_float * len(STAGES))()
-    _launch_forward("unav_csp_forward_stages", x, guide, mask, *weights, attn_heads,
-                    mhca_heads, eps, ms)
-    return dict(zip(STAGES, ms))
-
-
-def _launch_backward(entry, x, guide, mask, *weights, g, attn_heads, mhca_heads, eps,
-                     extra=()):
+def _launch_backward(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps):
     r, t, cin, mid, ng, fg, cout = _check_args(x, guide, mask, *weights, attn_heads,
                                                mhca_heads)
     if cout % 4:      # the final conv's grads copy rows of g in 16-byte chunks
@@ -323,13 +279,13 @@ def _launch_backward(entry, x, guide, mask, *weights, g, attn_heads, mhca_heads,
     scratch = torch.empty(lib.unav_csp_backward_scratch(r, t, cin, mid, ng, fg, cout,
                                                         attn_heads, mhca_heads),
                           device=x.device, dtype=torch.float32)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_csp_backward(
         x.data_ptr(), guide.data_ptr(), mask.data_ptr(), r, t, cin, mid, ng, fg, cout,
         attn_heads, mhca_heads, *[a.data_ptr() for a in ws], eps, g.data_ptr(),
         *[a.data_ptr() for a in grads], scratch.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream, *extra,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
-    cuda_build.check(lib, rc, entry)
+    cuda_build.check(lib, rc, "unav_csp_backward")
     grads[12] = grads[12].permute(0, 2, 1).contiguous()          # -> (mid, mid, 3)
     return tuple(grads)
 
@@ -356,12 +312,11 @@ def _prepare_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, 
     return lib, args, grads, scratch
 
 
-def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps,
-                          entry="unav_csp_bf16_backward", extra=()):
+def _launch_backward_bf16(x, guide, mask, *weights, g, attn_heads, mhca_heads, eps):
     lib, args, grads, _ = _prepare_backward_bf16(x, guide, mask, *weights, g=g,
                                                  attn_heads=attn_heads,
                                                  mhca_heads=mhca_heads, eps=eps)
-    cuda_build.check(lib, getattr(lib, entry)(*args, *extra), "csp_backward (bf16)")
+    cuda_build.check(lib, lib.unav_csp_bf16_backward(*args), "csp_backward (bf16)")
     return tuple(grads)
 
 
@@ -380,28 +335,10 @@ def csp_backward(x, guide, mask, *weights, g, attn_heads: int, mhca_heads: int =
                                       mhca_heads=mhca_heads, eps=eps)
         csp_backward.bf16_launches += 1
         return grads
-    grads = _launch_backward("unav_csp_backward", x, guide, mask, *weights, g=g,
-                             attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps)
+    grads = _launch_backward(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
+                             mhca_heads=mhca_heads, eps=eps)
     csp_backward.launches += 1
     return grads
-
-
-def csp_backward_stage_times(x, guide, mask, *weights, g, attn_heads: int,
-                             mhca_heads: int = 4, eps: float = 1e-5):
-    """One CUDA backward, synchronised, and the device ms of each of its
-    stages (CUDA events between them): {stage: ms} in launch order, the
-    names of BWD_STAGES (of BWD_BF16_STAGES for bf16 x). Not counted in
-    csp_backward.launches."""
-    if x.dtype == torch.bfloat16:
-        ms = (ctypes.c_float * len(BWD_BF16_STAGES))()
-        _launch_backward_bf16(x, guide, mask, *weights, g=g, attn_heads=attn_heads,
-                              mhca_heads=mhca_heads, eps=eps,
-                              entry="unav_csp_bf16_backward_stages", extra=(ms,))
-        return dict(zip(BWD_BF16_STAGES, ms))
-    ms = (ctypes.c_float * len(BWD_STAGES))()
-    _launch_backward("unav_csp_backward_stages", x, guide, mask, *weights, g=g,
-                     attn_heads=attn_heads, mhca_heads=mhca_heads, eps=eps, extra=(ms,))
-    return dict(zip(BWD_STAGES, ms))
 
 
 class CSPFunction(torch.autograd.Function):

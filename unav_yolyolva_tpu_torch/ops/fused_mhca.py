@@ -73,29 +73,21 @@ _ARGTYPES = {
     "unav_mhca_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                           PTR, PTR, FLOAT, PTR, PTR, PTR],
 }
-_BF16_TYPES = [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR, PTR, FLOAT, PTR, PTR, PTR]
 _BF16_ARGTYPES = {
-    "unav_mhca_bf16_forward": _BF16_TYPES,
-    "unav_mhca_bf16_forward_stages": _BF16_TYPES + [PTR],
+    "unav_mhca_bf16_forward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR, PTR, FLOAT,
+                               PTR, PTR, PTR],
     "unav_attn_bf16": [PTR] * 4 + [INT] * 4 + [PTR, PTR],
     "unav_attn_bf16_blocks_per_sm": [INT] * 3 + [PTR],
 }
-# the launches of one bf16 forward, in order (mhca_bf16.cu: MHCA_BF16_STAGES)
-BF16_STAGES = ("cast", "ln", "qkv", "attention", "proj")
 _BF16_RESTYPES = {"unav_mhca_bf16_scratch": ([INT] * 3, LONG)}
 _BWD_ARGTYPES = {
     "unav_mhca_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR,
                            PTR, PTR, FLOAT] + [PTR] * 10,
 }
 _BWD_RESTYPES = {"unav_mhca_backward_scratch": ([INT] * 4, LONG)}
-_BWD_BF16_TYPES = [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR, PTR, PTR, PTR, FLOAT] + [PTR] * 10
-_BWD_BF16_ARGTYPES = {"unav_mhca_bf16_backward": _BWD_BF16_TYPES,
-                      "unav_mhca_bf16_backward_stages": _BWD_BF16_TYPES + [PTR],
+_BWD_BF16_ARGTYPES = {"unav_mhca_bf16_backward": [PTR, PTR, PTR, INT, INT, INT, INT, PTR, PTR,
+                                                   PTR, PTR, PTR, FLOAT] + [PTR] * 10,
                       "unav_attn_bwd_bf16": [PTR] * 5 + [INT] * 5 + [FLOAT] + [PTR] * 5}
-# the stages of one bf16 backward, in order (mhca_bwd_bf16.cu, bf16_bwd.cuh:
-# MHCA_BF16_BWD_STAGES after the weights' cast)
-BWD_BF16_STAGES = ("cast", "recompute", "proj", "attention", "dense", "wgrad", "ln_conv",
-                   "sums")
 _BWD_BF16_RESTYPES = {"unav_mhca_bf16_backward_scratch": ([INT] * 4, LONG)}
 
 # longest sequence whose logits rows the fp32 attention's 64-query tile and
@@ -419,40 +411,21 @@ def _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads):
     _check(b, "b", (4, c))
 
 
-def _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps,
-                         entry="unav_mhca_bf16_forward", extra=()):
+def _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
     r, t, c = x1.shape
     out = torch.empty_like(x1)
     lib = cuda_build.library("mhca_bf16", _BF16_ARGTYPES, _BF16_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_bf16_scratch(r, t, c), device=x1.device,
                           dtype=torch.bfloat16)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_mhca_bf16_forward(
         x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
         dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
         eps, out.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(x1.device).cuda_stream, *extra,
+        torch.cuda.current_stream(x1.device).cuda_stream,
     )
     cuda_build.check(lib, rc, "fused_mhca (bf16)")
-    return out
-
-
-def _forward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
-    out = _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps)
     fused_mhca.bf16_launches += 1
     return out
-
-
-def mhca_stage_times(x1, x2, mask, dw, lnw, lnb, w, b, *, heads: int, eps: float = 1e-5):
-    """One bf16 CUDA forward, synchronised, and the device ms of each of its
-    launches (CUDA events between them): {stage: ms} in launch order, the
-    names of BF16_STAGES. Not counted in fused_mhca.bf16_launches."""
-    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
-    if x1.dtype != torch.bfloat16:
-        raise ValueError("mhca_stage_times: times the bf16 kernel (bf16 x1, x2)")
-    ms = (ctypes.c_float * len(BF16_STAGES))()
-    _launch_forward_bf16(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps,
-                         entry="unav_mhca_bf16_forward_stages", extra=(ms,))
-    return dict(zip(BF16_STAGES, ms))
 
 
 def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
@@ -474,17 +447,16 @@ def _forward_kernel(x1, x2, mask, dw, lnw, lnb, w, b, heads, eps):
     return out
 
 
-def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps,
-                          entry="unav_mhca_bf16_backward", extra=()):
+def _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps):
     r, t, c = x1.shape
     lib = cuda_build.library("mhca_bwd_bf16", _BWD_BF16_ARGTYPES, _BWD_BF16_RESTYPES)
     scratch = torch.empty(lib.unav_mhca_bf16_backward_scratch(r, t, c, heads),
                           device=x1.device, dtype=torch.float32)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_mhca_bf16_backward(
         x1.data_ptr(), x2.data_ptr(), mask.data_ptr(), r, t, c, heads,
         dw.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), w.data_ptr(), b.data_ptr(),
         eps, g.data_ptr(), *[x.data_ptr() for x in grads], scratch.data_ptr(),
-        torch.cuda.current_stream(x1.device).cuda_stream, *extra,
+        torch.cuda.current_stream(x1.device).cuda_stream,
     )
     cuda_build.check(lib, rc, "mhca_backward (bf16)")
     return tuple(grads)
@@ -519,20 +491,6 @@ def mhca_backward(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
     cuda_build.check(lib, rc, "mhca_backward")
     mhca_backward.launches += 1
     return tuple(grads)
-
-
-def mhca_backward_stage_times(x1, x2, mask, dw, lnw, lnb, w, b, g, *, heads: int,
-                              eps: float = 1e-5):
-    """One bf16 CUDA backward, synchronised, and the device ms of each of its
-    stages (CUDA events between them): {stage: ms} in launch order, the
-    names of BWD_BF16_STAGES. Not counted in mhca_backward.bf16_launches."""
-    _check_args(x1, x2, mask, dw, lnw, lnb, w, b, heads)
-    _check(g, "g", x1.shape, torch.bfloat16)
-    grads = [torch.empty_like(x) for x in (x1, x2, dw, lnw, lnb, w, b)]
-    ms = (ctypes.c_float * len(BWD_BF16_STAGES))()
-    _backward_kernel_bf16(x1, x2, mask, dw, lnw, lnb, w, b, g, grads, heads, eps,
-                          entry="unav_mhca_bf16_backward_stages", extra=(ms,))
-    return dict(zip(BWD_BF16_STAGES, ms))
 
 
 class MHCAFunction(torch.autograd.Function):

@@ -20,8 +20,7 @@ writing u and GELU(u) in one launch) and walks back through fc2, GELU' (in
 the epilogue of the product that makes du), fc1, ln2, the residual, the
 MHCA backward of csrc/mhca_bwd.cuh and ln11 / ln12. Every weight and
 multiplier grad is a fixed-order sum (split-K A^T.B, csrc/colsum.cuh,
-per-sequence sums): two runs give the same bits. `tblock_stage_times` and
-`tblock_backward_stage_times` time them launch by launch.
+per-sequence sums): two runs give the same bits.
 
 Under the bf16 compute policy (`cdtype` bfloat16, the JAX package's
 `tblock_fused(cdtype=...)`) the residual stream x, the output and the
@@ -37,8 +36,7 @@ kernel's rows: dx and the multipliers' grads fp32, the weight grads rounded
 to bf16 per block; the plain version is autograd of the bf16 forward per
 block (ops/bf16_grad.py), the kernel csrc/tblock_bwd_bf16.cu (the MLP's six
 products on csrc/bf16_wgmma.cuh, u and GELU(u) from fc1's epilogue and du
-from dy2 W2's). `tblock_stage_times` and `tblock_backward_stage_times` time
-both launch by launch.
+from dy2 W2's).
 
 Weight layout (torch, packed by TransformerBlock.packed_weights()):
 lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
@@ -46,8 +44,6 @@ lnw3 / lnb3 (3, C) [ln11, ln12, ln2], the MHCA's dw (3, C, 3), lnw / lnb
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -61,40 +57,16 @@ from .masked import channel_layer_norm
 from ..utils.profiling import spanned
 
 _FWD_TYPES = [PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR, PTR, PTR]
-_ARGTYPES = {"unav_tblock_forward": _FWD_TYPES,
-             "unav_tblock_forward_stages": _FWD_TYPES + [PTR]}
+_ARGTYPES = {"unav_tblock_forward": _FWD_TYPES}
 _RESTYPES = {"unav_tblock_forward_scratch": ([INT] * 4, LONG)}
-# the launches of one forward, in order (tblock.cuh: TBLOCK_STAGES)
-STAGES = ("ln_pair", "mhca.ln", "mhca.qkv", "mhca.attention", "mhca.proj", "residual_ln2",
-          "fc1", "fc2")
-# the launches of one bf16 forward (tblock_bf16.cu: TBLOCK_BF16_STAGES)
-BF16_STAGES = ("cast",) + STAGES
-_BF16_ARGTYPES = {"unav_tblock_bf16_forward": _FWD_TYPES,
-                  "unav_tblock_bf16_forward_stages": _FWD_TYPES + [PTR]}
+_BF16_ARGTYPES = {"unav_tblock_bf16_forward": _FWD_TYPES}
 _BF16_RESTYPES = {"unav_tblock_bf16_scratch": ([INT] * 4, LONG)}
-_BWD_TYPES = ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR] + [PTR] * 11 + [FLOAT, PTR]
-              + [PTR] * 14 + [PTR, PTR])
-_BWD_ARGTYPES = {"unav_tblock_backward": _BWD_TYPES,
-                 "unav_tblock_backward_stages": _BWD_TYPES + [PTR]}
+_BWD_ARGTYPES = {"unav_tblock_backward": ([PTR, PTR, INT, INT, INT, INT, INT, PTR, PTR]
+                                          + [PTR] * 11 + [FLOAT, PTR] + [PTR] * 14 + [PTR, PTR])}
 _BWD_RESTYPES = {"unav_tblock_backward_scratch": ([INT] * 5, LONG)}
-_BWD_BF16_TYPES = [PTR, PTR] + [INT] * 6 + [PTR] * 13 + [FLOAT] + [PTR] * 15 + [PTR, PTR]
-_BWD_BF16_ARGTYPES = {"unav_tblock_bf16_backward": _BWD_BF16_TYPES,
-                      "unav_tblock_bf16_backward_stages": _BWD_BF16_TYPES + [PTR]}
+_BWD_BF16_ARGTYPES = {"unav_tblock_bf16_backward": ([PTR, PTR] + [INT] * 6 + [PTR] * 13
+                                                    + [FLOAT] + [PTR] * 15 + [PTR, PTR])}
 _BWD_BF16_RESTYPES = {"unav_tblock_bf16_backward_scratch": ([INT] * 5, LONG)}
-# the stages of one backward, in order (tblock_bwd.cu: TBLOCK_BWD_STAGES)
-BWD_STAGES = (("ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2", "dmult_m",
-               "du", "dh_dw", "ln2", "dmult_a")
-              + tuple(f"mhca.{part}" for part in ("proj", "dq", "dkdv", "qkv_dx", "wgrad", "ln",
-                                                  "conv", "colsum"))
-              + ("ln_pair_bwd", "colsum"))
-# the stages of one bf16 backward, in order (tblock_bwd_bf16.cu:
-# TBLOCK_BF16_BWD_STAGES; the MHCA's are fused_mhca.BWD_BF16_STAGES but its
-# cast and recompute, done above)
-BF16_BWD_STAGES = (("cast", "ln_pair", "mhca.recompute", "residual_ln2", "fc1", "fc2",
-                    "dmult_m", "w2_grad", "du", "w1_grad", "dh", "ln2", "dmult_a")
-                   + tuple(f"mhca.{part}" for part in ("entry", "proj", "attention", "dense",
-                                                       "wgrad", "ln_conv", "sums"))
-                   + ("ln_pair_bwd", "ln_sums", "bias_sums"))
 
 N_WEIGHTS = 11
 
@@ -183,21 +155,21 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_forward(entry, x, mask, mult_a, mult_m, weights, heads, eps, *extra):
+def _launch_forward(x, mask, mult_a, mult_m, weights, heads, eps):
     r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
     lib = cuda_build.library("tblock", _ARGTYPES, _RESTYPES)
     out = torch.empty_like(x)
     scratch = torch.empty(lib.unav_tblock_forward_scratch(r, t, c, hid),
                           device=x.device, dtype=torch.float32)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_tblock_forward(
         x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
         mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, out.data_ptr(),
-        scratch.data_ptr(), _stream(x), *extra)
-    cuda_build.check(lib, rc, entry)
+        scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "unav_tblock_forward")
     return out
 
 
-def _launch_forward_bf16(entry, x, mask, mult_a, mult_m, weights, heads, eps, *extra):
+def _launch_forward_bf16(x, mask, mult_a, mult_m, weights, heads, eps):
     r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
     if (c // heads) % 8 or hid % 8:   # bf16 rows of 16 bytes
         raise ValueError(f"fused_tblock (bf16): head width {c // heads} and hidden "
@@ -206,56 +178,38 @@ def _launch_forward_bf16(entry, x, mask, mult_a, mult_m, weights, heads, eps, *e
     out = torch.empty_like(x)
     scratch = torch.empty(lib.unav_tblock_bf16_scratch(r, t, c, hid), device=x.device,
                           dtype=torch.bfloat16)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_tblock_bf16_forward(
         x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
         mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, out.data_ptr(),
-        scratch.data_ptr(), _stream(x), *extra)
-    cuda_build.check(lib, rc, entry)
+        scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "unav_tblock_bf16_forward")
     return out
 
 
 def _forward_kernel(x, mask, mult_a, mult_m, weights, heads, eps, cdtype=torch.float32):
     if cdtype == torch.bfloat16:
-        out = _launch_forward_bf16("unav_tblock_bf16_forward", x, mask, mult_a, mult_m,
-                                   weights, heads, eps)
+        out = _launch_forward_bf16(x, mask, mult_a, mult_m, weights, heads, eps)
         fused_tblock.bf16_launches += 1
         return out
     if cdtype != torch.float32:
         raise ValueError(f"fused_tblock: compute dtype {cdtype}; the kernels take fp32 or bf16")
-    out = _launch_forward("unav_tblock_forward", x, mask, mult_a, mult_m, weights, heads, eps)
+    out = _launch_forward(x, mask, mult_a, mult_m, weights, heads, eps)
     fused_tblock.launches += 1
     return out
 
 
-def tblock_stage_times(x, mask, mult_a, mult_m, *weights, heads: int, eps: float = 1e-5,
-                       cdtype: torch.dtype = torch.float32):
-    """One CUDA forward, synchronised, and the device ms of each of its
-    launches (CUDA events between them): {stage: ms} in launch order, the
-    names of STAGES (of BF16_STAGES at cdtype bf16). Not counted in the
-    launch counts."""
-    if cdtype == torch.bfloat16:
-        ms = (ctypes.c_float * len(BF16_STAGES))()
-        _launch_forward_bf16("unav_tblock_bf16_forward_stages", x, mask, mult_a, mult_m,
-                             weights, heads, eps, ms)
-        return dict(zip(BF16_STAGES, ms))
-    ms = (ctypes.c_float * len(STAGES))()
-    _launch_forward("unav_tblock_forward_stages", x, mask, mult_a, mult_m, weights, heads,
-                    eps, ms)
-    return dict(zip(STAGES, ms))
-
-
-def _launch_backward(entry, x, mask, mult_a, mult_m, weights, g, heads, eps, *extra):
+def _launch_backward(x, mask, mult_a, mult_m, weights, g, heads, eps):
     r, t, c, hid = _check_args(x, mask, mult_a, mult_m, weights, heads)
     _check(g, "g", x.shape)
     grads = [torch.empty_like(a) for a in (x, mult_a, mult_m, *weights)]
     lib = cuda_build.library("tblock_bwd", _BWD_ARGTYPES, _BWD_RESTYPES)
     scratch = torch.empty(lib.unav_tblock_backward_scratch(r, t, c, hid, heads),
                           device=x.device, dtype=torch.float32)
-    rc = getattr(lib, entry)(
+    rc = lib.unav_tblock_backward(
         x.data_ptr(), mask.data_ptr(), r, t, c, hid, heads, mult_a.data_ptr(),
         mult_m.data_ptr(), *[wt.data_ptr() for wt in weights], eps, g.data_ptr(),
-        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x), *extra)
-    cuda_build.check(lib, rc, entry)
+        *[gr.data_ptr() for gr in grads], scratch.data_ptr(), _stream(x))
+    cuda_build.check(lib, rc, "unav_tblock_backward")
     return tuple(grads)
 
 
@@ -279,11 +233,10 @@ def _prepare_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
     return lib, args, grads, scratch
 
 
-def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps, *extra,
-                          entry="unav_tblock_bf16_backward"):
+def _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps):
     lib, args, grads, _ = _prepare_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads,
                                                  eps)
-    cuda_build.check(lib, getattr(lib, entry)(*args, *extra), "tblock_backward (bf16)")
+    cuda_build.check(lib, lib.unav_tblock_bf16_backward(*args), "tblock_backward (bf16)")
     return tuple(grads)
 
 
@@ -301,27 +254,9 @@ def tblock_backward(x, mask, mult_a, mult_m, *weights, g, heads: int, eps: float
         grads = _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps)
         tblock_backward.bf16_launches += 1
         return grads
-    grads = _launch_backward("unav_tblock_backward", x, mask, mult_a, mult_m, weights, g,
-                             heads, eps)
+    grads = _launch_backward(x, mask, mult_a, mult_m, weights, g, heads, eps)
     tblock_backward.launches += 1
     return grads
-
-
-def tblock_backward_stage_times(x, mask, mult_a, mult_m, *weights, g, heads: int,
-                                eps: float = 1e-5, cdtype: torch.dtype = torch.float32):
-    """One CUDA backward, synchronised, and the device ms of each of its
-    stages (CUDA events between them): {stage: ms} in launch order, the
-    names of BWD_STAGES (of BF16_BWD_STAGES at cdtype bf16). Not counted in
-    the launch counts."""
-    if cdtype == torch.bfloat16:
-        ms = (ctypes.c_float * len(BF16_BWD_STAGES))()
-        _launch_backward_bf16(x, mask, mult_a, mult_m, weights, g, heads, eps, ms,
-                              entry="unav_tblock_bf16_backward_stages")
-        return dict(zip(BF16_BWD_STAGES, ms))
-    ms = (ctypes.c_float * len(BWD_STAGES))()
-    _launch_backward("unav_tblock_backward_stages", x, mask, mult_a, mult_m, weights, g,
-                     heads, eps, ms)
-    return dict(zip(BWD_STAGES, ms))
 
 
 class TBlockFunction(torch.autograd.Function):

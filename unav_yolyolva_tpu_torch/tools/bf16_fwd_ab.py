@@ -150,8 +150,7 @@ def main(argv=None) -> int:
 
             def run(xs):
                 keep = []
-                out = _launch_forward_bf16("unav_csp_bf16_forward", *xs, heads, 4, 1e-5,
-                                           keep=keep)
+                out = _launch_forward_bf16(*xs, heads, 4, 1e-5, keep=keep)
                 return out, keep[0][:pt * 6 * mid].reshape(pt, 6, mid).clone()
 
             with bound_to(args.parent):
